@@ -1,0 +1,140 @@
+"""Datasets of the port: the synthetic MNIST surrogate (own copy of
+``synthetic_mnist`` in ``gan_deeplearning4j_tpu/data/datasets.py``, pinned
+byte-equal to it for a seed by tests/test_torch_graph.py).
+
+The reference's data (a Keras MNIST download) is unavailable offline, so
+both packages train on procedural bitmap-font digits with real class
+structure.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+SEED = 666  # numberOfTheBeast — the reference's seed everywhere
+
+SEED = 666  # numberOfTheBeast — the reference's seed everywhere
+
+# ---------------------------------------------------------------------------
+# MNIST (surrogate): procedural 5x7 bitmap-font digits -> 28x28
+# ---------------------------------------------------------------------------
+
+_DIGIT_FONT = [
+    # 5x7 bitmaps, row-major, one string per digit
+    "01110100011001110101110011000101110",  # 0
+    "00100011000010000100001000010001110",  # 1
+    "01110100010000100010001000100011111",  # 2
+    "11111000100010000010000011000101110",  # 3
+    "00010001100101010010111110001000010",  # 4
+    "11111100001111000001000011000101110",  # 5
+    "00110010001000011110100011000101110",  # 6
+    "11111000010001000100010000100001000",  # 7
+    "01110100011000101110100011000101110",  # 8
+    "01110100011000101111000010001001100",  # 9
+]
+
+
+def _digit_bitmap(d: int) -> np.ndarray:
+    bits = np.frombuffer(_DIGIT_FONT[d].encode(), dtype=np.uint8) - ord("0")
+    return bits.reshape(7, 5).astype(np.float32)
+
+
+# Symmetric confusable-glyph pairing for the calibrated difficulty tier:
+# morphing happens WITHIN these pairs, and symmetry is what creates a
+# genuine Bayes floor (a blend of 4-and-9 at mix 0.5 is equally likely to
+# have come from either class; an asymmetric pairing would leak the source
+# class through the pair identity and the ceiling would silently return
+# to 1.0).
+_CONFUSABLE = {0: 8, 8: 0, 1: 7, 7: 1, 3: 5, 5: 3, 4: 9, 9: 4, 2: 6, 6: 2}
+
+# difficulty presets: affine pose ranges + the morph mixture.  "v1":
+# clean glyphs, mild pose (a classifier saturates on it).  "calibrated":
+# harder pose + confusable-pair morphing with mix alpha ~ 95% U(0,.3) +
+# 5% U(.3,.7); P(alpha>.5) = 0.025 puts the Bayes accuracy ceiling at
+# ~0.975 by construction (those samples are past the class midpoint,
+# labeled by source).
+_MNIST_DIFFICULTY = {
+    "v1": dict(theta=0.26, smin=2.4, smax=3.2, shear=0.15, trans=2.0,
+               p_tail=0.0, morph=False),
+    "calibrated": dict(theta=0.35, smin=2.2, smax=3.3, shear=0.22,
+                       trans=2.5, p_tail=0.05, morph=True),
+}
+
+
+def synthetic_mnist(
+    n: int, seed: int = SEED, noise: float = 0.08, chunk: int = 4096,
+    difficulty: str = "calibrated",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Deterministic MNIST-like digits: bitmap glyphs pushed through a
+    random affine (rotation, anisotropic scale, shear, translation) with
+    bilinear sampling, per-sample intensity variation and pixel noise;
+    features in [0,1] like the notebook's /255 scaling.
+
+    ``difficulty`` picks the ``_MNIST_DIFFICULTY`` preset: "calibrated"
+    (default) adds confusable-pair glyph morphing whose mixture tail sets
+    a ~0.975 Bayes accuracy ceiling; "v1" is the separable tier.
+
+    Returns (features[n,784] float32, labels[n] int64).
+    """
+    cfg = _MNIST_DIFFICULTY[difficulty]
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 10, size=n)
+    glyphs = np.stack([_digit_bitmap(d) for d in range(10)])  # [10, 7, 5]
+    partners = np.array([_CONFUSABLE[d] for d in range(10)])
+    if cfg["morph"]:
+        tail = rng.rand(n) < cfg["p_tail"]
+        alpha = np.where(tail, rng.uniform(0.3, 0.7, n),
+                         rng.uniform(0.0, 0.3, n)).astype(np.float32)
+    else:
+        alpha = np.zeros(n, dtype=np.float32)
+    out = np.empty((n, 784), dtype=np.float32)
+    # output pixel grid, centered
+    yy, xx = np.meshgrid(np.arange(28, dtype=np.float32),
+                         np.arange(28, dtype=np.float32), indexing="ij")
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        m = hi - lo
+        lab = labels[lo:hi]
+        al = alpha[lo:hi, None, None]
+        # per-sample affine params (inverse map: output px -> glyph coords)
+        theta = rng.uniform(-cfg["theta"], cfg["theta"], m).astype(np.float32)
+        sx = rng.uniform(cfg["smin"], cfg["smax"], m).astype(np.float32)
+        sy = rng.uniform(cfg["smin"], cfg["smax"], m).astype(np.float32)
+        shear = rng.uniform(-cfg["shear"], cfg["shear"], m).astype(np.float32)
+        tx = rng.uniform(-cfg["trans"], cfg["trans"], m).astype(np.float32)
+        ty = rng.uniform(-cfg["trans"], cfg["trans"], m).astype(np.float32)
+        cos, sin = np.cos(theta), np.sin(theta)
+        # centered output coords [m, 28, 28]
+        xo = xx[None] - 13.5 - tx[:, None, None]
+        yo = yy[None] - 13.5 - ty[:, None, None]
+        # inverse rotation then inverse shear then inverse scale
+        xr = cos[:, None, None] * xo + sin[:, None, None] * yo
+        yr = -sin[:, None, None] * xo + cos[:, None, None] * yo
+        xr = xr - shear[:, None, None] * yr
+        gx = xr / sx[:, None, None] + 2.0   # glyph is 5 wide (center 2)
+        gy = yr / sy[:, None, None] + 3.0   # glyph is 7 tall (center 3)
+        # bilinear sample with zero outside
+        x0 = np.floor(gx).astype(np.int32)
+        y0 = np.floor(gy).astype(np.int32)
+        fx, fy = gx - x0, gy - y0
+        # the morph blend commutes with the (linear) bilinear sampling, so
+        # the rendered image is exactly (1-a)*render(c) + a*render(partner)
+        # at the SAME pose — a true pixel-space class interpolation
+        g = (1.0 - al) * glyphs[lab] + al * glyphs[partners[lab]]
+        gpad = np.pad(g, ((0, 0), (1, 1), (1, 1)))  # zero border
+        x0c = np.clip(x0 + 1, 0, 5 + 1)
+        y0c = np.clip(y0 + 1, 0, 7 + 1)
+        x1c = np.clip(x0 + 2, 0, 5 + 1)
+        y1c = np.clip(y0 + 2, 0, 7 + 1)
+        idx = np.arange(m)[:, None, None]
+        img = ((1 - fx) * (1 - fy) * gpad[idx, y0c, x0c]
+               + fx * (1 - fy) * gpad[idx, y0c, x1c]
+               + (1 - fx) * fy * gpad[idx, y1c, x0c]
+               + fx * fy * gpad[idx, y1c, x1c])
+        img *= rng.uniform(0.7, 1.0, m)[:, None, None]        # intensity
+        img += rng.randn(m, 28, 28).astype(np.float32) * noise
+        np.clip(img, 0.0, 1.0, out=img)
+        out[lo:hi] = img.reshape(m, 784).astype(np.float32)
+    return out, labels.astype(np.int64)

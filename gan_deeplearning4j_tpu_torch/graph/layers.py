@@ -1,0 +1,228 @@
+"""Layer configurations of the named-layer graph (torch twin of
+``gan_deeplearning4j_tpu/graph/layers.py``, the layers the DCGAN protocol
+uses).
+
+Each config is a dataclass with three methods:
+  out_shape(in_shape)      -- shape inference, batch dim excluded (FF
+                              shapes (n,), CNN shapes (c, h, w)), with
+                              DL4J's Truncate conv arithmetic
+  init(gen, in_shape)      -- {param name: CPU tensor}, DL4J names (W, b,
+                              gamma, beta, mean, var) and layouts (dense W
+                              [n_in, n_out], conv W OIHW)
+  apply(params, x, train, gen) -- forward; returns (y, state_updates|None)
+
+An ``activation``/``updater`` of None inherits the graph default; the BN
+layer applies its activation after normalizing, as DL4J does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from gan_deeplearning4j_tpu_torch.ops import (
+    activations as act_lib,
+    batch_norm_inference,
+    batch_norm_train,
+    conv2d,
+    conv2d_out_size,
+    initializers,
+    max_pool2d,
+    upsample2d,
+)
+from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import fused_bn_act_train
+from gan_deeplearning4j_tpu_torch.ops.dense import dense as dense_op, dropout as dropout_op
+from gan_deeplearning4j_tpu_torch.optim.rmsprop import RmsProp
+
+Shape = Tuple[int, ...]
+Params = Dict[str, torch.Tensor]
+
+
+def _as_ff(x: torch.Tensor) -> torch.Tensor:
+    """Auto CnnToFeedForward: flatten trailing dims."""
+    return x.reshape(x.shape[0], -1) if x.dim() > 2 else x
+
+
+@dataclasses.dataclass
+class Layer:
+    activation: Optional[str] = None
+    updater: Optional[RmsProp] = None
+    weight_init: str = "xavier"
+
+    @property
+    def has_params(self) -> bool:
+        return True
+
+    def resolved(self, default_activation: str, default_updater: Optional[RmsProp]):
+        new = dataclasses.replace(self)
+        if new.activation is None:
+            new.activation = default_activation
+        if new.updater is None:
+            new.updater = default_updater
+        return new
+
+    def _act(self, x):
+        return act_lib.get(self.activation or "identity")(x)
+
+    def out_shape(self, in_shape: Shape) -> Shape:
+        raise NotImplementedError
+
+    def init(self, gen: torch.Generator, in_shape: Shape) -> Params:
+        return {}
+
+    def apply(self, params: Params, x, train: bool, gen):
+        raise NotImplementedError
+
+
+@dataclasses.dataclass
+class Dense(Layer):
+    """DL4J DenseLayer.  W: [n_in, n_out]."""
+
+    n_out: int = 0
+    n_in: Optional[int] = None
+
+    def out_shape(self, in_shape):
+        return (self.n_out,)
+
+    def init(self, gen, in_shape):
+        n_in = self.n_in if self.n_in is not None else math.prod(in_shape)
+        init = (initializers.xavier if self.weight_init == "xavier"
+                else initializers.xavier_uniform)
+        w = init(gen, (n_in, self.n_out), n_in, self.n_out)
+        return {"W": w, "b": initializers.zeros((self.n_out,))}
+
+    def apply(self, params, x, train, gen):
+        return self._act(dense_op(_as_ff(x), params["W"], params["b"])), None
+
+
+@dataclasses.dataclass
+class Output(Dense):
+    """DL4J OutputLayer: a dense layer with a loss attached."""
+
+    loss: str = "xent"
+
+
+@dataclasses.dataclass
+class Conv2D(Layer):
+    """DL4J ConvolutionLayer, Truncate mode.  W: [n_out, n_in, kh, kw] (OIHW)."""
+
+    kernel: Sequence[int] = (3, 3)
+    stride: Sequence[int] = (1, 1)
+    padding: Sequence[int] = (0, 0)
+    n_in: Optional[int] = None
+    n_out: int = 0
+
+    def out_shape(self, in_shape):
+        _, h, w = in_shape
+        (kh, kw), (sh, sw), (ph, pw) = self.kernel, self.stride, self.padding
+        return (self.n_out, conv2d_out_size(h, kh, sh, ph),
+                conv2d_out_size(w, kw, sw, pw))
+
+    def init(self, gen, in_shape):
+        n_in = self.n_in if self.n_in is not None else in_shape[0]
+        kh, kw = self.kernel
+        fan_in, fan_out = initializers.fan_in_out_conv(n_in, self.n_out, (kh, kw))
+        w = initializers.xavier(gen, (self.n_out, n_in, kh, kw), fan_in, fan_out)
+        return {"W": w, "b": initializers.zeros((self.n_out,))}
+
+    def apply(self, params, x, train, gen):
+        y = conv2d(x, params["W"], params["b"], self.stride, self.padding)
+        return self._act(y), None
+
+
+@dataclasses.dataclass
+class MaxPool2D(Layer):
+    """DL4J SubsamplingLayer(MAX)."""
+
+    kernel: Sequence[int] = (2, 2)
+    stride: Sequence[int] = (2, 2)
+
+    @property
+    def has_params(self):
+        return False
+
+    def out_shape(self, in_shape):
+        c, h, w = in_shape
+        (kh, kw), (sh, sw) = self.kernel, self.stride
+        return (c, (h - kh) // sh + 1, (w - kw) // sw + 1)
+
+    def apply(self, params, x, train, gen):
+        return max_pool2d(x, self.kernel, self.stride), None
+
+
+@dataclasses.dataclass
+class Upsampling2D(Layer):
+    """DL4J Upsampling2D (nearest repeat; no activation)."""
+
+    size: int = 2
+
+    @property
+    def has_params(self):
+        return False
+
+    def out_shape(self, in_shape):
+        c, h, w = in_shape
+        return (c, h * self.size, w * self.size)
+
+    def apply(self, params, x, train, gen):
+        return upsample2d(x, self.size), None
+
+
+@dataclasses.dataclass
+class BatchNorm(Layer):
+    """DL4J BatchNormalization with its statistics as params (mean/var are
+    read and written by name by the cross-graph weight syncs)."""
+
+    n: Optional[int] = None
+    decay: float = 0.9
+    eps: float = 1e-5
+
+    def out_shape(self, in_shape):
+        return in_shape
+
+    def init(self, gen, in_shape):
+        n = self.n if self.n is not None else (
+            in_shape[0] if len(in_shape) == 3 else math.prod(in_shape))
+        return {"gamma": initializers.ones((n,)), "beta": initializers.zeros((n,)),
+                "mean": initializers.zeros((n,)), "var": initializers.ones((n,))}
+
+    def apply(self, params, x, train, gen):
+        if not train:
+            y = batch_norm_inference(x, params["gamma"], params["beta"],
+                                     params["mean"], params["var"], self.eps)
+            return self._act(y), None
+        if x.dim() == 2:
+            # one fused BN+activation kernel on the card (JAX:
+            # graph/layers.py:298 routes only 2-D input to the Pallas kernel)
+            y, bmean, bvar = fused_bn_act_train(
+                x, params["gamma"], params["beta"], self.eps,
+                self.activation or "identity")
+            return y, {
+                "mean": self.decay * params["mean"] + (1 - self.decay) * bmean,
+                "var": self.decay * params["var"] + (1 - self.decay) * bvar,
+            }
+        y, new_mean, new_var = batch_norm_train(
+            x, params["gamma"], params["beta"], params["mean"], params["var"],
+            self.decay, self.eps)
+        return self._act(y), {"mean": new_mean, "var": new_var}
+
+
+@dataclasses.dataclass
+class Dropout(Layer):
+    """DL4J DropoutLayer; rate 0.0 (the reference's unset default) is the
+    identity."""
+
+    rate: float = 0.0
+
+    @property
+    def has_params(self):
+        return False
+
+    def out_shape(self, in_shape):
+        return in_shape
+
+    def apply(self, params, x, train, gen):
+        return dropout_op(x, self.rate, gen, train), None

@@ -1,0 +1,53 @@
+"""Batch normalization with explicit (gamma, beta, mean, var) state (torch
+twin of ``gan_deeplearning4j_tpu/ops/batchnorm.py``).
+
+The running statistics are params that the weight syncs copy between
+graphs, so they are passed in and returned, never hidden in a module
+buffer.  The batch variance is the biased E[x^2] - E[x]^2 and the running
+update is decay*running + (1-decay)*batch — not ``F.batch_norm``'s running
+update, which takes the unbiased variance.  2-D input normalizes per
+feature, 4-D input [B, C, H, W] per channel.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+DEFAULT_DECAY = 0.9
+DEFAULT_EPS = 1e-5
+
+
+def _reduce_dims(x: torch.Tensor) -> Tuple[int, ...]:
+    if x.dim() == 2:
+        return (0,)
+    if x.dim() == 4:
+        return (0, 2, 3)
+    raise ValueError(f"batchnorm expects 2-D or 4-D input, got shape {tuple(x.shape)}")
+
+
+def _shaped(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    if x.dim() == 2:
+        return p.reshape(1, -1)
+    return p.reshape(1, -1, 1, 1)
+
+
+def batch_norm_train(x, gamma, beta, running_mean, running_var,
+                     decay: float = DEFAULT_DECAY, eps: float = DEFAULT_EPS):
+    """Returns (out, new_running_mean, new_running_var)."""
+    dims = _reduce_dims(x)
+    mean = torch.mean(x, dim=dims)
+    m2 = torch.mean(torch.square(x), dim=dims)
+    var = m2 - torch.square(mean)
+    out = (x - _shaped(mean, x)) * torch.rsqrt(_shaped(var, x) + eps)
+    out = out * _shaped(gamma, x) + _shaped(beta, x)
+    new_mean = decay * running_mean + (1.0 - decay) * mean
+    new_var = decay * running_var + (1.0 - decay) * var
+    return out, new_mean, new_var
+
+
+def batch_norm_inference(x, gamma, beta, running_mean, running_var,
+                         eps: float = DEFAULT_EPS) -> torch.Tensor:
+    out = (x - _shaped(running_mean, x)) * torch.rsqrt(_shaped(running_var, x) + eps)
+    return out * _shaped(gamma, x) + _shaped(beta, x)

@@ -1,0 +1,46 @@
+"""The two DL4J losses the DCGAN protocol uses (torch twin of
+``gan_deeplearning4j_tpu/ops/losses.py``): sum over output units, mean over
+the minibatch, on probabilities clipped at 1e-7.  ``nn.BCELoss`` is not
+this function (it clamps the log at -100 instead)."""
+
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-7
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip with its gradient: max/min split the gradient in half where
+    x sits exactly on a bound (a softmax saturated to 1.0 does), where
+    torch.clamp would pass all of it."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def binary_xent(probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """XENT on probabilities (post-sigmoid), as DL4J computes it."""
+    p = _clip(probs, _EPS, 1.0 - _EPS)
+    per_example = -(labels * torch.log(p) + (1.0 - labels) * torch.log(1.0 - p))
+    return torch.mean(torch.sum(per_example, dim=-1))
+
+
+def mcxent(probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """MCXENT on probabilities (post-softmax), labels one-hot."""
+    p = _clip(probs, _EPS, 1.0)
+    return torch.mean(-torch.sum(labels * torch.log(p), dim=-1))
+
+
+def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.sum((pred - target) ** 2, dim=-1))
+
+
+_REGISTRY = {"xent": binary_xent, "mcxent": mcxent, "mse": mse}
+
+
+def get(name):
+    if callable(name):
+        return name
+    try:
+        return _REGISTRY[name.lower()]
+    except KeyError:
+        raise ValueError(f"unknown loss {name!r}; known: {sorted(_REGISTRY)}")

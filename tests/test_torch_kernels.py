@@ -1,0 +1,161 @@
+"""The port's kernel modules on the CPU: each plain version against the JAX
+package's Pallas function run in interpret mode (as tests/test_pallas.py
+and tests/test_pallas_dma.py run it), and the wrappers' routing — a CPU
+tensor takes the plain version and launches nothing."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gan_deeplearning4j_tpu.ops.pallas.bn_act import fused_bn_act_train as bn_act_jax
+from gan_deeplearning4j_tpu.ops.pallas.dma_pipeline import upsample_bwd_dma
+from gan_deeplearning4j_tpu.ops.pallas.fused_update import fused_rmsprop_chain as chain_jax
+from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import bn_act_plain
+from gan_deeplearning4j_tpu_torch.ops.cuda.fused_update import rmsprop_chain_plain
+from gan_deeplearning4j_tpu_torch.ops.cuda.upsample_bwd import upsample_bwd_plain
+
+
+@pytest.fixture(autouse=True)
+def _no_launch_leaks():
+    """Nothing in this file may launch a kernel: every tensor is on the CPU."""
+    kernels.reset_launch_counts()
+    yield
+    assert kernels.launch_counts() == {n: 0 for n in kernels.WRAPPERS}
+
+
+# -- bn_act ------------------------------------------------------------------
+
+@pytest.mark.parametrize("act", ["tanh", "identity", "sigmoid"])
+@pytest.mark.parametrize("B", [8, 13])
+@pytest.mark.parametrize("F", [2, 1024, 300])
+def test_bn_act_matches_pallas(F, B, act):
+    """Values (y, mean, var) and gradients (x, gamma, beta) against the
+    Pallas kernel in interpret mode; B = 13 and F = 2 / 300 exercise the
+    TPU kernel's row and lane padding.  Tolerances: f32 with different
+    reduction orders, 1e-5 absolute on values of O(1), 1e-4 on the
+    gradients (a sum over B of products)."""
+    rng = np.random.RandomState(F * 31 + B)
+    x = (rng.randn(B, F) * 2 + 1).astype(np.float32)
+    gamma = (rng.rand(F) + 0.5).astype(np.float32)
+    beta = rng.randn(F).astype(np.float32)
+    gy = rng.randn(B, F).astype(np.float32)
+    gm = rng.randn(F).astype(np.float32)
+
+    def f_jax(a, g, b):
+        return bn_act_jax(a, g, b, 1e-5, act, True)
+
+    outs_j, vjp = jax.vjp(f_jax, jnp.asarray(x), jnp.asarray(gamma),
+                          jnp.asarray(beta))
+    grads_j = vjp((jnp.asarray(gy), jnp.asarray(gm), jnp.zeros(F)))
+
+    leaves = [torch.tensor(a, requires_grad=True) for a in (x, gamma, beta)]
+    outs_t = kernels.fused_bn_act_train(*leaves, 1e-5, act)
+    grads_t = torch.autograd.grad(
+        outs_t, leaves, (torch.from_numpy(gy), torch.from_numpy(gm),
+                         torch.zeros(F)))
+    for a, b in zip(outs_t, outs_j):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   rtol=1e-5, atol=1e-5)
+    for a, b in zip(grads_t, grads_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_bn_act_wrapper_checks_its_inputs():
+    x = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match=r"\[B, F\]"):
+        kernels.fused_bn_act_train(torch.zeros(4, 3, 2), torch.ones(3),
+                                   torch.zeros(3))
+    with pytest.raises(ValueError, match="gamma"):
+        kernels.fused_bn_act_train(x, torch.ones(4), torch.zeros(3))
+    with pytest.raises(TypeError, match="float32"):
+        kernels.fused_bn_act_train(x.double(), torch.ones(3).double(),
+                                   torch.zeros(3).double())
+
+
+# -- fused_update ------------------------------------------------------------
+
+@pytest.mark.parametrize("l2,clip", [(0.0, None), (1e-4, None), (0.0, 1.0),
+                                     (1e-4, 1.0)])
+@pytest.mark.parametrize("shape", [(1152, 1024), (64, 1, 5, 5), (7,)])
+def test_fused_update_matches_pallas(shape, l2, clip):
+    """The RmsProp chain against the Pallas kernel in interpret mode, with
+    gradients large enough to clip.  Tolerance 1e-6 relative: the same
+    elementwise formula, rounding only in rsqrt."""
+    rng = np.random.RandomState(len(shape))
+    p = rng.randn(*shape).astype(np.float32) * 0.1
+    g = rng.randn(*shape).astype(np.float32) * 2.0
+    c = np.abs(rng.randn(*shape)).astype(np.float32) * 0.5
+    kw = dict(lr=0.002, rho=1e-8, eps=1e-8, l2=l2, clip=clip)
+    pj, cj = chain_jax(jnp.asarray(p), jnp.asarray(g), jnp.asarray(c),
+                       interpret=True, **kw)
+    pt, ct = kernels.fused_rmsprop_chain(torch.from_numpy(p),
+                                         torch.from_numpy(g),
+                                         torch.from_numpy(c), **kw)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=1e-6, atol=1e-12)
+
+
+def test_fused_update_frozen_layer_keeps_params():
+    """lr 0 (a frozen layer) leaves the param bit-equal and moves the cache."""
+    p = torch.randn(5, 3)
+    g = torch.randn(5, 3)
+    p2, c2 = kernels.fused_rmsprop_chain(p, g, torch.zeros(5, 3), lr=0.0,
+                                         rho=1e-8, eps=1e-8, l2=1e-4, clip=1.0)
+    assert torch.equal(p2, p)
+    assert bool((c2 > 0).all())
+
+
+def test_fused_update_wrapper_checks_its_inputs():
+    p = torch.zeros(4)
+    kw = dict(lr=0.1, rho=1e-8, eps=1e-8)
+    with pytest.raises(ValueError, match="does not match"):
+        kernels.fused_rmsprop_chain(p, torch.zeros(5), torch.zeros(4), **kw)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.fused_rmsprop_chain(p.double(), p.double(), p.double(), **kw)
+
+
+# -- upsample_bwd ------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [
+    (2, 3, 8, 12),     # small
+    (4, 128, 14, 14),  # the generator's first upsample cotangent
+    (4, 64, 28, 28),   # the generator's second upsample cotangent
+])
+def test_upsample_bwd_matches_pallas(shape):
+    """The (2, 2) block sum against the DMA-pipeline kernel in interpret
+    mode.  Tolerance 1e-6: four f32 adds per output."""
+    g = np.random.default_rng(7).standard_normal(shape).astype(np.float32)
+    dj = upsample_bwd_dma(jnp.asarray(g), 2, 2, interpret=True)
+    dt = kernels.upsample_bwd(torch.from_numpy(g), 2, 2)
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-6, atol=1e-6)
+
+
+def test_upsample_bwd_plain_is_the_block_sum():
+    g = torch.randn(3, 2, 6, 9)
+    ref = g.view(3, 2, 2, 3, 3, 3).sum((3, 5))
+    torch.testing.assert_close(upsample_bwd_plain(g, 3, 3), ref)
+    with pytest.raises(ValueError, match="cotangent"):
+        kernels.upsample_bwd(torch.zeros(1, 1, 5, 4), 2, 2)
+
+
+# -- routing -----------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_versions():
+    """Each wrapper on CPU tensors returns exactly its plain version's
+    result (and, by the autouse fixture, launches nothing)."""
+    x, gm, bt = torch.randn(6, 5), torch.rand(5) + 0.5, torch.randn(5)
+    for a, b in zip(kernels.fused_bn_act_train(x, gm, bt, 1e-5, "tanh"),
+                    bn_act_plain(x, gm, bt, 1e-5, "tanh")):
+        assert torch.equal(a, b)
+    p, g, c = torch.randn(9), torch.randn(9), torch.rand(9)
+    kw = dict(lr=0.004, rho=1e-8, eps=1e-8, l2=1e-4, clip=1.0)
+    for a, b in zip(kernels.fused_rmsprop_chain(p, g, c, **kw),
+                    rmsprop_chain_plain(p, g, c, **kw)):
+        assert torch.equal(a, b)
+    up = torch.randn(2, 2, 4, 4)
+    assert torch.equal(kernels.upsample_bwd(up, 2, 2),
+                       upsample_bwd_plain(up, 2, 2))
