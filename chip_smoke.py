@@ -13,10 +13,12 @@ exits non-zero:
   2. build    — nvcc builds every kernel under gan_deeplearning4j_tpu_torch/
                 csrc/ for sm_90a (all sources at once).
   3. kernel   — each kernel against its plain torch version on the card,
-                at the shapes one DCGAN protocol step at batch 200 gives it,
-                then the times of that step's launches: kernel, plain
-                version, one PyTorch library call where there is one, and
-                the card's bound for the same work.
+                at the shapes one DCGAN protocol step at batch 200 gives it
+                (the sync-BN pair at a 2-rank step's per-rank shapes, the
+                4-D BN at the JAX package's benchmark shapes), then the
+                times of that step's launches: kernel, plain version, one
+                PyTorch library call where there is one, and the card's
+                bound for the same work.
   4. main     — the trainer (the cv_main entry) on cuda for 20 protocol
                 steps at batch 200, full width, on synthetic MNIST; the
                 launch counters are zeroed just before and read just after,
@@ -24,7 +26,17 @@ exits non-zero:
                 Then a 10x10 latent grid from the trained generator.
   5. parity   — one protocol step on cuda (kernels) and on the CPU (plain
                 versions) from the same state, latents and targets.
-  6. the ``kernels`` line, the nvidia-smi line, and last
+  6. dp       — data parallel over torch.distributed, two ranks (one per
+                card over NCCL when two cards are attached, else both on
+                cuda:0 over gloo), one process each: the sync-BN pair's
+                gradient against its plain composition, one 2-rank step
+                against one single-process step, then 20 trainer steps at
+                global batch 200 with exact per-rank launch counts and the
+                ranks' final states bitwise equal, and the time of one
+                step's gradient all-reduces alone; then, in this process,
+                one step of a 1-rank NCCL group against the single-process
+                step.
+  7. the ``kernels`` line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is available.
@@ -33,18 +45,34 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 BATCH = 200
 MAIN_STEPS = 20
 N_TRAIN = 10000
+DP_WORLD = 2
+DP_TIMEOUT_S = 300
 REPS = 30
 SLEEP_CYCLES = 40_000_000  # ~20 ms at the H100's ~2 GHz clock
+# each kernel's CUDA source and the Pallas kernel it replaces
+SOURCES = {"fused_update": "fused_update.cu", "bn_act": "bn_act.cu",
+           "upsample_bwd": "upsample_bwd.cu",
+           "bn_moments": "bn_moments_apply.cu",
+           "bn_apply": "bn_moments_apply.cu", "bn_act_4d": "bn_act_4d.cu"}
+REPLACES = {"fused_update": "ops/pallas/fused_update.py:40",
+            "bn_act": "ops/pallas/bn_act.py:56",
+            "upsample_bwd": "ops/pallas/dma_pipeline.py:86",
+            "bn_moments": "ops/pallas/bn_act.py:71",
+            "bn_apply": "ops/pallas/bn_act.py:79",
+            "bn_act_4d": "ops/pallas/bn_act.py:180"}
 # f32 peak outside the tensor cores and device-memory bandwidth, by card
 # (NVIDIA data sheets, dense rates, full power limit)
 PEAK_F32_FLOPS = 67e12
@@ -74,12 +102,14 @@ def time_ms(fn, torch) -> float:
     parks the stream on a sleep kernel (~20 ms) so the host has enqueued
     the start event, every launch and the end event before the device
     reaches them: the events then time the device's work back to back, not
-    the Python wrappers' launch rate."""
+    the Python wrappers' launch rate.  A repetition whose enqueue took
+    longer than half the sleep (a host hiccup) is dropped and run again;
+    more than REPS drops fail the run."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times, enqueue = [], []
-    for _ in range(REPS):
+    times, dropped = [], []
+    for _ in range(2 * REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SLEEP_CYCLES)
@@ -87,12 +117,18 @@ def time_ms(fn, torch) -> float:
         start.record()
         fn()
         end.record()
-        enqueue.append(time.perf_counter() - t0)
+        enqueue = time.perf_counter() - t0
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    require(max(enqueue) < 0.01, f"the host took {max(enqueue) * 1e3:.1f} ms "
-            "to enqueue a timed group; the sleep no longer covers it")
-    return statistics.median(times)
+        if enqueue < 0.01:
+            times.append(start.elapsed_time(end))
+        else:
+            dropped.append(enqueue)
+        if len(times) == REPS:
+            return statistics.median(times)
+    raise RuntimeError(
+        f"chip_smoke: the host took {max(dropped) * 1e3:.1f} ms to enqueue a "
+        f"timed group ({len(dropped)} of {2 * REPS} repetitions over 10 ms); "
+        "the sleep no longer covers it")
 
 
 def max_err(a, b) -> float:
@@ -102,6 +138,156 @@ def max_err(a, b) -> float:
 def within(a, b, atol: float, rtol: float) -> bool:
     return bool(((a.double() - b.double()).abs()
                  <= atol + rtol * b.double().abs()).all())
+
+
+# one protocol step against another from the same state.  Losses: 1e-4
+# relative.  Params and BN statistics: 4e-3 absolute, one generator
+# learning rate — RmsProp's update is ~lr*sign(g), and an element whose
+# gradient lies near 0 sits on its linear part (slope lr/sqrt(eps) = 40),
+# so rounding may move it by up to one lr; a wiring error moves whole
+# leaves by lr and shifts the losses.  RmsProp caches (~g^2): 5e-2 of the
+# leaf's largest value plus eps (a cache enters the update only as
+# cache + eps); a frozen input BN's running-stat gradient sums 200*784
+# terms that cancel.
+STEP_TOL = {"loss": 1e-4, "param": 4e-3, "cache": 5e-2}
+
+
+def step_diff(ref, got):
+    """(loss relative error, {kind: (worst, where)}) between two
+    (state, losses) results of the protocol step."""
+    (s_ref, l_ref), (s_got, l_got) = ref, got
+    loss_err = max(abs(float(a) - float(b)) / max(abs(float(a)), 1e-6)
+                   for a, b in zip(l_ref, l_got))
+    worst = {"param": (0.0, ""), "cache": (0.0, "")}
+    for field in s_ref._fields[:-1]:
+        kind = "cache" if field.endswith("_opt") else "param"
+        for layer, lp in getattr(s_ref, field).items():
+            for pname, a in lp.items():
+                b = getattr(s_got, field)[layer][pname].to(a.device)
+                d = max_err(a, b)
+                if kind == "cache":
+                    d /= float(a.abs().max()) + 1e-8
+                if d >= worst[kind][0]:
+                    worst[kind] = (d, f"{field}.{layer}.{pname}")
+    return loss_err, worst
+
+
+def require_step_match(what, loss_err, worst) -> None:
+    require(loss_err <= STEP_TOL["loss"],
+            f"{what}: loss relative error {loss_err} > {STEP_TOL['loss']}")
+    for kind, (d, where) in worst.items():
+        require(d <= STEP_TOL[kind],
+                f"{what}: {where} differs by {d} > {STEP_TOL[kind]}")
+
+
+def protocol_step(device, group=None):
+    """A fresh DCGAN (seed 666: the same init in every process) and its
+    protocol step -> (step, state)."""
+    from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+    from gan_deeplearning4j_tpu_torch.train import fused_step
+
+    cfg = M.CVConfig()
+    d = M.build_discriminator(cfg, device)
+    graphs = (d, M.build_generator(cfg, device), M.build_gan(cfg, device),
+              M.build_classifier(d, cfg))
+    step = fused_step.make_protocol_step(
+        *graphs, M.DIS_TO_GAN, M.GAN_TO_GEN, M.DIS_TO_CLASSIFIER,
+        z_size=cfg.z_size, num_features=cfg.num_features, group=group)
+    return step, fused_step.state_from_graphs(*graphs)
+
+
+def run_step(step, state, host, device):
+    a = {k: v.to(device) for k, v in host.items()}
+    return step(state, a["real"], a["labels"], a["y_real"], a["y_fake"],
+                a["ones"], z1=a["z1"], z2=a["z2"])
+
+
+def group_vs_single(group, host):
+    """One step with ``group`` against one single-process step on the
+    rank's card from the same state, latents and targets."""
+    dev = group.device
+    got = run_step(*protocol_step(dev, group), host, dev)
+    ref = run_step(*protocol_step(dev), host, dev)
+    return step_diff(ref, got)
+
+
+def state_digest(state) -> str:
+    """sha256 over every tensor of a ProtocolState, in a fixed order."""
+    h = hashlib.sha256()
+    for field in state._fields[:-1]:
+        for layer in sorted(getattr(state, field)):
+            for pname, t in sorted(getattr(state, field)[layer].items()):
+                h.update(f"{field}.{layer}.{pname}".encode())
+                h.update(t.detach().cpu().numpy().tobytes())
+    h.update(str(state.it).encode())
+    return h.hexdigest()
+
+
+def dp_rank(group, host):
+    """One rank of the dp phase (a spawned process)."""
+    import torch
+
+    from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import bn_act_plain
+    from gan_deeplearning4j_tpu_torch.parallel import mesh
+    from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
+
+    dev = group.device
+    out = {"rank": group.rank, "device": str(dev),
+           "device_name": torch.cuda.get_device_name(dev),
+           "backend": group.backend}
+    # the sync-BN pair's autograd.Function against autograd through the
+    # plain composition (with the differentiable all-reduce), on this
+    # rank's rows of one global batch per BN shape of the step
+    gen = torch.Generator(device=dev).manual_seed(20261017)
+    Bl = BATCH // group.world
+    rows = slice(group.rank * Bl, (group.rank + 1) * Bl)
+    pair_err = 0.0
+    for F in (2, 7 * 7 * 128, 1024):
+        x = torch.randn((BATCH, F), generator=gen, device=dev)[rows] * 0.5
+        gm = torch.randn(F, generator=gen, device=dev) * 0.1 + 1.0
+        bt = torch.randn(F, generator=gen, device=dev) * 0.1
+        gy = torch.randn((BATCH, F), generator=gen, device=dev)[rows]
+        res = []
+        for fn in (kernels.fused_bn_act_train, bn_act_plain):
+            leaves = [t.clone().requires_grad_(True) for t in (x, gm, bt)]
+            y, mean, var = fn(*leaves, 1e-5, "tanh", group)
+            res.append((y, mean, var,
+                        *torch.autograd.grad(y, leaves, gy)))
+        for a, b, (atol, rtol) in zip(
+                *res, [(1e-5, 1e-4), (1e-6, 1e-4), (1e-6, 1e-4)]
+                + [(1e-4, 1e-3)] * 3):
+            require(within(a.detach(), b.detach(), atol, rtol),
+                    f"dp rank {group.rank}: the sync-BN pair disagrees with "
+                    f"its plain composition at [{Bl},{F}]")
+            pair_err = max(pair_err, max_err(a.detach(), b.detach()))
+    out["pair_max_abs_err"] = pair_err
+    # one 2-rank step against one single-process step
+    out["step_vs_single"] = group_vs_single(group, host)
+    # the main path, data parallel: counts zeroed just before, read after
+    trainer = GANTrainer(M.CVConfig(), batch_size=BATCH, n_train=N_TRAIN,
+                         group=group)
+    kernels.reset_launch_counts()
+    result = trainer.train(MAIN_STEPS, log=None)
+    torch.cuda.synchronize(dev)
+    out["launches"] = kernels.launch_counts()
+    out["result"] = result
+    trained = (trainer.dis, trainer.gan, trainer.classifier)
+    out["rmsprop_leaves"] = sum(len(lp) for g in trained
+                                for lp in g.opt_state.values())
+    out["digest"] = state_digest(trainer.state)
+    # a step's gradient collectives alone (one all-reduce per trained
+    # graph, of a tree the size of its params), host clock to completion
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        for g in trained:
+            mesh.all_reduce_mean(g.params, group)
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    out["grad_allreduce_ms"] = statistics.median(times[1:]) * 1e3
+    return out
 
 
 def main() -> int:
@@ -116,15 +302,20 @@ def main() -> int:
     from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
     from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
     from gan_deeplearning4j_tpu_torch.ops.cuda import build
-    from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import bn_act_plain
+    from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
+        bn_act_plain,
+        bn_apply_plain,
+        bn_moments_plain,
+    )
+    from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act_4d import bn_act_4d_plain
     from gan_deeplearning4j_tpu_torch.ops.cuda.fused_update import (
         rmsprop_chain_plain,
     )
     from gan_deeplearning4j_tpu_torch.ops.cuda.upsample_bwd import (
         upsample_bwd_plain,
     )
+    from gan_deeplearning4j_tpu_torch.parallel import mesh
     from gan_deeplearning4j_tpu_torch.runtime import backend
-    from gan_deeplearning4j_tpu_torch.train import fused_step
     from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
 
     # -- 1. environment ------------------------------------------------------
@@ -268,12 +459,103 @@ def main() -> int:
         bytes=sum(4 * math.prod(s) * 5 // 4 for s in up_shapes),
         flops=sum(math.prod(s) for s in up_shapes)))
 
+    # bn_moments / bn_apply: the three 2-D BNs of a 2-rank step, per rank
+    # (the pair's gradient needs a group: it is checked in the dp phase)
+    pair_shapes = [(BATCH // DP_WORLD, f) for _, f in bn_shapes]
+    pair_in = [(randn(b, f, scale=0.5, shift=0.2), randn(f, scale=0.1, shift=1.0),
+                randn(f, scale=0.1)) for b, f in pair_shapes]
+    err = 0.0
+    for x, _, _ in pair_in:
+        for a, b in zip(kernels.bn_moments(x), bn_moments_plain(x)):
+            require(within(a, b, 1e-6, 1e-4), "bn_moments disagrees with its "
+                    f"plain version at {tuple(x.shape)}")
+            err = max(err, max_err(a, b))
+    report.append(dict(
+        name="bn_moments", tolerance="|d| <= 1e-6 + 1e-4|plain|",
+        max_abs_err=err, calls=[f"[{b},{f}]" for b, f in pair_shapes],
+        gradient="checked in the dp phase (2 ranks)",
+        ms=time_ms(lambda: [kernels.bn_moments(x) for x, _, _ in pair_in], torch),
+        plain_ms=time_ms(lambda: [bn_moments_plain(x) for x, _, _ in pair_in],
+                         torch),
+        library_ms=time_ms(lambda: [torch.var_mean(x, dim=0, unbiased=False)
+                                    for x, _, _ in pair_in], torch),
+        library_call="torch.var_mean(x, dim=0, unbiased=False)",
+        bytes=sum(4 * b * f + 8 * f for b, f in pair_shapes),
+        flops=sum(3 * b * f for b, f in pair_shapes)))
+    moments = []
+    for x, _, _ in pair_in:
+        mean, m2 = bn_moments_plain(x)
+        moments.append((mean, m2 - mean * mean))
+    err = 0.0
+    for (x, gm, bt), (mean, var) in zip(pair_in, moments):
+        yk = kernels.bn_apply(x, mean, var, gm, bt, 1e-5, "tanh")
+        yp = bn_apply_plain(x, mean, var, gm, bt, 1e-5, "tanh")
+        require(within(yk, yp, 1e-5, 1e-4),
+                f"bn_apply disagrees with its plain version at {tuple(x.shape)}")
+        err = max(err, max_err(yk, yp))
+    pairs = list(zip(pair_in, moments))
+    report.append(dict(
+        name="bn_apply", tolerance="|d| <= 1e-5 + 1e-4|plain|",
+        max_abs_err=err, calls=[f"[{b},{f}] tanh" for b, f in pair_shapes],
+        gradient="checked in the dp phase (2 ranks)",
+        ms=time_ms(lambda: [kernels.bn_apply(x, m, v, gm, bt, 1e-5, "tanh")
+                            for (x, gm, bt), (m, v) in pairs], torch),
+        plain_ms=time_ms(lambda: [bn_apply_plain(x, m, v, gm, bt, 1e-5, "tanh")
+                                  for (x, gm, bt), (m, v) in pairs], torch),
+        library_ms=time_ms(lambda: [torch_f.batch_norm(
+            x, m, v, gm, bt, training=False, eps=1e-5)
+            for (x, gm, bt), (m, v) in pairs], torch),
+        library_call="F.batch_norm(training=False), without the activation",
+        bytes=sum(8 * b * f + 16 * f for b, f in pair_shapes),
+        flops=sum(10 * b * f for b, f in pair_shapes)))
+
+    # bn_act_4d: the JAX package's benchmark shapes with C > 1
+    # (benchmarks/pallas_bn_bench.py); no model path runs it
+    shapes_4d = [(200, 64, 12, 12), (128, 64, 32, 32), (128, 128, 16, 16),
+                 (128, 256, 8, 8), (128, 512, 4, 4)]
+    in_4d = [(randn(*s, scale=0.5, shift=0.2), randn(s[1], scale=0.1, shift=1.0),
+              randn(s[1], scale=0.1)) for s in shapes_4d]
+    kernels.fused_bn_act_train_4d.launches = 0
+    err = 0.0
+    for x, gm, bt in in_4d:
+        outk = kernels.fused_bn_act_train_4d(x, gm, bt, 1e-5, "tanh")
+        outp = bn_act_4d_plain(x, gm, bt, 1e-5, "tanh")
+        for a, b, (atol, rtol) in zip(outk, outp, [(1e-5, 1e-4), (1e-6, 1e-4),
+                                                   (1e-6, 1e-4)]):
+            require(within(a, b, atol, rtol), "bn_act_4d disagrees with its "
+                    f"plain version at {tuple(x.shape)}")
+            err = max(err, max_err(a, b))
+    x, gm, bt = (t.clone().requires_grad_(True) for t in in_4d[0])
+    gy = randn(*x.shape)
+    yk, _, _ = kernels.fused_bn_act_train_4d(x, gm, bt, 1e-5, "tanh")
+    gk = torch.autograd.grad(yk, (x, gm, bt), gy)
+    yp, _, _ = bn_act_4d_plain(x, gm, bt, 1e-5, "tanh")
+    gp = torch.autograd.grad(yp, (x, gm, bt), gy)
+    for a, b in zip(gk, gp):
+        require(within(a, b, 1e-4, 1e-3), "bn_act_4d gradient disagrees")
+    bn4d_launches = kernels.fused_bn_act_train_4d.launches
+    n_4d = [math.prod(s) for s in shapes_4d]
+    report.append(dict(
+        name="bn_act_4d", tolerance="|d| <= 1e-5 + 1e-4|plain| on y, "
+        "1e-6 + 1e-4|plain| on mean/var", max_abs_err=err,
+        calls=[f"[{b},{c},{h},{w}] tanh" for b, c, h, w in shapes_4d],
+        ms=time_ms(lambda: [kernels.fused_bn_act_train_4d(x, gm, bt, 1e-5, "tanh")
+                            for x, gm, bt in in_4d], torch),
+        plain_ms=time_ms(lambda: [bn_act_4d_plain(x, gm, bt, 1e-5, "tanh")
+                                  for x, gm, bt in in_4d], torch),
+        library_ms=time_ms(lambda: [torch_f.batch_norm(
+            x, None, None, gm, bt, training=True, eps=1e-5)
+            for x, gm, bt in in_4d], torch),
+        library_call="F.batch_norm(training=True), without the activation",
+        bytes=sum(8 * n + 16 * s[1] for n, s in zip(n_4d, shapes_4d)),
+        flops=sum(10 * n for n in n_4d)))
+
     for r in report:
         t_bytes, t_ops = r["bytes"] / bw * 1e3, r["flops"] / PEAK_F32_FLOPS * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         emit("kernel", **r)
-    del graphs, dis, leaves, bn_in, up_in
+    del graphs, dis, leaves, bn_in, up_in, pair_in, pairs, moments, in_4d
 
     # -- 4. the main path ----------------------------------------------------
     trainer = GANTrainer(cfg, batch_size=BATCH, n_train=N_TRAIN, device="cuda")
@@ -284,7 +566,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     expected = {"fused_update": n_leaves * MAIN_STEPS,
-                "bn_act": 3 * MAIN_STEPS, "upsample_bwd": 2 * MAIN_STEPS}
+                "bn_act": 3 * MAIN_STEPS, "upsample_bwd": 2 * MAIN_STEPS,
+                "bn_moments": 0, "bn_apply": 0, "bn_act_4d": 0}
     losses = [result[k] for k in ("d_loss", "g_loss", "clf_loss")]
     grid = trainer.sample_grid(10)
     emit("main", steps=result["steps"], batch=BATCH, n_train=N_TRAIN,
@@ -299,15 +582,6 @@ def main() -> int:
             and bool(torch.isfinite(grid).all()), "bad latent grid")
 
     # -- 5. one step on the card against one on the CPU ----------------------
-    def build_state(device):
-        d = M.build_discriminator(cfg, device)
-        graphs = (d, M.build_generator(cfg, device), M.build_gan(cfg, device),
-                  M.build_classifier(d, cfg))
-        step = fused_step.make_protocol_step(
-            *graphs, M.DIS_TO_GAN, M.GAN_TO_GEN, M.DIS_TO_CLASSIFIER,
-            z_size=cfg.z_size, num_features=cfg.num_features)
-        return step, fused_step.state_from_graphs(*graphs)
-
     rng = torch.Generator().manual_seed(7)
     feats, labels = synthetic_mnist(BATCH, seed=11)
     host = dict(
@@ -318,52 +592,81 @@ def main() -> int:
         ones=torch.ones((BATCH, 1)),
         z1=torch.rand((BATCH, cfg.z_size), generator=rng) * 2 - 1,
         z2=torch.rand((BATCH, cfg.z_size), generator=rng) * 2 - 1)
-    outs = {}
-    for device in ("cpu", "cuda"):
-        step, state = build_state(device)
-        a = {k: v.to(device) for k, v in host.items()}
-        outs[device] = step(state, a["real"], a["labels"], a["y_real"],
-                            a["y_fake"], a["ones"], z1=a["z1"], z2=a["z2"])
-    (s_cpu, l_cpu), (s_gpu, l_gpu) = outs["cpu"], outs["cuda"]
-    loss_err = max(abs(float(a) - float(b)) / max(abs(float(a)), 1e-6)
-                   for a, b in zip(l_cpu, l_gpu))
-    # tolerances: cuDNN and the CPU sum the convolutions in other orders
-    # (f32, TF32 off; a conv weight gradient sums up to 200*14*14 terms).
-    # Losses: 1e-4 relative.  Params and BN statistics: 4e-3 absolute, one
-    # generator learning rate — RmsProp's update is ~lr*sign(g), and an
-    # element whose gradient lies near 0 sits on its linear part (slope
-    # lr/sqrt(eps) = 40), so rounding may move it by up to one lr; a wiring
-    # error moves whole leaves by lr and shifts the losses.  RmsProp caches
-    # (~g^2): 5e-2 of the leaf's largest value plus eps (a cache enters the
-    # update only as cache + eps); a frozen input BN's running-stat
-    # gradient sums 200*784 terms that cancel.
-    tol = {"param": 4e-3, "cache": 5e-2}
-    worst = {k: (0.0, "") for k in tol}
-    for field in s_cpu._fields[:-1]:
-        kind = "cache" if field.endswith("_opt") else "param"
-        for layer, lp in getattr(s_cpu, field).items():
-            for pname, a in lp.items():
-                d = max_err(a, getattr(s_gpu, field)[layer][pname].cpu())
-                if kind == "cache":
-                    d /= float(a.abs().max()) + 1e-8
-                if d >= worst[kind][0]:
-                    worst[kind] = (d, f"{field}.{layer}.{pname}")
-    emit("parity", losses_cpu=[float(v) for v in l_cpu],
-         losses_cuda=[float(v) for v in l_gpu], loss_rel_err=loss_err,
-         worst=worst, tolerance=tol, loss_tolerance=1e-4)
-    require(loss_err <= 1e-4, f"parity: loss relative error {loss_err} > 1e-4")
-    for kind, (d, where) in worst.items():
-        require(d <= tol[kind], f"parity: {where} differs by {d} > {tol[kind]}")
+    # cuDNN and the CPU sum the convolutions in other orders (f32, TF32
+    # off; a conv weight gradient sums up to 200*14*14 terms): STEP_TOL
+    out_cpu = run_step(*protocol_step("cpu"), host, "cpu")
+    out_gpu = run_step(*protocol_step(dev), host, dev)
+    loss_err, worst = step_diff(out_cpu, out_gpu)
+    emit("parity", losses_cpu=[float(v) for v in out_cpu[1]],
+         losses_cuda=[float(v) for v in out_gpu[1]], loss_rel_err=loss_err,
+         worst=worst, tolerance=STEP_TOL)
+    require_step_match("parity", loss_err, worst)
+    del out_cpu, out_gpu
 
-    # -- 6. the kernels line and the result ----------------------------------
-    sources = {"fused_update": "ops/pallas/fused_update.py:40",
-               "bn_act": "ops/pallas/bn_act.py:56",
-               "upsample_bwd": "ops/pallas/dma_pipeline.py:86"}
+    # -- 6. data parallel ----------------------------------------------------
+    n_cards = torch.cuda.device_count()
+    ranks = mesh.spawn(dp_rank, DP_WORLD, (host,), device="cuda",
+                       timeout=DP_TIMEOUT_S)
+    r0 = ranks[0]
+    dp_expected = {"fused_update": r0["rmsprop_leaves"] * MAIN_STEPS,
+                   "bn_act": 0, "upsample_bwd": 2 * MAIN_STEPS,
+                   "bn_moments": 3 * MAIN_STEPS, "bn_apply": 3 * MAIN_STEPS,
+                   "bn_act_4d": 0}
+    dp_losses = [r0["result"][k] for k in ("d_loss", "g_loss", "clf_loss")]
+    emit("dp", world=DP_WORLD, backend=r0["backend"],
+         shared_card=n_cards < DP_WORLD,
+         devices=[r["device"] for r in ranks], steps=r0["result"]["steps"],
+         global_batch=BATCH, losses=dp_losses,
+         step_ms_median=[r["result"]["step_ms_median"] for r in ranks],
+         img_per_s=r0["result"]["img_per_s"],
+         launches=[r["launches"] for r in ranks],
+         expected_launches=dp_expected,
+         digests=[r["digest"] for r in ranks],
+         pair_max_abs_err=[r["pair_max_abs_err"] for r in ranks],
+         grad_allreduce_ms=[r["grad_allreduce_ms"] for r in ranks],
+         step_vs_single=[r["step_vs_single"] for r in ranks],
+         tolerance=STEP_TOL)
+    require(r0["backend"] == ("nccl" if n_cards >= DP_WORLD else "gloo"),
+            f"dp: backend {r0['backend']} with {n_cards} cards")
+    require(all(math.isfinite(v) for v in dp_losses),
+            f"dp: non-finite losses {dp_losses}")
+    for r in ranks:
+        require(r["launches"] == dp_expected,
+                f"dp rank {r['rank']}: launch counts {r['launches']} != "
+                f"expected {dp_expected}")
+        require_step_match(f"dp rank {r['rank']} 2-rank step vs single",
+                           *r["step_vs_single"])
+    require(len({r["digest"] for r in ranks}) == 1,
+            "dp: the ranks' states differ after the run")
+    # a 1-rank NCCL group in this process, so the NCCL path runs on a
+    # one-card machine too
+    rdv = tempfile.mkdtemp(prefix="gan4j_nccl1_")
+    try:
+        group = mesh.data_group(0, 1, f"file://{rdv}/store", "cuda")
+        try:
+            require(group.backend == "nccl",
+                    f"1-rank group on {group.backend}, not nccl")
+            loss_err, worst = group_vs_single(group, host)
+        finally:
+            group.close()
+    finally:
+        shutil.rmtree(rdv, ignore_errors=True)
+    emit("dp_nccl1", backend="nccl", loss_rel_err=loss_err, worst=worst,
+         tolerance=STEP_TOL)
+    require_step_match("1-rank NCCL step vs single", loss_err, worst)
+
+    # -- 7. the kernels line and the result ----------------------------------
+    # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
+    # pair, and the kernel phase's check for the 4-D BN, which no model
+    # path runs (as in the JAX package)
+    counted = {**launches, "bn_moments": r0["launches"]["bn_moments"],
+               "bn_apply": r0["launches"]["bn_apply"],
+               "bn_act_4d": bn4d_launches}
     print(json.dumps({"kernels": [
         {"name": r["name"], "route": "cuda",
-         "source": f"gan_deeplearning4j_tpu_torch/csrc/{r['name']}.cu",
-         "replaces": f"gan_deeplearning4j_tpu/{sources[r['name']]}",
-         "launches": launches[r["name"]], "max_abs_err": r["max_abs_err"],
+         "source": f"gan_deeplearning4j_tpu_torch/csrc/{SOURCES[r['name']]}",
+         "replaces": f"gan_deeplearning4j_tpu/{REPLACES[r['name']]}",
+         "launches": counted[r["name"]], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for r in report]}), flush=True)

@@ -16,20 +16,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bn_common.cuh"
+
 namespace {
 
-enum Act { IDENTITY = 0, TANH = 1, SIGMOID = 2, RELU = 3, ELU = 4,
-           LEAKYRELU = 5 };
-
-template <int ACT>
-__device__ __forceinline__ float activate(float v) {
-  if (ACT == TANH) return tanhf(v);
-  if (ACT == SIGMOID) return 1.0f / (1.0f + expf(-v));
-  if (ACT == RELU) return v > 0.0f ? v : 0.0f;
-  if (ACT == ELU) return v > 0.0f ? v : expm1f(v);
-  if (ACT == LEAKYRELU) return v >= 0.0f ? v : 0.01f * v;
-  return v;
-}
+using gan4j::activate;
 
 template <int ACT>
 __global__ void bn_act_kernel(const float* __restrict__ x,
@@ -65,15 +56,21 @@ __global__ void bn_act_kernel(const float* __restrict__ x,
   var_out[f] = var;
 }
 
-template <int ACT>
-void launch(const float* x, const float* gamma, const float* beta, float* y,
-            float* mean, float* var, int rows, int cols, float eps,
-            cudaStream_t stream) {
-  const int threads = 32;
-  const int blocks = (cols + threads - 1) / threads;
-  bn_act_kernel<ACT><<<blocks, threads, 0, stream>>>(x, gamma, beta, y, mean,
-                                                     var, rows, cols, eps);
-}
+struct Launch {
+  const float *x, *gamma, *beta;
+  float *y, *mean, *var;
+  int rows, cols;
+  float eps;
+  cudaStream_t stream;
+
+  template <int ACT>
+  void run() {
+    const int threads = 32;
+    const int blocks = (cols + threads - 1) / threads;
+    bn_act_kernel<ACT><<<blocks, threads, 0, stream>>>(x, gamma, beta, y, mean,
+                                                       var, rows, cols, eps);
+  }
+};
 
 }  // namespace
 
@@ -84,21 +81,10 @@ extern "C" int gan4j_bn_act(const void* x, const void* gamma,
                             int rows, int cols, float eps, int act,
                             void* stream) {
   if (rows <= 0 || cols <= 0) return 0;
-  const float* xf = (const float*)x;
-  const float* gf = (const float*)gamma;
-  const float* bf = (const float*)beta;
-  float* yf = (float*)y;
-  float* mf = (float*)mean;
-  float* vf = (float*)var;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (act) {
-    case IDENTITY: launch<IDENTITY>(xf, gf, bf, yf, mf, vf, rows, cols, eps, s); break;
-    case TANH: launch<TANH>(xf, gf, bf, yf, mf, vf, rows, cols, eps, s); break;
-    case SIGMOID: launch<SIGMOID>(xf, gf, bf, yf, mf, vf, rows, cols, eps, s); break;
-    case RELU: launch<RELU>(xf, gf, bf, yf, mf, vf, rows, cols, eps, s); break;
-    case ELU: launch<ELU>(xf, gf, bf, yf, mf, vf, rows, cols, eps, s); break;
-    case LEAKYRELU: launch<LEAKYRELU>(xf, gf, bf, yf, mf, vf, rows, cols, eps, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  Launch l{(const float*)x, (const float*)gamma, (const float*)beta,
+           (float*)y,       (float*)mean,        (float*)var,
+           rows,            cols,                eps,
+           (cudaStream_t)stream};
+  if (!gan4j::dispatch_act(act, l)) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

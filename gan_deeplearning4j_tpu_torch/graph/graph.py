@@ -11,7 +11,7 @@ tensors, as they are pytree merges in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -19,6 +19,7 @@ from gan_deeplearning4j_tpu_torch.graph.layers import Layer
 from gan_deeplearning4j_tpu_torch.ops import losses as loss_lib
 from gan_deeplearning4j_tpu_torch.optim.rmsprop import RmsProp
 from gan_deeplearning4j_tpu_torch.optim.updater import GraphUpdater
+from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
@@ -174,10 +175,13 @@ class ComputationGraph:
     # -- forward ------------------------------------------------------------
 
     def _forward(self, params: Tree, inputs: Dict[str, torch.Tensor],
-                 train: bool, gen: Optional[torch.Generator] = None):
+                 train: bool, gen: Optional[torch.Generator] = None,
+                 group: Optional[mesh.DataGroup] = None):
         """Forward over the DAG in insertion (topological) order.  Returns
         (values, state_updates): every node's output by name, plus the BN
-        running-stat updates of train-mode layers."""
+        running-stat updates of train-mode layers.  ``group`` turns on
+        sync-BN: the inputs are this rank's rows, the batch statistics the
+        global batch's."""
         values: Dict[str, torch.Tensor] = {}
         for inp in self.input_names:
             x = inputs[inp]
@@ -192,7 +196,8 @@ class ComputationGraph:
             if node.preprocessor is not None:
                 x = node.preprocessor(x)
             y, upd = node.layer.apply(params[name], x,
-                                      train and name not in self.frozen, gen)
+                                      train and name not in self.frozen, gen,
+                                      group)
             if upd:
                 state_updates[name] = upd
             values[name] = y
@@ -221,16 +226,21 @@ class ComputationGraph:
     def _train_step(self, params: Tree, opt_state: Tree,
                     inputs: Dict[str, torch.Tensor],
                     labels: Dict[str, torch.Tensor],
-                    gen: Optional[torch.Generator] = None):
+                    gen: Optional[torch.Generator] = None,
+                    group: Optional[mesh.DataGroup] = None,
+                    reduce: Optional[Callable] = None):
         """One optimization step -> (new_params, new_opt_state, loss).
 
         Every param leaf gets a gradient (zero where the loss does not
         reach it, e.g. BN running stats) and goes through the updater, as
         ``jax.value_and_grad`` over the whole tree does in the JAX package;
-        the BN state updates then overwrite mean/var."""
+        the BN state updates then overwrite mean/var.  ``group`` runs the
+        forward with sync-BN; ``reduce(loss, state_updates, grads)`` is
+        applied after the gradients and before the updater (the
+        data-parallel layer's mean over ranks, ``mesh.reducer``)."""
         leaves = {layer: {n: t.detach().requires_grad_(True) for n, t in lp.items()}
                   for layer, lp in params.items()}
-        values, state_updates = self._forward(leaves, inputs, True, gen)
+        values, state_updates = self._forward(leaves, inputs, True, gen, group)
         loss = self._loss({n: values[n] for n in self.output_names}, labels)
         keys = [(layer, n) for layer, lp in leaves.items() for n in lp]
         flat = torch.autograd.grad(loss, [leaves[l][n] for l, n in keys],
@@ -238,10 +248,15 @@ class ComputationGraph:
         grads: Tree = {layer: {} for layer in leaves}
         for (layer, n), g in zip(keys, flat):
             grads[layer][n] = torch.zeros_like(params[layer][n]) if g is None else g
+        loss = loss.detach()
+        state_updates = {lname: {k: v.detach() for k, v in upd.items()}
+                         for lname, upd in state_updates.items()}
+        if reduce is not None:
+            loss, state_updates, grads = reduce(loss, state_updates, grads)
         new_params, new_opt_state = self.updater.apply(params, grads, opt_state)
         for lname, upd in state_updates.items():
-            new_params[lname].update({k: v.detach() for k, v in upd.items()})
-        return new_params, new_opt_state, loss.detach()
+            new_params[lname].update(upd)
+        return new_params, new_opt_state, loss
 
     # -- param access (the GAN protocol's weight-sync surface) ---------------
 

@@ -9,7 +9,9 @@ Each config is a dataclass with three methods:
   init(gen, in_shape)      -- {param name: CPU tensor}, DL4J names (W, b,
                               gamma, beta, mean, var) and layouts (dense W
                               [n_in, n_out], conv W OIHW)
-  apply(params, x, train, gen) -- forward; returns (y, state_updates|None)
+  apply(params, x, train, gen, group) -- forward; returns
+                              (y, state_updates|None); ``group`` is the
+                              data-parallel group (sync-BN) or None
 
 An ``activation``/``updater`` of None inherits the graph default; the BN
 layer applies its activation after normalizing, as DL4J does.
@@ -73,7 +75,7 @@ class Layer:
     def init(self, gen: torch.Generator, in_shape: Shape) -> Params:
         return {}
 
-    def apply(self, params: Params, x, train: bool, gen):
+    def apply(self, params: Params, x, train: bool, gen, group=None):
         raise NotImplementedError
 
 
@@ -94,7 +96,7 @@ class Dense(Layer):
         w = init(gen, (n_in, self.n_out), n_in, self.n_out)
         return {"W": w, "b": initializers.zeros((self.n_out,))}
 
-    def apply(self, params, x, train, gen):
+    def apply(self, params, x, train, gen, group=None):
         return self._act(dense_op(_as_ff(x), params["W"], params["b"])), None
 
 
@@ -128,7 +130,7 @@ class Conv2D(Layer):
         w = initializers.xavier(gen, (self.n_out, n_in, kh, kw), fan_in, fan_out)
         return {"W": w, "b": initializers.zeros((self.n_out,))}
 
-    def apply(self, params, x, train, gen):
+    def apply(self, params, x, train, gen, group=None):
         y = conv2d(x, params["W"], params["b"], self.stride, self.padding)
         return self._act(y), None
 
@@ -149,7 +151,7 @@ class MaxPool2D(Layer):
         (kh, kw), (sh, sw) = self.kernel, self.stride
         return (c, (h - kh) // sh + 1, (w - kw) // sw + 1)
 
-    def apply(self, params, x, train, gen):
+    def apply(self, params, x, train, gen, group=None):
         return max_pool2d(x, self.kernel, self.stride), None
 
 
@@ -167,7 +169,7 @@ class Upsampling2D(Layer):
         c, h, w = in_shape
         return (c, h * self.size, w * self.size)
 
-    def apply(self, params, x, train, gen):
+    def apply(self, params, x, train, gen, group=None):
         return upsample2d(x, self.size), None
 
 
@@ -189,24 +191,26 @@ class BatchNorm(Layer):
         return {"gamma": initializers.ones((n,)), "beta": initializers.zeros((n,)),
                 "mean": initializers.zeros((n,)), "var": initializers.ones((n,))}
 
-    def apply(self, params, x, train, gen):
+    def apply(self, params, x, train, gen, group=None):
         if not train:
             y = batch_norm_inference(x, params["gamma"], params["beta"],
                                      params["mean"], params["var"], self.eps)
             return self._act(y), None
         if x.dim() == 2:
-            # one fused BN+activation kernel on the card (JAX:
-            # graph/layers.py:298 routes only 2-D input to the Pallas kernel)
+            # BN+activation kernels on the card (JAX: graph/layers.py:298
+            # routes only 2-D input to Pallas): one fused kernel, or under
+            # a group of more than one rank the moments kernel, an
+            # all-reduce and the apply kernel
             y, bmean, bvar = fused_bn_act_train(
                 x, params["gamma"], params["beta"], self.eps,
-                self.activation or "identity")
+                self.activation or "identity", group)
             return y, {
                 "mean": self.decay * params["mean"] + (1 - self.decay) * bmean,
                 "var": self.decay * params["var"] + (1 - self.decay) * bvar,
             }
         y, new_mean, new_var = batch_norm_train(
             x, params["gamma"], params["beta"], params["mean"], params["var"],
-            self.decay, self.eps)
+            self.decay, self.eps, group)
         return self._act(y), {"mean": new_mean, "var": new_var}
 
 
@@ -224,5 +228,5 @@ class Dropout(Layer):
     def out_shape(self, in_shape):
         return in_shape
 
-    def apply(self, params, x, train, gen):
+    def apply(self, params, x, train, gen, group=None):
         return dropout_op(x, self.rate, gen, train), None

@@ -6,14 +6,17 @@ graphs, so they are passed in and returned, never hidden in a module
 buffer.  The batch variance is the biased E[x^2] - E[x]^2 and the running
 update is decay*running + (1-decay)*batch — not ``F.batch_norm``'s running
 update, which takes the unbiased variance.  2-D input normalizes per
-feature, 4-D input [B, C, H, W] per channel.
+feature, 4-D input [B, C, H, W] per channel.  With a data-parallel group
+the batch statistics are the global batch's (sync-BN).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from gan_deeplearning4j_tpu_torch.parallel import mesh
 
 DEFAULT_DECAY = 0.9
 DEFAULT_EPS = 1e-5
@@ -34,11 +37,20 @@ def _shaped(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def batch_norm_train(x, gamma, beta, running_mean, running_var,
-                     decay: float = DEFAULT_DECAY, eps: float = DEFAULT_EPS):
-    """Returns (out, new_running_mean, new_running_var)."""
+                     decay: float = DEFAULT_DECAY, eps: float = DEFAULT_EPS,
+                     group: Optional[mesh.DataGroup] = None):
+    """Returns (out, new_running_mean, new_running_var).
+
+    ``group``: x is this rank's rows, and E[x], E[x^2] are averaged over the
+    ranks (differentiably) before var = E[x^2] - E[x]^2, so a data-parallel
+    step normalizes as the single-device step on the whole batch does,
+    between-rank spread of the means included."""
     dims = _reduce_dims(x)
     mean = torch.mean(x, dim=dims)
     m2 = torch.mean(torch.square(x), dim=dims)
+    if group is not None:
+        stats = mesh.all_reduce_mean_diff(torch.stack([mean, m2]), group)
+        mean, m2 = stats[0], stats[1]
     var = m2 - torch.square(mean)
     out = (x - _shaped(mean, x)) * torch.rsqrt(_shaped(var, x) + eps)
     out = out * _shaped(gamma, x) + _shaped(beta, x)

@@ -11,7 +11,12 @@ from __future__ import annotations
 
 from typing import Dict
 
-from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import fused_bn_act_train
+from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
+    bn_apply,
+    bn_moments,
+    fused_bn_act_train,
+)
+from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act_4d import fused_bn_act_train_4d
 from gan_deeplearning4j_tpu_torch.ops.cuda.fused_update import (
     fused_rmsprop_chain,
 )
@@ -21,6 +26,9 @@ WRAPPERS = {
     "fused_update": fused_rmsprop_chain,
     "bn_act": fused_bn_act_train,
     "upsample_bwd": upsample_bwd,
+    "bn_moments": bn_moments,
+    "bn_apply": bn_apply,
+    "bn_act_4d": fused_bn_act_train_4d,
 }
 
 
@@ -34,4 +42,5 @@ def launch_counts() -> Dict[str, int]:
 
 
 __all__ = ["fused_bn_act_train", "fused_rmsprop_chain", "upsample_bwd",
+           "bn_moments", "bn_apply", "fused_bn_act_train_4d",
            "WRAPPERS", "reset_launch_counts", "launch_counts"]

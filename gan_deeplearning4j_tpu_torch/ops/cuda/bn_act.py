@@ -1,52 +1,98 @@
-"""Train-mode BatchNorm + activation over [B, F], single device.
+"""Train-mode BatchNorm + activation over [B, F]: single device, and the
+data-parallel (sync-BN) pair.
 
-Replaces ``fused_bn_act_train`` / ``_fused_kernel`` (the ``axis_name=None``
-path) of ``gan_deeplearning4j_tpu/ops/pallas/bn_act.py``.  CUDA source:
-``csrc/bn_act.cu``.
+Replaces ``fused_bn_act_train`` of ``gan_deeplearning4j_tpu/ops/pallas/
+bn_act.py``: ``_fused_kernel`` (the ``axis_name=None`` path, CUDA source
+``csrc/bn_act.cu``) and ``_moments_kernel`` + ``_apply_kernel`` (the SPMD
+path, ``csrc/bn_moments_apply.cu``).
 
     mean = E[x], var = E[x^2] - mean^2        (biased, per feature)
     y    = act((x - mean) * rsqrt(var + eps) * gamma + beta)
 
-Returns (y, mean, var).  Bound on the card: device memory, x read once and
-y written once (8 bytes per element); on the protocol step that is the
-generator's [200, 6272] BN (10.0 MB, 3.0 us at 3.35 TB/s), the classifier's
-[200, 1024] and the generator's [200, 2] input BN.  The kernel gives each
-thread one feature column, so a warp reads neighbouring addresses of each
-row, and keeps both sums in registers: one kernel, no intermediate in
-device memory.  The TPU kernel has no backward kernel and neither does this
-one: the backward recomputes through the plain version under autograd, as
-the JAX ``custom_vjp`` does.
+Returns (y, mean, var).  With a group of more than one rank the moments
+are the global batch's: the moments kernel gives this rank's E[x], E[x^2]
+as one [2, F] buffer, one all-reduce takes their mean over the ranks, and
+the apply kernel normalizes with the result — the TPU path's moments
+kernel, ``pmean``, apply kernel.
+
+Bound on the card: device memory.  Single device: x read once and y
+written once (8 bytes per element); on the protocol step that is the
+generator's [200, 6272] BN (10.0 MB, 3.0 us at 3.35 TB/s), the
+classifier's [200, 1024] and the generator's [200, 2] input BN.  The
+kernel gives each thread one feature column, so a warp reads neighbouring
+addresses of each row, and keeps both sums in registers: one kernel, no
+intermediate in device memory.  The pair: moments read x once (4 bytes
+per element), apply reads x and writes y (8 bytes per element), at the
+per-rank shapes [B/n, F].
+
+Neither TPU path has a backward kernel and neither has the port: the
+backward recomputes through the plain composition under autograd (with
+the differentiable all-reduce on the pair's path), as the JAX
+``custom_vjp`` does with its ``pmean``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from gan_deeplearning4j_tpu_torch.ops import activations as act_lib
 from gan_deeplearning4j_tpu_torch.ops.cuda import build
+from gan_deeplearning4j_tpu_torch.parallel import mesh
 
-# the kernel's compile-time activation set (csrc/bn_act.cu enum Act)
+# the kernels' compile-time activation set (csrc/bn_common.cuh enum Act)
 ACT_CODES = {"identity": 0, "tanh": 1, "sigmoid": 2, "relu": 3, "elu": 4,
              "leakyrelu": 5}
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]
+_MOMENTS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_void_p]
+_APPLY_ARGTYPES = [ctypes.c_void_p] * 6 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p]
+
+Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+# -- plain versions ------------------------------------------------------------
+
+def bn_moments_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(E[x], E[x^2]) per feature (bn_act.py ``_moments_kernel``)."""
+    return torch.mean(x, dim=0), torch.mean(torch.square(x), dim=0)
+
+
+def bn_apply_plain(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                   gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                   act_name: str) -> torch.Tensor:
+    """Normalize by given moments, scale, shift, activate (bn_act.py
+    ``_apply_kernel``)."""
+    y = (x - mean[None]) * torch.rsqrt(var[None] + eps)
+    y = y * gamma[None] + beta[None]
+    return act_lib.get(act_name)(y)
 
 
 def bn_act_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                 eps: float, act_name: str
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The reference composition (bn_act.py ``_reference``) in torch ops."""
-    mean = torch.mean(x, dim=0)
-    m2 = torch.mean(torch.square(x), dim=0)
+                 eps: float, act_name: str,
+                 group: Optional[mesh.DataGroup] = None) -> Triple:
+    """The reference composition (bn_act.py ``_reference``) in torch ops;
+    with a group, the moments' mean over its ranks sits between the two
+    halves, differentiably (``_reference``'s ``pmean``)."""
+    mean, m2 = bn_moments_plain(x)
+    if group is not None:
+        stats = mesh.all_reduce_mean_diff(torch.stack([mean, m2]), group)
+        mean, m2 = stats[0], stats[1]
     var = m2 - torch.square(mean)
-    y = (x - mean[None]) * torch.rsqrt(var[None] + eps)
-    y = y * gamma[None] + beta[None]
-    return act_lib.get(act_name)(y), mean, var
+    return bn_apply_plain(x, mean, var, gamma, beta, eps, act_name), mean, var
+
+
+# -- kernels -------------------------------------------------------------------
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _launch(x, gamma, beta, eps, act_name):
@@ -55,13 +101,46 @@ def _launch(x, gamma, beta, eps, act_name):
     mean = torch.empty(F, dtype=x.dtype, device=x.device)
     var = torch.empty(F, dtype=x.dtype, device=x.device)
     fn = build.function("bn_act", "gan4j_bn_act", _ARGTYPES)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     code = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
               mean.data_ptr(), var.data_ptr(), B, F, eps,
-              ACT_CODES[act_name], stream)
+              ACT_CODES[act_name], _stream(x))
     build.check(code, "fused_bn_act_train")
     fused_bn_act_train.launches += 1
     return y, mean, var
+
+
+def _moments_launch(x: torch.Tensor) -> torch.Tensor:
+    """-> [2, F]: row 0 E[x], row 1 E[x^2]."""
+    B, F = x.shape
+    stats = torch.empty((2, F), dtype=x.dtype, device=x.device)
+    fn = build.function("bn_moments_apply", "gan4j_bn_moments",
+                        _MOMENTS_ARGTYPES)
+    code = fn(x.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), B, F,
+              _stream(x))
+    build.check(code, "bn_moments")
+    bn_moments.launches += 1
+    return stats
+
+
+def _apply_launch(x, mean, var, gamma, beta, eps, act_name) -> torch.Tensor:
+    B, F = x.shape
+    y = torch.empty_like(x)
+    fn = build.function("bn_moments_apply", "gan4j_bn_apply", _APPLY_ARGTYPES)
+    code = fn(x.data_ptr(), mean.data_ptr(), var.data_ptr(), gamma.data_ptr(),
+              beta.data_ptr(), y.data_ptr(), B, F, eps, ACT_CODES[act_name],
+              _stream(x))
+    build.check(code, "bn_apply")
+    bn_apply.launches += 1
+    return y
+
+
+def recompute_grads(ctx, cotangents, plain, *args):
+    """A BN kernel's backward: autograd through its plain version
+    ``plain(x, gamma, beta, *args)`` from the saved (x, gamma, beta)."""
+    x, gamma, beta = ctx.saved_tensors
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta)]
+        return torch.autograd.grad(plain(*leaves, *args), leaves, cotangents)
 
 
 class _BnAct(torch.autograd.Function):
@@ -73,41 +152,105 @@ class _BnAct(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gmean, gvar):
-        x, gamma, beta = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta)]
-            outs = bn_act_plain(*leaves, ctx.eps, ctx.act_name)
-            grads = torch.autograd.grad(outs, leaves, (gy, gmean, gvar))
+        grads = recompute_grads(ctx, (gy, gmean, gvar), bn_act_plain, ctx.eps,
+                                ctx.act_name)
         return (*grads, None, None)
+
+
+class _BnSync(torch.autograd.Function):
+    """The pair on the card: moments kernel, all-reduce, apply kernel."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, act_name, group):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps, ctx.act_name, ctx.group = eps, act_name, group
+        stats = mesh.all_reduce_mean(_moments_launch(x), group)
+        mean = stats[0].clone()
+        var = stats[1] - torch.square(stats[0])
+        y = _apply_launch(x, mean, var, gamma, beta, eps, act_name)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, gmean, gvar):
+        grads = recompute_grads(ctx, (gy, gmean, gvar), bn_act_plain, ctx.eps,
+                                ctx.act_name, ctx.group)
+        return (*grads, None, None, None)
+
+
+# -- wrappers ------------------------------------------------------------------
+
+def check_inputs(what: str, x: torch.Tensor, layout: str,
+                 **vectors: torch.Tensor) -> None:
+    """x: f32 with the dims of ``layout`` ("B, F" or "B, C, H, W") on the
+    CPU or a card; each vector f32 [x.shape[1]] on x's device."""
+    if x.dim() != len(layout.split(",")):
+        raise ValueError(f"{what} takes [{layout}], got {tuple(x.shape)}")
+    n = x.shape[1]
+    for name, t in vectors.items():
+        if t.shape != (n,) or t.device != x.device:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} on {t.device} "
+                             f"does not match x {tuple(x.shape)} on {x.device}")
+    if any(t.dtype != torch.float32 for t in (x, *vectors.values())):
+        raise TypeError(f"{what} takes float32 only, got "
+                        + "/".join(str(t.dtype) for t in (x, *vectors.values())))
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+def kernel_act(what: str, act_name: str) -> str:
+    name = act_name.lower()
+    if name not in ACT_CODES:
+        raise ValueError(f"{what}: activation {act_name!r} is not "
+                         f"elementwise-fusable; known: {sorted(ACT_CODES)}")
+    return name
+
+
+def bn_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(E[x], E[x^2]) per feature of a 2-D f32 x.  A CPU x takes the plain
+    version; a CUDA x launches the moments kernel."""
+    check_inputs("bn_moments", x, "B, F")
+    if x.device.type == "cpu":
+        return bn_moments_plain(x)
+    stats = _moments_launch(x.contiguous())
+    return stats[0], stats[1]
+
+
+def bn_apply(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+             gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5,
+             act_name: str = "identity") -> torch.Tensor:
+    """act((x - mean) * rsqrt(var + eps) * gamma + beta) for a 2-D f32 x
+    and per-feature vectors.  A CPU x takes the plain version; a CUDA x
+    launches the apply kernel."""
+    check_inputs("bn_apply", x, "B, F", mean=mean, var=var, gamma=gamma,
+                 beta=beta)
+    if x.device.type == "cpu":
+        return bn_apply_plain(x, mean, var, gamma, beta, eps, act_name.lower())
+    return _apply_launch(x.contiguous(), mean.contiguous(), var.contiguous(),
+                         gamma.contiguous(), beta.contiguous(), float(eps),
+                         kernel_act("bn_apply", act_name))
 
 
 def fused_bn_act_train(x: torch.Tensor, gamma: torch.Tensor,
                        beta: torch.Tensor, eps: float = 1e-5,
-                       act_name: str = "identity"
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (act(bn(x)), batch_mean, batch_var) for a 2-D f32 x.  A CPU x
-    takes the plain version; a CUDA x launches the kernel."""
-    if x.dim() != 2:
-        raise ValueError(f"fused_bn_act_train takes [B, F], got {tuple(x.shape)}")
-    F = x.shape[1]
-    for name, t in (("gamma", gamma), ("beta", beta)):
-        if t.shape != (F,) or t.device != x.device:
-            raise ValueError(f"fused_bn_act_train: {name} {tuple(t.shape)} on "
-                             f"{t.device} does not match x {tuple(x.shape)} "
-                             f"on {x.device}")
-    if not (x.dtype == gamma.dtype == beta.dtype == torch.float32):
-        raise TypeError("fused_bn_act_train takes float32 only, got "
-                        f"{x.dtype}/{gamma.dtype}/{beta.dtype}")
-    name = act_name.lower()
+                       act_name: str = "identity",
+                       group: Optional[mesh.DataGroup] = None) -> Triple:
+    """-> (act(bn(x)), batch_mean, batch_var) for a 2-D f32 x.  With a
+    ``group`` of more than one rank, x is this rank's rows and the moments
+    are the global batch's (sync-BN).  A CPU x takes the plain version; a
+    CUDA x launches the single-device kernel, or the moments and apply
+    kernels with an all-reduce between them."""
+    check_inputs("fused_bn_act_train", x, "B, F", gamma=gamma, beta=beta)
+    sync = group if group is not None and group.world > 1 else None
     if x.device.type == "cpu":
-        return bn_act_plain(x, gamma, beta, eps, name)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_bn_act_train: unsupported device {x.device}")
-    if name not in ACT_CODES:
-        raise ValueError(f"fused_bn_act_train: activation {act_name!r} is not "
-                         f"elementwise-fusable; known: {sorted(ACT_CODES)}")
-    return _BnAct.apply(x.contiguous(), gamma.contiguous(),
-                        beta.contiguous(), float(eps), name)
+        return bn_act_plain(x, gamma, beta, eps, act_name.lower(), sync)
+    name = kernel_act("fused_bn_act_train", act_name)
+    args = (x.contiguous(), gamma.contiguous(), beta.contiguous(), float(eps),
+            name)
+    if sync is not None:
+        return _BnSync.apply(*args, sync)
+    return _BnAct.apply(*args)
 
 
 fused_bn_act_train.launches = 0
+bn_moments.launches = 0
+bn_apply.launches = 0

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, loaded with ``ctypes``.  All
-sources compile at once (one ``nvcc`` process each, started together) the
-first time any kernel is needed, into ``build/torch_kernels/<digest>/`` at
-the root of the checkout, where ``digest`` hashes the sources and the
+Each ``csrc/<name>.cu`` (with the headers it includes from ``csrc/``) is
+compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a
+plain C interface, loaded with ``ctypes``.  All sources compile at once
+(one ``nvcc`` process each, started together) the first time any kernel is
+needed, into ``build/torch_kernels/<digest>/`` at the root of the
+checkout, where ``digest`` hashes the sources and the
 flags: an edit to any source builds a fresh set, and a finished set is
 reused by later processes.  Nothing here runs at import time.
 """
@@ -23,7 +24,8 @@ from typing import Dict, Sequence
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "torch_kernels"
-KERNELS = ("fused_update", "bn_act", "upsample_bwd")
+KERNELS = ("fused_update", "bn_act", "upsample_bwd", "bn_moments_apply",
+           "bn_act_4d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

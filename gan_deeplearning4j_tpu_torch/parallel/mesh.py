@@ -1,0 +1,227 @@
+"""Data-parallel process groups and their collectives (torch twin of
+``gan_deeplearning4j_tpu/parallel/mesh.py``: where the JAX package builds a
+1-D ``data`` mesh over the attached devices, the port runs one process per
+rank and joins them in a ``torch.distributed`` group).
+
+  data_group(rank, world, init_method, device)  join the group
+  all_reduce_mean(tree, group)                  forward-only mean over ranks
+                                                of a tensor / nested dict /
+                                                tuple of tensors, one flat
+                                                all-reduce
+  all_reduce_mean_diff(t, group)                differentiable mean over
+                                                ranks (``lax.pmean`` inside
+                                                ``shard_map(check_vma=False)``)
+  spawn(fn, world, args, device, timeout)       run ``fn`` in one process
+                                                per rank and collect results
+
+Backend: NCCL when every rank has a card of its own, gloo on the CPU and
+when ranks share a card (NCCL refuses two ranks on one device).  gloo takes
+CUDA tensors itself: it stages them through host memory, so a gloo group
+on the card pays a device-to-host and a host-to-device copy per
+collective; an NCCL group never copies.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue as queue_lib
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from gan_deeplearning4j_tpu_torch.runtime import backend as backend_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class DataGroup:
+    """One rank's view of the data-parallel group."""
+
+    rank: int
+    world: int
+    device: torch.device
+    backend: str
+
+    def close(self) -> None:
+        """Leave the group (destroys this process's default group)."""
+        dist.destroy_process_group()
+
+
+def choose_backend(device: torch.device, world: int) -> str:
+    if device.type == "cpu":
+        return "gloo"
+    return "nccl" if world <= torch.cuda.device_count() else "gloo"
+
+
+def rank_device(device, rank: int) -> torch.device:
+    """``cuda`` (or None) -> ``cuda:rank``, wrapped over the attached cards
+    when there are more ranks than cards; ``cpu`` stays ``cpu``."""
+    dev = backend_lib.resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    return dev
+
+
+def data_group(rank: int, world: int, init_method: str,
+               device=None) -> DataGroup:
+    """Join the default process group as ``rank`` of ``world`` through the
+    rendezvous ``init_method`` (``file://...`` or ``tcp://host:port``).
+    ``device``: None = this rank's card."""
+    if world < 1 or not 0 <= rank < world:
+        raise ValueError(f"rank {rank} of world {world}")
+    dev = rank_device(device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(choose_backend(dev, world),
+                            init_method=init_method, world_size=world,
+                            rank=rank)
+    return DataGroup(rank=rank, world=world, device=dev,
+                     backend=dist.get_backend())
+
+
+def _all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
+    """In-place sum over the ranks of the default group."""
+    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    return t
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    raise TypeError(f"all_reduce_mean: unsupported leaf {type(tree)}")
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, it) for k, v in tree.items()}
+    return type(tree)(_rebuild(v, it) for v in tree)
+
+
+def all_reduce_mean(tree, group: DataGroup):
+    """The mean over ranks of every tensor in ``tree`` (same structure
+    out), outside autograd.  All leaves travel in one flat buffer: one
+    collective per call.  Every rank must pass the same structure."""
+    leaves = _leaves(tree)
+    flat = torch.cat([t.detach().reshape(-1) for t in leaves])
+    _all_reduce_sum_(flat)
+    flat /= group.world
+    parts = iter(p.view_as(t) for p, t in
+                 zip(flat.split([t.numel() for t in leaves]), leaves))
+    return _rebuild(tree, parts)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over ranks; its cotangent is summed over ranks too, so the
+    cross-rank terms of a gradient (sync-BN's) reach every rank."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return _all_reduce_sum_(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_sum_(g.contiguous().clone())
+
+
+def all_reduce_mean_diff(t: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    """Mean over ranks with a gradient: the transpose of the mean is the
+    mean of the cotangents, as ``lax.pmean``'s is under ``shard_map``."""
+    return _AllReduceSum.apply(t) / group.world
+
+
+def reducer(group: Optional[DataGroup]):
+    """The ``reduce(loss, state_updates, grads)`` hook of
+    ``ComputationGraph._train_step``: their mean over ranks (None without a
+    group)."""
+    if group is None:
+        return None
+    return lambda loss, updates, grads: all_reduce_mean(
+        (loss, updates, grads), group)
+
+
+# -- one process per rank ----------------------------------------------------
+
+def _rank_main(fn, rank, world, init_method, device, args, results):
+    if device == "cpu":
+        torch.set_num_threads(1)
+    try:
+        group = data_group(rank, world, init_method, device)
+        try:
+            out = fn(group, *args)
+        finally:
+            group.close()
+        results.put((rank, True, out))
+    except BaseException:  # reported to the parent, which raises
+        results.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
+          timeout: float = 600.0) -> List[Any]:
+    """Run ``fn(group, *args)`` in ``world`` fresh processes (start method
+    ``spawn``), rank r on ``device`` (``cpu``, or None/``cuda`` for
+    ``cuda:r``), joined through a ``file://`` rendezvous in a temporary
+    directory.  Returns the ranks' results in rank order.  ``fn`` and
+    ``args`` are pickled: ``fn`` must be importable from a module that
+    imports no more than the child needs.  A child that fails, or has not
+    finished within ``timeout`` seconds, fails the call: stragglers are
+    killed, and no process outlives it."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="gan4j_rdv_")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, name=f"gan4j-rank-{r}",
+                         args=(fn, r, world, f"file://{tmp}/store", device,
+                               tuple(args), results), daemon=False)
+             for r in range(world)]
+    got, failed = {}, []
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.start()
+        while len(got) + len(failed) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                break
+            try:
+                rank, ok, out = results.get(timeout=min(left, 1.0))
+            except queue_lib.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    # a rank died without reporting; give the others a
+                    # moment to report their own errors, then stop
+                    deadline = min(deadline, time.monotonic() + 5.0)
+                continue
+            if ok:
+                got[rank] = out
+            else:
+                failed.append(f"rank {rank}:\n{out}")
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()) + 5.0)
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+        for p in alive:
+            p.join(5.0)
+        results.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise RuntimeError("data-parallel rank failed:\n" + "\n".join(failed))
+    missing = [r for r in range(world) if r not in got]
+    if missing:
+        codes = {p.name: p.exitcode for p in procs}
+        raise RuntimeError(f"ranks {missing} did not finish within "
+                           f"{timeout} s (exit codes {codes})")
+    return [got[r] for r in range(world)]
+

@@ -3,9 +3,12 @@ train/cv_main.py``, the training loop only).
 
 Run: ``python -m gan_deeplearning4j_tpu_torch.train.cv_main --iterations 20``
 (on the GPU; ``--device cpu`` runs the plain torch versions on the CPU).
-Prints each step's losses, then one JSON line with the final losses, the
-median step time and img/s (batch rows per second, the MNIST protocol's
-count).
+``--n-devices N`` trains data-parallel in N processes, rank r on card r
+over NCCL (gloo ranks with ``--device cpu``); the default is every
+attached card, reduced to the largest divisor of the batch.  Prints rank
+0's per-step losses, then one JSON line with the final losses, the median
+step time, img/s (global batch rows per second, the MNIST protocol's
+count) and the world size.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import Dict
 
 from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
 from gan_deeplearning4j_tpu_torch.runtime import prng
-from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
+from gan_deeplearning4j_tpu_torch.train.gan_trainer import train_data_parallel
 
 
 def main(argv=None) -> Dict[str, float]:
@@ -30,11 +33,15 @@ def main(argv=None) -> Dict[str, float]:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "torch versions of the kernels)")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="data-parallel ranks, one process each (default: "
+                        "every attached card, reduced to the largest "
+                        "divisor of the batch; 1 on the CPU)")
     args = p.parse_args(argv)
-    trainer = GANTrainer(M.CVConfig(seed=args.seed),
-                         batch_size=args.batch_size, n_train=args.n_train,
-                         device=args.device)
-    result = trainer.train(args.iterations)
+    result = train_data_parallel(
+        M.CVConfig(seed=args.seed), batch_size=args.batch_size,
+        n_train=args.n_train, iterations=args.iterations, device=args.device,
+        n_devices=args.n_devices)
     print(json.dumps(result))
     return result
 

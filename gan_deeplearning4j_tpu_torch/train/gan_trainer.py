@@ -1,15 +1,20 @@
 """A few-steps DCGAN trainer on device-resident data (torch twin of the
-resident loop of ``gan_deeplearning4j_tpu/train/gan_trainer.py``).
+resident loop of ``gan_deeplearning4j_tpu/train/gan_trainer.py``), on one
+device or one rank of a data-parallel group.
 
 The whole training table lives on the device and the protocol step slices
-its own batches.  Label softening is drawn once per run: 0.05*N(0,1) over
-(B, 1) for the real and the fake half, y_dis = [1 + soften_real;
-soften_fake].  Artifacts, checkpoints, metrics, supervision and evaluation
-are not ported yet.
+its own batches; under a group every rank holds the whole table and the
+global soften vectors and the step takes its rows (the JAX package's
+``data_on_device`` mesh path).  Label softening is drawn once per run:
+0.05*N(0,1) over (B, 1) for the real and the fake half, y_dis =
+[1 + soften_real; soften_fake].  ``train_data_parallel`` runs the trainer
+in one process per rank.  Artifacts, checkpoints, metrics, supervision and
+evaluation are not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
 import statistics
 import time
 from typing import Callable, Dict, Optional
@@ -19,8 +24,11 @@ import torch
 
 from gan_deeplearning4j_tpu_torch.data.datasets import synthetic_mnist
 from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
 from gan_deeplearning4j_tpu_torch.train import fused_step
+
+log_ = logging.getLogger(__name__)
 
 
 def latent_grid(n: int, z_size: int) -> np.ndarray:
@@ -31,16 +39,53 @@ def latent_grid(n: int, z_size: int) -> np.ndarray:
                     axis=-1).reshape(-1, z_size)
 
 
+def _largest_batch_divisor(batch_size: int, limit: int) -> int:
+    """Largest world <= limit whose shares of ``batch_size`` are equal."""
+    return max(d for d in range(1, limit + 1) if batch_size % d == 0)
+
+
+def resolve_n_devices(n_devices: Optional[int], batch_size: int,
+                      device=None) -> int:
+    """The data-parallel world for ``n_devices``: None = every attached
+    card (one rank on the CPU), reduced with a warning to the largest
+    divisor of the batch; an explicit count must divide the batch and, on
+    the card, not exceed the attached cards."""
+    dev = backend.resolve_device(device)
+    attached = torch.cuda.device_count() if dev.type == "cuda" else None
+    if n_devices is None:
+        avail = attached or 1
+        world = _largest_batch_divisor(batch_size, avail)
+        if world < avail:
+            log_.warning("batch_size %d is not divisible by the %d attached "
+                         "cards; using %d ranks (%d idle)", batch_size, avail,
+                         world, avail - world)
+        return world
+    if n_devices < 1 or batch_size % n_devices:
+        raise ValueError(
+            f"batch_size {batch_size} is not divisible by n_devices "
+            f"{n_devices}; shares are exact (largest usable: "
+            f"{_largest_batch_divisor(batch_size, max(n_devices, 1))})")
+    if attached is not None and n_devices > attached:
+        raise ValueError(f"n_devices {n_devices} exceeds the {attached} "
+                         "attached cards")
+    return n_devices
+
+
 class GANTrainer:
     """Builds the four DCGAN graphs and the training table on one device
-    (None = the card) and runs the protocol step."""
+    (None = the card; a ``group`` brings its rank's device) and runs the
+    protocol step, data-parallel over ``group`` when one is given."""
 
     def __init__(self, cfg: M.CVConfig = M.CVConfig(), batch_size: int = 200,
-                 n_train: int = 60000, device=None):
+                 n_train: int = 60000, device=None,
+                 group: Optional[mesh.DataGroup] = None):
         if n_train < batch_size:
             raise ValueError(f"n_train {n_train} is less than one batch "
                              f"of {batch_size}")
+        if group is not None:
+            device = group.device
         self.device = dev = backend.resolve_device(device)
+        self.group = group
         self.cfg, self.batch_size = cfg, batch_size
         self.dis = M.build_discriminator(cfg, dev)
         self.gen = M.build_generator(cfg, dev)
@@ -59,7 +104,7 @@ class GANTrainer:
         self.step_fn = fused_step.make_protocol_step(
             self.dis, self.gen, self.gan, self.classifier, M.DIS_TO_GAN,
             M.GAN_TO_GEN, M.DIS_TO_CLASSIFIER, z_size=cfg.z_size,
-            num_features=cfg.num_features)
+            num_features=cfg.num_features, group=group)
         self.state = fused_step.state_from_graphs(
             self.dis, self.gen, self.gan, self.classifier)
 
@@ -87,9 +132,35 @@ class GANTrainer:
                 "g_loss": losses[1], "clf_loss": losses[2],
                 "step_ms_median": step_s * 1e3,
                 "img_per_s": self.batch_size / step_s,
-                "device": str(self.device)}
+                "device": str(self.device),
+                "world": self.group.world if self.group else 1,
+                "backend": self.group.backend if self.group else None}
 
     def sample_grid(self, n: int = 10) -> torch.Tensor:
         """Generator output over the n x n latent grid, inference mode."""
         z = torch.from_numpy(latent_grid(n, self.cfg.z_size)).to(self.device)
         return self.gen.output(z)[0]
+
+
+def _train_rank(group: mesh.DataGroup, cfg: M.CVConfig, batch_size: int,
+                n_train: int, iterations: int) -> Dict:
+    trainer = GANTrainer(cfg, batch_size, n_train, group=group)
+    return trainer.train(iterations, log=print if group.rank == 0 else None)
+
+
+def train_data_parallel(cfg: M.CVConfig, batch_size: int, n_train: int,
+                        iterations: int, device=None,
+                        n_devices: Optional[int] = None,
+                        timeout: float = 3600.0) -> Dict:
+    """Train with ``resolve_n_devices(n_devices)`` ranks: in this process
+    when that is one, else one spawned process per rank (rank r on
+    ``cuda:r``, NCCL; gloo ranks with ``device="cpu"``), rank 0 logging its
+    steps.  Returns rank 0's result."""
+    world = resolve_n_devices(n_devices, batch_size, device)
+    if world == 1:
+        return GANTrainer(cfg, batch_size, n_train, device).train(iterations)
+    dev = backend.resolve_device(device)
+    results = mesh.spawn(_train_rank, world,
+                         (cfg, batch_size, n_train, iterations),
+                         device=dev.type, timeout=timeout)
+    return results[0]

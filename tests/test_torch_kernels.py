@@ -9,11 +9,26 @@ import numpy as np
 import pytest
 import torch
 
+from gan_deeplearning4j_tpu.ops.pallas.bn_act import (
+    LANE,
+    SUBLANE,
+    _apply,
+    _local_moments,
+    _pad_to,
+)
 from gan_deeplearning4j_tpu.ops.pallas.bn_act import fused_bn_act_train as bn_act_jax
+from gan_deeplearning4j_tpu.ops.pallas.bn_act import (
+    fused_bn_act_train_4d as bn_act_4d_jax,
+)
 from gan_deeplearning4j_tpu.ops.pallas.dma_pipeline import upsample_bwd_dma
 from gan_deeplearning4j_tpu.ops.pallas.fused_update import fused_rmsprop_chain as chain_jax
 from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
-from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import bn_act_plain
+from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
+    bn_act_plain,
+    bn_apply_plain,
+    bn_moments_plain,
+)
+from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act_4d import bn_act_4d_plain
 from gan_deeplearning4j_tpu_torch.ops.cuda.fused_update import rmsprop_chain_plain
 from gan_deeplearning4j_tpu_torch.ops.cuda.upsample_bwd import upsample_bwd_plain
 
@@ -74,6 +89,105 @@ def test_bn_act_wrapper_checks_its_inputs():
     with pytest.raises(TypeError, match="float32"):
         kernels.fused_bn_act_train(x.double(), torch.ones(3).double(),
                                    torch.zeros(3).double())
+
+
+# -- bn_moments / bn_apply (the sync-BN pair) ---------------------------------
+
+@pytest.mark.parametrize("B,F", [(8, 192), (5, 130), (13, 2)])
+def test_bn_moments_and_apply_match_pallas(B, F):
+    """One rank's halves of the pair, each against its Pallas kernel in
+    interpret mode (rows and lanes padded as the TPU path pads them): the
+    moments (E[x], E[x^2]), then the apply step on the moments they give.
+    The 2-rank pair with its all-reduce is tests/test_torch_dp.py's.
+    Tolerances: 1e-6 on the moments, 1e-5 on y (f32, other reduction
+    orders, values of O(1))."""
+    rng = np.random.RandomState(B * 7 + F)
+    x = (rng.randn(B, F) * 1.5 - 0.5).astype(np.float32)
+    gamma = (rng.rand(F) + 0.5).astype(np.float32)
+    beta = rng.randn(F).astype(np.float32)
+    B_pad, F_pad = -(-B // SUBLANE) * SUBLANE, -(-F // LANE) * LANE
+    xp = _pad_to(jnp.asarray(x), B_pad, F_pad)
+    mean_j, m2_j = _local_moments(xp, B, B_pad, F_pad, True)
+    var_j = m2_j - mean_j * mean_j
+    y_j = _apply(xp, mean_j, var_j, _pad_to(jnp.asarray(gamma)[None], 1, F_pad),
+                 _pad_to(jnp.asarray(beta)[None], 1, F_pad), B_pad, F_pad,
+                 1e-5, "tanh", True)[:B, :F]
+
+    mean_t, m2_t = kernels.bn_moments(torch.from_numpy(x))
+    for a, b in ((mean_t, mean_j), (m2_t, m2_j)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b)[0, :F],
+                                   rtol=1e-6, atol=1e-6)
+    var_t = m2_t - mean_t * mean_t
+    y_t = kernels.bn_apply(torch.from_numpy(x), mean_t, var_t,
+                           torch.from_numpy(gamma), torch.from_numpy(beta),
+                           1e-5, "tanh")
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_bn_pair_wrappers_check_their_inputs():
+    x, v = torch.zeros(4, 3), torch.zeros(3)
+    with pytest.raises(ValueError, match=r"\[B, F\]"):
+        kernels.bn_moments(torch.zeros(4, 3, 2))
+    with pytest.raises(TypeError, match="float32"):
+        kernels.bn_moments(x.double())
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.bn_moments(torch.zeros(4, 3, device="meta"))
+    with pytest.raises(ValueError, match="var"):
+        kernels.bn_apply(x, v, torch.zeros(4), v, v)
+    with pytest.raises(ValueError, match="does not match"):
+        kernels.bn_apply(x, v, v, v.to("meta"), v)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.bn_apply(x, v.double(), v, v, v)
+
+
+# -- bn_act_4d ---------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(8, 5, 7, 7), (6, 64, 8, 8),
+                                   (9, 3, 16, 16)])
+def test_bn_act_4d_matches_pallas(shape):
+    """Values (y, mean, var) and the gradients of sum(y^2) against the
+    Pallas 4-D kernel in interpret mode, at the shapes and with the
+    tolerances of tests/test_pallas.py (they pad rows, channels and
+    lanes): mean rtol 1e-5 atol 1e-6; var and y rtol 1e-4 atol 1e-5; the
+    gradients rtol 1e-4 atol 1e-4."""
+    rng = np.random.RandomState(7)
+    x = (rng.randn(*shape) * 2 + 1).astype(np.float32)
+    gamma = (rng.rand(shape[1]) + 0.5).astype(np.float32)
+    beta = rng.randn(shape[1]).astype(np.float32)
+
+    def loss_j(a, g, b):
+        return jnp.sum(bn_act_4d_jax(a, g, b, 1e-5, "tanh", True)[0] ** 2)
+
+    args_j = [jnp.asarray(a) for a in (x, gamma, beta)]
+    outs_j = bn_act_4d_jax(*args_j, 1e-5, "tanh", True)
+    grads_j = jax.grad(loss_j, argnums=(0, 1, 2))(*args_j)
+
+    leaves = [torch.tensor(a, requires_grad=True) for a in (x, gamma, beta)]
+    outs_t = kernels.fused_bn_act_train_4d(*leaves, 1e-5, "tanh")
+    grads_t = torch.autograd.grad(torch.sum(outs_t[0] ** 2), leaves)
+    for a, b, (rtol, atol) in zip(outs_t, outs_j, [(1e-4, 1e-5), (1e-5, 1e-6),
+                                                   (1e-4, 1e-5)]):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   rtol=rtol, atol=atol)
+    for a, b in zip(grads_t, grads_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_bn_act_4d_wrapper_checks_its_inputs():
+    x, v = torch.zeros(2, 3, 4, 4), torch.zeros(3)
+    with pytest.raises(ValueError, match=r"\[B, C, H, W\]"):
+        kernels.fused_bn_act_train_4d(torch.zeros(2, 3), v, v)
+    with pytest.raises(ValueError, match="beta"):
+        kernels.fused_bn_act_train_4d(x, v, torch.zeros(4))
+    with pytest.raises(ValueError, match="does not match"):
+        kernels.fused_bn_act_train_4d(x, v.to("meta"), v)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.fused_bn_act_train_4d(x.double(), v.double(), v.double())
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.fused_bn_act_train_4d(x.to("meta"), v.to("meta"),
+                                      v.to("meta"))
 
 
 # -- fused_update ------------------------------------------------------------
@@ -159,3 +273,12 @@ def test_cpu_tensors_take_the_plain_versions():
     up = torch.randn(2, 2, 4, 4)
     assert torch.equal(kernels.upsample_bwd(up, 2, 2),
                        upsample_bwd_plain(up, 2, 2))
+    for a, b in zip(kernels.bn_moments(x), bn_moments_plain(x)):
+        assert torch.equal(a, b)
+    mean, var = torch.randn(5), torch.rand(5)
+    assert torch.equal(kernels.bn_apply(x, mean, var, gm, bt, 1e-5, "tanh"),
+                       bn_apply_plain(x, mean, var, gm, bt, 1e-5, "tanh"))
+    x4 = torch.randn(3, 5, 2, 2)
+    for a, b in zip(kernels.fused_bn_act_train_4d(x4, gm, bt, 1e-5, "tanh"),
+                    bn_act_4d_plain(x4, gm, bt, 1e-5, "tanh")):
+        assert torch.equal(a, b)

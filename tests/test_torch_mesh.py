@@ -1,0 +1,208 @@
+"""The port's process groups and data-parallel layer on the CPU, in one
+process or in spawned gloo ranks.
+
+This module imports torch, numpy and the port only — never jax — because
+it also holds the rank jobs that ``tests/test_torch_dp.py`` hands to
+``mesh.spawn``: a spawned rank imports the module its function lives in,
+and a rank must not import jax or the JAX package.
+"""
+
+import sys
+import time
+
+import pytest
+import torch
+
+from gan_deeplearning4j_tpu_torch import interop
+from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as MT
+from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+from gan_deeplearning4j_tpu_torch.parallel import mesh
+from gan_deeplearning4j_tpu_torch.parallel.data_parallel import DataParallelGraph
+from gan_deeplearning4j_tpu_torch.train import fused_step as FT
+from gan_deeplearning4j_tpu_torch.train.gan_trainer import resolve_n_devices
+
+FIELDS = FT.ProtocolState._fields[:-1]
+DPG_CASES = (("gradient_sync", "gradient_sync", 1),
+             ("param_averaging", "param_averaging", 1),
+             ("param_averaging_batches", "param_averaging", 2))
+T = torch.from_numpy
+
+
+# -- rank jobs (run in spawned processes by tests/test_torch_dp.py) -----------
+
+def state_from_numpy(trees, it: int) -> FT.ProtocolState:
+    return FT.ProtocolState(
+        *(interop.params_from_numpy(trees[f], "cpu") for f in FIELDS), it)
+
+
+def state_to_numpy(state: FT.ProtocolState):
+    return {f: interop.params_to_numpy(getattr(state, f)) for f in FIELDS}
+
+
+def run_protocol(group, p):
+    """len(p["z"]) protocol steps from p["state"] on the resident table,
+    with the injected global latents -> [(state as numpy, losses)]."""
+    d = MT.build_discriminator(device="cpu")
+    graphs = (d, MT.build_generator(device="cpu"), MT.build_gan(device="cpu"),
+              MT.build_classifier(d))
+    step = FT.make_protocol_step(
+        *graphs, MT.DIS_TO_GAN, MT.GAN_TO_GEN, MT.DIS_TO_CLASSIFIER,
+        z_size=2, num_features=784, group=group)
+    state = state_from_numpy(p["state"], 0)
+    out = []
+    for z1, z2 in p["z"]:
+        state, losses = step(state, T(p["real"]), T(p["labels"]),
+                             T(p["y_real"]), T(p["y_fake"]), T(p["ones"]),
+                             z1=T(z1), z2=T(z2))
+        out.append((state_to_numpy(state), [float(v) for v in losses]))
+    return out
+
+
+def _pair(group, shapes):
+    """The sync-BN pair (plain versions, CPU) on this rank's rows: forward
+    and the gradients of sum(y^2) over this rank's rows."""
+    out = []
+    for x, gamma, beta in shapes:
+        bl = x.shape[0] // group.world
+        rows = x[group.rank * bl:(group.rank + 1) * bl]
+        leaves = [T(a.copy()).requires_grad_(True) for a in (rows, gamma, beta)]
+        y, mean, var = kernels.fused_bn_act_train(*leaves, 1e-5, "tanh", group)
+        grads = torch.autograd.grad(torch.sum(y ** 2), leaves)
+        out.append([t.detach().numpy() for t in (y, mean, var, *grads)])
+    return out
+
+
+def _classifier(p):
+    clf = MT.build_classifier(MT.build_discriminator(device="cpu"))
+    clf.params = interop.params_from_numpy(p["params"], "cpu", like=clf.params)
+    clf.opt_state = interop.opt_state_from_numpy(p["opt"], "cpu",
+                                                 like=clf.opt_state)
+    return clf
+
+
+def _data_parallel_graph(group, p):
+    """Each DPG_CASES case from the same classifier state: two ``fit``s,
+    or one ``fit_batches`` of the stacked batches."""
+    out = {}
+    for case, mode, freq in DPG_CASES:
+        clf = _classifier(p)
+        dp = DataParallelGraph(clf, group, mode, averaging_frequency=freq)
+        if case.endswith("_batches"):
+            losses = [dp.fit_batches(T(p["xs"]), T(p["ys"]))]
+        else:
+            losses = [dp.fit(T(x), T(y)) for x, y in zip(p["xs"][:2],
+                                                        p["ys"][:2])]
+        out[case] = ([float(v) for v in losses],
+                     interop.params_to_numpy(clf.params),
+                     interop.opt_state_to_numpy(clf.opt_state))
+    return out
+
+
+def dp_rank_job(group, payload):
+    """Everything tests/test_torch_dp.py needs from one rank, in one
+    spawn: the pair, the protocol steps, the DataParallelGraph cases, and
+    the modules of jax or the JAX package this process imported."""
+    return {
+        "pair": _pair(group, payload["pair"]),
+        "protocol": run_protocol(group, payload["protocol"]),
+        "dpg": _data_parallel_graph(group, payload["dpg"]),
+        "jax_modules": sorted(
+            m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "gan_deeplearning4j_tpu")),
+    }
+
+
+def _fail_on_rank_1(group):
+    if group.rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    return group.rank
+
+
+def _hang_on_rank_1(group):
+    if group.rank == 1:
+        time.sleep(120)
+    return group.rank
+
+
+# -- tests in this process ----------------------------------------------------
+
+@pytest.fixture
+def one_rank_group(tmp_path):
+    group = mesh.data_group(0, 1, f"file://{tmp_path}/store", "cpu")
+    try:
+        yield group
+    finally:
+        group.close()
+
+
+def test_one_rank_group_on_the_cpu_is_gloo(one_rank_group):
+    g = one_rank_group
+    assert (g.rank, g.world, g.device.type, g.backend) == (0, 1, "cpu", "gloo")
+    assert mesh.choose_backend(torch.device("cpu"), 4) == "gloo"
+
+
+def test_all_reduce_mean_keeps_the_structure(one_rank_group):
+    """One flat collective for a nested tree; the structure comes back,
+    and on one rank the mean is the input itself."""
+    tree = (torch.tensor(2.5), {"a": {"W": torch.randn(3, 2)},
+                                "b": {"v": torch.randn(4)}})
+    out = mesh.all_reduce_mean(tree, one_rank_group)
+    assert isinstance(out, tuple) and set(out[1]) == {"a", "b"}
+    assert torch.equal(out[0], tree[0])
+    assert torch.equal(out[1]["a"]["W"], tree[1]["a"]["W"])
+    assert torch.equal(out[1]["b"]["v"], tree[1]["b"]["v"])
+    assert mesh.reducer(None) is None
+
+
+def test_differentiable_mean_passes_the_gradient(one_rank_group):
+    x = torch.randn(5, requires_grad=True)
+    y = mesh.all_reduce_mean_diff(x * x, one_rank_group)
+    (g,) = torch.autograd.grad(y.sum(), x)
+    torch.testing.assert_close(g, 2 * x.detach())
+
+
+def test_resolve_n_devices_on_the_cpu():
+    assert resolve_n_devices(None, 8, "cpu") == 1
+    assert resolve_n_devices(2, 8, "cpu") == 2
+    with pytest.raises(ValueError, match="not divisible"):
+        resolve_n_devices(3, 8, "cpu")
+    with pytest.raises(ValueError, match="not divisible"):
+        resolve_n_devices(0, 8, "cpu")
+
+
+def test_data_parallel_graph_refuses_what_is_not_ported(one_rank_group):
+    clf = MT.build_classifier(MT.build_discriminator(device="cpu"))
+    for kwargs in ({"mode": "async_gradient_sharing"}, {"dcn_axis": "dcn"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DataParallelGraph(clf, one_rank_group, **kwargs)
+    with pytest.raises(ValueError, match="unknown mode"):
+        DataParallelGraph(clf, one_rank_group, mode="hogwild")
+    dp = DataParallelGraph(clf, one_rank_group)
+    with pytest.raises(ValueError, match="param_averaging"):
+        dp.fit_batches(torch.zeros(2, 4, 784), torch.zeros(2, 4, 10))
+
+
+def test_protocol_step_refuses_unequal_shares():
+    """A rank's share must be exact: 8 rows do not split into 3 ranks."""
+
+    class Three:
+        rank, world = 0, 3
+
+    step = FT.make_protocol_step(None, None, None, None, [], [], [], 2, 784,
+                                 group=Three())
+    with pytest.raises(ValueError, match="equal shares"):
+        step(None, torch.zeros(16, 784), None, None, None, torch.ones(8, 1))
+
+
+def test_spawn_reports_a_failing_rank():
+    with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
+        mesh.spawn(_fail_on_rank_1, 2, device="cpu", timeout=120)
+
+
+def test_spawn_kills_a_hung_rank():
+    """A rank that does not finish costs the timeout, not the suite: it is
+    killed, and the call fails naming it."""
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=r"ranks \[1\] did not finish"):
+        mesh.spawn(_hang_on_rank_1, 2, device="cpu", timeout=20)
+    assert time.monotonic() - t0 < 60

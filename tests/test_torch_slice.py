@@ -155,6 +155,7 @@ def test_cv_main_runs_on_cpu(capsys):
 
 _HYGIENE = r"""
 import sys
+from gan_deeplearning4j_tpu_torch.parallel import data_parallel, mesh
 from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
 t = GANTrainer(batch_size=4, n_train=8, device="cpu")
 r = t.train(1, log=None)
