@@ -15,10 +15,15 @@ exits non-zero:
   3. kernel   — each kernel against its plain torch version on the card,
                 at the shapes one DCGAN protocol step at batch 200 gives it
                 (the sync-BN pair at a 2-rank step's per-rank shapes, the
-                4-D BN at the JAX package's benchmark shapes), then the
+                4-D BN at the JAX package's benchmark shapes and at one
+                shape whose channels take its streamed branch), then the
                 times of that step's launches: kernel, plain version, one
                 PyTorch library call where there is one, and the card's
-                bound for the same work.
+                bound for the same work.  First a ``plans`` line: the
+                launch plan (cluster size, grid, shared memory, branch) of
+                each launch of the two cluster BN kernels; both must give
+                the same bits on two launches, and each is timed in turns
+                with its library call (kernel, library, library, kernel).
   4. main     — the trainer (the cv_main entry) on cuda for 20 protocol
                 steps at batch 200, full width, on synthetic MNIST; the
                 launch counters are zeroed just before and read just after,
@@ -129,6 +134,23 @@ def time_ms(fn, torch) -> float:
         f"chip_smoke: the host took {max(dropped) * 1e3:.1f} ms to enqueue a "
         f"timed group ({len(dropped)} of {2 * REPS} repetitions over 10 ms); "
         "the sleep no longer covers it")
+
+
+def in_turns(kernel_fn, library_fn, torch):
+    """(kernel ms, library ms, the four times): timed kernel, library,
+    library, kernel, so a drift of the card's clock over the run touches
+    both; each number is the mean of its two turns."""
+    k1 = time_ms(kernel_fn, torch)
+    l1 = time_ms(library_fn, torch)
+    l2 = time_ms(library_fn, torch)
+    k2 = time_ms(kernel_fn, torch)
+    return (k1 + k2) / 2, (l1 + l2) / 2, [k1, l1, l2, k2]
+
+
+def bitwise_repeat(fn, inputs, torch) -> bool:
+    """Two launches on the same inputs give the same bits."""
+    return all(torch.equal(a, b) for args in inputs
+               for a, b in zip(fn(*args), fn(*args)))
 
 
 def max_err(a, b) -> float:
@@ -302,6 +324,8 @@ def main() -> int:
     from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
     from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
     from gan_deeplearning4j_tpu_torch.ops.cuda import build
+    from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act as bn2d
+    from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act_4d as bn4d
     from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
         bn_act_plain,
         bn_apply_plain,
@@ -340,7 +364,8 @@ def main() -> int:
     t0 = time.perf_counter()
     per_kernel = build.build()
     ptxas = {n: [ln.strip() for ln in (build.build_dir() / f"lib{n}.log")
-                 .read_text().splitlines() if "registers" in ln]
+                 .read_text().splitlines()
+                 if "registers" in ln or "spill" in ln]
              for n in build.KERNELS
              if (build.build_dir() / f"lib{n}.log").exists()}
     emit("build", seconds=time.perf_counter() - t0, per_kernel=per_kernel,
@@ -392,10 +417,34 @@ def main() -> int:
             lf["p"], lf["g"], lf["c"], **lf["kw"]) for lf in leaves], torch),
         library_ms=None, bytes=20 * n_elems, flops=12 * n_elems))
 
-    # bn_act: the three 2-D train-mode BNs of a step (all tanh)
+    # the cluster BN kernels' plans at every shape this phase gives them:
+    # the step's three 2-D BNs (all tanh), the JAX package's 4-D benchmark
+    # shapes with C > 1 (benchmarks/pallas_bn_bench.py; no model path runs
+    # the 4-D kernel) and one 4-D shape (21 MB) whose 2 MB channels do not
+    # fit in a cluster's shared memory
     bn_shapes = [(BATCH, 2), (BATCH, 7 * 7 * 128), (BATCH, 1024)]
+    shapes_4d = [(200, 64, 12, 12), (128, 64, 32, 32), (128, 128, 16, 16),
+                 (128, 256, 8, 8), (128, 512, 4, 4)]
+    streamed_4d = (32, 10, 128, 128)
     bn_in = [(randn(b, f, scale=0.5), randn(f, scale=0.1, shift=1.0),
               randn(f, scale=0.1)) for b, f in bn_shapes]
+    in_4d = [(randn(*s, scale=0.5, shift=0.2), randn(s[1], scale=0.1, shift=1.0),
+              randn(s[1], scale=0.1)) for s in shapes_4d + [streamed_4d]]
+    sms = bn2d.sm_count(dev)
+
+    def plan_line(shape, plan):
+        return {"shape": list(shape), **plan._asdict(),
+                "branch": "resident" if plan.resident else "streamed"}
+
+    plans_4d = [bn4d.launch_plan(b, c, h * w, x.data_ptr(), sms)
+                for (b, c, h, w), (x, _, _) in zip(shapes_4d + [streamed_4d],
+                                                   in_4d)]
+    emit("plans", sms=sms,
+         bn_act=[plan_line(s, bn2d.launch_plan(*s, sms)) for s in bn_shapes],
+         bn_act_4d=[plan_line(s, p) for s, p in
+                    zip(shapes_4d + [streamed_4d], plans_4d)])
+    require(not plans_4d[-1].resident and all(p.resident for p in plans_4d[:-1]),
+            "bn_act_4d: the streamed shape must stream and the others not")
     err = 0.0
     for x, gm, bt in bn_in:
         yk, mk, vk = kernels.fused_bn_act_train(x, gm, bt, 1e-5, "tanh")
@@ -415,18 +464,21 @@ def main() -> int:
     gp = torch.autograd.grad(yp, (x, gm, bt), gy)
     for a, b in zip(gk, gp):
         require(within(a, b, 1e-4, 1e-3), "bn_act gradient disagrees")
+    require(bitwise_repeat(lambda *a: kernels.fused_bn_act_train(
+        *a, 1e-5, "tanh"), bn_in, torch), "bn_act: two launches differ")
     torch_f = torch.nn.functional
+    ms, library_ms, turns = in_turns(
+        lambda: [kernels.fused_bn_act_train(x, gm, bt, 1e-5, "tanh")
+                 for x, gm, bt in bn_in],
+        lambda: [torch_f.batch_norm(x, None, None, gm, bt, training=True,
+                                    eps=1e-5) for x, gm, bt in bn_in], torch)
     report.append(dict(
         name="bn_act", tolerance="|d| <= 1e-5 + 1e-4|plain| on y, "
         "1e-6 + 1e-4|plain| on mean/var", max_abs_err=err,
-        calls=[f"[{b},{f}] tanh" for b, f in bn_shapes],
-        ms=time_ms(lambda: [kernels.fused_bn_act_train(x, gm, bt, 1e-5, "tanh")
-                            for x, gm, bt in bn_in], torch),
-        plain_ms=time_ms(lambda: [bn_act_plain(x, gm, bt, 1e-5, "tanh")
-                                  for x, gm, bt in bn_in], torch),
-        library_ms=time_ms(lambda: [torch_f.batch_norm(
-            x, None, None, gm, bt, training=True, eps=1e-5)
-            for x, gm, bt in bn_in], torch),
+        calls=[f"[{b},{f}] tanh" for b, f in bn_shapes], bitwise_repeat=True,
+        ms=ms, plain_ms=time_ms(lambda: [bn_act_plain(x, gm, bt, 1e-5, "tanh")
+                                         for x, gm, bt in bn_in], torch),
+        library_ms=library_ms, turns_ms=turns,
         library_call="F.batch_norm(training=True), without the activation",
         bytes=sum(8 * b * f + 16 * f for b, f in bn_shapes),
         flops=sum(10 * b * f for b, f in bn_shapes)))
@@ -509,12 +561,7 @@ def main() -> int:
         bytes=sum(8 * b * f + 16 * f for b, f in pair_shapes),
         flops=sum(10 * b * f for b, f in pair_shapes)))
 
-    # bn_act_4d: the JAX package's benchmark shapes with C > 1
-    # (benchmarks/pallas_bn_bench.py); no model path runs it
-    shapes_4d = [(200, 64, 12, 12), (128, 64, 32, 32), (128, 128, 16, 16),
-                 (128, 256, 8, 8), (128, 512, 4, 4)]
-    in_4d = [(randn(*s, scale=0.5, shift=0.2), randn(s[1], scale=0.1, shift=1.0),
-              randn(s[1], scale=0.1)) for s in shapes_4d]
+    # bn_act_4d: the benchmark shapes and the streamed shape
     kernels.fused_bn_act_train_4d.launches = 0
     err = 0.0
     for x, gm, bt in in_4d:
@@ -533,19 +580,31 @@ def main() -> int:
     gp = torch.autograd.grad(yp, (x, gm, bt), gy)
     for a, b in zip(gk, gp):
         require(within(a, b, 1e-4, 1e-3), "bn_act_4d gradient disagrees")
+    require(bitwise_repeat(lambda *a: kernels.fused_bn_act_train_4d(
+        *a, 1e-5, "tanh"), in_4d, torch), "bn_act_4d: two launches differ")
     bn4d_launches = kernels.fused_bn_act_train_4d.launches
+    streamed_in = in_4d.pop()
     n_4d = [math.prod(s) for s in shapes_4d]
+    ms, library_ms, turns = in_turns(
+        lambda: [kernels.fused_bn_act_train_4d(x, gm, bt, 1e-5, "tanh")
+                 for x, gm, bt in in_4d],
+        lambda: [torch_f.batch_norm(x, None, None, gm, bt, training=True,
+                                    eps=1e-5) for x, gm, bt in in_4d], torch)
+    streamed_ms, streamed_library_ms, _ = in_turns(
+        lambda: kernels.fused_bn_act_train_4d(*streamed_in, 1e-5, "tanh"),
+        lambda: torch_f.batch_norm(streamed_in[0], None, None, *streamed_in[1:],
+                                   training=True, eps=1e-5), torch)
     report.append(dict(
         name="bn_act_4d", tolerance="|d| <= 1e-5 + 1e-4|plain| on y, "
         "1e-6 + 1e-4|plain| on mean/var", max_abs_err=err,
         calls=[f"[{b},{c},{h},{w}] tanh" for b, c, h, w in shapes_4d],
-        ms=time_ms(lambda: [kernels.fused_bn_act_train_4d(x, gm, bt, 1e-5, "tanh")
-                            for x, gm, bt in in_4d], torch),
+        checked_also="[{},{},{},{}] tanh (streamed branch)".format(*streamed_4d),
+        bitwise_repeat=True, ms=ms,
         plain_ms=time_ms(lambda: [bn_act_4d_plain(x, gm, bt, 1e-5, "tanh")
                                   for x, gm, bt in in_4d], torch),
-        library_ms=time_ms(lambda: [torch_f.batch_norm(
-            x, None, None, gm, bt, training=True, eps=1e-5)
-            for x, gm, bt in in_4d], torch),
+        library_ms=library_ms, turns_ms=turns,
+        streamed_ms=streamed_ms, streamed_library_ms=streamed_library_ms,
+        streamed_bound_ms=8 * math.prod(streamed_4d) / bw * 1e3,
         library_call="F.batch_norm(training=True), without the activation",
         bytes=sum(8 * n + 16 * s[1] for n, s in zip(n_4d, shapes_4d)),
         flops=sum(10 * n for n in n_4d)))
@@ -556,6 +615,7 @@ def main() -> int:
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         emit("kernel", **r)
     del graphs, dis, leaves, bn_in, up_in, pair_in, pairs, moments, in_4d
+    del streamed_in
 
     # -- 4. the main path ----------------------------------------------------
     trainer = GANTrainer(cfg, batch_size=BATCH, n_train=N_TRAIN, device="cuda")

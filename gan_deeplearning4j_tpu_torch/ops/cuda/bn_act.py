@@ -19,11 +19,12 @@ Bound on the card: device memory.  Single device: x read once and y
 written once (8 bytes per element); on the protocol step that is the
 generator's [200, 6272] BN (10.0 MB, 3.0 us at 3.35 TB/s), the
 classifier's [200, 1024] and the generator's [200, 2] input BN.  The
-kernel gives each thread one feature column, so a warp reads neighbouring
-addresses of each row, and keeps both sums in registers: one kernel, no
-intermediate in device memory.  The pair: moments read x once (4 bytes
-per element), apply reads x and writes y (8 bytes per element), at the
-per-rank shapes [B/n, F].
+kernel is one launch that reads x once: each 32-column feature group is
+split over the rows of a thread-block cluster, kept in shared memory,
+reduced across the cluster through distributed shared memory, and written
+from there (``launch_plan`` sets the split; ``csrc/bn_act.cu``).  The
+pair: moments read x once (4 bytes per element), apply reads x and writes
+y (8 bytes per element), at the per-rank shapes [B/n, F].
 
 Neither TPU path has a backward kernel and neither has the port: the
 backward recomputes through the plain composition under autograd (with
@@ -34,7 +35,8 @@ the differentiable all-reduce on the pair's path), as the JAX
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,8 +49,8 @@ ACT_CODES = {"identity": 0, "tanh": 1, "sigmoid": 2, "relu": 3, "elu": 4,
              "leakyrelu": 5}
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-    ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int] + [
+    ctypes.c_int] * 5 + [ctypes.c_void_p]
 _MOMENTS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                              ctypes.c_void_p]
 _APPLY_ARGTYPES = [ctypes.c_void_p] * 6 + [
@@ -56,6 +58,65 @@ _APPLY_ARGTYPES = [ctypes.c_void_p] * 6 + [
     ctypes.c_void_p]
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+# what csrc/bn_cluster.cuh lets a plan ask for: clusters of at most 8
+# blocks (the portable size), and the H100's 232,448 bytes of shared memory
+# a block can use less 8 KB kept for the kernels' static arrays
+# (kMaxCluster, kMaxDynamicSmem)
+MAX_CLUSTER = 8
+SMEM_PER_BLOCK = 232_448
+MAX_DYNAMIC_SMEM = SMEM_PER_BLOCK - 8_192
+# a block's share that lets three blocks (and their loads in flight) share
+# an SM's 228 KB
+TARGET_SMEM = 72 * 1024
+SMS = 132  # the H100 SXM's; the wrappers pass their card's own count
+GROUP = 32  # columns of a feature group: 128 bytes of a row, one warp
+MAX_ROW_THREADS = 16  # csrc/bn_act.cu kMaxRowThreads
+
+
+class Plan(NamedTuple):
+    """How ``csrc/bn_act.cu`` splits a [B, F] input (see launch_plan)."""
+
+    cluster: int  # K blocks per feature group
+    rows_per_block: int  # block rank r owns rows [r*R, (r+1)*R) of B
+    row_threads: int  # a block is 32 column lanes x this many row-threads
+    grid: int  # groups * K blocks
+    smem_bytes: int  # dynamic shared memory: the [R, 32] tile, 0 if streamed
+    resident: bool  # False: the streamed branch reads x twice
+
+
+def cluster_size(groups: int, units: int, bytes_for, sms: int) -> int:
+    """K for ``groups`` independent reductions of ``units`` indivisible
+    pieces each: the smallest power of two that gives the grid one block
+    per SM, then larger while a block's share (``bytes_for(K)``) is more
+    than TARGET_SMEM; at most MAX_CLUSTER and at most ``units``."""
+    k = 1
+    while k < MAX_CLUSTER and groups * k < sms and 2 * k <= units:
+        k *= 2
+    while (bytes_for(k) > TARGET_SMEM and k < MAX_CLUSTER
+           and 2 * k <= units):
+        k *= 2
+    return k
+
+
+def launch_plan(B: int, F: int, sms: int = SMS) -> Plan:
+    """The single-device kernel's split of x [B, F]: a cluster of K blocks
+    per 32-column group, each block a contiguous run of ceil(B/K) rows kept
+    in shared memory (or streamed when that does not fit)."""
+    groups = -(-F // GROUP)
+    k = cluster_size(groups, B, lambda k: -(-B // k) * GROUP * 4, sms)
+    rows = -(-B // k)
+    smem = rows * GROUP * 4
+    resident = smem <= MAX_DYNAMIC_SMEM
+    return Plan(cluster=k, rows_per_block=rows,
+                row_threads=min(MAX_ROW_THREADS, -(-rows // 2)),
+                grid=groups * k, smem_bytes=smem if resident else 0,
+                resident=resident)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # -- plain versions ------------------------------------------------------------
@@ -100,10 +161,13 @@ def _launch(x, gamma, beta, eps, act_name):
     y = torch.empty_like(x)
     mean = torch.empty(F, dtype=x.dtype, device=x.device)
     var = torch.empty(F, dtype=x.dtype, device=x.device)
+    plan = launch_plan(B, F, sm_count(x.device))
     fn = build.function("bn_act", "gan4j_bn_act", _ARGTYPES)
     code = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
               mean.data_ptr(), var.data_ptr(), B, F, eps,
-              ACT_CODES[act_name], _stream(x))
+              ACT_CODES[act_name], plan.cluster, plan.rows_per_block,
+              plan.row_threads, plan.smem_bytes, int(plan.resident),
+              _stream(x))
     build.check(code, "fused_bn_act_train")
     fused_bn_act_train.launches += 1
     return y, mean, var

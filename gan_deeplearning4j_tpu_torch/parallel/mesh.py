@@ -76,11 +76,15 @@ def data_group(rank: int, world: int, init_method: str,
     dev = rank_device(device, rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(choose_backend(dev, world),
-                            init_method=init_method, world_size=world,
-                            rank=rank)
-    return DataGroup(rank=rank, world=world, device=dev,
-                     backend=dist.get_backend())
+    backend = choose_backend(dev, world)
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank)
+    # every rank's connections are up before any rank goes on: a rank that
+    # finished early and left the group would otherwise close its sockets
+    # under a peer still connecting to it (gloo: "Connection closed by
+    # peer" in that peer's init_process_group)
+    dist.barrier(device_ids=[dev.index] if backend == "nccl" else None)
+    return DataGroup(rank=rank, world=world, device=dev, backend=backend)
 
 
 def _all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
@@ -156,14 +160,21 @@ def _rank_main(fn, rank, world, init_method, device, args, results):
         torch.set_num_threads(1)
     try:
         group = data_group(rank, world, init_method, device)
+        results.put((rank, "joined", None))
         try:
             out = fn(group, *args)
         finally:
             group.close()
-        results.put((rank, True, out))
+        results.put((rank, "done", out))
     except BaseException:  # reported to the parent, which raises
-        results.put((rank, False, traceback.format_exc()))
+        results.put((rank, "failed", traceback.format_exc()))
         raise
+
+
+# seconds a spawned rank may take from its start to joining the group: a
+# fresh interpreter imports torch and the job's module first, slowly on a
+# loaded host
+JOIN_TIMEOUT_S = 300.0
 
 
 def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
@@ -173,9 +184,11 @@ def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
     ``cuda:r``), joined through a ``file://`` rendezvous in a temporary
     directory.  Returns the ranks' results in rank order.  ``fn`` and
     ``args`` are pickled: ``fn`` must be importable from a module that
-    imports no more than the child needs.  A child that fails, or has not
-    finished within ``timeout`` seconds, fails the call: stragglers are
-    killed, and no process outlives it."""
+    imports no more than the child needs.  The ranks have JOIN_TIMEOUT_S
+    seconds from the start to join the group; ``timeout`` counts from the
+    moment the last rank joined.  A child that fails, or misses either
+    limit, fails the call: stragglers are killed, and no process outlives
+    it."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -185,29 +198,34 @@ def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
                          args=(fn, r, world, f"file://{tmp}/store", device,
                                tuple(args), results), daemon=False)
              for r in range(world)]
-    got, failed = {}, []
-    deadline = time.monotonic() + timeout
+    joined, got, failed = set(), {}, []
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    grace = float("inf")
     try:
         for p in procs:
             p.start()
         while len(got) + len(failed) < world:
-            left = deadline - time.monotonic()
+            left = min(deadline, grace) - time.monotonic()
             if left <= 0:
                 break
             try:
-                rank, ok, out = results.get(timeout=min(left, 1.0))
+                rank, what, out = results.get(timeout=min(left, 1.0))
             except queue_lib.Empty:
                 if any(p.exitcode not in (None, 0) for p in procs):
                     # a rank died without reporting; give the others a
                     # moment to report their own errors, then stop
-                    deadline = min(deadline, time.monotonic() + 5.0)
+                    grace = min(grace, time.monotonic() + 5.0)
                 continue
-            if ok:
+            if what == "joined":
+                joined.add(rank)
+                if len(joined) == world:
+                    deadline = time.monotonic() + timeout
+            elif what == "done":
                 got[rank] = out
             else:
                 failed.append(f"rank {rank}:\n{out}")
         for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()) + 5.0)
+            p.join(max(0.0, min(deadline, grace) - time.monotonic()) + 5.0)
     finally:
         alive = [p for p in procs if p.is_alive()]
         for p in alive:
@@ -218,10 +236,14 @@ def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
         shutil.rmtree(tmp, ignore_errors=True)
     if failed:
         raise RuntimeError("data-parallel rank failed:\n" + "\n".join(failed))
+    codes = {p.name: p.exitcode for p in procs}
+    if len(joined) < world:
+        raise RuntimeError(f"ranks {sorted(set(range(world)) - joined)} did "
+                           f"not join the group within {JOIN_TIMEOUT_S} s "
+                           f"(exit codes {codes})")
     missing = [r for r in range(world) if r not in got]
     if missing:
-        codes = {p.name: p.exitcode for p in procs}
         raise RuntimeError(f"ranks {missing} did not finish within "
-                           f"{timeout} s (exit codes {codes})")
+                           f"{timeout} s of joining (exit codes {codes})")
     return [got[r] for r in range(world)]
 

@@ -22,7 +22,10 @@ from gan_deeplearning4j_tpu.ops.pallas.bn_act import (
 )
 from gan_deeplearning4j_tpu.ops.pallas.dma_pipeline import upsample_bwd_dma
 from gan_deeplearning4j_tpu.ops.pallas.fused_update import fused_rmsprop_chain as chain_jax
+from gan_deeplearning4j_tpu_torch.ops import activations as act_lib
 from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act as bn2d
+from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act_4d as bn4d
 from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
     bn_act_plain,
     bn_apply_plain,
@@ -188,6 +191,212 @@ def test_bn_act_4d_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.fused_bn_act_train_4d(x.to("meta"), v.to("meta"),
                                       v.to("meta"))
+
+
+# -- the cluster kernels' launch plans (csrc/bn_act.cu, csrc/bn_act_4d.cu) ----
+#
+# The plans are computed in Python so that they are tested here; the kernels
+# check them again.  Each kernel's partition is emulated below in numpy and
+# torch: which elements each block and thread visits, and the per-block
+# partial sums combined over the cluster in rank order.
+
+# the protocol step's three, then B = 1, F = 1, ragged groups, a tall input
+# and one whose rows do not fit in eight blocks' shared memory (streamed)
+PLAN_2D = [(200, 2), (200, 6272), (200, 1024), (1, 1), (1, 1024), (9, 33),
+           (13, 300), (3000, 100), (20000, 64)]
+# chip_smoke.py's five benchmark shapes and its streamed shape, then B = 1,
+# H*W % 4 != 0, C = 1, H*W = 1 and small channels
+PLAN_4D = [(200, 64, 12, 12), (128, 64, 32, 32), (128, 128, 16, 16),
+           (128, 256, 8, 8), (128, 512, 4, 4), (32, 10, 128, 128),
+           (1, 64, 32, 32), (3, 5, 7, 7), (8, 1, 28, 28), (16, 300, 1, 1),
+           (2, 7, 6, 6)]
+ALIGNED, MISALIGNED = 256, 260  # data_ptr values: 16-byte aligned or not
+
+
+def thread_offsets_4d(begin, end, threads, hw, row_stride):
+    """The unit offsets (from the channel's first unit) that the threads of
+    one csrc/bn_act_4d.cu block visit for its units [begin, end), in the
+    kernel's order: thread t visits units begin + t, + T, ..., stepping
+    its Cursor (column, offset) without a divide.  -> int64 [end - begin]."""
+    n = max(end - begin, 0)
+    out = np.full(n, -1, dtype=np.int64)
+    t = np.arange(min(threads, n))
+    row, col = np.divmod(begin + t, hw)
+    off = row * row_stride + col
+    dcol = threads % hw
+    doff = (threads // hw) * row_stride + dcol
+    for step in range(-(-n // threads)):
+        j = t + step * threads
+        live = j < n
+        out[j[live]] = off[live]
+        col = col + dcol
+        off = off + doff
+        wrap = col >= hw
+        col[wrap] -= hw
+        off[wrap] += row_stride - hw
+    return out
+
+
+def plan_blocks_4d(B, C, HW, plan):
+    """[(rank, begin, end)] of one channel's cluster; every channel's is
+    the same, offset by its own first unit."""
+    units = B * HW // plan.vec
+    P = plan.units_per_block
+    return [(r, r * P, min(units, (r + 1) * P)) for r in range(plan.cluster)]
+
+
+@pytest.mark.parametrize("ptr", [ALIGNED, MISALIGNED])
+@pytest.mark.parametrize("shape", PLAN_4D)
+def test_bn_act_4d_plan(shape, ptr):
+    """The 4-D plan's limits, and that its blocks' and threads' ranges cover
+    every element of a channel exactly once."""
+    B, C, H, W = shape
+    HW = H * W
+    plan = bn4d.launch_plan(B, C, HW, ptr)
+    assert plan.cluster in (1, 2, 4, 8)
+    assert plan.vec == (4 if HW % 4 == 0 and ptr % 16 == 0 else 1)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= bn4d.MAX_THREADS
+    assert plan.grid == C * plan.cluster
+    units = B * HW // plan.vec
+    assert units * plan.vec == B * HW
+    assert plan.smem_bytes <= bn2d.MAX_DYNAMIC_SMEM < bn2d.SMEM_PER_BLOCK
+    share = plan.units_per_block * plan.vec * 4
+    if plan.resident:
+        assert plan.smem_bytes == share
+    else:
+        assert plan.smem_bytes == 0 and share > bn2d.MAX_DYNAMIC_SMEM
+        assert plan.cluster == bn2d.MAX_CLUSTER
+    if C * min(bn2d.MAX_CLUSTER, units) >= bn2d.SMS:
+        assert plan.grid >= bn2d.SMS
+    hw_v, stride = HW // plan.vec, C * HW // plan.vec
+    seen = np.concatenate([
+        thread_offsets_4d(b, e, plan.threads, hw_v, stride)
+        for _, b, e in plan_blocks_4d(B, C, HW, plan)])
+    want = (np.arange(B)[:, None] * stride + np.arange(hw_v)[None]).ravel()
+    assert seen.size == want.size
+    np.testing.assert_array_equal(np.sort(seen), want)
+
+
+@pytest.mark.parametrize("shape", PLAN_2D)
+def test_bn_act_plan(shape):
+    """The 2-D plan's limits, and that its blocks' rows and lanes' columns
+    cover every element exactly once."""
+    B, F = shape
+    plan = bn2d.launch_plan(B, F)
+    groups = -(-F // bn2d.GROUP)
+    assert plan.cluster in (1, 2, 4, 8)
+    assert 1 <= plan.row_threads <= bn2d.MAX_ROW_THREADS
+    assert plan.grid == groups * plan.cluster
+    assert plan.smem_bytes <= bn2d.MAX_DYNAMIC_SMEM < bn2d.SMEM_PER_BLOCK
+    share = plan.rows_per_block * bn2d.GROUP * 4
+    if plan.resident:
+        assert plan.smem_bytes == share
+    else:
+        assert plan.smem_bytes == 0 and share > bn2d.MAX_DYNAMIC_SMEM
+        assert plan.cluster == bn2d.MAX_CLUSTER
+    # a row is the smallest share: at B < 8 rows there are at most B blocks
+    if groups * min(bn2d.MAX_CLUSTER, B) >= bn2d.SMS:
+        assert plan.grid >= bn2d.SMS
+    count = np.zeros((B, groups * bn2d.GROUP), dtype=np.int64)
+    R = plan.rows_per_block
+    for r in range(plan.cluster):
+        r0, r1 = r * R, min(B, (r + 1) * R)
+        for ty in range(plan.row_threads):
+            count[r0 + ty:r1:plan.row_threads] += 1
+    assert (count[:, :F] == 1).all()
+
+
+def test_plans_at_the_main_shapes():
+    """The splits the card runs on the protocol step and on chip_smoke.py's
+    benchmark shapes: one block per SM or more, three blocks' shares per
+    SM at most, and the streamed shape streamed."""
+    assert [tuple(bn2d.launch_plan(200, f))[:3] for f in (2, 6272, 1024)] == [
+        (8, 25, 13), (1, 200, 16), (8, 25, 13)]
+    got = [bn4d.launch_plan(b, c, h * w, ALIGNED)
+           for b, c, h, w in PLAN_4D[:6]]
+    assert [(p.cluster, p.threads, p.vec, p.resident) for p in got] == [
+        (4, 256, 4, True), (8, 256, 4, True), (2, 256, 4, True),
+        (1, 256, 4, True), (1, 128, 4, True), (8, 256, 4, False)]
+    assert all(p.smem_bytes <= bn2d.TARGET_SMEM for p in got)
+
+
+def emulate_bn_act_4d(x, gamma, beta, eps, act, ptr):
+    """csrc/bn_act_4d.cu's arithmetic order on the CPU: each block's partial
+    (sum x, sum x^2) over the units its threads visit, the cluster's K
+    partials added in rank order, then each visited unit normalized and
+    written back where it was read."""
+    B, C, H, W = x.shape
+    plan = bn4d.launch_plan(B, C, H * W, ptr)
+    V = plan.vec
+    hw_v, stride = H * W // V, C * H * W // V
+    units = x.reshape(-1, V)  # [B*C*H*W/V, V]: a unit per row
+    y = torch.empty_like(units)
+    mean, var = torch.empty(C), torch.empty(C)
+    inv_n = 1.0 / (B * H * W)
+    for c in range(C):
+        parts, offs = [], []
+        for _, b, e in plan_blocks_4d(B, C, H * W, plan):
+            o = torch.from_numpy(
+                thread_offsets_4d(b, e, plan.threads, hw_v, stride)
+                + c * hw_v)
+            v = units[o]
+            parts.append((v.sum(), (v * v).sum()))
+            offs.append(o)
+        s = s2 = torch.tensor(0.0)
+        for p, p2 in parts:  # rank order
+            s, s2 = s + p, s2 + p2
+        mean[c] = s * inv_n
+        var[c] = s2 * inv_n - mean[c] * mean[c]
+        for o in offs:
+            y[o] = (units[o] - mean[c]) * torch.rsqrt(var[c] + eps) \
+                * gamma[c] + beta[c]
+    return act_lib.get(act)(y.reshape(x.shape)), mean, var
+
+
+def emulate_bn_act(x, gamma, beta, eps, act):
+    """csrc/bn_act.cu's arithmetic order on the CPU: each block's column
+    sums over its rows, the K blocks' sums added in rank order."""
+    B, F = x.shape
+    plan = bn2d.launch_plan(B, F)
+    R = plan.rows_per_block
+    s = torch.zeros(F)
+    s2 = torch.zeros(F)
+    for r in range(plan.cluster):  # rank order
+        rows = x[r * R:(r + 1) * R]
+        s, s2 = s + rows.sum(0), s2 + (rows * rows).sum(0)
+    mean = s / B
+    var = s2 / B - mean * mean
+    y = (x - mean) * torch.rsqrt(var + eps) * gamma + beta
+    return act_lib.get(act)(y), mean, var
+
+
+@pytest.mark.parametrize("ptr", [ALIGNED, MISALIGNED])
+@pytest.mark.parametrize("shape", [(3, 5, 7, 7), (2, 7, 6, 6), (1, 3, 8, 8),
+                                   (16, 300, 1, 1)])
+def test_bn_act_4d_partition_emulation(shape, ptr):
+    """The 4-D plan's partition, summed block by block and combined in rank
+    order, gives bn_act_4d_plain's values (f32, another summation order:
+    1e-5 on values of O(1))."""
+    rng = np.random.RandomState(sum(shape))
+    x = torch.from_numpy((rng.randn(*shape) * 1.5 + 0.5).astype(np.float32))
+    gamma = torch.from_numpy((rng.rand(shape[1]) + 0.5).astype(np.float32))
+    beta = torch.from_numpy(rng.randn(shape[1]).astype(np.float32))
+    got = emulate_bn_act_4d(x, gamma, beta, 1e-5, "tanh", ptr)
+    for a, b in zip(got, bn_act_4d_plain(x, gamma, beta, 1e-5, "tanh")):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(200, 2), (13, 300), (9, 33), (25, 64)])
+def test_bn_act_partition_emulation(shape):
+    """The 2-D plan's row split, summed block by block and combined in rank
+    order, gives bn_act_plain's values (tolerance as above)."""
+    rng = np.random.RandomState(shape[0] + shape[1])
+    x = torch.from_numpy((rng.randn(*shape) * 1.5 + 0.5).astype(np.float32))
+    gamma = torch.from_numpy((rng.rand(shape[1]) + 0.5).astype(np.float32))
+    beta = torch.from_numpy(rng.randn(shape[1]).astype(np.float32))
+    got = emulate_bn_act(x, gamma, beta, 1e-5, "tanh")
+    for a, b in zip(got, bn_act_plain(x, gamma, beta, 1e-5, "tanh")):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
 
 
 # -- fused_update ------------------------------------------------------------

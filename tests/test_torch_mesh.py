@@ -201,8 +201,10 @@ def test_spawn_reports_a_failing_rank():
 
 def test_spawn_kills_a_hung_rank():
     """A rank that does not finish costs the timeout, not the suite: it is
-    killed, and the call fails naming it."""
+    killed, and the call fails naming it.  The timeout counts from the
+    moment both ranks joined, so a host slow to start the two interpreters
+    does not change the outcome; rank 0 finishes at once and is not named."""
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match=r"ranks \[1\] did not finish"):
-        mesh.spawn(_hang_on_rank_1, 2, device="cpu", timeout=20)
+        mesh.spawn(_hang_on_rank_1, 2, device="cpu", timeout=10)
     assert time.monotonic() - t0 < 60
