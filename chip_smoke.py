@@ -19,7 +19,14 @@ exits non-zero:
                 shape whose channels take its streamed branch), then the
                 times of that step's launches: kernel, plain version, one
                 PyTorch library call where there is one, and the card's
-                bound for the same work.  First a ``plans`` line: the
+                bound for the same work.  The RmsProp update runs as the
+                step runs it, one multi-leaf launch per trained graph
+                (dis, gan, classifier); each launch must also give the bits
+                of one launch per leaf, of the same leaves' gradients as
+                split views of one buffer at an odd offset (the
+                data-parallel layout: the scalar path) and of a second
+                launch, and beside its device time stands the host's time
+                to enqueue the three launches.  A ``plans`` line gives the
                 launch plan (cluster size, grid, shared memory, branch) of
                 each launch of the two cluster BN kernels; both must give
                 the same bits on two launches, and each is timed in turns
@@ -27,7 +34,8 @@ exits non-zero:
   4. main     — the trainer (the cv_main entry) on cuda for 20 protocol
                 steps at batch 200, full width, on synthetic MNIST; the
                 launch counters are zeroed just before and read just after,
-                and each kernel must have run its expected count per step.
+                and each kernel must have run its expected count per step
+                (``fused_update`` once per graph update: 3).
                 Then a 10x10 latent grid from the trained generator.
   5. parity   — one protocol step on cuda (kernels) and on the CPU (plain
                 versions) from the same state, latents and targets.
@@ -326,6 +334,7 @@ def main() -> int:
     from gan_deeplearning4j_tpu_torch.ops.cuda import build
     from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act as bn2d
     from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act_4d as bn4d
+    from gan_deeplearning4j_tpu_torch.ops.cuda import fused_update as fu
     from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
         bn_act_plain,
         bn_apply_plain,
@@ -380,41 +389,91 @@ def main() -> int:
 
     report = []
 
-    # fused_update: every RmsProp leaf of the three trained graphs, with
-    # each leaf's own lr / l2 as the protocol step runs it
+    # fused_update: one multi-leaf launch per graph update, over every
+    # RmsProp leaf of the three trained graphs, with each leaf's own rates
+    # as the protocol step runs it
     cfg = M.CVConfig()
     dis = M.build_discriminator(cfg, dev)
-    graphs = [dis, M.build_gan(cfg, dev), M.build_classifier(dis, cfg)]
-    leaves = []
-    for g in graphs:
-        for layer, lp in g.params.items():
-            up = g.updater.updater_for(layer)
-            for pname, p in lp.items():
-                leaves.append(dict(
-                    p=randn(*p.shape, scale=0.05),
-                    g=randn(*p.shape, scale=0.02),
-                    c=randn(*p.shape, scale=1e-3).abs(),
-                    kw=dict(lr=up.learning_rate, rho=up.rms_decay,
-                            eps=up.epsilon,
-                            l2=g.updater.l2 if pname == "W" else 0.0,
-                            clip=g.updater.clip_threshold)))
-    n_elems = sum(lf["p"].numel() for lf in leaves)
-    err = 0.0
-    for lf in leaves:
-        pk, ck = kernels.fused_rmsprop_chain(lf["p"], lf["g"], lf["c"], **lf["kw"])
-        pp, cp = rmsprop_chain_plain(lf["p"], lf["g"], lf["c"], **lf["kw"])
-        require(within(pk, pp, 1e-6, 1e-5) and within(ck, cp, 1e-12, 1e-5),
-                f"fused_update disagrees with its plain version on a leaf "
-                f"{tuple(lf['p'].shape)}")
-        err = max(err, max_err(pk, pp), max_err(ck, cp))
+    graphs = {"dis": dis, "gan": M.build_gan(cfg, dev),
+              "classifier": M.build_classifier(dis, cfg)}
+    updates = []
+    for g in graphs.values():
+        keys = [(layer, n) for layer, lp in g.params.items() for n in lp]
+        shapes = [g.params[layer][n].shape for layer, n in keys]
+        updates.append(dict(
+            ps=[randn(*s, scale=0.05) for s in shapes],
+            gs=[randn(*s, scale=0.02) for s in shapes],
+            cs=[randn(*s, scale=1e-3).abs() for s in shapes],
+            rates=[g.updater.rates(layer, n) for layer, n in keys],
+            clip=g.updater.clip_threshold))
+
+    def chains(u, gs=None):
+        return kernels.fused_rmsprop_chains(
+            u["ps"], u["gs"] if gs is None else gs, u["cs"], u["rates"],
+            clip=u["clip"])
+
+    def chains_plain(u):
+        return [rmsprop_chain_plain(p, g, c, **r._asdict(), clip=u["clip"])
+                for p, g, c, r in zip(u["ps"], u["gs"], u["cs"], u["rates"])]
+
+    err, scalar_leaves, calls, n_elems = 0.0, 0, [], 0
+    for name_g, u in zip(graphs, updates):
+        sizes = [p.numel() for p in u["ps"]]
+        calls.append(f"{name_g}: {len(sizes)} leaves, {sum(sizes)} elements")
+        n_elems += sum(sizes)
+        pk, ck = chains(u)
+        for (pp, cp), a, b in zip(chains_plain(u), pk, ck):
+            require(within(a, pp, 1e-6, 1e-5) and within(b, cp, 1e-12, 1e-5),
+                    f"fused_update disagrees with its plain version on a "
+                    f"{name_g} leaf {tuple(pp.shape)}")
+            err = max(err, max_err(a, pp), max_err(b, cp))
+        # the same kernel launched once per leaf
+        single = [kernels.fused_rmsprop_chain(p, g, c, **r._asdict(),
+                                              clip=u["clip"])
+                  for p, g, c, r in zip(u["ps"], u["gs"], u["cs"], u["rates"])]
+        require(all(torch.equal(a, s[0]) and torch.equal(b, s[1])
+                    for a, b, s in zip(pk, ck, single)),
+                f"fused_update: the {name_g} launch differs from one launch "
+                "per leaf")
+        # the dp path's layout: the gradients as split views of one buffer,
+        # from an odd element offset, so most leaves take the scalar path
+        flat = torch.empty(1 + sum(sizes), device=dev)
+        flat[1:] = torch.cat([g.reshape(-1) for g in u["gs"]])
+        split = [v.view_as(g) for v, g in zip(flat[1:].split(sizes), u["gs"])]
+        plan = fu.launch_plan(sizes, [p.data_ptr() | g.data_ptr() | c.data_ptr()
+                                      for p, g, c in zip(u["ps"], split, u["cs"])],
+                              u["rates"], u["clip"])
+        require(len(plan.launches) == 1 and not all(plan.vec),
+                f"fused_update: the {name_g} split layout plans "
+                f"{len(plan.launches)} launches, vec {plan.vec}")
+        scalar_leaves += plan.vec.count(False)
+        ps2, cs2 = chains(u, split)
+        require(all(torch.equal(a, b) for a, b in zip(pk + ck, ps2 + cs2)),
+                f"fused_update: the {name_g} split views give other bits")
+        ps3, cs3 = chains(u)
+        require(all(torch.equal(a, b) for a, b in zip(pk + ck, ps3 + cs3)),
+                f"fused_update: two {name_g} launches differ")
+
+    def enqueue_ms():
+        """The host's time to enqueue the three launches (the wrappers' own
+        work, the device idle), median over REPS."""
+        times = []
+        for _ in range(REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for u in updates:
+                chains(u)
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
     report.append(dict(
         name="fused_update", tolerance="|d| <= 1e-6 + 1e-5|plain| on p', "
-        "1e-12 + 1e-5|plain| on the cache", max_abs_err=err,
-        calls=[f"{len(leaves)} leaves, {n_elems} elements"],
-        ms=time_ms(lambda: [kernels.fused_rmsprop_chain(
-            lf["p"], lf["g"], lf["c"], **lf["kw"]) for lf in leaves], torch),
-        plain_ms=time_ms(lambda: [rmsprop_chain_plain(
-            lf["p"], lf["g"], lf["c"], **lf["kw"]) for lf in leaves], torch),
+        "1e-12 + 1e-5|plain| on the cache", max_abs_err=err, calls=calls,
+        bitwise_single_leaf=True, bitwise_split_views=True,
+        split_scalar_leaves=scalar_leaves, bitwise_repeat=True,
+        ms=time_ms(lambda: [chains(u) for u in updates], torch),
+        enqueue_ms=enqueue_ms(),
+        plain_ms=time_ms(lambda: [chains_plain(u) for u in updates], torch),
         library_ms=None, bytes=20 * n_elems, flops=12 * n_elems))
 
     # the cluster BN kernels' plans at every shape this phase gives them:
@@ -614,7 +673,7 @@ def main() -> int:
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         emit("kernel", **r)
-    del graphs, dis, leaves, bn_in, up_in, pair_in, pairs, moments, in_4d
+    del graphs, dis, updates, bn_in, up_in, pair_in, pairs, moments, in_4d
     del streamed_in
 
     # -- 4. the main path ----------------------------------------------------
@@ -625,7 +684,7 @@ def main() -> int:
     result = trainer.train(MAIN_STEPS, log=None)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    expected = {"fused_update": n_leaves * MAIN_STEPS,
+    expected = {"fused_update": 3 * MAIN_STEPS,
                 "bn_act": 3 * MAIN_STEPS, "upsample_bwd": 2 * MAIN_STEPS,
                 "bn_moments": 0, "bn_apply": 0, "bn_act_4d": 0}
     losses = [result[k] for k in ("d_loss", "g_loss", "clf_loss")]
@@ -668,7 +727,7 @@ def main() -> int:
     ranks = mesh.spawn(dp_rank, DP_WORLD, (host,), device="cuda",
                        timeout=DP_TIMEOUT_S)
     r0 = ranks[0]
-    dp_expected = {"fused_update": r0["rmsprop_leaves"] * MAIN_STEPS,
+    dp_expected = {"fused_update": 3 * MAIN_STEPS,
                    "bn_act": 0, "upsample_bwd": 2 * MAIN_STEPS,
                    "bn_moments": 3 * MAIN_STEPS, "bn_apply": 3 * MAIN_STEPS,
                    "bn_act_4d": 0}
@@ -680,7 +739,7 @@ def main() -> int:
          step_ms_median=[r["result"]["step_ms_median"] for r in ranks],
          img_per_s=r0["result"]["img_per_s"],
          launches=[r["launches"] for r in ranks],
-         expected_launches=dp_expected,
+         expected_launches=dp_expected, rmsprop_leaves=r0["rmsprop_leaves"],
          digests=[r["digest"] for r in ranks],
          pair_max_abs_err=[r["pair_max_abs_err"] for r in ranks],
          grad_allreduce_ms=[r["grad_allreduce_ms"] for r in ranks],
@@ -728,7 +787,8 @@ def main() -> int:
          "replaces": f"gan_deeplearning4j_tpu/{REPLACES[r['name']]}",
          "launches": counted[r["name"]], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         **{k: r[k] for k in ("enqueue_ms",) if k in r}}
         for r in report]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,11 +19,12 @@ from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
 from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act_4d import fused_bn_act_train_4d
 from gan_deeplearning4j_tpu_torch.ops.cuda.fused_update import (
     fused_rmsprop_chain,
+    fused_rmsprop_chains,
 )
 from gan_deeplearning4j_tpu_torch.ops.cuda.upsample_bwd import upsample_bwd
 
 WRAPPERS = {
-    "fused_update": fused_rmsprop_chain,
+    "fused_update": fused_rmsprop_chains,
     "bn_act": fused_bn_act_train,
     "upsample_bwd": upsample_bwd,
     "bn_moments": bn_moments,
@@ -41,6 +42,6 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-__all__ = ["fused_bn_act_train", "fused_rmsprop_chain", "upsample_bwd",
-           "bn_moments", "bn_apply", "fused_bn_act_train_4d",
+__all__ = ["fused_bn_act_train", "fused_rmsprop_chain", "fused_rmsprop_chains",
+           "upsample_bwd", "bn_moments", "bn_apply", "fused_bn_act_train_4d",
            "WRAPPERS", "reset_launch_counts", "launch_counts"]

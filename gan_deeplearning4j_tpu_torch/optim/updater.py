@@ -4,9 +4,10 @@ twin of ``gan_deeplearning4j_tpu/optim/updater.py``).
 L2 weight decay goes onto the gradient of ``W`` leaves only, then every
 element is clipped to the threshold, then the layer's RmsProp rule runs.
 Layers with no updater are frozen: RmsProp at lr 0, which still passes
-their leaves through the chain (the cache moves, the param stays).  Each
-leaf's whole chain is one call of ``ops.cuda.fused_rmsprop_chain``: one
-kernel launch on the card, the plain torch chain on the CPU.
+their leaves through the chain (the cache moves, the param stays).  The
+chains of all the leaves with a gradient are one call of
+``ops.cuda.fused_rmsprop_chains``: one kernel launch per graph update on
+the card, the plain torch chain leaf by leaf on the CPU.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 from gan_deeplearning4j_tpu_torch.ops.cuda.fused_update import (
-    fused_rmsprop_chain,
+    Rates,
+    fused_rmsprop_chains,
 )
 from gan_deeplearning4j_tpu_torch.optim.rmsprop import RmsProp
 
@@ -36,6 +38,11 @@ class GraphUpdater:
     def updater_for(self, layer: str) -> RmsProp:
         return self.layer_updaters.get(layer) or _FROZEN
 
+    def rates(self, layer: str, pname: str) -> Rates:
+        up = self.updater_for(layer)
+        return Rates(up.learning_rate, up.rms_decay, up.epsilon,
+                     self.l2 if pname in _L2_PARAM_NAMES else 0.0)
+
     def init(self, params):
         return {
             layer: {pname: self.updater_for(layer).init_leaf(p)
@@ -48,13 +55,14 @@ class GraphUpdater:
         gradient entry pass through unchanged."""
         new_params = {layer: dict(lp) for layer, lp in params.items()}
         new_cache = {layer: dict(cache.get(layer, {})) for layer in params}
-        for layer, layer_grads in grads.items():
-            up = self.updater_for(layer)
-            for pname, g in layer_grads.items():
-                l2 = self.l2 if pname in _L2_PARAM_NAMES else 0.0
-                new_params[layer][pname], new_cache[layer][pname] = (
-                    fused_rmsprop_chain(
-                        params[layer][pname], g, cache[layer][pname],
-                        lr=up.learning_rate, rho=up.rms_decay,
-                        eps=up.epsilon, l2=l2, clip=self.clip_threshold))
+        keys = [(layer, pname) for layer, lg in grads.items() for pname in lg]
+        ps, cs = fused_rmsprop_chains(
+            [params[layer][pname] for layer, pname in keys],
+            [grads[layer][pname] for layer, pname in keys],
+            [cache[layer][pname] for layer, pname in keys],
+            [self.rates(layer, pname) for layer, pname in keys],
+            clip=self.clip_threshold)
+        for (layer, pname), p, c in zip(keys, ps, cs):
+            new_params[layer][pname] = p
+            new_cache[layer][pname] = c
         return new_params, new_cache

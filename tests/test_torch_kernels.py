@@ -3,6 +3,8 @@ package's Pallas function run in interpret mode (as tests/test_pallas.py
 and tests/test_pallas_dma.py run it), and the wrappers' routing — a CPU
 tensor takes the plain version and launches nothing."""
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,10 +24,12 @@ from gan_deeplearning4j_tpu.ops.pallas.bn_act import (
 )
 from gan_deeplearning4j_tpu.ops.pallas.dma_pipeline import upsample_bwd_dma
 from gan_deeplearning4j_tpu.ops.pallas.fused_update import fused_rmsprop_chain as chain_jax
+from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as MT
 from gan_deeplearning4j_tpu_torch.ops import activations as act_lib
 from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
 from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act as bn2d
 from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act_4d as bn4d
+from gan_deeplearning4j_tpu_torch.ops.cuda import fused_update as fu
 from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
     bn_act_plain,
     bn_apply_plain,
@@ -34,6 +38,7 @@ from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
 from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act_4d import bn_act_4d_plain
 from gan_deeplearning4j_tpu_torch.ops.cuda.fused_update import rmsprop_chain_plain
 from gan_deeplearning4j_tpu_torch.ops.cuda.upsample_bwd import upsample_bwd_plain
+from gan_deeplearning4j_tpu_torch.optim import updater as updater_mod
 
 
 @pytest.fixture(autouse=True)
@@ -439,6 +444,299 @@ def test_fused_update_wrapper_checks_its_inputs():
         kernels.fused_rmsprop_chain(p, torch.zeros(5), torch.zeros(4), **kw)
     with pytest.raises(TypeError, match="float32"):
         kernels.fused_rmsprop_chain(p.double(), p.double(), p.double(), **kw)
+
+
+# -- fused_update's multi-tensor launch plan (csrc/fused_update.cu) ----------
+#
+# The leaf table is computed in Python and tested here; the kernel's block
+# walk over it (each block's binary search for its leaf, its chunk, its
+# float4 part and its scalar rest) is emulated below.
+
+@pytest.fixture(scope="module")
+def dcgan_leaves():
+    """{graph: (shapes, rates, clip)} of the three graphs the protocol step
+    updates, in the order GraphUpdater.apply passes their leaves."""
+    cfg = MT.CVConfig()
+    dis = MT.build_discriminator(cfg, "cpu")
+    out = {}
+    for name, g in (("dis", dis), ("gan", MT.build_gan(cfg, "cpu")),
+                    ("classifier", MT.build_classifier(dis, cfg))):
+        keys = [(layer, n) for layer, lp in g.params.items() for n in lp]
+        out[name] = ([tuple(g.params[layer][n].shape) for layer, n in keys],
+                     [g.updater.rates(layer, n) for layer, n in keys],
+                     g.updater.clip_threshold)
+    return out
+
+
+RATES = [fu.Rates(0.002, 1e-8, 1e-8, 1e-4), fu.Rates(0.004, 1e-8, 1e-8),
+         fu.Rates(0.0, 1e-8, 1e-8, 1e-4)]
+ODD_SIZES = [1, 2, 3, 25, 1600, 0, 4097, 8192, 7]
+LONG_SIZES = [(i * 37) % 300 + 1 for i in range(100)] + [5000]
+
+
+def kernel_leaf(first_blocks, b):
+    """csrc/fused_update.cu's binary search: the last leaf whose first
+    block is <= b."""
+    lo, hi = 0, len(first_blocks) - 2
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if first_blocks[mid] <= b:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def block_walk(launch, vec):
+    """[(leaf in the launch, begin, vec_end, end)] for every block of the
+    launch, as the kernel computes them: [begin, vec_end) in float4s,
+    [vec_end, end) scalar."""
+    out = []
+    for b in range(launch.grid):
+        i = kernel_leaf(launch.first_blocks, b)
+        begin = (b - launch.first_blocks[i]) * fu.CHUNK
+        end = min(begin + fu.CHUNK, launch.sizes[i])
+        vec_end = begin + ((end - begin) & ~3) if vec[launch.start + i] else begin
+        out.append((i, begin, vec_end, end))
+    return out
+
+
+def check_plan(sizes, plan):
+    """Every element of every leaf visited exactly once, leaves in order
+    over the launches, outputs 16-byte aligned and disjoint, at most
+    MAX_LEAVES leaves a launch."""
+    assert len(plan.launches) == max(1, -(-len(sizes) // fu.MAX_LEAVES))
+    assert len(plan.vec) == len(sizes)
+    start = 0
+    for launch in plan.launches:
+        k = len(launch.sizes)
+        assert launch.start == start and 1 <= k <= fu.MAX_LEAVES
+        assert launch.sizes == tuple(sizes[start:start + k])
+        start += k
+        assert launch.first_blocks[0] == 0 and len(launch.first_blocks) == k + 1
+        ends = [0]
+        for n, off in zip(launch.sizes, launch.offsets):
+            assert off % fu.ALIGN == 0 and off >= ends[-1]
+            ends.append(off + n)
+        assert launch.total >= ends[-1] and launch.total % fu.ALIGN == 0
+        count = [np.zeros(n, dtype=np.int64) for n in launch.sizes]
+        for i, begin, vec_end, end in block_walk(launch, plan.vec):
+            assert begin < end and (vec_end - begin) % 4 == 0
+            assert end - vec_end < 4 or vec_end == begin
+            count[i][begin:end] += 1
+        assert all((c == 1).all() for c in count)
+    assert start == len(sizes)
+
+
+@pytest.mark.parametrize("graph,leaves", [("dis", 12), ("gan", 28),
+                                          ("classifier", 16)])
+def test_fused_update_plan_dcgan(dcgan_leaves, graph, leaves):
+    """The protocol step's three graph updates: one launch each, over all
+    of the graph's leaves, with the leaves' own rates and the graph's
+    clip; 16-byte-aligned inputs take float4s everywhere."""
+    shapes, rates, clip = dcgan_leaves[graph]
+    sizes = [int(np.prod(s)) for s in shapes]
+    plan = fu.launch_plan(sizes, [256] * len(sizes), rates, clip)
+    assert len(sizes) == leaves and len(plan.launches) == 1
+    assert plan.launches[0].rates == tuple(rates)
+    assert plan.launches[0].clip == clip == 1.0
+    assert all(plan.vec)
+    check_plan(sizes, plan)
+
+
+@pytest.mark.parametrize("sizes", [ODD_SIZES, LONG_SIZES, [5]],
+                         ids=["odd", "long", "one"])
+@pytest.mark.parametrize("ptr", [256, 260, 258])
+def test_fused_update_plan(sizes, ptr):
+    """Odd sizes (1, 2, 3, 25, 1,600, an empty leaf, chunk edges), a list
+    longer than the leaf cap and a single leaf, with aligned and unaligned
+    pointers."""
+    rates = [RATES[i % 3] for i in range(len(sizes))]
+    plan = fu.launch_plan(sizes, [ptr] * len(sizes), rates, 1.0)
+    assert plan.vec == (ptr % 16 == 0,) * len(sizes)
+    check_plan(sizes, plan)
+
+
+def test_fused_update_plan_vector_flag():
+    """vec follows the or-ed input pointers' 16-byte alignment, leaf by
+    leaf; the cached part of the plan does not depend on the pointers."""
+    sizes, rates = [8, 8, 8, 8, 8], [RATES[0]] * 5
+    ptrs = [0x1000, 0x1004, 0x1000 | 0x2008, 0x7f0, 0x1000 | 0x1001]
+    plan = fu.launch_plan(sizes, ptrs, rates, None)
+    assert plan.vec == (True, False, False, True, False)
+    assert plan.launches is fu.launch_plan(sizes, [0] * 5, rates, None).launches
+
+
+def test_fused_update_table_matches_the_plan():
+    """The ctypes table a launch copies: csrc/fused_update.cu's Table
+    (3,152 bytes with 48 leaves, inside the 4 KB parameter limit), with
+    the plan's sizes, offsets, blocks, rates (1 - rho from the host) and
+    clip, and no pointer filled in."""
+    assert ctypes.sizeof(fu._Table) == 3152 <= 4096
+    sizes, rates = ODD_SIZES, [RATES[i % 3] for i in range(len(ODD_SIZES))]
+    (launch,) = fu.launch_plan(sizes, [0] * len(sizes), rates, 0.5).launches
+    t, k = launch.table, len(sizes)
+    assert list(t.n[:k]) == sizes and list(t.offset[:k]) == list(launch.offsets)
+    assert list(t.first_block[:k + 1]) == list(launch.first_blocks)
+    f32 = np.float32
+    for i, r in enumerate(rates):
+        assert (t.lr[i], t.rho[i], t.eps[i], t.l2[i]) == tuple(
+            float(f32(v)) for v in (r.lr, r.rho, r.eps, r.l2))
+        assert t.one_minus_rho[i] == float(f32(1.0 - r.rho))
+    assert (t.clip, t.has_clip, t.n_leaves) == (0.5, 1, k)
+    assert not any(t.p) and not any(t.vec) and t.p_out is None
+    (unclipped,) = fu.launch_plan(sizes, [0] * k, rates, None).launches
+    assert unclipped.table.has_clip == 0
+
+
+def leaf_inputs(sizes, seed):
+    rng = np.random.RandomState(seed)
+    shapes = [(n,) if n % 5 else (5, n // 5) for n in sizes]
+    return ([torch.from_numpy(rng.randn(*s).astype(np.float32) * 0.1)
+             for s in shapes],
+            [torch.from_numpy(rng.randn(*s).astype(np.float32) * 2.0)
+             for s in shapes],
+            [torch.from_numpy(np.abs(rng.randn(*s)).astype(np.float32) * 0.5)
+             for s in shapes])
+
+
+def emulate_fused_update(ps, gs, cs, rates, clip, vec_of):
+    """csrc/fused_update.cu on the CPU: the plan's launches, each block's
+    float4 part and scalar rest through the plain chain, written at the
+    leaf's offset of two flat buffers (NaN elsewhere), then the wrapper's
+    views of them."""
+    sizes = [p.numel() for p in ps]
+    plan = fu.launch_plan(sizes, [0 if vec_of(i) else 4 for i in range(len(ps))],
+                          rates, clip)
+    p_new, c_new = [], []
+    for launch in plan.launches:
+        p_out = torch.full((launch.total,), float("nan"))
+        c_out = torch.full((launch.total,), float("nan"))
+        for i, begin, vec_end, end in block_walk(launch, plan.vec):
+            j, off, r = launch.start + i, launch.offsets[i], launch.rates[i]
+            for a, z in ((begin, vec_end), (vec_end, end)):
+                p2, c2 = rmsprop_chain_plain(
+                    ps[j].reshape(-1)[a:z], gs[j].reshape(-1)[a:z],
+                    cs[j].reshape(-1)[a:z], lr=r.lr, rho=r.rho, eps=r.eps,
+                    l2=r.l2, clip=clip)
+                p_out[off + a:off + z] = p2
+                c_out[off + a:off + z] = c2
+        for j, off in zip(range(launch.start, launch.start + len(launch.sizes)),
+                          launch.offsets):
+            p_new.append(p_out.as_strided(ps[j].shape, ps[j].stride(), off))
+            c_new.append(c_out.as_strided(ps[j].shape, ps[j].stride(), off))
+    return p_new, c_new
+
+
+@pytest.mark.parametrize("sizes", [ODD_SIZES, LONG_SIZES], ids=["odd", "long"])
+@pytest.mark.parametrize("clip", [1.0, None])
+def test_fused_update_block_walk_emulation(sizes, clip):
+    """The block walk over the plan, with every other leaf unaligned
+    (scalar path), gives the plain chain's bits on every leaf."""
+    ps, gs, cs = leaf_inputs(sizes, len(sizes))
+    rates = [RATES[i % 3] for i in range(len(sizes))]
+    got = emulate_fused_update(ps, gs, cs, rates, clip, lambda i: i % 2 == 0)
+    for j, (p, g, c, r) in enumerate(zip(ps, gs, cs, rates)):
+        want = rmsprop_chain_plain(p, g, c, lr=r.lr, rho=r.rho, eps=r.eps,
+                                   l2=r.l2, clip=clip)
+        assert torch.equal(got[0][j], want[0]) and torch.equal(got[1][j], want[1])
+
+
+def test_fused_update_block_walk_emulation_dcgan(dcgan_leaves):
+    """The same over the discriminator update's 12 real leaves (1.39M
+    elements, 345 blocks), all aligned."""
+    shapes, rates, clip = dcgan_leaves["dis"]
+    rng = np.random.RandomState(3)
+    ps, gs, cs = ([torch.from_numpy((f(rng, s) * k).astype(np.float32))
+                   for s in shapes]
+                  for f, k in ((lambda r, s: r.randn(*s), 0.05),
+                               (lambda r, s: r.randn(*s), 0.02),
+                               (lambda r, s: np.abs(r.randn(*s)), 1e-3)))
+    got = emulate_fused_update(ps, gs, cs, rates, clip, lambda i: True)
+    for j, (p, g, c, r) in enumerate(zip(ps, gs, cs, rates)):
+        want = rmsprop_chain_plain(p, g, c, lr=r.lr, rho=r.rho, eps=r.eps,
+                                   l2=r.l2, clip=clip)
+        assert torch.equal(got[0][j], want[0]) and torch.equal(got[1][j], want[1])
+
+
+def test_fused_update_multi_leaf_matches_plain_and_pallas():
+    """The multi-leaf wrapper on CPU tensors: bit-equal to the plain chain
+    leaf by leaf, and within the single-leaf test's 1e-6 of the Pallas
+    kernel in interpret mode, each leaf with its own rates (a frozen lr-0
+    leaf among them, its params bit-equal)."""
+    sizes = [1600, 7, 3, 130, 165]
+    ps, gs, cs = leaf_inputs(sizes, 11)
+    rates = [RATES[i % 3] for i in range(len(sizes))]
+    new_p, new_c = kernels.fused_rmsprop_chains(ps, gs, cs, rates, clip=1.0)
+    assert [t.shape for t in new_p] == [t.shape for t in new_c] == [
+        p.shape for p in ps]
+    for p, g, c, r, p2, c2 in zip(ps, gs, cs, rates, new_p, new_c):
+        kw = dict(lr=r.lr, rho=r.rho, eps=r.eps, l2=r.l2, clip=1.0)
+        want = rmsprop_chain_plain(p, g, c, **kw)
+        assert torch.equal(p2, want[0]) and torch.equal(c2, want[1])
+        pj, cj = chain_jax(jnp.asarray(p.numpy()), jnp.asarray(g.numpy()),
+                           jnp.asarray(c.numpy()), interpret=True, **kw)
+        np.testing.assert_allclose(p2.numpy(), np.asarray(pj), rtol=1e-6,
+                                   atol=1e-7)
+        np.testing.assert_allclose(c2.numpy(), np.asarray(cj), rtol=1e-6,
+                                   atol=1e-12)
+    assert torch.equal(new_p[2], ps[2])  # RATES[2] is frozen (lr 0)
+    assert kernels.fused_rmsprop_chains([], [], [], [], clip=1.0) == ([], [])
+
+
+def test_fused_update_multi_leaf_wrapper_checks_its_inputs():
+    p, r = torch.zeros(4), fu.Rates(0.1, 1e-8, 1e-8)
+    ok = ([p, torch.zeros(2, 3)], [p, torch.zeros(2, 3)],
+          [p, torch.zeros(2, 3)], [r, r])
+    with pytest.raises(ValueError, match="does not match"):
+        kernels.fused_rmsprop_chains(ok[0], [p, torch.zeros(3, 2)], *ok[2:])
+    with pytest.raises(ValueError, match="does not match"):
+        kernels.fused_rmsprop_chains(ok[0], ok[1], [p, torch.zeros(6)], ok[3])
+    with pytest.raises(TypeError, match="float32"):
+        kernels.fused_rmsprop_chains(ok[0], [p, torch.zeros(2, 3).double()],
+                                     *ok[2:])
+    with pytest.raises(ValueError, match="does not match leaf 0"):
+        kernels.fused_rmsprop_chains([p, torch.zeros(2, 3, device="meta")],
+                                     *ok[1:])
+    with pytest.raises(ValueError, match="does not match leaf 0"):
+        kernels.fused_rmsprop_chains(*ok[:2], [p, torch.zeros(2, 3, device="meta")],
+                                     ok[3])
+    with pytest.raises(ValueError, match="2 params, 2 gradients, 2 caches, 1"):
+        kernels.fused_rmsprop_chains(*ok[:3], [r])
+    meta = [torch.zeros(4, device="meta")]
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.fused_rmsprop_chains(meta, meta, meta, [r])
+
+
+def test_graph_updater_makes_one_call_per_update(monkeypatch):
+    """GraphUpdater.apply passes every leaf with a gradient to one
+    fused_rmsprop_chains call, with its layer's rates (l2 on W only, lr 0
+    for a frozen layer) and the graph's clip; params without a gradient
+    pass through as the same tensors, and both trees keep their
+    structure."""
+    calls = []
+
+    def spy(ps, gs, cs, rates, *, clip):
+        calls.append((len(ps), list(rates), clip))
+        return fu.fused_rmsprop_chains(ps, gs, cs, rates, clip=clip)
+
+    monkeypatch.setattr(updater_mod, "fused_rmsprop_chains", spy)
+    up = updater_mod.GraphUpdater(
+        {"dense": updater_mod.RmsProp(0.002, 1e-8, 1e-8)}, l2=1e-4,
+        clip_threshold=1.0)
+    params = {"dense": {"W": torch.randn(3, 2), "b": torch.randn(2)},
+              "frozen": {"W": torch.randn(2, 2)}, "pool": {}}
+    cache = up.init(params)
+    grads = {"dense": {"W": torch.randn(3, 2)}, "frozen": {"W": torch.randn(2, 2)}}
+    new_p, new_c = up.apply(params, grads, cache)
+    assert calls == [(2, [fu.Rates(0.002, 1e-8, 1e-8, 1e-4),
+                          fu.Rates(0.0, 1e-8, 1e-8, 1e-4)], 1.0)]
+    assert {k: set(v) for k, v in new_p.items()} == {
+        k: set(v) for k, v in params.items()} == {k: set(v) for k, v in new_c.items()}
+    assert new_p["dense"]["b"] is params["dense"]["b"]
+    assert new_c["dense"]["b"] is cache["dense"]["b"]
+    assert torch.equal(new_p["frozen"]["W"], params["frozen"]["W"])
+    assert not torch.equal(new_p["dense"]["W"], params["dense"]["W"])
 
 
 # -- upsample_bwd ------------------------------------------------------------
