@@ -28,9 +28,17 @@ exits non-zero:
                 launch, and beside its device time stands the host's time
                 to enqueue the three launches.  A ``plans`` line gives the
                 launch plan (cluster size, grid, shared memory, branch) of
-                each launch of the two cluster BN kernels; both must give
-                the same bits on two launches, and each is timed in turns
-                with its library call (kernel, library, library, kernel).
+                each launch of the two cluster BN kernels and the grids of
+                the pair's moments and apply kernels; each kernel must give
+                the same bits on two launches, and each is
+                timed in turns with its library call (kernel, library,
+                library, kernel).  The pair's apply kernel runs as the
+                data-parallel step runs it, from the all-reduced sums: its
+                mean and var must be the bits of the torch epilogue it
+                replaces, for worlds 1-4; both pair kernels must give the
+                same bits from an offset view of x (their scalar path) as
+                from x.  Beside each kernel's time stands ``floor_ms``: as
+                many back-to-back empty launches, timed the same way.
   4. main     — the trainer (the cv_main entry) on cuda for 20 protocol
                 steps at batch 200, full width, on synthetic MNIST; the
                 launch counters are zeroed just before and read just after,
@@ -48,7 +56,10 @@ exits non-zero:
                 ranks' final states bitwise equal, and the time of one
                 step's gradient all-reduces alone; then, in this process,
                 one step of a 1-rank NCCL group against the single-process
-                step.
+                step, and under torch.profiler one sync-BN forward per BN
+                shape on that group: exactly one moments and one apply
+                kernel and nothing but NCCL's work beside them (the old
+                composition, profiled beside it, shows what it replaced).
   7. the ``kernels`` line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
@@ -153,6 +164,31 @@ def in_turns(kernel_fn, library_fn, torch):
     l2 = time_ms(library_fn, torch)
     k2 = time_ms(kernel_fn, torch)
     return (k1 + k2) / 2, (l1 + l2) / 2, [k1, l1, l2, k2]
+
+
+def floor_ms(n: int, torch) -> float:
+    """What no group of ``n`` launches can beat: ``n`` back-to-back empty
+    launches (``torch.cuda._sleep(0)``) timed as ``time_ms`` times a
+    kernel's group."""
+    return time_ms(lambda: [torch.cuda._sleep(0) for _ in range(n)], torch)
+
+
+def offset_view(x, torch):
+    """A copy of ``x`` that starts 4 bytes past a 16-byte boundary (a
+    contiguous view of a larger buffer): the pair kernels' scalar path."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].view_as(x)
+
+
+def old_epilogue(sums, world, torch):
+    """The sync-BN forward's epilogue before the apply kernel took it over
+    (``mesh.all_reduce_mean`` after the collective, then ``_BnSync``):
+    -> (mean, var)."""
+    flat = torch.cat([sums.reshape(-1)])
+    flat /= world
+    stats = flat.view_as(sums)
+    return stats[0].clone(), stats[1] - torch.square(stats[0])
 
 
 def bitwise_repeat(fn, inputs, torch) -> bool:
@@ -320,6 +356,63 @@ def dp_rank(group, host):
     return out
 
 
+def sync_bn_profile(group, torch):
+    """One ``_BnSync`` forward per BN shape of a 2-rank step on ``group``
+    under torch.profiler, and the same for the composition it replaced
+    (moments kernel, ``all_reduce_mean``, clone, square, subtract, apply
+    kernel) -> {"new": ..., "old": ...}: device activities per forward,
+    their device time (ms, all three forwards) and their names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act as bn2d
+    from gan_deeplearning4j_tpu_torch.parallel import mesh
+
+    dev = group.device
+    gen = torch.Generator(device=dev).manual_seed(20261018)
+    inputs = [(torch.randn((BATCH // DP_WORLD, f), generator=gen, device=dev),
+               torch.randn(f, generator=gen, device=dev) * 0.1 + 1.0,
+               torch.randn(f, generator=gen, device=dev) * 0.1)
+              for f in (2, 7 * 7 * 128, 1024)]
+
+    def new(x, gm, bt):
+        return bn2d._BnSync.apply(x, gm, bt, 1e-5, "tanh", group)
+
+    def old(x, gm, bt):
+        stats = mesh.all_reduce_mean(bn2d._moments_launch(x), group)
+        mean = stats[0].clone()
+        var = stats[1] - torch.square(stats[0])
+        return bn2d._apply_launch(x, mean, var, gm, bt, 1e-5, "tanh"), mean, var
+
+    outs = {}
+    for label, fn in (("new", new), ("old", old)):
+        for a in inputs:  # warm-up: the collective's first call sets it up
+            fn(*a)
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = [fn(*a) for a in inputs]
+            torch.cuda.synchronize(dev)
+        acts = [(e.name, e.time_range.end - e.time_range.start)
+                for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kinds = {"bn_moments": 0, "bn_apply": 0, "nccl": 0, "other": 0}
+        for n, _ in acts:
+            kinds["bn_moments" if "bn_moments_kernel" in n else
+                  "bn_apply" if "bn_apply_kernel" in n else
+                  "nccl" if "nccl" in n.lower() else "other"] += 1
+        outs[label] = dict(
+            per_forward=len(acts) / len(inputs), kinds=kinds,
+            device_ms=sum(us for _, us in acts) / 1e3,
+            names=sorted({n[:100] for n, _ in acts}), results=res)
+    for (y, m, v), (yo, mo, vo) in zip(outs["new"].pop("results"),
+                                       outs["old"].pop("results")):
+        require(torch.equal(m, mo) and torch.equal(v, vo)
+                and within(y, yo, 1e-6, 1e-5),
+                "sync-BN forward: the new pair differs from the old "
+                "composition on a 1-rank group")
+    return outs
+
+
 def main() -> int:
     import torch
 
@@ -338,6 +431,7 @@ def main() -> int:
     from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
         bn_act_plain,
         bn_apply_plain,
+        bn_apply_sums_plain,
         bn_moments_plain,
     )
     from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act_4d import bn_act_4d_plain
@@ -474,6 +568,7 @@ def main() -> int:
         ms=time_ms(lambda: [chains(u) for u in updates], torch),
         enqueue_ms=enqueue_ms(),
         plain_ms=time_ms(lambda: [chains_plain(u) for u in updates], torch),
+        floor_ms=floor_ms(len(updates), torch),
         library_ms=None, bytes=20 * n_elems, flops=12 * n_elems))
 
     # the cluster BN kernels' plans at every shape this phase gives them:
@@ -490,6 +585,8 @@ def main() -> int:
     in_4d = [(randn(*s, scale=0.5, shift=0.2), randn(s[1], scale=0.1, shift=1.0),
               randn(s[1], scale=0.1)) for s in shapes_4d + [streamed_4d]]
     sms = bn2d.sm_count(dev)
+    # the sync-BN pair: the three 2-D BNs of a 2-rank step, per rank
+    pair_shapes = [(BATCH // DP_WORLD, f) for _, f in bn_shapes]
 
     def plan_line(shape, plan):
         return {"shape": list(shape), **plan._asdict(),
@@ -501,7 +598,11 @@ def main() -> int:
     emit("plans", sms=sms,
          bn_act=[plan_line(s, bn2d.launch_plan(*s, sms)) for s in bn_shapes],
          bn_act_4d=[plan_line(s, p) for s, p in
-                    zip(shapes_4d + [streamed_4d], plans_4d)])
+                    zip(shapes_4d + [streamed_4d], plans_4d)],
+         bn_moments=[{"shape": list(s), **bn2d.moments_plan(*s)._asdict()}
+                     for s in pair_shapes],
+         bn_apply=[{"shape": list(s), **bn2d.apply_plan(*s, sms)._asdict()}
+                   for s in pair_shapes])
     require(not plans_4d[-1].resident and all(p.resident for p in plans_4d[:-1]),
             "bn_act_4d: the streamed shape must stream and the others not")
     err = 0.0
@@ -537,6 +638,7 @@ def main() -> int:
         calls=[f"[{b},{f}] tanh" for b, f in bn_shapes], bitwise_repeat=True,
         ms=ms, plain_ms=time_ms(lambda: [bn_act_plain(x, gm, bt, 1e-5, "tanh")
                                          for x, gm, bt in bn_in], torch),
+        floor_ms=floor_ms(len(bn_in), torch),
         library_ms=library_ms, turns_ms=turns,
         library_call="F.batch_norm(training=True), without the activation",
         bytes=sum(8 * b * f + 16 * f for b, f in bn_shapes),
@@ -565,6 +667,7 @@ def main() -> int:
         ms=time_ms(lambda: [kernels.upsample_bwd(g, 2, 2) for g in up_in], torch),
         plain_ms=time_ms(lambda: [upsample_bwd_plain(g, 2, 2) for g in up_in],
                          torch),
+        floor_ms=floor_ms(len(up_in), torch),
         library_ms=time_ms(lambda: [library_block_sum(g) for g in up_in], torch),
         library_call="g.view(B,C,H,2,W,2).sum((3,5))",
         bytes=sum(4 * math.prod(s) * 5 // 4 for s in up_shapes),
@@ -572,7 +675,6 @@ def main() -> int:
 
     # bn_moments / bn_apply: the three 2-D BNs of a 2-rank step, per rank
     # (the pair's gradient needs a group: it is checked in the dp phase)
-    pair_shapes = [(BATCH // DP_WORLD, f) for _, f in bn_shapes]
     pair_in = [(randn(b, f, scale=0.5, shift=0.2), randn(f, scale=0.1, shift=1.0),
                 randn(f, scale=0.1)) for b, f in pair_shapes]
     err = 0.0
@@ -581,44 +683,96 @@ def main() -> int:
             require(within(a, b, 1e-6, 1e-4), "bn_moments disagrees with its "
                     f"plain version at {tuple(x.shape)}")
             err = max(err, max_err(a, b))
+    require(bitwise_repeat(kernels.bn_moments, [(x,) for x, _, _ in pair_in],
+                           torch), "bn_moments: two launches differ")
+    # the float4 and the scalar path: the [100, 1024] input, and the same
+    # values from an offset view
+    x = pair_in[2][0]
+    require(all(torch.equal(a, b) for a, b in zip(
+        kernels.bn_moments(x), kernels.bn_moments(offset_view(x, torch)))),
+        "bn_moments: the scalar path (offset view) gives other bits")
+    ms, library_ms, turns = in_turns(
+        lambda: [kernels.bn_moments(x) for x, _, _ in pair_in],
+        lambda: [torch.var_mean(x, dim=0, unbiased=False)
+                 for x, _, _ in pair_in], torch)
     report.append(dict(
         name="bn_moments", tolerance="|d| <= 1e-6 + 1e-4|plain|",
         max_abs_err=err, calls=[f"[{b},{f}]" for b, f in pair_shapes],
-        gradient="checked in the dp phase (2 ranks)",
-        ms=time_ms(lambda: [kernels.bn_moments(x) for x, _, _ in pair_in], torch),
+        bitwise_repeat=True, bitwise_scalar_path=True,
+        gradient="checked in the dp phase (2 ranks)", ms=ms,
         plain_ms=time_ms(lambda: [bn_moments_plain(x) for x, _, _ in pair_in],
                          torch),
-        library_ms=time_ms(lambda: [torch.var_mean(x, dim=0, unbiased=False)
-                                    for x, _, _ in pair_in], torch),
+        floor_ms=floor_ms(len(pair_in), torch),
+        library_ms=library_ms, turns_ms=turns,
         library_call="torch.var_mean(x, dim=0, unbiased=False)",
         bytes=sum(4 * b * f + 8 * f for b, f in pair_shapes),
         flops=sum(3 * b * f for b, f in pair_shapes)))
-    moments = []
-    for x, _, _ in pair_in:
+
+    # bn_apply as the step runs it: from the [2, F] sums the all-reduce
+    # leaves, for worlds 1-4 (sums made from this rank's moments times the
+    # world, plus noise); mean and var must be the old epilogue's bits
+    def sums_for(x, world):
         mean, m2 = bn_moments_plain(x)
-        moments.append((mean, m2 - mean * mean))
-    err = 0.0
-    for (x, gm, bt), (mean, var) in zip(pair_in, moments):
-        yk = kernels.bn_apply(x, mean, var, gm, bt, 1e-5, "tanh")
-        yp = bn_apply_plain(x, mean, var, gm, bt, 1e-5, "tanh")
-        require(within(yk, yp, 1e-5, 1e-4),
+        noise = randn(2, x.shape[1], scale=1e-3)
+        return torch.stack([mean, m2]) * world + noise * noise
+
+    err, worlds = 0.0, (1, 2, 3, 4)
+    for x, gm, bt in pair_in:
+        for world in worlds:
+            sums = sums_for(x, world)
+            yk, mk, vk = kernels.bn_apply_sums(x, sums, world, gm, bt, 1e-5,
+                                               "tanh")
+            yp, mp, vp = bn_apply_sums_plain(x, sums, world, gm, bt, 1e-5,
+                                             "tanh")
+            mo, vo = old_epilogue(sums, world, torch)
+            require(within(yk, yp, 1e-5, 1e-4), "bn_apply (from sums) "
+                    f"disagrees with its plain version at {tuple(x.shape)}, "
+                    f"world {world}")
+            require(all(torch.equal(a, b) for a, b in
+                        ((mk, mp), (vk, vp), (mk, mo), (vk, vo))),
+                    f"bn_apply (from sums): mean/var at {tuple(x.shape)}, "
+                    f"world {world} are not the old epilogue's bits")
+            err = max(err, max_err(yk, yp))
+        # the entry given mean and var (the wrapper bn_apply)
+        yk = kernels.bn_apply(x, mp, vp, gm, bt, 1e-5, "tanh")
+        require(within(yk, bn_apply_plain(x, mp, vp, gm, bt, 1e-5, "tanh"),
+                       1e-5, 1e-4),
                 f"bn_apply disagrees with its plain version at {tuple(x.shape)}")
-        err = max(err, max_err(yk, yp))
-    pairs = list(zip(pair_in, moments))
+    pairs = [(x, sums_for(x, DP_WORLD), gm, bt) for x, gm, bt in pair_in]
+    require(bitwise_repeat(lambda x, s, gm, bt: kernels.bn_apply_sums(
+        x, s, DP_WORLD, gm, bt, 1e-5, "tanh"), pairs, torch),
+        "bn_apply: two launches differ")
+    x, sums, gm, bt = pairs[2]
+    require(all(torch.equal(a, b) for a, b in zip(
+        kernels.bn_apply_sums(x, sums, DP_WORLD, gm, bt, 1e-5, "tanh"),
+        kernels.bn_apply_sums(offset_view(x, torch), sums, DP_WORLD, gm, bt,
+                              1e-5, "tanh"))),
+        "bn_apply: the scalar path (offset view) gives other bits")
+    moments = [old_epilogue(s, DP_WORLD, torch) for _, s, _, _ in pairs]
+    ms, library_ms, turns = in_turns(
+        lambda: [kernels.bn_apply_sums(x, s, DP_WORLD, gm, bt, 1e-5, "tanh")
+                 for x, s, gm, bt in pairs],
+        lambda: [torch_f.batch_norm(x, m, v, gm, bt, training=False, eps=1e-5)
+                 for (x, _, gm, bt), (m, v) in zip(pairs, moments)], torch)
     report.append(dict(
-        name="bn_apply", tolerance="|d| <= 1e-5 + 1e-4|plain|",
-        max_abs_err=err, calls=[f"[{b},{f}] tanh" for b, f in pair_shapes],
-        gradient="checked in the dp phase (2 ranks)",
-        ms=time_ms(lambda: [kernels.bn_apply(x, m, v, gm, bt, 1e-5, "tanh")
-                            for (x, gm, bt), (m, v) in pairs], torch),
-        plain_ms=time_ms(lambda: [bn_apply_plain(x, m, v, gm, bt, 1e-5, "tanh")
-                                  for (x, gm, bt), (m, v) in pairs], torch),
-        library_ms=time_ms(lambda: [torch_f.batch_norm(
-            x, m, v, gm, bt, training=False, eps=1e-5)
-            for (x, gm, bt), (m, v) in pairs], torch),
-        library_call="F.batch_norm(training=False), without the activation",
-        bytes=sum(8 * b * f + 16 * f for b, f in pair_shapes),
-        flops=sum(10 * b * f for b, f in pair_shapes)))
+        name="bn_apply", tolerance="|d| <= 1e-5 + 1e-4|plain| on y; mean and "
+        "var bitwise equal to the torch epilogue", max_abs_err=err,
+        calls=[f"[{b},{f}] tanh, from the sums of {DP_WORLD} ranks"
+               for b, f in pair_shapes], worlds_checked=list(worlds),
+        bitwise_repeat=True, bitwise_scalar_path=True,
+        gradient="checked in the dp phase (2 ranks)", ms=ms,
+        mean_var_entry_ms=time_ms(lambda: [
+            kernels.bn_apply(x, m, v, gm, bt, 1e-5, "tanh")
+            for (x, _, gm, bt), (m, v) in zip(pairs, moments)], torch),
+        plain_ms=time_ms(lambda: [bn_apply_sums_plain(x, s, DP_WORLD, gm, bt,
+                                                      1e-5, "tanh")
+                                  for x, s, gm, bt in pairs], torch),
+        floor_ms=floor_ms(len(pairs), torch),
+        library_ms=library_ms, turns_ms=turns,
+        library_call="F.batch_norm(training=False) on the epilogue's mean/var, "
+        "without the epilogue or the activation",
+        bytes=sum(8 * b * f + 24 * f for b, f in pair_shapes),
+        flops=sum(10 * b * f + 5 * f for b, f in pair_shapes)))
 
     # bn_act_4d: the benchmark shapes and the streamed shape
     kernels.fused_bn_act_train_4d.launches = 0
@@ -664,6 +818,7 @@ def main() -> int:
         library_ms=library_ms, turns_ms=turns,
         streamed_ms=streamed_ms, streamed_library_ms=streamed_library_ms,
         streamed_bound_ms=8 * math.prod(streamed_4d) / bw * 1e3,
+        floor_ms=floor_ms(len(in_4d), torch),
         library_call="F.batch_norm(training=True), without the activation",
         bytes=sum(8 * n + 16 * s[1] for n, s in zip(n_4d, shapes_4d)),
         flops=sum(10 * n for n in n_4d)))
@@ -766,13 +921,18 @@ def main() -> int:
             require(group.backend == "nccl",
                     f"1-rank group on {group.backend}, not nccl")
             loss_err, worst = group_vs_single(group, host)
+            sync_bn = sync_bn_profile(group, torch)
         finally:
             group.close()
     finally:
         shutil.rmtree(rdv, ignore_errors=True)
     emit("dp_nccl1", backend="nccl", loss_rel_err=loss_err, worst=worst,
-         tolerance=STEP_TOL)
+         tolerance=STEP_TOL, sync_bn_forward=sync_bn)
     require_step_match("1-rank NCCL step vs single", loss_err, worst)
+    kinds = sync_bn["new"]["kinds"]
+    require(kinds["bn_moments"] == kinds["bn_apply"] == 3
+            and kinds["other"] == 0 and sync_bn["new"]["per_forward"] <= 3,
+            f"a sync-BN forward is not moments, collective, apply: {sync_bn}")
 
     # -- 7. the kernels line and the result ----------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
@@ -788,6 +948,7 @@ def main() -> int:
          "launches": counted[r["name"]], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "floor_ms": r["floor_ms"],
          **{k: r[k] for k in ("enqueue_ms",) if k in r}}
         for r in report]}), flush=True)
     print(smi, flush=True)

@@ -5,6 +5,8 @@ function and a launch counter (an int attribute on the wrapper, raised by
 one per kernel launch and nowhere else).  A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.  Kernels build at
 first use (build.py); importing this package compiles nothing.
+``bn_apply_sums`` is a second entry of the apply kernel (it finishes the
+moments from the all-reduced sums): its launches count as ``bn_apply``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Dict
 
 from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
     bn_apply,
+    bn_apply_sums,
     bn_moments,
     fused_bn_act_train,
 )
@@ -43,5 +46,6 @@ def launch_counts() -> Dict[str, int]:
 
 
 __all__ = ["fused_bn_act_train", "fused_rmsprop_chain", "fused_rmsprop_chains",
-           "upsample_bwd", "bn_moments", "bn_apply", "fused_bn_act_train_4d",
+           "upsample_bwd", "bn_moments", "bn_apply", "bn_apply_sums",
+           "fused_bn_act_train_4d",
            "WRAPPERS", "reset_launch_counts", "launch_counts"]

@@ -11,9 +11,10 @@ path, ``csrc/bn_moments_apply.cu``).
 
 Returns (y, mean, var).  With a group of more than one rank the moments
 are the global batch's: the moments kernel gives this rank's E[x], E[x^2]
-as one [2, F] buffer, one all-reduce takes their mean over the ranks, and
-the apply kernel normalizes with the result — the TPU path's moments
-kernel, ``pmean``, apply kernel.
+as one [2, F] buffer, one in-place all-reduce sums it over the ranks, and
+the apply kernel takes the sums, finishes the moments (divide by the
+world, var = m2 - mean^2) and normalizes — the TPU path's moments kernel,
+``pmean``, apply kernel, with no launch between them but the collective.
 
 Bound on the card: device memory.  Single device: x read once and y
 written once (8 bytes per element); on the protocol step that is the
@@ -24,7 +25,10 @@ split over the rows of a thread-block cluster, kept in shared memory,
 reduced across the cluster through distributed shared memory, and written
 from there (``launch_plan`` sets the split; ``csrc/bn_act.cu``).  The
 pair: moments read x once (4 bytes per element), apply reads x and writes
-y (8 bytes per element), at the per-rank shapes [B/n, F].
+y (8 bytes per element), at the per-rank shapes [B/n, F]; a thread of
+either owns 4 neighbouring columns (float4) of a 32-column group, the
+moments give a group one block (``moments_plan``), and the apply grid is
+row chunks x column groups (``apply_plan``; ``csrc/bn_moments_apply.cu``).
 
 Neither TPU path has a backward kernel and neither has the port: the
 backward recomputes through the plain composition under autograd (with
@@ -51,11 +55,13 @@ ACT_CODES = {"identity": 0, "tanh": 1, "sigmoid": 2, "relu": 3, "elu": 4,
 _ARGTYPES = [ctypes.c_void_p] * 6 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int] + [
     ctypes.c_int] * 5 + [ctypes.c_void_p]
-_MOMENTS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
-                                             ctypes.c_void_p]
-_APPLY_ARGTYPES = [ctypes.c_void_p] * 6 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+_MOMENTS_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
+_APPLY_ARGTYPES = [ctypes.c_void_p] * 6 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p]
+_APPLY_SUMS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -72,6 +78,15 @@ TARGET_SMEM = 72 * 1024
 SMS = 132  # the H100 SXM's; the wrappers pass their card's own count
 GROUP = 32  # columns of a feature group: 128 bytes of a row, one warp
 MAX_ROW_THREADS = 16  # csrc/bn_act.cu kMaxRowThreads
+# the sync-BN pair (csrc/bn_moments_apply.cu): 8 lanes of 4 neighbouring
+# columns make a 32-column group (kGroupCols), a warp holds 4 row-threads
+# (kWarpRows), a block at most 32 (kMaxRowThreads); a moments thread keeps
+# 8 loads in flight (kMomentsUnroll), an apply thread 2 (kApplyRows)
+PAIR_GROUP = 32
+WARP_ROWS = 4
+PAIR_MAX_ROW_THREADS = 32
+MOMENTS_UNROLL = 8
+APPLY_ROWS = 2
 
 
 class Plan(NamedTuple):
@@ -114,6 +129,52 @@ def launch_plan(B: int, F: int, sms: int = SMS) -> Plan:
                 resident=resident)
 
 
+class MomentsPlan(NamedTuple):
+    """How ``csrc/bn_moments_apply.cu``'s moments kernel splits [B, F]."""
+
+    row_threads: int  # a block is 8 lanes x this many row-threads
+    grid: int  # one block per 32-column group
+
+
+def moments_plan(B: int, F: int) -> MomentsPlan:
+    """The moments kernel's split of x [B, F]: one block per 32-column
+    group, with the fewest row-threads (whole warps of 4, at most 32) that
+    give each thread one round of at most MOMENTS_UNROLL loads; a taller
+    input (B > 32 x 8) takes more rounds."""
+    warps = max(1, -(-B // (MOMENTS_UNROLL * WARP_ROWS)))
+    return MomentsPlan(row_threads=min(PAIR_MAX_ROW_THREADS, WARP_ROWS * warps),
+                       grid=-(-F // PAIR_GROUP))
+
+
+class ApplyPlan(NamedTuple):
+    """How ``csrc/bn_moments_apply.cu``'s apply kernel splits [B, F]."""
+
+    row_threads: int  # a block is 8 lanes x this many row-threads
+    rows_per_block: int  # the block's chunk of rows; thread t takes t, t+RT..
+    grid: Tuple[int, int]  # (row chunks, column groups)
+
+
+def apply_plan(B: int, F: int, sms: int = SMS) -> ApplyPlan:
+    """The apply kernel's split of x [B, F]: one block per (chunk of
+    row_threads * APPLY_ROWS rows, 32-column group), so each thread has
+    APPLY_ROWS rows in flight; row_threads the largest power of two from
+    PAIR_MAX_ROW_THREADS down to WARP_ROWS that still gives the grid one
+    block per SM."""
+    groups = -(-F // PAIR_GROUP)
+    rt = PAIR_MAX_ROW_THREADS
+    while rt > WARP_ROWS and groups * -(-B // (rt * APPLY_ROWS)) < sms:
+        rt //= 2
+    rows = rt * APPLY_ROWS
+    return ApplyPlan(row_threads=rt, rows_per_block=rows,
+                     grid=(-(-B // rows), groups))
+
+
+def float4_ok(cols: int, *tensors: torch.Tensor) -> bool:
+    """The pair kernels' float4 path: every row of every tensor starts on a
+    16-byte boundary."""
+    return cols % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -150,6 +211,19 @@ def bn_act_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return bn_apply_plain(x, mean, var, gamma, beta, eps, act_name), mean, var
 
 
+def bn_apply_sums_plain(x: torch.Tensor, sums: torch.Tensor, world: int,
+                        gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                        act_name: str) -> Triple:
+    """The apply step from the ranks' summed moments: ``sums`` [2, F] is the
+    all-reduce sum of every rank's (E[x], E[x^2]).  Their mean over the
+    ranks, var = m2 - mean^2 (the pmean and epilogue of the TPU path), then
+    ``bn_apply_plain`` -> (y, mean, var)."""
+    stats = sums / world
+    mean = stats[0].clone()
+    var = stats[1] - torch.square(stats[0])
+    return bn_apply_plain(x, mean, var, gamma, beta, eps, act_name), mean, var
+
+
 # -- kernels -------------------------------------------------------------------
 
 def _stream(x: torch.Tensor) -> int:
@@ -177,10 +251,11 @@ def _moments_launch(x: torch.Tensor) -> torch.Tensor:
     """-> [2, F]: row 0 E[x], row 1 E[x^2]."""
     B, F = x.shape
     stats = torch.empty((2, F), dtype=x.dtype, device=x.device)
+    plan = moments_plan(B, F)
     fn = build.function("bn_moments_apply", "gan4j_bn_moments",
                         _MOMENTS_ARGTYPES)
-    code = fn(x.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), B, F,
-              _stream(x))
+    code = fn(x.data_ptr(), stats.data_ptr(), B, F, plan.row_threads,
+              int(float4_ok(F, x, stats)), _stream(x))
     build.check(code, "bn_moments")
     bn_moments.launches += 1
     return stats
@@ -189,13 +264,34 @@ def _moments_launch(x: torch.Tensor) -> torch.Tensor:
 def _apply_launch(x, mean, var, gamma, beta, eps, act_name) -> torch.Tensor:
     B, F = x.shape
     y = torch.empty_like(x)
+    plan = apply_plan(B, F, sm_count(x.device))
     fn = build.function("bn_moments_apply", "gan4j_bn_apply", _APPLY_ARGTYPES)
     code = fn(x.data_ptr(), mean.data_ptr(), var.data_ptr(), gamma.data_ptr(),
               beta.data_ptr(), y.data_ptr(), B, F, eps, ACT_CODES[act_name],
-              _stream(x))
+              plan.row_threads, plan.rows_per_block,
+              int(float4_ok(F, x, mean, var, gamma, beta, y)), _stream(x))
     build.check(code, "bn_apply")
     bn_apply.launches += 1
     return y
+
+
+def _apply_sums_launch(x, sums, world, gamma, beta, eps, act_name) -> Triple:
+    B, F = x.shape
+    y = torch.empty_like(x)
+    mean = torch.empty(F, dtype=x.dtype, device=x.device)
+    var = torch.empty(F, dtype=x.dtype, device=x.device)
+    plan = apply_plan(B, F, sm_count(x.device))
+    fn = build.function("bn_moments_apply", "gan4j_bn_apply_sums",
+                        _APPLY_SUMS_ARGTYPES)
+    code = fn(x.data_ptr(), sums.data_ptr(), gamma.data_ptr(),
+              beta.data_ptr(), y.data_ptr(), mean.data_ptr(), var.data_ptr(),
+              B, F, world, eps, ACT_CODES[act_name], plan.row_threads,
+              plan.rows_per_block,
+              int(float4_ok(F, x, sums, gamma, beta, y, mean, var)),
+              _stream(x))
+    build.check(code, "bn_apply")
+    bn_apply.launches += 1
+    return y, mean, var
 
 
 def recompute_grads(ctx, cotangents, plain, *args):
@@ -222,17 +318,16 @@ class _BnAct(torch.autograd.Function):
 
 
 class _BnSync(torch.autograd.Function):
-    """The pair on the card: moments kernel, all-reduce, apply kernel."""
+    """The pair on the card: moments kernel, one in-place all-reduce sum,
+    apply kernel (which finishes the moments): three device launches."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps, act_name, group):
         ctx.save_for_backward(x, gamma, beta)
         ctx.eps, ctx.act_name, ctx.group = eps, act_name, group
-        stats = mesh.all_reduce_mean(_moments_launch(x), group)
-        mean = stats[0].clone()
-        var = stats[1] - torch.square(stats[0])
-        y = _apply_launch(x, mean, var, gamma, beta, eps, act_name)
-        return y, mean, var
+        sums = mesh.all_reduce_sum_(_moments_launch(x), group)
+        return _apply_sums_launch(x, sums, group.world, gamma, beta, eps,
+                                  act_name)
 
     @staticmethod
     def backward(ctx, gy, gmean, gvar):
@@ -294,6 +389,30 @@ def bn_apply(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
                          kernel_act("bn_apply", act_name))
 
 
+def bn_apply_sums(x: torch.Tensor, sums: torch.Tensor, world: int,
+                  gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5,
+                  act_name: str = "identity") -> Triple:
+    """-> (y, mean, var) from ``sums`` [2, F], the sum over ``world`` ranks
+    of each rank's (E[x], E[x^2]) (as the all-reduce leaves it): mean = the
+    first row / world, var = the second / world - mean^2, then the apply
+    step.  A CPU x takes the plain version; a CUDA x launches the apply
+    kernel (counted as ``bn_apply``), which finishes the moments itself."""
+    check_inputs("bn_apply_sums", x, "B, F", gamma=gamma, beta=beta)
+    if (sums.shape != (2, x.shape[1]) or sums.device != x.device
+            or sums.dtype != torch.float32):
+        raise ValueError(f"bn_apply_sums: sums {tuple(sums.shape)} "
+                         f"{sums.dtype} on {sums.device} is not f32 "
+                         f"[2, {x.shape[1]}] on {x.device}")
+    if int(world) < 1:
+        raise ValueError(f"bn_apply_sums: world {world} < 1")
+    if x.device.type == "cpu":
+        return bn_apply_sums_plain(x, sums, int(world), gamma, beta, eps,
+                                   act_name.lower())
+    return _apply_sums_launch(x.contiguous(), sums.contiguous(), int(world),
+                              gamma.contiguous(), beta.contiguous(),
+                              float(eps), kernel_act("bn_apply_sums", act_name))
+
+
 def fused_bn_act_train(x: torch.Tensor, gamma: torch.Tensor,
                        beta: torch.Tensor, eps: float = 1e-5,
                        act_name: str = "identity",
@@ -302,7 +421,7 @@ def fused_bn_act_train(x: torch.Tensor, gamma: torch.Tensor,
     ``group`` of more than one rank, x is this rank's rows and the moments
     are the global batch's (sync-BN).  A CPU x takes the plain version; a
     CUDA x launches the single-device kernel, or the moments and apply
-    kernels with an all-reduce between them."""
+    kernels with one all-reduce between them."""
     check_inputs("fused_bn_act_train", x, "B, F", gamma=gamma, beta=beta)
     sync = group if group is not None and group.world > 1 else None
     if x.device.type == "cpu":

@@ -4,6 +4,8 @@
 rank and joins them in a ``torch.distributed`` group).
 
   data_group(rank, world, init_method, device)  join the group
+  all_reduce_sum_(t, group)                     in-place sum over ranks of one
+                                                contiguous tensor (no copy)
   all_reduce_mean(tree, group)                  forward-only mean over ranks
                                                 of a tensor / nested dict /
                                                 tuple of tensors, one flat
@@ -91,6 +93,18 @@ def _all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
     """In-place sum over the ranks of the default group."""
     dist.all_reduce(t, op=dist.ReduceOp.SUM)
     return t
+
+
+def all_reduce_sum_(t: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    """``t`` becomes its sum over the ranks of ``group``, in place: one
+    collective and no other device work (sync-BN's moments go through it
+    between the two kernels).  Returns ``t``.  Every rank passes a tensor
+    of the same shape."""
+    if not t.is_contiguous():
+        raise ValueError(f"all_reduce_sum_ takes a contiguous tensor, got "
+                         f"shape {tuple(t.shape)} strides {t.stride()} "
+                         f"(rank {group.rank} of {group.world})")
+    return _all_reduce_sum_(t)
 
 
 def _leaves(tree) -> List[torch.Tensor]:

@@ -192,6 +192,27 @@ def test_sync_bn_pair_matches_jax_spmd(dp, i):
         np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("i", range(len(PAIR_SHAPES)),
+                         ids=[f"{b}x{f}" for b, f in PAIR_SHAPES])
+def test_sync_bn_sums_route_matches_jax_spmd(dp, i):
+    """The sync-BN forward as the card runs it (moments, one in-place
+    all-reduce sum, the apply step finishing the moments from the sums;
+    plain versions on two gloo ranks) against the Pallas SPMD forward, with
+    test_sync_bn_pair_matches_jax_spmd's tolerances: mean rtol 1e-5 atol
+    1e-6; var and y rtol 1e-4 atol 1e-5.  It also gives the bits of the
+    differentiable composition the CPU path runs (the same sums, the same
+    divide and epilogue)."""
+    y_j, mean_j, var_j = dp["pair_jax"][i][:3]
+    per_rank = [r["pair_sums"][i] for r in dp["ranks"]]
+    for r, ref in zip(per_rank, (r["pair"][i] for r in dp["ranks"])):
+        np.testing.assert_allclose(r[1], mean_j, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(r[2], var_j, rtol=1e-4, atol=1e-5)
+        for a, b in zip(r, ref[:3]):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(np.concatenate([r[0] for r in per_rank]), y_j,
+                               rtol=1e-4, atol=1e-5)
+
+
 def test_dp_step_matches_jax_mesh_step(dp):
     """Step one, the binding check, with the bands of
     tests/test_torch_slice.py: losses 1e-5 relative, params 2e-5

@@ -33,6 +33,7 @@ from gan_deeplearning4j_tpu_torch.ops.cuda import fused_update as fu
 from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
     bn_act_plain,
     bn_apply_plain,
+    bn_apply_sums_plain,
     bn_moments_plain,
 )
 from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act_4d import bn_act_4d_plain
@@ -147,6 +148,79 @@ def test_bn_pair_wrappers_check_their_inputs():
         kernels.bn_apply(x, v, v, v.to("meta"), v)
     with pytest.raises(TypeError, match="float32"):
         kernels.bn_apply(x, v.double(), v, v, v)
+
+
+def random_sums(B, F, world, seed):
+    """(x [B, F], sums [2, F], gamma, beta): sums as ``world`` ranks' summed
+    moments (rank r's E[x] and E[x^2] this x's scaled by f = 1 + 0.1 r and
+    f^2, so var >= the mean f^2 times this x's var > 0)."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.randn(B, F) * 1.5 - 0.5).astype(np.float32))
+    mean, m2 = bn_moments_plain(x)
+    parts = [torch.stack([mean * (1 + 0.1 * r), m2 * (1 + 0.1 * r) ** 2])
+             for r in range(world)]
+    sums = torch.stack(parts).sum(0)
+    gamma = torch.from_numpy((rng.rand(F) + 0.5).astype(np.float32))
+    beta = torch.from_numpy(rng.randn(F).astype(np.float32))
+    return x, sums, gamma, beta
+
+
+@pytest.mark.parametrize("world", [1, 2, 3, 4])
+def test_bn_apply_sums_prologue_emulation(world):
+    """csrc/bn_moments_apply.cu's from-sums prologue in float32 numpy:
+    mean = s * (1/world), var = s2 * (1/world) - mean * mean, each product
+    and the difference rounded on its own (no FMA).  That is the torch
+    composition with the divide taken as a multiply by the float
+    reciprocal, which is how torch divides a CUDA tensor by a Python scalar
+    (the card's check in chip_smoke.py holds the kernel to the old epilogue
+    there).  On the CPU torch divides: for powers of two the plain version
+    gives the same bits; for world 3 some elements differ by one unit in
+    the last place, so this case tells the two apart."""
+    x, sums, gamma, beta = random_sums(5, 130, world, 10 + world)
+    s = sums.numpy()
+    inv = np.float32(1.0) / np.float32(world)
+    mean = s[0] * inv
+    var = s[1] * inv - mean * mean
+    stats = sums * torch.tensor(inv)
+    np.testing.assert_array_equal(mean, stats[0].numpy())
+    np.testing.assert_array_equal(
+        var, (stats[1] - torch.square(stats[0])).numpy())
+    y_p, mean_p, var_p = bn_apply_sums_plain(x, sums, world, gamma, beta,
+                                             1e-5, "tanh")
+    assert torch.equal(y_p, bn_apply_plain(x, mean_p, var_p, gamma, beta,
+                                           1e-5, "tanh"))
+    if world & (world - 1) == 0:
+        np.testing.assert_array_equal(mean, mean_p.numpy())
+        np.testing.assert_array_equal(var, var_p.numpy())
+    else:
+        assert not (np.array_equal(mean, mean_p.numpy())
+                    and np.array_equal(var, var_p.numpy()))
+        np.testing.assert_array_max_ulp(mean, mean_p.numpy(), maxulp=1)
+
+
+def test_bn_apply_sums_wrapper_checks_its_inputs():
+    x, v, sums = torch.zeros(4, 3), torch.zeros(3), torch.zeros(2, 3)
+    with pytest.raises(ValueError, match=r"\[2, 3\]"):
+        kernels.bn_apply_sums(x, torch.zeros(3), 2, v, v)
+    with pytest.raises(ValueError, match=r"\[2, 3\]"):
+        kernels.bn_apply_sums(x, torch.zeros(2, 4), 2, v, v)
+    with pytest.raises(ValueError, match=r"\[2, 3\]"):
+        kernels.bn_apply_sums(x, sums.double(), 2, v, v)
+    with pytest.raises(ValueError, match=r"\[2, 3\]"):
+        kernels.bn_apply_sums(x, sums.to("meta"), 2, v, v)
+    with pytest.raises(ValueError, match="world 0"):
+        kernels.bn_apply_sums(x, sums, 0, v, v)
+    with pytest.raises(ValueError, match="beta"):
+        kernels.bn_apply_sums(x, sums, 2, v, torch.zeros(4))
+    with pytest.raises(TypeError, match="float32"):
+        kernels.bn_apply_sums(x.double(), sums, 2, v, v)
+
+
+def test_bn_apply_sums_cpu_takes_the_plain_version():
+    x, sums, gamma, beta = random_sums(6, 5, 2, 3)
+    for a, b in zip(kernels.bn_apply_sums(x, sums, 2, gamma, beta, 1e-5, "TANH"),
+                    bn_apply_sums_plain(x, sums, 2, gamma, beta, 1e-5, "tanh")):
+        assert torch.equal(a, b)
 
 
 # -- bn_act_4d ---------------------------------------------------------------
@@ -323,6 +397,131 @@ def test_plans_at_the_main_shapes():
         (4, 256, 4, True), (8, 256, 4, True), (2, 256, 4, True),
         (1, 256, 4, True), (1, 128, 4, True), (8, 256, 4, False)]
     assert all(p.smem_bytes <= bn2d.TARGET_SMEM for p in got)
+
+
+# the sync-BN pair (csrc/bn_moments_apply.cu) at a 2-rank step's per-rank
+# shapes and ragged ones: F = 2 (the scalar path), 130 (a ragged group),
+# 6272; B = 1, 5, 100
+PLAN_PAIR = [(B, F) for F in (2, 130, 6272) for B in (1, 5, 100)]
+
+
+def moments_thread_rows(B, ty, rt):
+    """The rows one moments thread reads, in the kernel's order: rounds of
+    MOMENTS_UNROLL rows ty, ty + rt, ..., each row < B."""
+    out, b0, u_max = [], ty, bn2d.MOMENTS_UNROLL
+    while b0 < B:
+        out += [b0 + u * rt for u in range(u_max) if b0 + u * rt < B]
+        b0 += u_max * rt
+    return out
+
+
+def apply_thread_rows(r0, r1, ty, rt):
+    """The rows one apply thread writes: r0 + ty, + rt, ..., APPLY_ROWS of
+    them, each < r1."""
+    return [r0 + ty + u * rt for u in range(bn2d.APPLY_ROWS)
+            if r0 + ty + u * rt < r1]
+
+
+@pytest.mark.parametrize("shape", PLAN_PAIR + [(20000, 64)],
+                         ids=[f"{b}x{f}" for b, f in PLAN_PAIR + [(20000, 64)]])
+def test_bn_moments_plan(shape):
+    """The moments plan: one block per column group, whole warps of
+    row-threads (at most 32), and the row-threads' rounds reading each row
+    exactly once, in one round of loads a thread where 32 row-threads allow
+    it (B <= 256) and in several for a taller input."""
+    B, F = shape
+    plan = bn2d.moments_plan(B, F)
+    rt = plan.row_threads
+    assert plan.grid == -(-F // bn2d.PAIR_GROUP)
+    assert rt % bn2d.WARP_ROWS == 0 and 0 < rt <= bn2d.PAIR_MAX_ROW_THREADS
+    count = np.zeros(B, dtype=np.int64)
+    for ty in range(rt):
+        mine = moments_thread_rows(B, ty, rt)
+        if B <= bn2d.PAIR_MAX_ROW_THREADS * bn2d.MOMENTS_UNROLL:
+            assert len(mine) <= bn2d.MOMENTS_UNROLL
+        count[mine] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("shape", PLAN_PAIR + [(20000, 64)],
+                         ids=[f"{b}x{f}" for b, f in PLAN_PAIR + [(20000, 64)]])
+def test_bn_apply_plan(shape):
+    """The apply plan: column groups cover F, row chunks of APPLY_ROWS rows
+    a row-thread cover B (the C entry refuses a longer chunk), whole warps
+    of row-threads, one block per SM or more where a warp per block allows
+    it, and the threads' rows cover every row of a chunk exactly once."""
+    B, F = shape
+    plan = bn2d.apply_plan(B, F)
+    chunks, groups = plan.grid
+    rt, R = plan.row_threads, plan.rows_per_block
+    assert groups == -(-F // bn2d.PAIR_GROUP)
+    assert rt in (4, 8, 16, 32) and R == rt * bn2d.APPLY_ROWS
+    assert (chunks - 1) * R < B <= chunks * R
+    if groups * -(-B // (bn2d.WARP_ROWS * bn2d.APPLY_ROWS)) >= bn2d.SMS:
+        assert chunks * groups >= bn2d.SMS
+    count = np.zeros(B, dtype=np.int64)
+    for c in range(chunks):
+        for ty in range(rt):
+            for b in apply_thread_rows(c * R, min(B, (c + 1) * R), ty, rt):
+                count[b] += 1
+    assert (count == 1).all()
+
+
+def test_pair_plans_at_the_main_shapes():
+    """The splits the card runs at a 2-rank step's per-rank shapes."""
+    assert [tuple(bn2d.moments_plan(100, f)) for f in (2, 6272, 1024)] == [
+        (16, 1), (16, 196), (16, 32)]
+    assert [tuple(bn2d.apply_plan(100, f)) for f in (2, 6272, 1024)] == [
+        (4, 8, (13, 1)), (32, 64, (2, 196)), (8, 16, (7, 32))]
+    assert tuple(bn2d.moments_plan(20000, 64)) == (32, 2)
+
+
+def test_pair_float4_flag():
+    """The float4 path needs F % 4 == 0 and every tensor 16-byte aligned;
+    an offset view of a buffer (the chip check's scalar path) fails it."""
+    x = torch.zeros(4, 8)
+    buf = torch.zeros(33)
+    assert bn2d.float4_ok(8, x, torch.zeros(2, 8))
+    assert not bn2d.float4_ok(8, buf[1:].view(4, 8))
+    assert not bn2d.float4_ok(6, torch.zeros(4, 6))
+
+
+def emulate_bn_moments(x):
+    """csrc/bn_moments_apply.cu's moments in the kernel's order on the CPU
+    (f32 throughout): each row-thread's sum over its rows in walk order, a
+    warp's 4 row-threads folded as its shuffles fold them ((0 + 2) + (1 +
+    3)), the warps' sums added in warp order, times 1/B.  (The kernel's
+    x*x term is an FMA, here a rounded product.)"""
+    B, F = x.shape
+    rt = bn2d.moments_plan(B, F).row_threads
+    xn = x.numpy()
+
+    def thread_sums(ty):
+        s, s2 = np.zeros(F, np.float32), np.zeros(F, np.float32)
+        for b in moments_thread_rows(B, ty, rt):
+            s, s2 = s + xn[b], s2 + xn[b] * xn[b]
+        return s, s2
+
+    threads = [thread_sums(ty) for ty in range(rt)]
+    total = [np.zeros(F, np.float32), np.zeros(F, np.float32)]
+    for w in range(0, rt, bn2d.WARP_ROWS):  # warp order
+        t0, t1, t2, t3 = threads[w:w + bn2d.WARP_ROWS]
+        for j in range(2):
+            total[j] = total[j] + ((t0[j] + t2[j]) + (t1[j] + t3[j]))
+    inv_n = np.float32(1.0) / np.float32(B)
+    return [torch.from_numpy(t * inv_n) for t in total]
+
+
+@pytest.mark.parametrize("shape", [(100, 2), (100, 1024), (5, 130), (1, 6),
+                                   (300, 8)])
+def test_bn_moments_partition_emulation(shape):
+    """The moments kernel's summation order, emulated, gives
+    bn_moments_plain's values (f32, another summation order: 1e-6 on values
+    of O(1)); (300, 8) takes two rounds of loads a thread."""
+    rng = np.random.RandomState(sum(shape))
+    x = torch.from_numpy((rng.randn(*shape) * 1.5 - 0.5).astype(np.float32))
+    for a, b in zip(emulate_bn_moments(x), bn_moments_plain(x)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-6)
 
 
 def emulate_bn_act_4d(x, gamma, beta, eps, act, ptr):

@@ -16,6 +16,10 @@ import torch
 from gan_deeplearning4j_tpu_torch import interop
 from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as MT
 from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
+    bn_apply_sums_plain,
+    bn_moments_plain,
+)
 from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.parallel.data_parallel import DataParallelGraph
 from gan_deeplearning4j_tpu_torch.train import fused_step as FT
@@ -72,6 +76,20 @@ def _pair(group, shapes):
     return out
 
 
+def _pair_sums(group, shapes):
+    """The sync-BN forward as the card runs it, in plain versions, on this
+    rank's rows: the moments, one in-place all-reduce sum of the stacked
+    [2, F], the apply step from the sums -> (y, mean, var)."""
+    out = []
+    for x, gamma, beta in shapes:
+        bl = x.shape[0] // group.world
+        rows = T(x[group.rank * bl:(group.rank + 1) * bl].copy())
+        sums = mesh.all_reduce_sum_(torch.stack(bn_moments_plain(rows)), group)
+        out.append([t.numpy() for t in bn_apply_sums_plain(
+            rows, sums, group.world, T(gamma), T(beta), 1e-5, "tanh")])
+    return out
+
+
 def _classifier(p):
     clf = MT.build_classifier(MT.build_discriminator(device="cpu"))
     clf.params = interop.params_from_numpy(p["params"], "cpu", like=clf.params)
@@ -104,6 +122,7 @@ def dp_rank_job(group, payload):
     the modules of jax or the JAX package this process imported."""
     return {
         "pair": _pair(group, payload["pair"]),
+        "pair_sums": _pair_sums(group, payload["pair"]),
         "protocol": run_protocol(group, payload["protocol"]),
         "dpg": _data_parallel_graph(group, payload["dpg"]),
         "jax_modules": sorted(
@@ -152,6 +171,19 @@ def test_all_reduce_mean_keeps_the_structure(one_rank_group):
     assert torch.equal(out[1]["a"]["W"], tree[1]["a"]["W"])
     assert torch.equal(out[1]["b"]["v"], tree[1]["b"]["v"])
     assert mesh.reducer(None) is None
+
+
+def test_all_reduce_sum_is_in_place(one_rank_group):
+    """One rank: the sum is the tensor itself, and it is the same object."""
+    t = torch.randn(2, 5)
+    ref = t.clone()
+    out = mesh.all_reduce_sum_(t, one_rank_group)
+    assert out is t and torch.equal(t, ref)
+
+
+def test_all_reduce_sum_refuses_a_non_contiguous_tensor(one_rank_group):
+    with pytest.raises(ValueError, match="contiguous"):
+        mesh.all_reduce_sum_(torch.randn(5, 2).t(), one_rank_group)
 
 
 def test_differentiable_mean_passes_the_gradient(one_rank_group):
