@@ -40,27 +40,38 @@ exits non-zero:
                 from x.  Beside each kernel's time stands ``floor_ms``: as
                 many back-to-back empty launches, timed the same way.
   4. main     — the trainer (the cv_main entry) on cuda for 20 protocol
-                steps at batch 200, full width, on synthetic MNIST; the
-                launch counters are zeroed just before and read just after,
-                and each kernel must have run its expected count per step
-                (``fused_update`` once per graph update: 3).
-                Then a 10x10 latent grid from the trained generator.
+                steps at batch 200, full width, on synthetic MNIST, as
+                cv_main runs it on one card: the step captured as a CUDA
+                graph, two calls of 10 replays.  The launch counters are
+                zeroed just before and read just after (a replay counts
+                the launches its capture recorded), and each kernel must
+                have run its expected count per step (``fused_update`` once
+                per graph update: 3).  Then a 10x10 latent grid from the
+                trained generator.
   5. parity   — one protocol step on cuda (kernels) and on the CPU (plain
                 versions) from the same state, latents and targets.
-  6. dp       — data parallel over torch.distributed, two ranks (one per
+  6. graph    — from one start, 20 eager steps against two graphed calls
+                of 10 replays, bitwise (losses and the final state), with
+                and without the generator EMA; the eager and the graphed
+                step timed in turns, the capture's seconds and memory, and
+                the copy-back's device time.
+  7. dp       — data parallel over torch.distributed, two ranks (one per
                 card over NCCL when two cards are attached, else both on
                 cuda:0 over gloo), one process each: the sync-BN pair's
                 gradient against its plain composition, one 2-rank step
                 against one single-process step, then 20 trainer steps at
                 global batch 200 with exact per-rank launch counts and the
                 ranks' final states bitwise equal, and the time of one
-                step's gradient all-reduces alone; then, in this process,
+                step's gradient all-reduces alone, then 4 steps of the
+                unfused per-fit loop with param_averaging (exact launch
+                counts, the ranks' states bitwise equal after the last
+                average); then, in this process,
                 one step of a 1-rank NCCL group against the single-process
                 step, and under torch.profiler one sync-BN forward per BN
                 shape on that group: exactly one moments and one apply
                 kernel and nothing but NCCL's work beside them (the old
                 composition, profiled beside it, shows what it replaced).
-  7. the ``kernels`` line, the nvidia-smi line, and last
+  8. the ``kernels`` line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is available.
@@ -81,9 +92,14 @@ import time
 
 BATCH = 200
 MAIN_STEPS = 20
+MAIN_K = 10  # steps per call of the main path: two calls
+GRAPH_STEPS = 20  # the graph phase's eager run and graphed run
+TURN_CALLS = 5  # calls of MAIN_K steps in one timed turn
 N_TRAIN = 10000
 DP_WORLD = 2
 DP_TIMEOUT_S = 300
+PA_STEPS = 4  # the dp phase's param_averaging run
+PA_FREQ = 2
 REPS = 30
 SLEEP_CYCLES = 40_000_000  # ~20 ms at the H100's ~2 GHz clock
 # each kernel's CUDA source and the Pallas kernel it replaces
@@ -221,13 +237,15 @@ STEP_TOL = {"loss": 1e-4, "param": 4e-3, "cache": 5e-2}
 def step_diff(ref, got):
     """(loss relative error, {kind: (worst, where)}) between two
     (state, losses) results of the protocol step."""
+    from gan_deeplearning4j_tpu_torch.train.fused_step import state_trees
+
     (s_ref, l_ref), (s_got, l_got) = ref, got
     loss_err = max(abs(float(a) - float(b)) / max(abs(float(a)), 1e-6)
                    for a, b in zip(l_ref, l_got))
     worst = {"param": (0.0, ""), "cache": (0.0, "")}
-    for field in s_ref._fields[:-1]:
+    for field, tree in state_trees(s_ref):
         kind = "cache" if field.endswith("_opt") else "param"
-        for layer, lp in getattr(s_ref, field).items():
+        for layer, lp in tree.items():
             for pname, a in lp.items():
                 b = getattr(s_got, field)[layer][pname].to(a.device)
                 d = max_err(a, b)
@@ -278,15 +296,93 @@ def group_vs_single(group, host):
 
 
 def state_digest(state) -> str:
-    """sha256 over every tensor of a ProtocolState, in a fixed order."""
+    """sha256 over every tensor of a ProtocolState (the EMA tree included
+    when there is one) and its step counter, in a fixed order."""
+    from gan_deeplearning4j_tpu_torch.train.fused_step import state_trees
+
     h = hashlib.sha256()
-    for field in state._fields[:-1]:
-        for layer in sorted(getattr(state, field)):
-            for pname, t in sorted(getattr(state, field)[layer].items()):
+    for field, tree in state_trees(state):
+        for layer in sorted(tree):
+            for pname, t in sorted(tree[layer].items()):
                 h.update(f"{field}.{layer}.{pname}".encode())
                 h.update(t.detach().cpu().numpy().tobytes())
-    h.update(str(state.it).encode())
+    h.update(str(int(state.it)).encode())
     return h.hexdigest()
+
+
+def graph_phase(cfg, torch):
+    """The graphed step against the eager step on one card, at batch 200
+    and full width, without and with the EMA: from one start, GRAPH_STEPS
+    eager steps (calls of MAIN_K) against GRAPH_STEPS // MAIN_K graphed
+    calls of MAIN_K replays must give the same losses and the same final
+    state, bit for bit.  Without the EMA, also: the eager and the graphed
+    step timed in turns (E G G E, each turn TURN_CALLS calls, a call ending
+    in its readback) and the copy-back's device time.  (What each cuDNN
+    algorithm policy costs and whether it keeps the bits: ``python -m
+    gan_deeplearning4j_tpu_torch.train.cudnn_ab``.)"""
+    from gan_deeplearning4j_tpu_torch.train import fused_step
+    from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
+
+    out = {}
+    for ema in (0.0, 0.999):
+        trainer = GANTrainer(cfg, batch_size=BATCH, n_train=N_TRAIN,
+                             device="cuda", steps_per_call=MAIN_K,
+                             ema_decay=ema)
+        graphed = trainer.graphed
+        # the eager run from the graph's start: a copy of the static state,
+        # and a generator at the state the graph's generator starts from
+        z_gen = torch.Generator(device=trainer.device)
+        z_gen.set_state(trainer.z_gen.get_state())
+        box = {"state": fused_step.clone_state(graphed.state)}
+        step = trainer.step_fn(MAIN_K)
+        inputs = (trainer.features, trainer.labels, trainer.y_real,
+                  trainer.y_fake, trainer.ones)
+
+        def eager():
+            box["state"], losses = step(box["state"], *inputs, z_gen=z_gen)
+            return torch.stack(losses, -1).cpu()
+
+        def replays():
+            return graphed(MAIN_K)
+
+        calls = GRAPH_STEPS // MAIN_K
+        le = torch.cat([eager() for _ in range(calls)])
+        lg = torch.cat([replays() for _ in range(calls)])
+        res = dict(steps=GRAPH_STEPS, steps_per_call=MAIN_K,
+                   losses_bitwise=torch.equal(le, lg),
+                   loss_max_abs_diff=max_err(le, lg),
+                   digest_eager=state_digest(box["state"]),
+                   digest_graphed=state_digest(graphed.state),
+                   setup=graphed.setup, launches_per_replay=graphed.launches)
+        if not ema:
+            def turn(fn):
+                times = []
+                for _ in range(TURN_CALLS):
+                    t0 = time.perf_counter()
+                    fn()
+                    times.append(time.perf_counter() - t0)
+                return statistics.median(times) / MAIN_K * 1e3
+
+            turns = [turn(eager), turn(replays), turn(replays), turn(eager)]
+            res["turns_ms"] = turns
+            res["eager_ms"] = (turns[0] + turns[3]) / 2
+            res["graphed_ms"] = (turns[1] + turns[2]) / 2
+            res["eager_img_per_s"] = BATCH / res["eager_ms"] * 1e3
+            res["graphed_img_per_s"] = BATCH / res["graphed_ms"] * 1e3
+            # the copy of a new state into the static one, as the graph ends
+            a = fused_step.clone_state(graphed.state)
+            b = fused_step.clone_state(graphed.state)
+            res["copy_back_ms"] = time_ms(lambda: fused_step.copy_state_(a, b),
+                                          torch)
+            res["copy_back_bytes"] = 2 * sum(
+                t.numel() * t.element_size() for _, tree in
+                fused_step.state_trees(a) for lp in tree.values()
+                for t in lp.values())
+            del a, b
+        out["ema" if ema else "plain"] = res
+        del trainer, graphed, box
+        torch.cuda.empty_cache()
+    return out
 
 
 def dp_rank(group, host):
@@ -297,6 +393,7 @@ def dp_rank(group, host):
     from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
     from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import bn_act_plain
     from gan_deeplearning4j_tpu_torch.parallel import mesh
+    from gan_deeplearning4j_tpu_torch.train import fused_step
     from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
 
     dev = group.device
@@ -353,6 +450,17 @@ def dp_rank(group, host):
         torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
     out["grad_allreduce_ms"] = statistics.median(times[1:]) * 1e3
+    # the unfused per-fit loop, param_averaging: local steps (BN on the
+    # rank's rows), params and updater state averaged after every fit
+    pa = GANTrainer(M.CVConfig(), batch_size=BATCH, n_train=N_TRAIN,
+                    group=group, fused=False, dp_mode="param_averaging",
+                    averaging_frequency=PA_FREQ)
+    kernels.reset_launch_counts()
+    out["pa_result"] = pa.train(PA_STEPS, log=None)
+    torch.cuda.synchronize(dev)
+    out["pa_launches"] = kernels.launch_counts()
+    out["pa_digest"] = state_digest(fused_step.state_from_graphs(
+        pa.dis, pa.gen, pa.gan, pa.classifier, start_step=pa.steps))
     return out
 
 
@@ -458,10 +566,14 @@ def main() -> int:
          device=name, nvidia_smi=smi, device_count=torch.cuda.device_count(),
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_deterministic=torch.backends.cudnn.deterministic,
+         cudnn_benchmark=torch.backends.cudnn.benchmark,
          bandwidth_bytes_per_s=bw)
     require(not torch.backends.cudnn.allow_tf32
-            and not torch.backends.cuda.matmul.allow_tf32,
-            "TF32 is on; the port runs in f32 parity mode")
+            and not torch.backends.cuda.matmul.allow_tf32
+            and torch.backends.cudnn.deterministic,
+            "TF32 is on or cuDNN may pick nondeterministic algorithms; the "
+            "port runs in f32 parity mode")
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -832,7 +944,11 @@ def main() -> int:
     del streamed_in
 
     # -- 4. the main path ----------------------------------------------------
-    trainer = GANTrainer(cfg, batch_size=BATCH, n_train=N_TRAIN, device="cuda")
+    # as cv_main runs it on one card: the step captured as a CUDA graph (at
+    # construction), MAIN_STEPS steps in calls of MAIN_K replays; the
+    # counters count each replay as the launches its capture recorded
+    trainer = GANTrainer(cfg, batch_size=BATCH, n_train=N_TRAIN, device="cuda",
+                         steps_per_call=MAIN_K)
     n_leaves = sum(len(lp) for g in (trainer.dis, trainer.gan, trainer.classifier)
                    for lp in g.opt_state.values())
     kernels.reset_launch_counts()
@@ -846,14 +962,19 @@ def main() -> int:
     grid = trainer.sample_grid(10)
     emit("main", steps=result["steps"], batch=BATCH, n_train=N_TRAIN,
          losses=losses, step_ms_median=result["step_ms_median"],
-         img_per_s=result["img_per_s"], launches=launches,
+         img_per_s=result["img_per_s"], graphed=result["graphed"],
+         steps_per_call=result["steps_per_call"],
+         launches_per_replay=trainer.graphed.launches, launches=launches,
          expected_launches=expected, rmsprop_leaves=n_leaves,
          grid_shape=list(grid.shape))
+    require(result["graphed"] and result["steps_per_call"] == MAIN_K,
+            f"main: graphed {result['graphed']}, K {result['steps_per_call']}")
     require(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
     require(launches == expected,
             f"launch counts {launches} != expected {expected}")
     require(tuple(grid.shape) == (100, 1, 28, 28)
             and bool(torch.isfinite(grid).all()), "bad latent grid")
+    del trainer, grid
 
     # -- 5. one step on the card against one on the CPU ----------------------
     rng = torch.Generator().manual_seed(7)
@@ -877,7 +998,16 @@ def main() -> int:
     require_step_match("parity", loss_err, worst)
     del out_cpu, out_gpu
 
-    # -- 6. data parallel ----------------------------------------------------
+    # -- 6. the graphed step against the eager step --------------------------
+    graph = graph_phase(cfg, torch)
+    emit("graph", batch=BATCH, **graph)
+    for label, res in graph.items():
+        require(res["losses_bitwise"]
+                and res["digest_eager"] == res["digest_graphed"],
+                f"graph ({label}): the graphed step's bits differ from the "
+                f"eager step's (losses max |d| {res['loss_max_abs_diff']})")
+
+    # -- 7. data parallel ----------------------------------------------------
     n_cards = torch.cuda.device_count()
     ranks = mesh.spawn(dp_rank, DP_WORLD, (host,), device="cuda",
                        timeout=DP_TIMEOUT_S)
@@ -912,6 +1042,29 @@ def main() -> int:
                            *r["step_vs_single"])
     require(len({r["digest"] for r in ranks}) == 1,
             "dp: the ranks' states differ after the run")
+    pa_expected = {"fused_update": 3 * PA_STEPS, "bn_act": 3 * PA_STEPS,
+                   "upsample_bwd": 2 * PA_STEPS, "bn_moments": 0,
+                   "bn_apply": 0, "bn_act_4d": 0}
+    pa_losses = [r0["pa_result"][k] for k in ("d_loss", "g_loss", "clf_loss")]
+    emit("dp_param_averaging", world=DP_WORLD, backend=r0["backend"],
+         steps=r0["pa_result"]["steps"], averaging_frequency=PA_FREQ,
+         losses=pa_losses,
+         step_ms_median=[r["pa_result"]["step_ms_median"] for r in ranks],
+         launches=[r["pa_launches"] for r in ranks],
+         expected_launches=pa_expected,
+         digests=[r["pa_digest"] for r in ranks])
+    require(r0["pa_result"]["steps"] == PA_STEPS
+            and not r0["pa_result"]["fused"],
+            f"dp param_averaging: {r0['pa_result']}")
+    require(all(math.isfinite(v) for v in pa_losses),
+            f"dp param_averaging: non-finite losses {pa_losses}")
+    for r in ranks:
+        require(r["pa_launches"] == pa_expected,
+                f"dp param_averaging rank {r['rank']}: launch counts "
+                f"{r['pa_launches']} != expected {pa_expected}")
+    require(len({r["pa_digest"] for r in ranks}) == 1,
+            "dp param_averaging: the ranks' states differ after the last "
+            "average")
     # a 1-rank NCCL group in this process, so the NCCL path runs on a
     # one-card machine too
     rdv = tempfile.mkdtemp(prefix="gan4j_nccl1_")
@@ -934,7 +1087,7 @@ def main() -> int:
             and kinds["other"] == 0 and sync_bn["new"]["per_forward"] <= 3,
             f"a sync-BN forward is not moments, collective, apply: {sync_bn}")
 
-    # -- 7. the kernels line and the result ----------------------------------
+    # -- 8. the kernels line and the result ----------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
     # pair, and the kernel phase's check for the 4-D BN, which no model
     # path runs (as in the JAX package)

@@ -20,6 +20,10 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace gan4j {
 
 namespace cg = cooperative_groups;
@@ -66,12 +70,34 @@ cudaError_t allow_max_dynamic_smem(Kernel kernel) {
                               kMaxDynamicSmem);
 }
 
+// cudaSuccess if one cluster of ``cfg`` fits on the card at all, else
+// cudaErrorInvalidConfiguration or the query's own error.  The answer for a
+// (kernel, cluster size, block, shared memory) is asked of
+// cudaOccupancyMaxActiveClusters once and kept: it does not change, and a
+// launch recorded into a CUDA graph (stream capture) then makes no query.
+template <typename Kernel>
+cudaError_t cluster_fits(Kernel kernel, const cudaLaunchConfig_t& cfg, int k) {
+  using Key = std::tuple<const void*, int, unsigned, unsigned, unsigned, size_t>;
+  static std::mutex mu;
+  static std::map<Key, cudaError_t> known;
+  const Key key{reinterpret_cast<const void*>(kernel), k, cfg.blockDim.x,
+                cfg.blockDim.y, cfg.blockDim.z, cfg.dynamicSmemBytes};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = known.find(key);
+  if (it != known.end()) return it->second;
+  int clusters = 0;
+  cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (e == cudaSuccess && clusters < 1) e = cudaErrorInvalidConfiguration;
+  known.emplace(key, e);
+  return e;
+}
+
 // Launches ``kernel`` as clusters of ``k`` blocks along x with
 // cudaLaunchKernelEx and a cluster-dimension attribute.  For k > 1 it first
-// asks cudaOccupancyMaxActiveClusters whether one such cluster fits on the
-// card at all, and returns cudaErrorInvalidConfiguration if none does.
-// k = 1 launches without the attribute: the block is then its own implicit
-// cluster, and the launch costs less.  Returns the launch's own error.
+// checks (cluster_fits) that one such cluster fits on the card at all, and
+// returns cudaErrorInvalidConfiguration if none does.  k = 1 launches
+// without the attribute: the block is then its own implicit cluster, and
+// the launch costs less.  Returns the launch's own error.
 template <typename... Params, typename... Args>
 cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, dim3 block,
                            int k, size_t smem, cudaStream_t stream,
@@ -89,10 +115,8 @@ cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, dim3 block,
   cfg.attrs = attr;
   cfg.numAttrs = k > 1 ? 1 : 0;
   if (k > 1) {
-    int clusters = 0;
-    const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    const cudaError_t e = cluster_fits(kernel, cfg, k);
     if (e != cudaSuccess) return e;
-    if (clusters < 1) return cudaErrorInvalidConfiguration;
   }
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }

@@ -3,9 +3,10 @@ graph/graph.py``).
 
 Parameters are a plain ``{layer: {param: tensor}}`` tree on the graph's
 device, and every step is functional: ``_train_step`` takes params and
-updater state and returns new ones without touching its inputs.  So the
-protocol's cross-graph weight syncs are dict assignments that alias
-tensors, as they are pytree merges in the JAX package.
+updater state and returns new ones without touching its inputs (``fit``
+runs it on the graph's own state).  So the protocol's cross-graph weight
+syncs are dict assignments that alias tensors, as they are pytree merges
+in the JAX package.  Listeners are not ported.
 """
 
 from __future__ import annotations
@@ -257,6 +258,22 @@ class ComputationGraph:
         for lname, upd in state_updates.items():
             new_params[lname].update(upd)
         return new_params, new_opt_state, loss
+
+    def fit(self, features, labels) -> torch.Tensor:
+        """One optimization step on a batch — DL4J ``ComputationGraph.fit``,
+        the unit the reference's ``SparkComputationGraph.fit`` reduces to per
+        worker (``parallel/data_parallel.py`` for the distributed one).
+        ``features``/``labels``: a tensor for the single input/output, or a
+        dict by name.  Sets ``score`` and returns the loss (a 0-d tensor on
+        the graph's device)."""
+        inputs = (features if isinstance(features, dict)
+                  else dict(zip(self.input_names, [features])))
+        label_map = (labels if isinstance(labels, dict)
+                     else dict(zip(self.output_names, [labels])))
+        self.params, self.opt_state, loss = self._train_step(
+            self.params, self.opt_state, inputs, label_map)
+        self.score = loss
+        return loss
 
     # -- param access (the GAN protocol's weight-sync surface) ---------------
 

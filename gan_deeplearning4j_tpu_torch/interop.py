@@ -3,7 +3,10 @@
 Both packages keep the same tree ``{layer: {param: array}}`` with the same
 names and layouts (dense W [n_in, n_out], conv W OIHW), so a carry is a
 dtype/device move with shape checks.  The port only sees numpy: a caller
-holding JAX arrays passes ``jax.tree.map(np.asarray, graph.params)``.
+holding JAX arrays passes ``jax.tree.map(np.asarray, graph.params)``.  The
+generator EMA (``ProtocolState.ema_gen``) is a params tree of the
+generator's layout and crosses with ``params_from_numpy`` /
+``params_to_numpy`` like any other.
 """
 
 from __future__ import annotations

@@ -13,8 +13,10 @@ _EPS = 1e-7
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """jnp.clip with its gradient: max/min split the gradient in half where
     x sits exactly on a bound (a softmax saturated to 1.0 does), where
-    torch.clamp would pass all of it."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    torch.clamp would pass all of it.  The bounds are filled on x's device
+    (a host tensor's copy could not be recorded into a CUDA graph)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
 
 
 def binary_xent(probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,11 @@ class _Upsample2d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, sh: int, sw: int):
         ctx.sh, ctx.sw = sh, sw
-        return x.repeat_interleave(sh, dim=2).repeat_interleave(sw, dim=3)
+        # the repeat as a broadcast copy: no output size to work out on the
+        # host, so a CUDA graph can record it
+        B, C, H, W = x.shape
+        return x[:, :, :, None, :, None].expand(B, C, H, sh, W, sw).reshape(
+            B, C, H * sh, W * sw)
 
     @staticmethod
     def backward(ctx, g):

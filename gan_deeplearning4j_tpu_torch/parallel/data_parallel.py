@@ -17,7 +17,7 @@ batch; each rank trains on its equal share of the rows.
     minibatches of a ``fit_batches`` job and at the job's end.
 
 ``async_gradient_sharing`` and the two-tier ``dcn_axis`` schedule are not
-ported yet (ROADMAP Queue 1 item 11).
+ported yet (ROADMAP Queue 1 item 7.4).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch
 from gan_deeplearning4j_tpu_torch.graph.graph import ComputationGraph
 from gan_deeplearning4j_tpu_torch.parallel import mesh
 
-_NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 11: "
+_NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 7.4: "
                "async_gradient_sharing, then the two-tier dcn_axis schedule)")
 
 

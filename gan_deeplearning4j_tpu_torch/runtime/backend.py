@@ -5,7 +5,8 @@ Every entry point of the port (``ComputationGraph``, the trainer,
 CPU, and a clear error — never a silent CPU run — when no card is present.
 Resolving a CUDA device also turns TF32 off for cuDNN convolutions and
 cuBLAS matmuls (cuDNN defaults to TF32), so the card computes the
-reference's fixed float32.
+reference's fixed float32, and keeps cuDNN to deterministic algorithms,
+the fastest of them at each shape (timed at first use).
 """
 
 from __future__ import annotations
@@ -18,9 +19,16 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def set_f32_parity() -> None:
-    """The one place the port sets the TF32 switches."""
+    """The one place the port sets the parity switches: TF32 off, and cuDNN
+    restricted to deterministic algorithms (no atomics-ordered sums) and
+    choosing among them by timing them at each shape's first use.  A step
+    then gives the same bits on every run in a process, and the CUDA graph
+    of a step the bits of the eager step; of the four policies
+    ``train/cudnn_ab.py`` measures, this one is the fastest that does."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = True
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -5,10 +5,13 @@ Run: ``python -m gan_deeplearning4j_tpu_torch.train.cv_main --iterations 20``
 (on the GPU; ``--device cpu`` runs the plain torch versions on the CPU).
 ``--n-devices N`` trains data-parallel in N processes, rank r on card r
 over NCCL (gloo ranks with ``--device cpu``); the default is every
-attached card, reduced to the largest divisor of the batch.  Prints rank
-0's per-step losses, then one JSON line with the final losses, the median
-step time, img/s (global batch rows per second, the MNIST protocol's
-count) and the world size.
+attached card, reduced to the largest divisor of the batch.  On one card
+the fused step runs as a replayed CUDA graph, ``--steps-per-call`` steps
+per call; ``--dp-mode param_averaging`` runs the unfused per-fit loop.
+Prints rank 0's per-step losses, then one JSON line with the final
+losses, the median step time (a call's time over its steps), img/s
+(global batch rows per second, the MNIST protocol's count), the steps per
+call, whether the step ran graphed, and the world size.
 """
 
 from __future__ import annotations
@@ -37,11 +40,26 @@ def main(argv=None) -> Dict[str, float]:
                    help="data-parallel ranks, one process each (default: "
                         "every attached card, reduced to the largest "
                         "divisor of the batch; 1 on the CPU)")
+    p.add_argument("--dp-mode", default="gradient_sync",
+                   choices=["gradient_sync", "param_averaging"],
+                   help="gradient_sync: the fused step with sync-BN; "
+                        "param_averaging: the unfused per-fit loop, params "
+                        "and updater state averaged over the ranks")
+    p.add_argument("--averaging-frequency", type=int, default=10)
+    p.add_argument("--steps-per-call", type=int, default=None,
+                   help="cap on protocol steps per call of the fused step "
+                        "(None = auto: the largest divisor of the run up "
+                        "to 100)")
+    p.add_argument("--ema-decay", type=float, default=0.0,
+                   help="generator weight EMA decay (e.g. 0.999); fused "
+                        "step only")
     args = p.parse_args(argv)
     result = train_data_parallel(
         M.CVConfig(seed=args.seed), batch_size=args.batch_size,
         n_train=args.n_train, iterations=args.iterations, device=args.device,
-        n_devices=args.n_devices)
+        n_devices=args.n_devices, steps_per_call=args.steps_per_call,
+        ema_decay=args.ema_decay, dp_mode=args.dp_mode,
+        averaging_frequency=args.averaging_frequency)
     print(json.dumps(result))
     return result
 

@@ -1,16 +1,34 @@
 """The DCGAN protocol step (torch twin of ``make_protocol_step`` in
-``gan_deeplearning4j_tpu/train/fused_step.py``: one step per call, resident
-data, on one device or data-parallel over a ``torch.distributed`` group).
+``gan_deeplearning4j_tpu/train/fused_step.py``, its resident-data form: on
+one device or data-parallel over a ``torch.distributed`` group, K steps
+per call, with the generator EMA).
 
 One step, in order:
   1. a D-step on [real; G(z1)], with the generator in inference mode;
   2. the dis -> gan sync of the frozen discriminator tail;
   3. a G-step through the stacked gan graph on z2;
   4. the gan -> gen sync;
-  5. the dis -> classifier sync and a classifier step on the labeled batch.
+  5. the dis -> classifier sync and a classifier step on the labeled batch;
+  6. with ``ema_decay``, the EMA of the generator's params.
 
 Syncs are dict merges that alias tensors; every update is out of place, so
 an aliased tensor never changes under a graph that still reads it.
+
+The step counter ``state.it`` is a 0-d int64 tensor on the state's device,
+and the step slices its batch there: rows ``(it % n_batches) * B`` on, by
+an index gather (the JAX step's ``dynamic_slice_in_dim``), so the host
+never reads the counter back.  ``steps_per_call`` K > 1 runs K steps per
+call and returns each loss stacked [K], as the JAX step's ``lax.scan``
+does; torch has no scan carry, so JAX's ``carry_dedup`` (a fix for XLA's
+carry copies) has no counterpart.  The JAX step's ``data_codec``,
+``chunk_indexed`` and ``telemetry`` are not ported yet (ROADMAP Queue 1
+items 1, 3 and 6) and raise.
+
+On one card the trainer runs the step as a CUDA graph (``GraphedStep``):
+captured once, a call replays it K times, the graph's launches replacing
+the ~600 that eager PyTorch issues from Python a step.  The CPU and
+data-parallel groups run the step eagerly (gloo cannot be captured; NCCL
+capture is ROADMAP Queue 1 item 7.2).
 
 Data parallel (``group``, the JAX package's mesh path): every rank holds
 the whole resident table and the global target vectors, takes its B/n rows
@@ -19,21 +37,27 @@ rank, so the same tensor) and keeps its rows, runs the BNs on the global
 batch's statistics (sync-BN), and averages loss, BN state updates and
 gradients over the ranks before the updater.  Every rank then applies the
 same update to the same state, so the ranks' states stay bitwise equal.
-The JAX package's scan, codec, EMA, telemetry and carry-dedup paths have
-no counterpart yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+import time
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+from gan_deeplearning4j_tpu_torch.optim import ema as ema_lib
 from gan_deeplearning4j_tpu_torch.parallel import mesh
+
+# Cap on protocol steps per call (the JAX package's, fused_step.py:42): the
+# trainer's K is the largest divisor of the run at most this.
+MAX_STEPS_PER_CALL = 100
 
 
 class ProtocolState(NamedTuple):
-    """All four graphs' learnable state and the step counter."""
+    """All four graphs' learnable state, the step counter (a 0-d int64
+    tensor on the state's device) and the generator EMA (None when off)."""
 
     dis_params: Dict
     dis_opt: Dict
@@ -42,7 +66,25 @@ class ProtocolState(NamedTuple):
     clf_params: Dict
     clf_opt: Dict
     gen_params: Dict
-    it: int
+    it: torch.Tensor
+    ema_gen: Optional[Dict] = None
+
+
+# the state's {layer: {param: tensor}} trees, without the EMA
+TREES = ProtocolState._fields[:7]
+
+
+def state_trees(state: ProtocolState) -> List[Tuple[str, Dict]]:
+    """(field, tree) for every tree of ``state``, the EMA last when on."""
+    out = [(f, getattr(state, f)) for f in TREES]
+    if state.ema_gen is not None:
+        out.append(("ema_gen", state.ema_gen))
+    return out
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
+                               f"item {item})")
 
 
 def _apply_sync(dst_params: Dict, src_params: Dict, mapping) -> Dict:
@@ -54,9 +96,23 @@ def _apply_sync(dst_params: Dict, src_params: Dict, mapping) -> Dict:
     return out
 
 
+def batch_rows(it: torch.Tensor, n_rows: int, B: int, rank: int = 0,
+               world: int = 1) -> torch.Tensor:
+    """The table rows of step ``it`` for ``rank``: ``(it % n_batches) * B
+    + rank * B/world`` and the B/world rows after it, as an index tensor on
+    ``it``'s device (``n_batches = n_rows // B``; the partial last batch is
+    never used, as the JAX step's floor division drops it)."""
+    Bl = B // world
+    off = (it % (n_rows // B)) * B + rank * Bl
+    return off + torch.arange(Bl, device=it.device)
+
+
 def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
                        dis_to_classifier, z_size: int, num_features: int,
-                       group: Optional[mesh.DataGroup] = None):
+                       group: Optional[mesh.DataGroup] = None,
+                       steps_per_call: int = 1, ema_decay: float = 0.0,
+                       data_codec: Optional[str] = None,
+                       chunk_indexed: bool = False, telemetry: bool = False):
     """Build the step:
     (state, real, labels, y_real, y_fake, ones, z_gen=None, z1=None, z2=None)
     -> (state', (d_loss, g_loss, clf_loss)).
@@ -69,7 +125,22 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
     are given — tests inject the JAX package's own draws that way.  With a
     ``group`` of n ranks each rank trains on its B/n rows of all of these
     (B % n must be 0: the mean of the ranks' means is the global mean only
-    for equal shares) and the losses returned are the global batch's."""
+    for equal shares) and the losses returned are the global batch's.
+
+    ``steps_per_call`` K > 1: one call runs K steps (each slicing its own
+    batch) and returns each loss stacked [K]; injected latents are then
+    [K, B, z_size] stacks.  ``ema_decay`` > 0 keeps ``state.ema_gen`` (seed
+    it with ``state_from_graphs(..., ema=True)``) as
+    ``ema_update(ema_gen, gen_params, ema_decay)`` after every step."""
+    if data_codec is not None:
+        raise _not_ported(f"data_codec {data_codec!r}", "1 (data/codec.py)")
+    if chunk_indexed:
+        raise _not_ported("chunk_indexed", "3 (the chunked streaming tier)")
+    if telemetry:
+        raise _not_ported("telemetry", "6 (telemetry/ingraph.py)")
+    if int(steps_per_call) != steps_per_call or steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be a positive int, got "
+                         f"{steps_per_call}")
     rank, world = (group.rank, group.world) if group is not None else (0, 1)
     reduce = mesh.reducer(group)
 
@@ -77,22 +148,21 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
         return graph._train_step(params, opt, inputs, targets, group=group,
                                  reduce=reduce)
 
-    def step(state: ProtocolState, real, labels, y_real, y_fake, ones,
-             z_gen: Optional[torch.Generator] = None,
-             z1: Optional[torch.Tensor] = None,
-             z2: Optional[torch.Tensor] = None):
+    def one(state: ProtocolState, real, labels, y_real, y_fake, ones,
+            z_gen: Optional[torch.Generator] = None,
+            z1: Optional[torch.Tensor] = None,
+            z2: Optional[torch.Tensor] = None):
         B = ones.shape[0]
         if B % world:
             raise ValueError(f"global batch {B} does not split into {world} "
                              "equal shares")
-        n_batches = real.shape[0] // B
-        if n_batches < 1:
+        if real.shape[0] < B:
             raise ValueError(f"resident table has {real.shape[0]} rows, "
                              f"fewer than one batch of {B}")
         Bl = B // world
         mine = slice(rank * Bl, (rank + 1) * Bl)
-        off = (state.it % n_batches) * B + rank * Bl
-        real, labels = real[off:off + Bl], labels[off:off + Bl]
+        rows = batch_rows(state.it, real.shape[0], B, rank, world)
+        real, labels = real.index_select(0, rows), labels.index_select(0, rows)
         dev = real.device
         if z1 is None or z2 is None:
             if z_gen is None:
@@ -123,18 +193,42 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
             classifier, clf_params, state.clf_opt,
             {classifier.input_names[0]: real},
             {classifier.output_names[0]: labels})
+        # (6) the generator EMA
+        ema_gen = state.ema_gen
+        if ema_decay:
+            ema_gen = ema_lib.ema_update(ema_gen, gen_params, ema_decay)
         new_state = ProtocolState(dis_params, dis_opt, gan_params, gan_opt,
-                                  clf_params, clf_opt, gen_params, state.it + 1)
+                                  clf_params, clf_opt, gen_params,
+                                  state.it + 1, ema_gen)
         return new_state, (d_loss, g_loss, c_loss)
 
-    return step
+    if steps_per_call == 1:
+        return one
+
+    def multi(state: ProtocolState, real, labels, y_real, y_fake, ones,
+              z_gen: Optional[torch.Generator] = None,
+              z1: Optional[torch.Tensor] = None,
+              z2: Optional[torch.Tensor] = None):
+        steps = []
+        for k in range(steps_per_call):
+            state, losses = one(state, real, labels, y_real, y_fake, ones,
+                                z_gen, None if z1 is None else z1[k],
+                                None if z2 is None else z2[k])
+            steps.append(losses)
+        return state, tuple(torch.stack(ls) for ls in zip(*steps))
+
+    return multi
 
 
-def state_from_graphs(dis, gen, gan, classifier, start_step: int = 0
-                      ) -> ProtocolState:
-    return ProtocolState(dis.params, dis.opt_state, gan.params, gan.opt_state,
-                         classifier.params, classifier.opt_state, gen.params,
-                         start_step)
+def state_from_graphs(dis, gen, gan, classifier, start_step: int = 0,
+                      ema: bool = False) -> ProtocolState:
+    """``ema``: seed the generator's EMA from ``gen.ema_params`` when the
+    graph carries one, else from its live params (fresh buffers)."""
+    return ProtocolState(
+        dis.params, dis.opt_state, gan.params, gan.opt_state,
+        classifier.params, classifier.opt_state, gen.params,
+        torch.tensor(start_step, dtype=torch.int64, device=dis.device),
+        ema_lib.ema_init(gen) if ema else None)
 
 
 def state_to_graphs(state: ProtocolState, dis, gen, gan, classifier) -> None:
@@ -142,3 +236,132 @@ def state_to_graphs(state: ProtocolState, dis, gen, gan, classifier) -> None:
     gan.params, gan.opt_state = state.gan_params, state.gan_opt
     classifier.params, classifier.opt_state = state.clf_params, state.clf_opt
     gen.params = state.gen_params
+    gen.ema_params = state.ema_gen  # None unless the step keeps an EMA
+
+
+def clone_state(state: ProtocolState) -> ProtocolState:
+    """A copy of ``state`` in fresh buffers, one per leaf (leaves that
+    share a tensor get one copy each)."""
+    def tree(t):
+        return None if t is None else {
+            layer: {n: v.detach().clone() for n, v in lp.items()}
+            for layer, lp in t.items()}
+
+    return ProtocolState(*(tree(getattr(state, f)) for f in TREES),
+                         state.it.clone(), tree(state.ema_gen))
+
+
+def _leaves(state: ProtocolState) -> Dict[Tuple[str, str, str], torch.Tensor]:
+    return {(f, layer, n): t for f, tree in state_trees(state)
+            for layer, lp in tree.items() for n, t in lp.items()}
+
+
+def copy_state_(dst: ProtocolState, src: ProtocolState) -> None:
+    """Copy every leaf of ``src`` into the same leaf of ``dst``, the float
+    leaves in one multi-tensor copy.  ``dst``'s leaves must be distinct
+    buffers (``clone_state``'s), and no leaf of ``src`` may be a buffer of
+    ``dst`` at another place: the copies would then depend on their
+    order."""
+    d, s = _leaves(dst), _leaves(src)
+    if d.keys() != s.keys():
+        raise ValueError(f"copy_state_: the leaves differ: "
+                         f"{sorted(set(d) ^ set(s))}")
+    place = {id(t): key for key, t in d.items()}
+    pairs = []
+    for key, a in d.items():
+        b = s[key]
+        if place.get(id(b), key) != key:
+            raise ValueError(f"copy_state_: the source of {key} is the "
+                             f"destination {place[id(b)]}")
+        if a is not b:
+            pairs.append((a, b))
+    if pairs:
+        torch._foreach_copy_([a for a, _ in pairs], [b for _, b in pairs])
+    if dst.it is not src.it:
+        dst.it.copy_(src.it)
+
+
+def graph_body(step, inputs, z_gen: Optional[torch.Generator], ring: int,
+               state: ProtocolState, losses: torch.Tensor) -> None:
+    """What the CUDA graph of ``GraphedStep`` records: one ``step`` from
+    ``state`` (on the table and targets ``inputs``, latents from
+    ``z_gen``), its losses written to row ``it % ring`` of ``losses`` [ring,
+    3] through a device index, and the new state copied into ``state``."""
+    slot = (state.it % ring).view(1)
+    new, out = step(state, *inputs, z_gen=z_gen)
+    losses.index_copy_(0, slot, torch.stack(out).view(1, 3))
+    copy_state_(state, new)
+
+
+def replay(graph, replays: int, per_replay: Dict[str, int]) -> None:
+    """``replays`` back-to-back replays of ``graph`` on the current stream,
+    counted as the kernel launches they make (``per_replay`` each)."""
+    for _ in range(replays):
+        graph.replay()
+    kernels.add_launches(per_replay, replays)
+
+
+class GraphedStep:
+    """The single-card protocol step as a CUDA graph: captured once, a call
+    replays it K times back to back and reads the [K, 3] losses back once.
+
+    The graph's inputs are static tensors: ``self.state`` (a copy of the
+    start state, one buffer per leaf, that the step reads and, at its end,
+    overwrites with the new state), the resident table and targets, and
+    the latent generator ``z_gen``, registered with the graph so that each
+    replay draws new latents exactly as an eager step would.  Replay j
+    writes its losses to row ``it % ring`` of ``self.losses``.  Before the
+    capture, one eager step on copies of the state and on a side stream
+    builds every kernel and runs each one-time setup (the kernels' shared
+    memory attributes, the cluster occupancy checks, cuBLAS and cuDNN
+    handles); ``z_gen`` is then put back, so from the same start the first
+    replay gives the bits of the first eager step.  A capture that fails
+    raises."""
+
+    def __init__(self, step, state: ProtocolState, real, labels, y_real,
+                 y_fake, ones, z_gen: torch.Generator,
+                 ring: int = MAX_STEPS_PER_CALL):
+        dev = real.device
+        if dev.type != "cuda":
+            raise ValueError(f"GraphedStep captures a CUDA graph; the table "
+                             f"is on {dev}")
+        self.ring = ring
+        self.inputs = (real, labels, y_real, y_fake, ones)
+        self.state = clone_state(state)
+        self.losses = torch.zeros((ring, 3), device=dev)
+        self.steps = int(state.it)
+        t0 = time.perf_counter()
+        z_start = z_gen.get_state()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            graph_body(step, self.inputs, z_gen, ring, clone_state(state),
+                       torch.zeros_like(self.losses))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        z_gen.set_state(z_start)
+        t1 = time.perf_counter()
+        mem = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(z_gen)
+        with kernels.captured_launches() as self.launches:
+            with torch.cuda.graph(self.graph):
+                graph_body(step, self.inputs, z_gen, ring, self.state,
+                           self.losses)
+        torch.cuda.synchronize(dev)
+        # what the set-up cost: wall seconds, and the device memory the
+        # graph's private pool holds on to (allocated / reserved growth)
+        self.setup = {
+            "warmup_s": t1 - t0, "capture_s": time.perf_counter() - t1,
+            "pool_allocated_bytes": torch.cuda.memory_allocated(dev) - mem[0],
+            "pool_reserved_bytes": torch.cuda.memory_reserved(dev) - mem[1]}
+
+    def __call__(self, n: int) -> torch.Tensor:
+        """Run ``n`` steps (1 <= n <= ring) -> their losses, [n, 3] on the
+        host, in step order (one readback)."""
+        if not 1 <= n <= self.ring:
+            raise ValueError(f"a call runs 1 to {self.ring} steps, not {n}")
+        replay(self.graph, n, self.launches)
+        rows = [(self.steps + i) % self.ring for i in range(n)]
+        self.steps += n
+        return self.losses.cpu()[rows]

@@ -1,19 +1,27 @@
 """Where the protocol step's time goes on the card.
 
 Run: ``python -m gan_deeplearning4j_tpu_torch.train.profile_step``
-(``--steps``, ``--warmup``, ``--batch-size``).  Builds the trainer on the
-GPU, runs the warm-up steps, then traces ``--steps`` steps with
-``torch.profiler`` (CPU and CUDA activities) and prints one JSON line: the
-host-clock step time (median of as many untraced steps, and of the traced
-ones), the device's busy time per step, its idle share of the traced wall
-time, the port's kernel launches, and the device work that takes most
-time.  Needs a CUDA device.
+(``--steps``, ``--warmup``, ``--batch-size``, ``--eager``).
+Builds the trainer on the GPU (which captures the step as a CUDA graph)
+and profiles calls of ``--steps`` steps, each ending in one readback of
+its losses: by default the graphed step (``--steps`` replays a call), with
+``--eager`` the eager step, called directly on a copy of the trainer's
+state (the trainer itself has no eager mode on one card).  After
+``--warmup`` calls it times REPEATS untraced calls, then traces one
+with ``torch.profiler`` (CPU and CUDA activities) between two CUDA events,
+and prints one JSON line: the host-clock step time (untraced median, and
+traced), the device's busy time per step and its idle share, of the traced
+wall time and of the untraced step, the events' device time per step, the
+port's kernel launches per step, and the device work that takes most
+time, and each port kernel's own device time per step.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import time
 from typing import Dict
@@ -24,26 +32,62 @@ from torch.profiler import ProfilerActivity, profile
 
 from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
 from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+from gan_deeplearning4j_tpu_torch.train import fused_step
 from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
+
+# each port kernel's device function (csrc/*.cu), as the trace names it
+PORT_KERNELS = {"fused_update": "rmsprop_multi_kernel",
+                "bn_act": "bn_act_kernel", "upsample_bwd": "upsample_bwd_kernel",
+                "bn_moments": "bn_moments_kernel",
+                "bn_apply": "bn_apply_kernel", "bn_act_4d": "bn_act_4d_kernel"}
+REPEATS = 5
 
 
 def main(argv=None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--steps", type=int, default=10)
-    p.add_argument("--warmup", type=int, default=5)
+    p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--batch-size", type=int, default=200)
     p.add_argument("--n-train", type=int, default=10000)
     p.add_argument("--top", type=int, default=15)
+    p.add_argument("--eager", action="store_true",
+                   help="profile the eager step instead of the graphed one")
     args = p.parse_args(argv)
+    n = args.steps
     trainer = GANTrainer(M.CVConfig(), batch_size=args.batch_size,
-                         n_train=args.n_train, device="cuda")
-    trainer.train(args.warmup, log=None)
-    untraced = trainer.train(args.steps, log=None)
+                         n_train=args.n_train, device="cuda",
+                         steps_per_call=n)
+    if args.eager:
+        box = {"state": fused_step.clone_state(trainer.state)}
+        step = trainer.step_fn(n)
+        inputs = (trainer.features, trainer.labels, trainer.y_real,
+                  trainer.y_fake, trainer.ones)
+
+        def call():
+            box["state"], losses = step(box["state"], *inputs,
+                                        z_gen=trainer.z_gen)
+            return torch.stack(losses, -1).cpu()
+    else:
+        def call():
+            return trainer.graphed(n)
+
+    for _ in range(args.warmup):
+        call()
+    times = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        call()
+        times.append(time.perf_counter() - t0)
+    untraced_ms = statistics.median(times) / n * 1e3
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        result = trainer.train(args.steps, log=None)
+        start.record()
+        call()
+        end.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     launches = kernels.launch_counts()
@@ -54,34 +98,47 @@ def main(argv=None) -> Dict:
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        start, end = e.time_range.start, e.time_range.end
-        spans.append((start, end))
+        s, t = e.time_range.start, e.time_range.end
+        spans.append((s, t))
         ms, calls = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + (end - start) / 1e3, calls + 1)
+        by_name[e.name] = (ms + (t - s) / 1e3, calls + 1)
     busy_us, last = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        if end > last:
-            busy_us += end - max(start, last)
-            last = end
+    for s, t in sorted(spans):
+        if t > last:
+            busy_us += t - max(s, last)
+            last = t
+    busy_ms = busy_us / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
-    n = args.steps
     out = {
+        "mode": "eager" if args.eager else "graphed",
         "device": torch.cuda.get_device_name(0),
         "batch": args.batch_size, "steps": n,
         "nvidia_smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip(),
-        "step_ms_median": untraced["step_ms_median"],
-        "step_ms_median_traced": result["step_ms_median"],
+        "cudnn_deterministic": torch.backends.cudnn.deterministic,
+        "cudnn_benchmark": torch.backends.cudnn.benchmark,
+        "step_ms_median": untraced_ms,
         "traced_wall_ms_per_step": wall_ms / n,
-        "device_busy_ms_per_step": busy_us / 1e3 / n,
-        "device_idle_share": (1.0 - busy_us / 1e3 / wall_ms) if spans else None,
+        "event_ms_per_step": start.elapsed_time(end) / n,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": (1.0 - busy_ms * n / wall_ms) if spans else None,
+        "device_idle_share_untraced": (1.0 - busy_ms / untraced_ms)
+        if spans else None,
         "device_events_per_step": len(spans) / n,
         "port_launches_per_step": {k: v / n for k, v in launches.items()},
         "top": [{"name": k[:120], "ms_per_step": ms / n, "calls_per_step": c / n}
                 for k, (ms, c) in top],
+        "port_kernels": {
+            kernel: {"ms_per_step": sum(ms for k, (ms, _) in by_name.items()
+                                        if fn in k) / n,
+                     "calls_per_step": sum(c for k, (_, c) in by_name.items()
+                                           if fn in k) / n}
+            for kernel, fn in PORT_KERNELS.items()},
     }
+    if not args.eager:
+        out["capture"] = trainer.graphed.setup
     print(json.dumps(out))
     return out
 

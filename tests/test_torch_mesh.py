@@ -2,8 +2,9 @@
 process or in spawned gloo ranks.
 
 This module imports torch, numpy and the port only — never jax — because
-it also holds the rank jobs that ``tests/test_torch_dp.py`` hands to
-``mesh.spawn``: a spawned rank imports the module its function lives in,
+it also holds the rank jobs that ``tests/test_torch_dp.py`` and
+``tests/test_torch_steps.py`` hand to ``mesh.spawn``: a spawned rank
+imports the module its function lives in,
 and a rank must not import jax or the JAX package.
 """
 
@@ -23,20 +24,24 @@ from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
 from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.parallel.data_parallel import DataParallelGraph
 from gan_deeplearning4j_tpu_torch.train import fused_step as FT
-from gan_deeplearning4j_tpu_torch.train.gan_trainer import resolve_n_devices
+from gan_deeplearning4j_tpu_torch.train.gan_trainer import (
+    GANTrainer,
+    resolve_n_devices,
+)
 
-FIELDS = FT.ProtocolState._fields[:-1]
+FIELDS = FT.TREES
 DPG_CASES = (("gradient_sync", "gradient_sync", 1),
              ("param_averaging", "param_averaging", 1),
              ("param_averaging_batches", "param_averaging", 2))
 T = torch.from_numpy
 
 
-# -- rank jobs (run in spawned processes by tests/test_torch_dp.py) -----------
+# -- rank jobs (spawned by tests/test_torch_dp.py and test_torch_steps.py) ----
 
 def state_from_numpy(trees, it: int) -> FT.ProtocolState:
     return FT.ProtocolState(
-        *(interop.params_from_numpy(trees[f], "cpu") for f in FIELDS), it)
+        *(interop.params_from_numpy(trees[f], "cpu") for f in FIELDS),
+        torch.tensor(it))
 
 
 def state_to_numpy(state: FT.ProtocolState):
@@ -129,6 +134,34 @@ def dp_rank_job(group, payload):
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "gan_deeplearning4j_tpu")),
     }
+
+
+def unfused_trainer_job(group, p):
+    """The trainer's unfused per-fit loop (``fused=False``, param_averaging
+    under a group: tests/test_torch_steps.py), on the CPU or on this rank:
+    every graph starts from p["state"], the table, targets and global
+    latents are p's -> per step (the four graphs' state as numpy, losses),
+    and the modules of jax or the JAX package this process imported."""
+    t = GANTrainer(batch_size=p["ones"].shape[0], n_train=p["real"].shape[0],
+                   device="cpu", group=group, fused=False,
+                   dp_mode="param_averaging", averaging_frequency=2)
+    for name, g in (("dis", t.dis), ("gan", t.gan), ("clf", t.classifier),
+                    ("gen", t.gen)):
+        g.params = interop.params_from_numpy(p["state"][f"{name}_params"],
+                                             "cpu", like=g.params)
+        if name != "gen":
+            g.opt_state = interop.opt_state_from_numpy(
+                p["state"][f"{name}_opt"], "cpu", like=g.opt_state)
+    t.features, t.labels = T(p["real"]), T(p["labels"])
+    t.y_real, t.y_fake, t.ones = T(p["y_real"]), T(p["y_fake"]), T(p["ones"])
+    out = []
+    for z1, z2 in p["z"]:
+        losses = t.unfused_step(T(z1), T(z2))
+        state = FT.state_from_graphs(t.dis, t.gen, t.gan, t.classifier)
+        out.append((state_to_numpy(state), [float(v) for v in losses]))
+    return {"steps": out, "jax_modules": sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "gan_deeplearning4j_tpu"))}
 
 
 def _fail_on_rank_1(group):

@@ -36,7 +36,7 @@ from gan_deeplearning4j_tpu_torch.train import fused_step as FT
 REPO = Path(__file__).resolve().parents[1]
 B = 8
 STEPS = 3
-FIELDS = FT.ProtocolState._fields[:-1]  # every tree of the state
+FIELDS = FT.TREES  # every tree of the state
 
 
 def _carry(state_j) -> FT.ProtocolState:
@@ -44,7 +44,7 @@ def _carry(state_j) -> FT.ProtocolState:
         return interop.params_from_numpy(jax.tree.map(np.asarray, t), "cpu")
 
     return FT.ProtocolState(*(tree(getattr(state_j, f)) for f in FIELDS),
-                            int(state_j.it))
+                            torch.tensor(int(state_j.it)))
 
 
 @pytest.fixture(scope="module")
