@@ -71,7 +71,21 @@ exits non-zero:
                 shape on that group: exactly one moments and one apply
                 kernel and nothing but NCCL's work beside them (the old
                 composition, profiled beside it, shows what it replaced).
-  8. the ``kernels`` line, the nvidia-smi line, and last
+  8. cv_main  — the CV program as a user runs it (``cv_main``: the CSV
+                pair written and decoded, 200 steps at batch 200 graphed in
+                calls of K = 100, the grid and prediction dumps at 100 and
+                200, the four model zips, the evaluation with FID on 2,000
+                samples), three times: with the launch counters zeroed just
+                before and read just after (a warm-up step and 200 replays'
+                worth), the dumps' shapes, the metrics JSONL, the zips read
+                back bit for bit as the trained graphs, finite scores; then
+                with ``--sync-dumps`` (the dumps byte-identical); then with
+                the table streamed in chunks of 100 steps (per-step losses
+                bitwise the resident run's).  Host seconds of the export,
+                decode, upload, capture, each dump, the save and the
+                evaluation, and examples/sec, beside the card's name and
+                power limit.
+  9. the ``kernels`` line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is available.
@@ -83,6 +97,7 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -99,6 +114,12 @@ N_TRAIN = 10000
 DP_WORLD = 2
 DP_TIMEOUT_S = 300
 PA_STEPS = 4  # the dp phase's param_averaging run
+# the cv_main phase: the program at its reference cadences, cut to 200 steps
+CV_ARGS = ["--n-train", "10000", "--n-test", "2000", "--iterations", "200",
+           "--print-every", "100", "--save-every", "100",
+           "--fid-samples", "2000"]
+CV_STEPS = 200
+CV_K = 100
 PA_FREQ = 2
 REPS = 30
 SLEEP_CYCLES = 40_000_000  # ~20 ms at the H100's ~2 GHz clock
@@ -519,6 +540,124 @@ def sync_bn_profile(group, torch):
                 "sync-BN forward: the new pair differs from the old "
                 "composition on a 1-rank group")
     return outs
+
+
+def cv_main_phase(torch, smi: str) -> dict:
+    """The CV program as a user runs it (``cv_main``), on the card, three
+    times in temporary res-paths: as given (the launch counters zeroed just
+    before and read just after; artifacts, model zips read back, scores),
+    with ``--sync-dumps`` (the dumps byte-identical), and with the table
+    streamed in chunks of K = 100 steps (``data_on_device=False``; per-step
+    losses bitwise the resident run's).  Returns the phase's line."""
+    import numpy as np
+
+    from gan_deeplearning4j_tpu_torch.graph import serialization
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.train import cv_main
+
+    def read_csv(path):
+        return np.loadtxt(path, delimiter=",", ndmin=2)
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="gan4j_cv_")
+    try:
+        dirs = {k: f"{root}/{k}" for k in ("async", "sync", "stream")}
+        kernels.reset_launch_counts()
+        trainer, res = cv_main.run(cv_main.parse_args(
+            CV_ARGS + ["--res-path", dirs["async"]]))
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        # one warm-up step before the capture, then a replay per step; the
+        # dumps and the evaluation run inference forwards only
+        calls = CV_STEPS + 1
+        expected = {"fused_update": 3 * calls, "bn_act": 3 * calls,
+                    "upsample_bwd": 2 * calls, "bn_moments": 0,
+                    "bn_apply": 0, "bn_act_4d": 0}
+        require(launches == expected,
+                f"cv_main: launch counts {launches} != expected {expected}")
+        require(res["steps"] == CV_STEPS and res["graphed"]
+                and res["steps_per_call"] == CV_K and res["resident"],
+                f"cv_main: {res}")
+        d = dirs["async"]
+        dumps = [f"mnist_out_{k}.csv" for k in (100, 200)] + [
+            f"mnist_test_predictions_{k}.csv" for k in (100, 200)]
+        for f in dumps[:2]:
+            a = read_csv(f"{d}/{f}")
+            require(a.shape == (100, 784) and bool(np.isfinite(a).all()),
+                    f"cv_main: {f} is {a.shape}")
+        for f in dumps[2:]:
+            a = read_csv(f"{d}/{f}")
+            require(a.shape == (2000, 10)
+                    and float(np.abs(a.sum(axis=1) - 1).max()) <= 1e-4,
+                    f"cv_main: {f} is {a.shape} or its rows do not sum to 1")
+        recs = [json.loads(ln) for ln in open(f"{d}/mnist_metrics.jsonl")]
+        require([r["step"] for r in recs] == list(range(1, CV_STEPS + 1)),
+                "cv_main: the metrics JSONL does not hold one record a step")
+        require(os.path.getsize(f"{d}/evaluation_stats.txt") > 0,
+                "cv_main: no evaluation_stats.txt")
+        # the four zips read back give the trainer's params, bit for bit
+        for g, path in trainer.model_paths().items():
+            back = serialization.read_model(path, "cuda")
+            live = getattr(trainer, g)
+            require(all(torch.equal(back.params[ly][n], t)
+                        for ly, lp in live.params.items()
+                        for n, t in lp.items())
+                    and back.params.keys() == live.params.keys(),
+                    f"cv_main: {path} does not read back as the trained "
+                    f"{g} graph")
+        scores = {k: res.get(k) for k in (
+            "test_accuracy", "test_f1", "fid", "fid_frozen", "fid_primary",
+            "fid_primary_source")}
+        require(all(isinstance(res.get(k), float) and math.isfinite(res[k])
+                    for k in ("test_accuracy", "fid", "fid_frozen")),
+                f"cv_main: scores {scores}")
+        del trainer
+
+        # the same run with synchronous dumps, from the same CSV pair
+        for k in ("sync", "stream"):
+            os.makedirs(dirs[k])
+            for f in ("mnist_train.csv", "mnist_test.csv"):
+                shutil.copy(f"{d}/{f}", f"{dirs[k]}/{f}")
+        _, res_sync = cv_main.run(cv_main.parse_args(
+            CV_ARGS[:-1] + ["0", "--res-path", dirs["sync"], "--sync-dumps"]))
+        for f in dumps:
+            require(open(f"{d}/{f}", "rb").read()
+                    == open(f"{dirs['sync']}/{f}", "rb").read(),
+                    f"cv_main: {f} differs between async and --sync-dumps")
+        # streamed: K = 100 steps of u8 codes a chunk (5 bytes a feature
+        # in the byte budget, as in the JAX trainer)
+        _, res_stream = cv_main.run(
+            cv_main.parse_args(CV_ARGS[:-1] + ["0", "--res-path",
+                                               dirs["stream"]]),
+            data_on_device=False,
+            stream_chunk_bytes=CV_K * 200 * (5 * 784 + 4 * 10))
+        recs_s = [json.loads(ln)
+                  for ln in open(f"{dirs['stream']}/mnist_metrics.jsonl")]
+        keys = ("d_loss", "g_loss", "classifier_loss")
+        require(not res_stream["resident"]
+                and res_stream["steps_per_call"] == CV_K
+                and res_stream["data_codec"] == "u8x100",
+                f"cv_main streamed: {res_stream}")
+        require([[r[k] for k in keys] for r in recs]
+                == [[r[k] for k in keys] for r in recs_s],
+                "cv_main: the streamed run's per-step losses differ from "
+                "the resident run's")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(
+        seconds=time.perf_counter() - t0, argv=CV_ARGS, steps=res["steps"],
+        steps_per_call=res["steps_per_call"],
+        launches=launches, expected_launches=expected,
+        examples_per_sec=res["examples_per_sec"],
+        examples_per_sec_sync_dumps=res_sync["examples_per_sec"],
+        examples_per_sec_streamed=res_stream["examples_per_sec"],
+        step_ms_median=res["step_ms_median"], losses=[
+            res[k] for k in ("d_loss", "g_loss", "clf_loss")],
+        scores=scores, host_seconds=res["host_seconds"],
+        host_seconds_sync=res_sync["host_seconds"],
+        host_seconds_streamed=res_stream["host_seconds"],
+        sync_dumps_byte_identical=True, streamed_losses_bitwise=True,
+        nvidia_smi=smi)
 
 
 def main() -> int:
@@ -1087,7 +1226,10 @@ def main() -> int:
             and kinds["other"] == 0 and sync_bn["new"]["per_forward"] <= 3,
             f"a sync-BN forward is not moments, collective, apply: {sync_bn}")
 
-    # -- 8. the kernels line and the result ----------------------------------
+    # -- 8. the CV program end to end -----------------------------------------
+    emit("cv_main", **cv_main_phase(torch, smi))
+
+    # -- 9. the kernels line and the result ----------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
     # pair, and the kernel phase's check for the 4-D BN, which no model
     # path runs (as in the JAX package)

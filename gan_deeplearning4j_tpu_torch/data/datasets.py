@@ -1,19 +1,26 @@
-"""Datasets of the port: the synthetic MNIST surrogate (own copy of
-``synthetic_mnist`` in ``gan_deeplearning4j_tpu/data/datasets.py``, pinned
-byte-equal to it for a seed by tests/test_torch_graph.py).
+"""Datasets of the port: the synthetic MNIST surrogate and the CV
+program's CSV contract (own copies of ``synthetic_mnist``,
+``export_mnist_csv``, ``ensure_mnist_csv`` and ``load_split`` in
+``gan_deeplearning4j_tpu/data/datasets.py``; tests/test_torch_graph.py and
+tests/test_torch_data.py pin them byte-equal to those).
 
 The reference's data (a Keras MNIST download) is unavailable offline, so
 both packages train on procedural bitmap-font digits with real class
-structure.
+structure, written to ``mnist_{train,test}.csv`` in the notebook's
+contract (784 pixels ``%.2f``, the integer label as column 784) and read
+back through the CSV iterator.  ``mnist_table`` gives that decoded table
+without the files.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
 
-SEED = 666  # numberOfTheBeast — the reference's seed everywhere
+from gan_deeplearning4j_tpu_torch.data.codec import U8X100_TABLE
+from gan_deeplearning4j_tpu_torch.data.csv import CSVRecordReader
 
 SEED = 666  # numberOfTheBeast — the reference's seed everywhere
 
@@ -138,3 +145,65 @@ def synthetic_mnist(
         np.clip(img, 0.0, 1.0, out=img)
         out[lo:hi] = img.reshape(m, 784).astype(np.float32)
     return out, labels.astype(np.int64)
+
+
+def export_mnist_csv(out_dir: str, n_train: int = 60000, n_test: int = 10000,
+                     seed: int = SEED) -> Tuple[str, str]:
+    """Write ``mnist_{train,test}.csv`` in the notebook's contract (cell 2):
+    784 feature columns formatted %.2f, integer label as column 784."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for split, n, s in (("train", n_train, seed), ("test", n_test, seed + 1)):
+        path = os.path.join(out_dir, f"mnist_{split}.csv")
+        feats, labels = synthetic_mnist(n, seed=s)
+        table = np.concatenate(
+            [feats, labels.reshape(-1, 1).astype(np.float32)], axis=1)
+        np.savetxt(path, table, delimiter=",", fmt=["%.2f"] * 784 + ["%d"])
+        paths.append(path)
+    return tuple(paths)
+
+
+def ensure_mnist_csv(data_dir: str, n_train: int = 60000,
+                     n_test: int = 10000) -> Tuple[str, str]:
+    """Return (train_csv, test_csv), generating the synthetic surrogate only
+    if the contract files don't already exist (real exported MNIST wins;
+    a half-present pair is an error rather than a silent overwrite)."""
+    train = os.path.join(data_dir, "mnist_train.csv")
+    test = os.path.join(data_dir, "mnist_test.csv")
+    have = (os.path.exists(train), os.path.exists(test))
+    if have == (True, True):
+        return train, test
+    if have != (False, False):
+        raise FileExistsError(
+            f"one of {train} / {test} exists without the other; refusing to "
+            "overwrite — delete the stray file or provide both")
+    export_mnist_csv(data_dir, n_train, n_test)
+    return train, test
+
+
+def load_split(path: str, label_index: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Decode a contract CSV into (features, raw label column)."""
+    table = CSVRecordReader().read(path)
+    return np.delete(table, label_index, axis=1), table[:, label_index]
+
+
+def contract_pixels(features: np.ndarray) -> np.ndarray:
+    """The f32 values the CSV contract's ``%.2f`` text of ``features``
+    decodes to.  For f32 x in [0, 2.55], x*100 is exact in f64 and ``%.2f``
+    rounds it to an integer n, ties to even, as ``np.rint`` does; the text
+    n/100 parses to the correctly rounded f32 of n/100, the codec table's
+    entry n."""
+    f = np.asarray(features, dtype=np.float32)
+    n = np.rint(f.astype(np.float64) * 100.0)
+    if f.size and not (n.min() >= 0 and n.max() <= 255):
+        raise ValueError("contract_pixels takes values in [0, 2.55]")
+    return U8X100_TABLE[n.astype(np.intp)]
+
+
+def mnist_table(n: int, seed: int = SEED) -> np.ndarray:
+    """The decoded ``mnist_train.csv`` of ``export_mnist_csv(n_train=n)``
+    (train split, ``seed``) as an f32 [n, 785] table, without the file:
+    the contract's pixels and the label column."""
+    feats, labels = synthetic_mnist(n, seed=seed)
+    return np.concatenate([contract_pixels(feats),
+                           labels.reshape(-1, 1).astype(np.float32)], axis=1)

@@ -20,9 +20,11 @@ an index gather (the JAX step's ``dynamic_slice_in_dim``), so the host
 never reads the counter back.  ``steps_per_call`` K > 1 runs K steps per
 call and returns each loss stacked [K], as the JAX step's ``lax.scan``
 does; torch has no scan carry, so JAX's ``carry_dedup`` (a fix for XLA's
-carry copies) has no counterpart.  The JAX step's ``data_codec``,
+carry copies) has no counterpart.  ``data_codec="u8x100"`` takes the
+table as uint8 codes (data/codec.py) and decodes each sliced batch through
+the 256-entry f32 table, bitwise the f32 table's step.  The JAX step's
 ``chunk_indexed`` and ``telemetry`` are not ported yet (ROADMAP Queue 1
-items 1, 3 and 6) and raise.
+items 3.1 and 6) and raise.
 
 On one card the trainer runs the step as a CUDA graph (``GraphedStep``):
 captured once, a call replays it K times, the graph's launches replacing
@@ -46,6 +48,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from gan_deeplearning4j_tpu_torch.data.codec import U8X100_TABLE
 from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
 from gan_deeplearning4j_tpu_torch.optim import ema as ema_lib
 from gan_deeplearning4j_tpu_torch.parallel import mesh
@@ -131,11 +134,16 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
     batch) and returns each loss stacked [K]; injected latents are then
     [K, B, z_size] stacks.  ``ema_decay`` > 0 keeps ``state.ema_gen`` (seed
     it with ``state_from_graphs(..., ema=True)``) as
-    ``ema_update(ema_gen, gen_params, ema_decay)`` after every step."""
-    if data_codec is not None:
-        raise _not_ported(f"data_codec {data_codec!r}", "1 (data/codec.py)")
+    ``ema_update(ema_gen, gen_params, ema_decay)`` after every step.
+
+    ``data_codec="u8x100"``: ``real`` holds uint8 codes, decoded after
+    slicing through ``U8X100_TABLE`` (put on ``real``'s device at the
+    first call, which for a captured step is the warm-up, outside the
+    capture)."""
+    if data_codec not in (None, "u8x100"):
+        raise ValueError(f"unknown data_codec: {data_codec!r}")
     if chunk_indexed:
-        raise _not_ported("chunk_indexed", "3 (the chunked streaming tier)")
+        raise _not_ported("chunk_indexed", "3.1 (the chunk dedup tier)")
     if telemetry:
         raise _not_ported("telemetry", "6 (telemetry/ingraph.py)")
     if int(steps_per_call) != steps_per_call or steps_per_call < 1:
@@ -143,6 +151,13 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
                          f"{steps_per_call}")
     rank, world = (group.rank, group.world) if group is not None else (0, 1)
     reduce = mesh.reducer(group)
+    tables: Dict[torch.device, torch.Tensor] = {}
+
+    def decode(codes: torch.Tensor) -> torch.Tensor:
+        if codes.device not in tables:
+            tables[codes.device] = torch.from_numpy(U8X100_TABLE).to(codes.device)
+        return tables[codes.device].index_select(
+            0, codes.reshape(-1).long()).view(codes.shape)
 
     def train(graph, params, opt, inputs, targets):
         return graph._train_step(params, opt, inputs, targets, group=group,
@@ -163,6 +178,8 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
         mine = slice(rank * Bl, (rank + 1) * Bl)
         rows = batch_rows(state.it, real.shape[0], B, rank, world)
         real, labels = real.index_select(0, rows), labels.index_select(0, rows)
+        if data_codec:
+            real = decode(real)
         dev = real.device
         if z1 is None or z2 is None:
             if z_gen is None:

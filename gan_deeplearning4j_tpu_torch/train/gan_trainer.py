@@ -1,45 +1,131 @@
-"""A DCGAN trainer on device-resident data (torch twin of the resident
-loops of ``gan_deeplearning4j_tpu/train/gan_trainer.py``), on one device
-or one rank of a data-parallel group.
+"""The three-graph GAN training protocol as an engine (torch twin of
+``gan_deeplearning4j_tpu/train/gan_trainer.py``), on one device or one rank
+of a data-parallel group.
 
-The whole training table lives on the device; under a group every rank
-holds the whole table and the global soften vectors.  Label softening is
-drawn once per run: 0.05*N(0,1) over (B, 1) for the real and the fake
-half, y_dis = [1 + soften_real; soften_fake].  Two loops, as in the JAX
-trainer:
+Per iteration: a D-step on [real; G(z1)] (targets 1 + soften_real and
+soften_fake, the softening drawn once per run), the dis -> gan sync, a
+G-step on z2, the gan -> gen sync, and the dis -> classifier sync with a
+classifier step on the labeled batch.  Then the cadences: every
+``print_every`` steps the latent-grid synthesis CSV, every ``save_every``
+the test-set prediction CSV; at the end the four model zips.
+
+The training table comes from a ``RecordReaderDataSetIterator`` (the CSV
+files the CV program writes, or an array source; without one, the decoded
+``mnist_train.csv`` contract table of ``n_train`` rows, made in memory).
+It is decoded before anything is captured, and lives on the device in one
+of three tiers, as in the JAX trainer (``_resident_data_ok``):
+  - resident f32 when it fits ``data_on_device_max_bytes``;
+  - resident uint8 codes (``data_codec="u8x100"``, decoded bitwise after
+    slicing) when only the codes fit and the table is lossless 2-decimal
+    fixed point;
+  - streamed otherwise: each call's K*B rows are staged by
+    ``ChunkPrefetchIterator`` on a side stream while the previous call
+    trains, and copied into the static chunk buffer the step reads
+    (``_chunked_stream_loop``; the step slices ``it % K`` of it, so K must
+    divide every cadence, as ``resolve_steps_per_call`` makes it).
+Two loops, as in the JAX trainer:
   - fused (the default, ``dp_mode="gradient_sync"``): the protocol step of
-    ``fused_step``, K steps per call (``steps_per_call``; K is resolved to
-    divide the run), with the generator EMA when ``ema_decay`` > 0.  On one
-    card the step runs as a replayed CUDA graph; on the CPU and under a
-    group it runs eagerly.
+    ``fused_step``, K steps per call, with the generator EMA when
+    ``ema_decay`` > 0.  On one card the step runs as a replayed CUDA graph,
+    captured here at construction; on the CPU and under a group it runs
+    eagerly.
   - unfused (``fused=False``, or ``dp_mode="param_averaging"``): the
-    reference's per-fit loop, ``dis.fit`` / sync / ``gan.fit`` / sync /
-    ``classifier.fit``, through ``DataParallelGraph`` under a group.
-Every call ends in one readback of its losses.  ``train_data_parallel``
-runs the trainer in one process per rank.  Artifacts, checkpoints, metrics,
-the print/save cadences, supervision and evaluation are not ported yet.
+    reference's per-fit loop on the resident f32 table, through
+    ``DataParallelGraph`` under a group.
+Every call ends in one readback of its losses.  The dumps at a cadence
+boundary read a snapshot of the state taken on the compute stream before
+the next call (a replay overwrites the graph's static state), and their
+device work and copy to pinned host memory are enqueued on the training
+thread; ``AsyncArtifactWriter``'s worker waits for the copy and writes the
+CSV.  Under a group only rank 0 dumps, logs metrics and saves.
+Checkpoints, telemetry and supervision are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import math
+import os
 import statistics
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from gan_deeplearning4j_tpu_torch.data.datasets import synthetic_mnist
+from gan_deeplearning4j_tpu_torch.data import codec as codec_lib
+from gan_deeplearning4j_tpu_torch.data import datasets
+from gan_deeplearning4j_tpu_torch.data.csv import (
+    RecordReaderDataSetIterator,
+    write_csv_matrix,
+)
+from gan_deeplearning4j_tpu_torch.data.prefetch import ChunkPrefetchIterator
+from gan_deeplearning4j_tpu_torch.graph import serialization
 from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
 from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.parallel.data_parallel import DataParallelGraph
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
 from gan_deeplearning4j_tpu_torch.train import fused_step
+from gan_deeplearning4j_tpu_torch.utils.async_dump import AsyncArtifactWriter
+from gan_deeplearning4j_tpu_torch.utils.metrics import MetricsLogger
 
 log_ = logging.getLogger(__name__)
 
 DP_MODES = ("gradient_sync", "param_averaging")
+
+
+@dataclasses.dataclass
+class GANTrainerConfig:
+    """The ported fields of the JAX trainer's config (same names and
+    defaults).  A cadence of 0 is off (the JAX trainer requires them
+    positive).  ``seed`` seeds the training streams (label softening,
+    latents); the graphs take theirs from the model config."""
+
+    dataset_name: str
+    num_features: int
+    label_index: int
+    num_classes: int            # classifier label width (10 CV)
+    batch_size: int             # batchSizePerWorker
+    batch_size_pred: int        # batchSizePred
+    num_iterations: int
+    num_gen_samples: int        # latent grid edge -> n^2 samples
+    z_size: int = 2
+    print_every: int = 100
+    save_every: int = 100
+    seed: int = prng.NUMBER_OF_THE_BEAST
+    res_path: Optional[str] = "outputs"  # None: no files at all
+    dp_mode: str = "gradient_sync"
+    averaging_frequency: int = 1
+    fused: bool = True
+    # None = auto: resident when the table fits data_on_device_max_bytes
+    data_on_device: Optional[bool] = None
+    data_on_device_max_bytes: int = 2 << 30
+    steps_per_call: Optional[int] = None  # the cap on K (None = 100)
+    # streaming: the byte budget of one chunk (bounds K); 0 = K 1
+    stream_chunk_bytes: int = 256 << 20
+    use_data_codec: bool = True
+    metrics: bool = True
+    ema_decay: float = 0.0
+    async_dumps: bool = True
+
+
+class Workload:
+    """What a model family supplies (``cv_main.CVWorkload``)."""
+
+    name: str
+    classifier_model_name: str  # "CV" in the final zip names
+    # weight-sync maps: lists of (dst_layer, src_layer, param_names)
+    dis_to_gan: list
+    gan_to_gen: list
+    dis_to_classifier: list
+
+    def build_graphs(self, device) -> Dict[str, object]:
+        raise NotImplementedError
+
+    def ensure_data(self, res_path: str):
+        """Return (train_csv, test_csv)."""
+        raise NotImplementedError
 
 
 def latent_grid(n: int, z_size: int) -> np.ndarray:
@@ -83,26 +169,55 @@ def resolve_n_devices(n_devices: Optional[int], batch_size: int,
 
 
 def resolve_steps_per_call(iterations: int,
-                           steps_per_call: Optional[int] = None) -> int:
-    """Steps per call: the largest K <= cap that divides the run, so every
-    call runs whole (the JAX trainer's ``_resolve_steps_per_call``).  The
-    cap is ``fused_step.MAX_STEPS_PER_CALL``, or an explicit
-    ``steps_per_call``, which is reduced with a warning when it does not
-    divide the run."""
+                           steps_per_call: Optional[int] = None, *,
+                           cadences: Sequence[int] = (),
+                           byte_cap: Optional[int] = None,
+                           step_bytes: int = 0, start_step: int = 0) -> int:
+    """Steps per call (the JAX trainer's ``_resolve_steps_per_call``): the
+    largest K <= cap dividing the iteration count and every nonzero
+    cadence (print, save, checkpoint), so calls never cross a dump
+    boundary and the run is a whole number of calls.  The cap is
+    ``fused_step.MAX_STEPS_PER_CALL``, or an explicit ``steps_per_call``,
+    which is reduced with a warning when it does not divide them.
+
+    ``byte_cap`` (the streaming path): K also keeps one chunk's bytes
+    (``step_bytes`` a step) within the cap, and divides a nonzero
+    ``start_step`` (a streamed chunk slices ``it % K``); 0 means K 1."""
     cap = (fused_step.MAX_STEPS_PER_CALL if steps_per_call is None
            else max(1, steps_per_call))
-    # the iteration count is the only divisor: the JAX trainer also takes
-    # the gcd with its print, save and checkpoint cadences, which join it
-    # here when they are ported
+    byte_capped = False
+    if byte_cap is not None:
+        byte_steps = max(1, byte_cap // step_bytes)
+        byte_capped = byte_steps < cap
+        cap = min(cap, byte_steps)
     g = iterations
+    for cad in cadences:
+        if cad:
+            g = math.gcd(g, cad)
+    if byte_cap is not None and start_step:
+        g = math.gcd(g, start_step)
     if g <= 0:
         return 1
     k = max(d for d in range(1, min(cap, g) + 1) if g % d == 0)
     if steps_per_call is not None and k != steps_per_call:
-        log_.warning("steps_per_call=%d reduced to %d (must divide the "
-                     "iteration count so every call runs whole)",
-                     steps_per_call, k)
+        log_.warning("steps_per_call=%d reduced to %d (%s)", steps_per_call,
+                     k, "chunk transfer-byte budget stream_chunk_bytes"
+                     if byte_capped and k == cap else
+                     "must divide the iteration count and the artifact "
+                     "cadences so every call runs whole")
     return k
+
+
+def _host_copy(t: torch.Tensor):
+    """Start ``t``'s copy to host memory on the current stream ->
+    (host tensor, event or None); the event completes with the copy."""
+    if t.device.type != "cuda":
+        return t.detach(), None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
 
 
 class GANTrainer:
@@ -110,65 +225,150 @@ class GANTrainer:
     (None = the card; a ``group`` brings its rank's device) and trains
     them, data-parallel over ``group`` when one is given.
 
-    ``steps_per_call``: the cap on K (None = ``MAX_STEPS_PER_CALL``).
-    ``ema_decay`` in [0, 1): the generator EMA (fused step only).
-    ``fused=False`` or ``dp_mode="param_averaging"`` select the unfused
-    per-fit loop; under a group its graphs fit through ``DataParallelGraph``
-    (``dp_mode``, ``averaging_frequency``).  On one card the fused step is
-    captured as a CUDA graph here, at construction."""
+    The bare loop (the keyword options): ``steps_per_call`` caps K (None =
+    ``MAX_STEPS_PER_CALL``), ``ema_decay`` in [0, 1) keeps the generator
+    EMA (fused step only), ``fused=False`` or ``dp_mode="param_averaging"``
+    select the unfused per-fit loop (under a group through
+    ``DataParallelGraph``: ``dp_mode``, ``averaging_frequency``); no
+    cadences, no files.
+
+    The program (``cv_main``): ``config`` (a ``GANTrainerConfig``, which
+    then supplies batch_size, steps_per_call, ema_decay, fused, dp_mode
+    and averaging_frequency: leave those at their defaults) and
+    ``workload`` (its graphs, sync maps and CSV files)."""
 
     def __init__(self, cfg: M.CVConfig = M.CVConfig(), batch_size: int = 200,
                  n_train: int = 60000, device=None,
                  group: Optional[mesh.DataGroup] = None,
                  steps_per_call: Optional[int] = None, ema_decay: float = 0.0,
                  fused: bool = True, dp_mode: str = "gradient_sync",
-                 averaging_frequency: int = 1):
-        if n_train < batch_size:
-            raise ValueError(f"n_train {n_train} is less than one batch "
-                             f"of {batch_size}")
-        if not 0.0 <= ema_decay < 1.0:
+                 averaging_frequency: int = 1, *,
+                 config: Optional[GANTrainerConfig] = None,
+                 workload: Optional[Workload] = None):
+        if config is None:
+            config = GANTrainerConfig(
+                dataset_name="mnist", num_features=cfg.num_features,
+                label_index=cfg.num_features, num_classes=cfg.num_classes,
+                batch_size=batch_size, batch_size_pred=500, num_iterations=0,
+                num_gen_samples=10, z_size=cfg.z_size, print_every=0,
+                save_every=0, seed=cfg.seed, res_path=None, dp_mode=dp_mode,
+                averaging_frequency=averaging_frequency, fused=fused,
+                steps_per_call=steps_per_call, metrics=False,
+                ema_decay=ema_decay)
+        elif (batch_size, steps_per_call, ema_decay, fused, dp_mode,
+              averaging_frequency) != (200, None, 0.0, True,
+                                       "gradient_sync", 1):
+            raise ValueError("pass the bare loop's options or a config, "
+                             "not both")
+        c = self.c = config
+        if not 0.0 <= c.ema_decay < 1.0:
             raise ValueError(
-                f"ema_decay must be in [0, 1), got {ema_decay} "
+                f"ema_decay must be in [0, 1), got {c.ema_decay} "
                 "(1.0 would pin the EMA at initialization forever)")
-        if dp_mode not in DP_MODES:
-            raise ValueError(f"unknown dp_mode {dp_mode!r}; known: {DP_MODES}")
-        self.fused = fused and dp_mode == "gradient_sync"
-        if ema_decay > 0 and not self.fused:
+        if c.dp_mode not in DP_MODES:
+            raise ValueError(f"unknown dp_mode {c.dp_mode!r}; known: "
+                             f"{DP_MODES}")
+        self.fused = c.fused and c.dp_mode == "gradient_sync"
+        if c.ema_decay > 0 and not self.fused:
             raise ValueError(
                 "ema_decay > 0 requires the fused step (fused=True, "
                 "dp_mode='gradient_sync') — only it maintains the EMA")
-        if steps_per_call is not None and steps_per_call < 1:
+        if c.steps_per_call is not None and c.steps_per_call < 1:
             raise ValueError(f"steps_per_call must be >= 1, got "
-                             f"{steps_per_call}")
+                             f"{c.steps_per_call}")
         if group is not None:
             device = group.device
         self.device = dev = backend.resolve_device(device)
         self.group = group
-        self.cfg, self.batch_size = cfg, batch_size
-        self.steps_per_call, self.ema_decay = steps_per_call, ema_decay
-        self.dp_mode = dp_mode
-        self.dis = M.build_discriminator(cfg, dev)
-        self.gen = M.build_generator(cfg, dev)
-        self.gan = M.build_gan(cfg, dev)
-        self.classifier = M.build_classifier(self.dis, cfg)
-        feats, labels = synthetic_mnist(n_train)
-        self.features = torch.from_numpy(feats).to(dev)
-        self.labels = torch.nn.functional.one_hot(
-            torch.from_numpy(labels), cfg.num_classes).float().to(dev)
-        soften = prng.generator(cfg.seed, "soften")
-        B = batch_size
+        self.rank0 = group is None or group.rank == 0
+        self.cfg, self.batch_size = cfg, c.batch_size
+        self.steps_per_call, self.ema_decay = c.steps_per_call, c.ema_decay
+        self.dp_mode = c.dp_mode
+        self.workload = workload
+        self.steps = 0
+        self.timings: Dict = {"dumps": []}
+        if workload is not None:
+            graphs = workload.build_graphs(dev)
+            self.maps = (workload.dis_to_gan, workload.gan_to_gen,
+                         workload.dis_to_classifier)
+        else:
+            dis = M.build_discriminator(cfg, dev)
+            graphs = {"dis": dis, "gen": M.build_generator(cfg, dev),
+                      "gan": M.build_gan(cfg, dev),
+                      "classifier": M.build_classifier(dis, cfg)}
+            self.maps = (M.DIS_TO_GAN, M.GAN_TO_GEN, M.DIS_TO_CLASSIFIER)
+        self.dis, self.gen = graphs["dis"], graphs["gen"]
+        self.gan, self.classifier = graphs["gan"], graphs["classifier"]
+        B = c.batch_size
+
+        # -- the data: decoded before anything reads its address ------------
+        test_iter = None
+        if workload is not None:
+            t0 = time.perf_counter()
+            train_csv, test_csv = workload.ensure_data(c.res_path)
+            self.timings["csv_ready_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            train_iter = RecordReaderDataSetIterator(
+                train_csv, B, c.label_index, c.num_classes)
+            test_iter = RecordReaderDataSetIterator(
+                test_csv, c.batch_size_pred, c.label_index, c.num_classes)
+            self.timings["decode_s"] = time.perf_counter() - t0
+        else:
+            train_iter = RecordReaderDataSetIterator(
+                datasets.mnist_table(n_train), B, c.label_index,
+                c.num_classes)
+        if train_iter.num_examples() < B:
+            raise ValueError(f"the training table has {train_iter.num_examples()}"
+                             f" rows, less than one batch of {B}")
+        if c.save_every and test_iter is None:
+            raise ValueError("save_every needs a test iterator")
+        self.train_iter, self.test_iter = train_iter, test_iter
+        resident_f32 = not self.fused or self._resident_data_ok(train_iter)
+        codec = None
+        if (self.fused and not resident_f32 and c.use_data_codec
+                and codec_lib.u8x100_lossless(train_iter.features)):
+            codec = "u8x100"
+        resident = resident_f32 or (
+            codec is not None and self._resident_data_ok(train_iter, codec))
+        self.resident = resident
+        self.data_codec = codec
+        t0 = time.perf_counter()
+        if resident:
+            feats = train_iter.features
+            if codec:
+                feats = codec_lib.u8x100_encode(feats)
+            self.features = torch.from_numpy(feats).to(dev)
+            self.labels = torch.from_numpy(train_iter.labels).to(dev)
+            self.stream_k = None
+        else:
+            # the static chunk buffers the step reads; each call's chunk is
+            # copied in (``_chunked_stream_loop``)
+            self.stream_k = self._resolve_steps_per_call(
+                byte_cap=c.stream_chunk_bytes, codec=codec)
+            rows = self.stream_k * B
+            self.features = torch.zeros(
+                (rows, c.num_features), device=dev,
+                dtype=torch.uint8 if codec else torch.float32)
+            self.labels = torch.zeros((rows, c.num_classes), device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.timings["upload_s"] = time.perf_counter() - t0
+
+        soften = prng.generator(c.seed, "soften")
         self.ones = torch.ones((B, 1), device=dev)
         self.y_real = self.ones + 0.05 * torch.randn((B, 1), generator=soften).to(dev)
         self.y_fake = 0.05 * torch.randn((B, 1), generator=soften).to(dev)
-        self.z_gen = prng.generator(cfg.seed, "train-z", dev)
-        self.steps = 0
+        self.z_gen = prng.generator(c.seed, "train-z", dev)
+        self.z_grid = torch.from_numpy(
+            latent_grid(c.num_gen_samples, c.z_size)).to(dev)
         self.state: Optional[fused_step.ProtocolState] = None
         self.graphed: Optional[fused_step.GraphedStep] = None
         self._step_fns: Dict[int, Callable] = {}
+        self._test_x: Optional[List[torch.Tensor]] = None
         if self.fused:
             self.state = fused_step.state_from_graphs(
                 self.dis, self.gen, self.gan, self.classifier,
-                ema=ema_decay > 0)
+                ema=c.ema_decay > 0)
             # one card: the step as a CUDA graph.  The CPU and groups stay
             # eager by configuration (gloo cannot be captured; capturing
             # NCCL is later work)
@@ -176,29 +376,68 @@ class GANTrainer:
                 self.graphed = fused_step.GraphedStep(
                     self.step_fn(1), self.state, self.features, self.labels,
                     self.y_real, self.y_fake, self.ones, self.z_gen,
-                    ring=steps_per_call or fused_step.MAX_STEPS_PER_CALL)
+                    ring=c.steps_per_call or fused_step.MAX_STEPS_PER_CALL)
                 self.state = self.graphed.state
+                self.timings["capture_s"] = (self.graphed.setup["warmup_s"]
+                                             + self.graphed.setup["capture_s"])
         elif group is None:
             self._fits = (self.dis.fit, self.gan.fit, self.classifier.fit)
         else:
             self._fits = tuple(
-                DataParallelGraph(g, group, mode=dp_mode,
-                                  averaging_frequency=averaging_frequency).fit
+                DataParallelGraph(g, group, mode=c.dp_mode,
+                                  averaging_frequency=c.averaging_frequency).fit
                 for g in (self.dis, self.gan, self.classifier))
+        metrics_path = (os.path.join(c.res_path,
+                                     f"{c.dataset_name}_metrics.jsonl")
+                        if c.metrics and c.res_path and self.rank0 else None)
+        self.metrics = MetricsLogger(metrics_path)
+        # inline until train() swaps in the background writer, so the dump
+        # methods also work when called directly
+        self._dumper = AsyncArtifactWriter(synchronous=True)
+
+    # -- configuration ---------------------------------------------------------
+
+    def _resident_data_ok(self, iter_train, codec=None) -> bool:
+        """The device-resident data path: the config's override, else the
+        table (at u8 size under the codec) must fit the byte budget."""
+        c = self.c
+        if c.data_on_device is not None:
+            return bool(c.data_on_device)
+        feat_bytes = iter_train.features.nbytes
+        if codec == "u8x100":
+            feat_bytes //= 4
+        return feat_bytes + iter_train.labels.nbytes <= c.data_on_device_max_bytes
+
+    def _resolve_steps_per_call(self, byte_cap: Optional[int] = None,
+                                codec: Optional[str] = None) -> int:
+        """K for this trainer's run (``resolve_steps_per_call`` with the
+        config's cadences; ``byte_cap`` on the streaming path, where a
+        codec chunk counts 5 bytes a feature as in the JAX trainer)."""
+        c = self.c
+        feat_bytes = 5 if codec == "u8x100" else 4
+        return resolve_steps_per_call(
+            c.num_iterations, c.steps_per_call,
+            cadences=(c.print_every, c.save_every),
+            byte_cap=byte_cap,
+            step_bytes=c.batch_size * (feat_bytes * c.num_features
+                                       + 4 * c.num_classes),
+            start_step=self.steps)
 
     def step_fn(self, k: int) -> Callable:
         """The fused step with ``steps_per_call`` k (eager; built once per
-        k) on this trainer's graphs, group and EMA decay."""
+        k) on this trainer's graphs, group, EMA decay and table codec."""
         if k not in self._step_fns:
             self._step_fns[k] = fused_step.make_protocol_step(
-                self.dis, self.gen, self.gan, self.classifier, M.DIS_TO_GAN,
-                M.GAN_TO_GEN, M.DIS_TO_CLASSIFIER, z_size=self.cfg.z_size,
-                num_features=self.cfg.num_features, group=self.group,
-                steps_per_call=k, ema_decay=self.ema_decay)
+                self.dis, self.gen, self.gan, self.classifier, *self.maps,
+                z_size=self.c.z_size, num_features=self.c.num_features,
+                group=self.group, steps_per_call=k,
+                ema_decay=self.c.ema_decay, data_codec=self.data_codec)
         return self._step_fns[k]
 
+    # -- the steps -------------------------------------------------------------
+
     def _z(self) -> torch.Tensor:
-        return torch.rand((self.batch_size, self.cfg.z_size),
+        return torch.rand((self.batch_size, self.c.z_size),
                           generator=self.z_gen, device=self.device) * 2 - 1
 
     def unfused_step(self, z1: Optional[torch.Tensor] = None,
@@ -212,18 +451,19 @@ class GANTrainer:
         off = (self.steps % (self.features.shape[0] // B)) * B
         real, labels = self.features[off:off + B], self.labels[off:off + B]
         fit_dis, fit_gan, fit_clf = self._fits
+        dis_to_gan, gan_to_gen, dis_to_classifier = self.maps
         # (1) D-step on [real; G(z1)], the generator in inference mode
         z1 = self._z() if z1 is None else z1
-        fake = self.gen.output(z1)[0].reshape(B, self.cfg.num_features)
+        fake = self.gen.output(z1)[0].reshape(B, self.c.num_features)
         d_loss = fit_dis(torch.cat([real, fake]),
                          torch.cat([self.y_real, self.y_fake]))
         # (2) dis -> gan frozen tail, (3) the G-step, (4) gan -> gen
-        M.sync_params(self.gan, self.dis, M.DIS_TO_GAN)
+        M.sync_params(self.gan, self.dis, dis_to_gan)
         z2 = self._z() if z2 is None else z2
         g_loss = fit_gan(z2, self.ones)
-        M.sync_params(self.gen, self.gan, M.GAN_TO_GEN)
+        M.sync_params(self.gen, self.gan, gan_to_gen)
         # (5) dis -> classifier, and the classifier on the labeled batch
-        M.sync_params(self.classifier, self.dis, M.DIS_TO_CLASSIFIER)
+        M.sync_params(self.classifier, self.dis, dis_to_classifier)
         c_loss = fit_clf(real, labels)
         self.steps += 1
         return d_loss, g_loss, c_loss
@@ -242,71 +482,233 @@ class GANTrainer:
         self.steps += k
         return out
 
-    def train(self, iterations: int,
-              log: Optional[Callable[[str], None]] = print) -> Dict:
-        """Run ``iterations`` protocol steps, K per call (the unfused loop:
-        one).  Each call ends in one readback of its losses, so a step's
-        time is the call's host clock over finished device work, over K."""
-        k = (resolve_steps_per_call(iterations, self.steps_per_call)
-             if self.fused else 1)
-        times, losses = [], (float("nan"),) * 3
-        for _ in range(iterations // k):
-            t0 = time.perf_counter()
-            rows = self._call(k)
-            times.append(time.perf_counter() - t0)
-            for i, row in enumerate(rows.tolist()):
-                losses = tuple(row)
-                if log is not None:
-                    log(f"step {self.steps - k + i + 1}: d_loss "
-                        f"{losses[0]:.6f} g_loss {losses[1]:.6f} clf_loss "
-                        f"{losses[2]:.6f} ({times[-1] / k * 1e3:.3f} ms)")
+    def _sync_graphs(self) -> None:
+        """Point the four graphs at the current state: clones of a graph's
+        static buffers, taken on the compute stream, so that the next
+        replay cannot overwrite what a dump or the save reads."""
         if self.fused:
-            # clones of a graph's static buffers: a later replay must not
-            # overwrite the graphs' params under sample_grid
             state = (fused_step.clone_state(self.state)
                      if self.graphed is not None else self.state)
             fused_step.state_to_graphs(state, self.dis, self.gen, self.gan,
                                        self.classifier)
+
+    # -- the loops -------------------------------------------------------------
+
+    def train(self, iterations: Optional[int] = None,
+              log: Optional[Callable[[str], None]] = print) -> Dict:
+        """Run ``iterations`` protocol steps (default: the config's), K per
+        call (the unfused loop: one), with the cadences' dumps, the metrics
+        and, with a ``res_path``, the four model zips at the end.  Each call
+        ends in one readback of its losses, so a step's time is the call's
+        host clock over finished device work, over K."""
+        c = self.c
+        if iterations is not None and iterations != c.num_iterations:
+            if not self.resident:
+                raise ValueError("a streamed run's length is fixed at "
+                                 "construction (its chunk size divides it)")
+            self.c = c = dataclasses.replace(c, num_iterations=iterations)
+        if self.resident:
+            k = self._resolve_steps_per_call() if self.fused else 1
+        else:
+            k = self.stream_k
+        self._k, self._log, self._times = k, log, []
+        self._last = (float("nan"),) * 3
+        self._steady = None
+        self._dumper = AsyncArtifactWriter(synchronous=not c.async_dumps)
+        with self._dumper:
+            if self.resident:
+                self._resident_loop()
+            else:
+                chunks = ChunkPrefetchIterator(
+                    self.train_iter, k, c.batch_size, prefetch_depth=1,
+                    device=self.device,
+                    encode_features=(codec_lib.u8x100_encode
+                                     if self.data_codec else None),
+                    feature_dtype=np.uint8 if self.data_codec else np.float32)
+                try:
+                    self._chunked_stream_loop(chunks)
+                finally:
+                    chunks.close()
+        t_end = time.perf_counter()  # every dump written
+        self._sync_graphs()
+        if c.res_path and self.rank0:
+            t0 = time.perf_counter()
+            self.save_models()
+            self.timings["save_s"] = time.perf_counter() - t0
+        self.metrics.close()
+        times = self._times
         step_s = statistics.median(times) / k if times else float("nan")
-        return {"steps": self.steps, "d_loss": losses[0],
-                "g_loss": losses[1], "clf_loss": losses[2],
+        if len(times) > 1:
+            # the steady window: every call after the first (which pays the
+            # warm-up), with its bookkeeping and dumps
+            steady = ((len(times) - 1) * k * c.batch_size
+                      / (t_end - self._steady))
+        else:
+            steady = k * c.batch_size / sum(times) if times else float("nan")
+        return {"steps": self.steps, "examples_per_sec": steady,
+                "examples_per_sec_includes_compile": len(times) <= 1,
+                "d_loss": self._last[0], "g_loss": self._last[1],
+                "clf_loss": self._last[2],
                 "step_ms_median": step_s * 1e3,
                 "img_per_s": self.batch_size / step_s,
                 "steps_per_call": k, "graphed": self.graphed is not None,
                 "fused": self.fused, "dp_mode": self.dp_mode,
-                "ema_decay": self.ema_decay,
+                "ema_decay": self.ema_decay, "resident": self.resident,
+                "data_codec": self.data_codec,
                 "device": str(self.device),
                 "world": self.group.world if self.group else 1,
                 "backend": self.group.backend if self.group else None}
 
+    def _next_chunk(self) -> int:
+        """Steps until the next artifact boundary or the end of the run,
+        capped at K, which must be K: ``resolve_steps_per_call`` aligns K
+        with every cadence, the run length and the start step, and a
+        partial chunk would desynchronize a streamed chunk's slicing from
+        the step counter."""
+        c = self.c
+        run = min(self._k, c.num_iterations - self.steps)
+        for cad in (c.print_every, c.save_every):
+            if cad:
+                run = min(run, cad - self.steps % cad)
+        if run != self._k:
+            raise RuntimeError(f"chunk misalignment: next boundary in "
+                               f"{run} steps but K is {self._k}")
+        return run
+
+    def _timed_call(self, k: int) -> torch.Tensor:
+        t0 = time.perf_counter()
+        rows = self._call(k)
+        t1 = time.perf_counter()
+        self._times.append(t1 - t0)
+        if self._steady is None:
+            self._steady = t1
+        return rows
+
+    def _resident_loop(self) -> None:
+        """The device-resident data path: the step slices its own batches
+        from the step counter on the device; one call advances a chunk of
+        K steps (K divides every boundary, so a call never crosses one)."""
+        while self.steps < self.c.num_iterations:
+            self._bookkeeping(self._timed_call(self._next_chunk()))
+
+    def _chunked_stream_loop(self, chunks: ChunkPrefetchIterator) -> None:
+        """The streaming counterpart: one chunk of K batches copied into the
+        static chunk buffer (behind the previous call, on the compute
+        stream) and one call of K steps; chunk k+1 is staged meanwhile."""
+        while self.steps < self.c.num_iterations:
+            run = self._next_chunk()
+            chunks.next_into(self.features, self.labels)
+            self._bookkeeping(self._timed_call(run))
+
+    def _bookkeeping(self, rows: torch.Tensor) -> None:
+        """One call's log lines and metrics (the JAX trainer's per-step
+        record with examples/sec at K 1, one chunk record otherwise), then
+        the cadence triggers at the new step count."""
+        n = rows.shape[0]
+        start = self.steps - n
+        losses = rows.tolist()
+        self._last = tuple(losses[-1])
+        log = self._log
+        if log is not None:
+            ms = self._times[-1] / n * 1e3
+            for i, (d, g, cl) in enumerate(losses):
+                log(f"step {start + i + 1}: d_loss {d:.6f} g_loss {g:.6f} "
+                    f"clf_loss {cl:.6f} ({ms:.3f} ms)")
+            for s in range(start - start % 100 + 100, self.steps + 1, 100):
+                log(f"Completed Batch {s}!")
+        if n == 1:
+            d, g, cl = losses[0]
+            self.metrics.log_step(self.steps, examples=self.batch_size,
+                                  d_loss=d, g_loss=g, classifier_loss=cl)
+        else:
+            d, g, cl = zip(*losses)
+            self.metrics.log_chunk(start + 1, n, 0, {
+                "d_loss": d, "g_loss": g, "classifier_loss": cl})
+        self._boundary_bookkeeping()
+
+    def _boundary_bookkeeping(self) -> None:
+        c = self.c
+        grid = bool(c.print_every) and self.steps % c.print_every == 0
+        preds = bool(c.save_every) and self.steps % c.save_every == 0
+        if not self.rank0 or not (grid or preds):
+            return
+        self._sync_graphs()
+        if grid:
+            self._dump_grid()
+        if preds:
+            self._dump_predictions()
+
+    # -- artifact dumps --------------------------------------------------------
+
+    def _submit_dump(self, kind: str, path: str, out: torch.Tensor,
+                     t0: float) -> None:
+        """Start ``out``'s copy to host and hand the CSV write to the
+        writer, which waits for the copy first.  Records the host seconds:
+        enqueue (this thread), readback wait and write (the writer)."""
+        host, event = _host_copy(out)
+        rec = {"kind": kind, "step": self.steps,
+               "enqueue_s": time.perf_counter() - t0}
+        self.timings["dumps"].append(rec)
+
+        def write():
+            t1 = time.perf_counter()
+            if event is not None:
+                event.synchronize()
+            t2 = time.perf_counter()
+            write_csv_matrix(path, host.numpy())
+            rec["readback_s"], rec["write_s"] = t2 - t1, time.perf_counter() - t2
+
+        self._dumper.submit(write)
+
+    def _dump_grid(self) -> None:
+        """The generator over the latent grid, inference mode ->
+        ``<dataset>_out_<step>.csv``."""
+        t0 = time.perf_counter()
+        c = self.c
+        out = self.gen.output(self.z_grid)[0].reshape(
+            self.z_grid.shape[0], c.num_features)
+        self._submit_dump("grid", os.path.join(
+            c.res_path, f"{c.dataset_name}_out_{self.steps}.csv"), out, t0)
+
+    def _dump_predictions(self) -> None:
+        """The classifier over the test set, inference mode ->
+        ``<dataset>_test_predictions_<step>.csv``.  The test set moves to
+        the device once, as one tensor when it fits 256 MiB (one forward
+        per dump, as in the JAX trainer)."""
+        t0 = time.perf_counter()
+        c = self.c
+        if self._test_x is None:
+            it = self.test_iter
+            it.reset()
+            batches = []
+            while it.has_next():
+                batches.append(it.next().features)
+            if len(batches) > 1 and sum(b.nbytes for b in batches) <= 256 << 20:
+                batches = [np.concatenate(batches)]
+            self._test_x = [torch.from_numpy(b).to(self.device)
+                            for b in batches]
+        outs = [self.classifier.output(x)[0] for x in self._test_x]
+        self._submit_dump("predictions", os.path.join(
+            c.res_path, f"{c.dataset_name}_test_predictions_{self.steps}.csv"),
+            torch.cat(outs) if len(outs) > 1 else outs[0], t0)
+
+    # -- models ----------------------------------------------------------------
+
+    def model_paths(self) -> Dict[str, str]:
+        """The four model zips' paths (the reference's file names)."""
+        c = self.c
+        clf = (self.workload.classifier_model_name if self.workload
+               else "CV")
+        return {g: os.path.join(c.res_path, f"{c.dataset_name}_{n}_model.zip")
+                for g, n in (("dis", "dis"), ("gan", "gan"), ("gen", "gen"),
+                             ("classifier", clf))}
+
+    def save_models(self) -> None:
+        """The end-of-run model zips, the reference's four files."""
+        for g, path in self.model_paths().items():
+            serialization.write_model(getattr(self, g), path)
+
     def sample_grid(self, n: int = 10) -> torch.Tensor:
         """Generator output over the n x n latent grid, inference mode."""
-        z = torch.from_numpy(latent_grid(n, self.cfg.z_size)).to(self.device)
+        z = torch.from_numpy(latent_grid(n, self.c.z_size)).to(self.device)
         return self.gen.output(z)[0]
-
-
-def _train_rank(group: mesh.DataGroup, cfg: M.CVConfig, batch_size: int,
-                n_train: int, iterations: int, options: Dict) -> Dict:
-    trainer = GANTrainer(cfg, batch_size, n_train, group=group, **options)
-    return trainer.train(iterations, log=print if group.rank == 0 else None)
-
-
-def train_data_parallel(cfg: M.CVConfig, batch_size: int, n_train: int,
-                        iterations: int, device=None,
-                        n_devices: Optional[int] = None,
-                        timeout: float = 3600.0, **options) -> Dict:
-    """Train with ``resolve_n_devices(n_devices)`` ranks: in this process
-    when that is one, else one spawned process per rank (rank r on
-    ``cuda:r``, NCCL; gloo ranks with ``device="cpu"``), rank 0 logging its
-    steps.  ``options`` go to every rank's ``GANTrainer``
-    (``steps_per_call``, ``ema_decay``, ``fused``, ``dp_mode``,
-    ``averaging_frequency``).  Returns rank 0's result."""
-    world = resolve_n_devices(n_devices, batch_size, device)
-    if world == 1:
-        return GANTrainer(cfg, batch_size, n_train, device,
-                          **options).train(iterations)
-    dev = backend.resolve_device(device)
-    results = mesh.spawn(_train_rank, world,
-                         (cfg, batch_size, n_train, iterations, options),
-                         device=dev.type, timeout=timeout)
-    return results[0]

@@ -140,9 +140,11 @@ def test_three_steps_track_jax(runs):
         assert all(np.isfinite(losses_t))
 
 
-def test_cv_main_runs_on_cpu(capsys):
+def test_cv_main_runs_on_cpu(capsys, tmp_path):
     result = cv_main.main(["--iterations", "2", "--batch-size", "8",
-                           "--n-train", "32", "--device", "cpu"])
+                           "--n-train", "32", "--device", "cpu",
+                           "--res-path", str(tmp_path), "--n-test", "16",
+                           "--fid-samples", "64"])
     out = capsys.readouterr().out.strip().splitlines()
     assert json.loads(out[-1]) == result
     assert result["steps"] == 2 and result["device"] == "cpu"
@@ -155,8 +157,15 @@ def test_cv_main_runs_on_cpu(capsys):
 
 _HYGIENE = r"""
 import sys
+from gan_deeplearning4j_tpu_torch.data import codec, csv, datasets, prefetch
+from gan_deeplearning4j_tpu_torch.eval import (evaluation, fid,
+                                               fid_extractor, metrics)
+from gan_deeplearning4j_tpu_torch.graph import serialization
 from gan_deeplearning4j_tpu_torch.parallel import data_parallel, mesh
+from gan_deeplearning4j_tpu_torch.train import cv_main
 from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
+from gan_deeplearning4j_tpu_torch.utils import async_dump, metrics as logger
+assert fid_extractor.load_extractor("cpu").params["feat"]["W"].shape == (512, 256)
 t = GANTrainer(batch_size=4, n_train=8, device="cpu")
 r = t.train(1, log=None)
 assert r["steps"] == 1, r

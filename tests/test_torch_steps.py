@@ -322,8 +322,7 @@ def test_trainer_refuses_bad_options(kwargs, match):
         GANTrainer(batch_size=4, n_train=8, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [{"data_codec": "u8x100"},
-                                    {"chunk_indexed": True},
+@pytest.mark.parametrize("kwargs", [{"chunk_indexed": True},
                                     {"telemetry": True}])
 def test_step_refuses_what_is_not_ported(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
@@ -524,12 +523,14 @@ def test_param_averaging_trainer_matches_jax(cpu_devices):
 
 # -- the CLI --------------------------------------------------------------------
 
-def test_cv_main_steps_per_call_and_ema_on_cpu(capsys):
+def test_cv_main_steps_per_call_and_ema_on_cpu(capsys, tmp_path):
     """--steps-per-call 2 --ema-decay 0.9: four steps in two calls, each
     step logged, the JSON line says so."""
     result = cv_main.main(["--iterations", "4", "--batch-size", "8",
                            "--n-train", "32", "--device", "cpu",
-                           "--steps-per-call", "2", "--ema-decay", "0.9"])
+                           "--steps-per-call", "2", "--ema-decay", "0.9",
+                           "--res-path", str(tmp_path), "--n-test", "16",
+                           "--fid-samples", "64"])
     out = capsys.readouterr().out.strip().splitlines()
     assert json.loads(out[-1]) == result
     assert (result["steps"], result["steps_per_call"], result["ema_decay"],
@@ -539,7 +540,7 @@ def test_cv_main_steps_per_call_and_ema_on_cpu(capsys):
                             result["clf_loss"]]))
 
 
-def test_cv_main_param_averaging_two_ranks_on_cpu():
+def test_cv_main_param_averaging_two_ranks_on_cpu(tmp_path):
     """--n-devices 2 --dp-mode param_averaging: two gloo ranks run the
     unfused per-fit loop; rank 0 prints its steps and the JSON line."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -547,7 +548,9 @@ def test_cv_main_param_averaging_two_ranks_on_cpu():
         [sys.executable, "-m", "gan_deeplearning4j_tpu_torch.train.cv_main",
          "--n-devices", "2", "--device", "cpu", "--iterations", "2",
          "--batch-size", "8", "--n-train", "64", "--dp-mode",
-         "param_averaging", "--averaging-frequency", "2"],
+         "param_averaging", "--averaging-frequency", "2",
+         "--res-path", str(tmp_path), "--n-test", "16",
+         "--fid-samples", "64"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
