@@ -38,7 +38,14 @@ exits non-zero:
                 replaces, for worlds 1-4; both pair kernels must give the
                 same bits from an offset view of x (their scalar path) as
                 from x.  Beside each kernel's time stands ``floor_ms``: as
-                many back-to-back empty launches, timed the same way.
+                many back-to-back empty launches, timed the same way.  A
+                ``kernel_insurance`` line does the same at the insurance
+                step's shapes: ``bn_act`` at each of its four BNs (shape,
+                activation, gradient, bitwise repeat, time against
+                ``F.batch_norm`` in turns, floor and bound), the pair at a
+                2-rank insurance step's per-rank shapes ([25, 2] on the
+                scalar path) and ``fused_update`` over its three leaf
+                tables.
   4. main     — the trainer (the cv_main entry) on cuda for 20 protocol
                 steps at batch 200, full width, on synthetic MNIST, as
                 cv_main runs it on one card: the step captured as a CUDA
@@ -65,7 +72,10 @@ exits non-zero:
                 step's gradient all-reduces alone, then 4 steps of the
                 unfused per-fit loop with param_averaging (exact launch
                 counts, the ranks' states bitwise equal after the last
-                average); then, in this process,
+                average), then INS_DP_STEPS insurance steps at global
+                batch 50 (the pair at [50, 12], [25, 2], [25, 12],
+                [25, 100] per rank), each held against the single-process
+                step, with exact launch counts; then, in this process,
                 one step of a 1-rank NCCL group against the single-process
                 step, and under torch.profiler one sync-BN forward per BN
                 shape on that group: exactly one moments and one apply
@@ -85,8 +95,20 @@ exits non-zero:
                 decode, upload, capture, each dump, the save and the
                 evaluation, and examples/sec, beside the card's name and
                 power limit.
-  9. the ``kernels`` line, the nvidia-smi line, and last
-     {"ok": true, "device": {...}}.
+  9. insurance — the insurance program as a user runs it
+                (``insurance_main`` at its defaults: 5,000 steps at batch
+                50 graphed in calls of K = 100, the grid, grid-extras and
+                prediction dumps every 100 steps, the four model zips, the
+                AUROC), twice: with the launch counters zeroed just before
+                and read just after (4 ``bn_act`` and 3 ``fused_update`` a
+                step, warm-up included, nothing else), every dump's shape,
+                the metrics JSONL, the zips read back bit for bit, a test
+                AUROC above 0.5; then with ``--sync-dumps`` (every dump
+                byte-identical).  Then the program's step graphed against
+                eager (bitwise over 20 steps) and the two timed in turns.
+ 10. the ``kernels`` line (each kernel's insurance numbers beside the
+     CV step's, where the insurance path runs it), the nvidia-smi line,
+     and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is available.
 Imports nothing of JAX.
@@ -94,7 +116,9 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import math
 import os
@@ -121,6 +145,22 @@ CV_ARGS = ["--n-train", "10000", "--n-test", "2000", "--iterations", "200",
 CV_STEPS = 200
 CV_K = 100
 PA_FREQ = 2
+# the insurance program (insurance_main) at its reference defaults: 5,000
+# steps at batch 50, dumps every 100 steps, K = 100 steps a call
+INS_STEPS = 5000
+INS_K = 100
+INS_BATCH = 50
+INS_TURN_K = 10  # steps per call of the insurance phase's timed turns
+INS_DP_STEPS = 4  # the dp phase's insurance steps per rank
+# the insurance step's 2-D BNs on one card (dis, gan's two, classifier)
+# and, at 2 ranks, the sync-BN pair's per-rank shapes
+INS_BN = [((100, 12), "elu"), ((50, 2), "tanh"), ((50, 12), "elu"),
+          ((50, 100), "elu")]
+INS_PAIR = [((50, 12), "elu"), ((25, 2), "tanh"), ((25, 12), "elu"),
+            ((25, 100), "elu")]
+# the insurance step against another from the same state: STEP_TOL, with
+# params held to one generator learning rate of this model (4e-4)
+INS_STEP_TOL = {"loss": 1e-4, "param": 4e-4, "cache": 5e-2}
 REPS = 30
 SLEEP_CYCLES = 40_000_000  # ~20 ms at the H100's ~2 GHz clock
 # each kernel's CUDA source and the Pallas kernel it replaces
@@ -277,12 +317,11 @@ def step_diff(ref, got):
     return loss_err, worst
 
 
-def require_step_match(what, loss_err, worst) -> None:
-    require(loss_err <= STEP_TOL["loss"],
-            f"{what}: loss relative error {loss_err} > {STEP_TOL['loss']}")
+def require_step_match(what, loss_err, worst, tol=STEP_TOL) -> None:
+    require(loss_err <= tol["loss"],
+            f"{what}: loss relative error {loss_err} > {tol['loss']}")
     for kind, (d, where) in worst.items():
-        require(d <= STEP_TOL[kind],
-                f"{what}: {where} differs by {d} > {STEP_TOL[kind]}")
+        require(d <= tol[kind], f"{what}: {where} differs by {d} > {tol[kind]}")
 
 
 def protocol_step(device, group=None):
@@ -329,6 +368,434 @@ def state_digest(state) -> str:
                 h.update(t.detach().cpu().numpy().tobytes())
     h.update(str(int(state.it)).encode())
     return h.hexdigest()
+
+
+def insurance_protocol(device, group=None):
+    """A fresh insurance MLP-GAN (seed 666) and its protocol step ->
+    (step, state)."""
+    from gan_deeplearning4j_tpu_torch.models import mlpgan_insurance as MI
+    from gan_deeplearning4j_tpu_torch.train import fused_step
+
+    cfg = MI.InsuranceConfig()
+    d = MI.build_discriminator(cfg, device)
+    graphs = (d, MI.build_generator(cfg, device), MI.build_gan(cfg, device),
+              MI.build_classifier(d, cfg))
+    step = fused_step.make_protocol_step(
+        *graphs, MI.DIS_TO_GAN, MI.GAN_TO_GEN, MI.DIS_TO_CLASSIFIER,
+        z_size=cfg.z_size, num_features=cfg.num_features, group=group)
+    return step, fused_step.state_from_graphs(*graphs)
+
+
+def insurance_host(torch, steps: int) -> dict:
+    """CPU tensors of ``steps`` insurance steps at batch 50: the first two
+    batches of the program's training table (``insurance_train.csv``), the
+    softened targets and global latents, from fixed seeds."""
+    from gan_deeplearning4j_tpu_torch.data import datasets
+    from gan_deeplearning4j_tpu_torch.data.csv import RecordReaderDataSetIterator
+
+    d = tempfile.mkdtemp(prefix="gan4j_ins_host_")
+    try:
+        train_csv, _ = datasets.ensure_insurance_csv(d)
+        it = RecordReaderDataSetIterator(train_csv, INS_BATCH, 12, 1)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rng = torch.Generator().manual_seed(8)
+    B = INS_BATCH
+    return dict(
+        real=torch.from_numpy(it.features[:2 * B].copy()),
+        labels=torch.from_numpy(it.labels[:2 * B].copy()),
+        y_real=1.0 + 0.05 * torch.randn((B, 1), generator=rng),
+        y_fake=0.05 * torch.randn((B, 1), generator=rng),
+        ones=torch.ones((B, 1)),
+        z1=torch.rand((steps, B, 2), generator=rng) * 2 - 1,
+        z2=torch.rand((steps, B, 2), generator=rng) * 2 - 1)
+
+
+def insurance_dp(group, ins) -> dict:
+    """INS_DP_STEPS insurance steps on ``group`` (the counters zeroed just
+    before and read just after), each held against the single-process step
+    on the rank's card from the same state, table, targets and latents."""
+    import torch
+
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+
+    dev = group.device
+    a = {k: v.to(dev) for k, v in ins.items()}
+    inputs = (a["real"], a["labels"], a["y_real"], a["y_fake"], a["ones"])
+    step_g, state_g = insurance_protocol(dev, group)
+    step_s, state_s = insurance_protocol(dev)
+    outs_g, outs_s = [], []
+    kernels.reset_launch_counts()
+    for i in range(INS_DP_STEPS):
+        state_g, losses = step_g(state_g, *inputs, z1=a["z1"][i], z2=a["z2"][i])
+        outs_g.append((state_g, losses))
+    torch.cuda.synchronize(dev)
+    launches = kernels.launch_counts()
+    for i in range(INS_DP_STEPS):
+        state_s, losses = step_s(state_s, *inputs, z1=a["z1"][i], z2=a["z2"][i])
+        outs_s.append((state_s, losses))
+    return {"launches": launches,
+            "losses": [[float(v) for v in ls] for _, ls in outs_g],
+            "vs_single": [step_diff(s, g) for s, g in zip(outs_s, outs_g)],
+            "digest": state_digest(state_g)}
+
+
+def insurance_kernels(torch, randn, dev, bw: float, sms: int) -> dict:
+    """The kernels of the insurance step at its shapes, each against its
+    plain version: ``bn_act`` at each single-device BN (shape and
+    activation) with its gradient, a bitwise repeat, and its time against
+    ``F.batch_norm`` in turns, one launch's floor and its bound; the
+    sync-BN pair at a 2-rank step's per-rank shapes (the step's four
+    launches of each kernel as one timed group; [25, 2] takes the scalar
+    path); ``fused_update`` over the insurance step's three leaf tables.
+    Returns the phase's line and the two groups' rows for the kernels
+    line."""
+    from gan_deeplearning4j_tpu_torch.models import mlpgan_insurance as MI
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act as bn2d
+    from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
+        bn_act_plain,
+        bn_apply_sums_plain,
+        bn_moments_plain,
+    )
+    from gan_deeplearning4j_tpu_torch.ops.cuda.fused_update import (
+        rmsprop_chain_plain,
+    )
+
+    torch_f = torch.nn.functional
+
+    def bound(nbytes, flops):
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / PEAK_F32_FLOPS * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    # bn_act, shape by shape
+    rows, err = [], 0.0
+    bn_in = [((randn(b, f, scale=0.5, shift=0.2), randn(f, scale=0.1, shift=1.0),
+               randn(f, scale=0.1)), act) for (b, f), act in INS_BN]
+    for (x, gm, bt), act in bn_in:
+        b, f = x.shape
+        yk, mk, vk = kernels.fused_bn_act_train(x, gm, bt, 1e-5, act)
+        yp, mp, vp = bn_act_plain(x, gm, bt, 1e-5, act)
+        require(within(yk, yp, 1e-5, 1e-4) and within(mk, mp, 1e-6, 1e-4)
+                and within(vk, vp, 1e-6, 1e-4),
+                f"bn_act disagrees with its plain version at [{b},{f}] {act}")
+        e = max(max_err(yk, yp), max_err(mk, mp), max_err(vk, vp))
+        err = max(err, e)
+        require(bitwise_repeat(lambda *t: kernels.fused_bn_act_train(
+            *t, 1e-5, act), [(x, gm, bt)], torch),
+            f"bn_act: two launches differ at [{b},{f}]")
+        leaves = [t.clone().requires_grad_(True) for t in (x, gm, bt)]
+        gy = randn(b, f)
+        gk = torch.autograd.grad(kernels.fused_bn_act_train(
+            *leaves, 1e-5, act)[0], leaves, gy)
+        gp = torch.autograd.grad(bn_act_plain(*leaves, 1e-5, act)[0], leaves, gy)
+        require(all(within(u, v, 1e-4, 1e-3) for u, v in zip(gk, gp)),
+                f"bn_act gradient disagrees at [{b},{f}] {act}")
+        ms, library_ms, turns = in_turns(
+            lambda: kernels.fused_bn_act_train(x, gm, bt, 1e-5, act),
+            lambda: torch_f.batch_norm(x, None, None, gm, bt, training=True,
+                                       eps=1e-5), torch)
+        bound_ms, bound_by = bound(8 * b * f + 16 * f, 10 * b * f)
+        rows.append(dict(shape=[b, f], act=act,
+                         plan=bn2d.launch_plan(b, f, sms)._asdict(),
+                         max_abs_err=e, ms=ms, library_ms=library_ms,
+                         turns_ms=turns, floor_ms=floor_ms(1, torch),
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         kernel_slower_than_library=ms > library_ms))
+    xs = [t for t, _ in bn_in]
+    group = dict(
+        calls=[f"[{b},{f}] {act}" for (b, f), act in INS_BN], max_abs_err=err,
+        ms=time_ms(lambda: [kernels.fused_bn_act_train(*t, 1e-5, act)
+                            for t, act in bn_in], torch),
+        plain_ms=time_ms(lambda: [bn_act_plain(*t, 1e-5, act)
+                                  for t, act in bn_in], torch),
+        library_ms=time_ms(lambda: [torch_f.batch_norm(
+            x, None, None, gm, bt, training=True, eps=1e-5)
+            for x, gm, bt in xs], torch),
+        floor_ms=floor_ms(len(bn_in), torch))
+    group["bound_ms"], group["bound_by"] = bound(
+        sum(8 * b * f + 16 * f for (b, f), _ in INS_BN),
+        sum(10 * b * f for (b, f), _ in INS_BN))
+    out = {"bn_act": rows}
+    groups = {"bn_act": group}
+
+    # the sync-BN pair from the sums of 2 ranks (sums made from this
+    # input's moments times two, plus noise)
+    pair_in = [((randn(b, f, scale=0.5, shift=0.2),
+                 randn(f, scale=0.1, shift=1.0), randn(f, scale=0.1)), act)
+               for (b, f), act in INS_PAIR]
+    pairs = []
+    err_m = err_a = 0.0
+    for (x, gm, bt), act in pair_in:
+        b, f = x.shape
+        for u, v in zip(kernels.bn_moments(x), bn_moments_plain(x)):
+            require(within(u, v, 1e-6, 1e-4),
+                    f"bn_moments disagrees with its plain version at [{b},{f}]")
+            err_m = max(err_m, max_err(u, v))
+        mean, m2 = bn_moments_plain(x)
+        noise = randn(2, f, scale=1e-3)
+        sums = torch.stack([mean, m2]) * DP_WORLD + noise * noise
+        yk, mk, vk = kernels.bn_apply_sums(x, sums, DP_WORLD, gm, bt, 1e-5, act)
+        yp, mp, vp = bn_apply_sums_plain(x, sums, DP_WORLD, gm, bt, 1e-5, act)
+        require(within(yk, yp, 1e-5, 1e-4) and torch.equal(mk, mp)
+                and torch.equal(vk, vp),
+                f"bn_apply (from sums) disagrees at [{b},{f}] {act}")
+        err_a = max(err_a, max_err(yk, yp))
+        xo = offset_view(x, torch)
+        require(all(torch.equal(u, v) for u, v in zip(
+            kernels.bn_moments(x), kernels.bn_moments(xo))) and all(
+            torch.equal(u, v) for u, v in zip(
+                kernels.bn_apply_sums(x, sums, DP_WORLD, gm, bt, 1e-5, act),
+                kernels.bn_apply_sums(xo, sums, DP_WORLD, gm, bt, 1e-5, act))),
+            f"the pair's scalar path (offset view) gives other bits at [{b},{f}]")
+        pairs.append((x, sums, gm, bt, act))
+    require(bitwise_repeat(kernels.bn_moments, [(p[0],) for p in pairs], torch)
+            and bitwise_repeat(lambda x, s_, g, b_, a: kernels.bn_apply_sums(
+                x, s_, DP_WORLD, g, b_, 1e-5, a), pairs, torch),
+            "the pair: two launches differ at an insurance shape")
+    epilogues = [old_epilogue(p[1], DP_WORLD, torch) for p in pairs]
+    m_ms, m_lib, m_turns = in_turns(
+        lambda: [kernels.bn_moments(p[0]) for p in pairs],
+        lambda: [torch.var_mean(p[0], dim=0, unbiased=False) for p in pairs],
+        torch)
+    a_ms, a_lib, a_turns = in_turns(
+        lambda: [kernels.bn_apply_sums(x, s_, DP_WORLD, g, b_, 1e-5, a)
+                 for x, s_, g, b_, a in pairs],
+        lambda: [torch_f.batch_norm(p[0], m, v, p[2], p[3], training=False,
+                                    eps=1e-5)
+                 for p, (m, v) in zip(pairs, epilogues)], torch)
+    shapes = [(b, f) for (b, f), _ in INS_PAIR]
+    groups["bn_moments"] = dict(
+        calls=[f"[{b},{f}]" for b, f in shapes], max_abs_err=err_m, ms=m_ms,
+        library_ms=m_lib, turns_ms=m_turns,
+        plain_ms=time_ms(lambda: [bn_moments_plain(p[0]) for p in pairs], torch),
+        floor_ms=floor_ms(len(pairs), torch),
+        plans=[bn2d.moments_plan(b, f)._asdict() for b, f in shapes])
+    groups["bn_moments"]["bound_ms"], groups["bn_moments"]["bound_by"] = bound(
+        sum(4 * b * f + 8 * f for b, f in shapes), sum(3 * b * f for b, f in shapes))
+    groups["bn_apply"] = dict(
+        calls=[f"[{b},{f}] {a}, from the sums of {DP_WORLD} ranks"
+               for (b, f), a in INS_PAIR], max_abs_err=err_a, ms=a_ms,
+        library_ms=a_lib, turns_ms=a_turns,
+        plain_ms=time_ms(lambda: [bn_apply_sums_plain(x, s_, DP_WORLD, g, b_,
+                                                      1e-5, a)
+                                  for x, s_, g, b_, a in pairs], torch),
+        floor_ms=floor_ms(len(pairs), torch),
+        plans=[bn2d.apply_plan(b, f, sms)._asdict() for b, f in shapes])
+    groups["bn_apply"]["bound_ms"], groups["bn_apply"]["bound_by"] = bound(
+        sum(8 * b * f + 24 * f for b, f in shapes),
+        sum(10 * b * f + 5 * f for b, f in shapes))
+
+    # fused_update over the three leaf tables, each leaf with its rates
+    cfg = MI.InsuranceConfig()
+    dis = MI.build_discriminator(cfg, dev)
+    updates, n_elems, err = [], 0, 0.0
+    for g in (dis, MI.build_gan(cfg, dev), MI.build_classifier(dis, cfg)):
+        keys = [(layer, n) for layer, lp in g.params.items() for n in lp]
+        shp = [g.params[layer][n].shape for layer, n in keys]
+        updates.append(dict(
+            ps=[randn(*t, scale=0.05) for t in shp],
+            gs=[randn(*t, scale=0.02) for t in shp],
+            cs=[randn(*t, scale=1e-3).abs() for t in shp],
+            rates=[g.updater.rates(layer, n) for layer, n in keys],
+            clip=g.updater.clip_threshold))
+        n_elems += sum(math.prod(t) for t in shp)
+
+    def chains(u):
+        return kernels.fused_rmsprop_chains(u["ps"], u["gs"], u["cs"],
+                                            u["rates"], clip=u["clip"])
+
+    def chains_plain(u):
+        return [rmsprop_chain_plain(p, g, c, **r._asdict(), clip=u["clip"])
+                for p, g, c, r in zip(u["ps"], u["gs"], u["cs"], u["rates"])]
+
+    for u in updates:
+        pk, ck = chains(u)
+        for (pp, cp), a_, b_ in zip(chains_plain(u), pk, ck):
+            require(within(a_, pp, 1e-6, 1e-5) and within(b_, cp, 1e-12, 1e-5),
+                    "fused_update disagrees with its plain version on an "
+                    f"insurance leaf {tuple(pp.shape)}")
+            err = max(err, max_err(a_, pp), max_err(b_, cp))
+        pk2, ck2 = chains(u)
+        require(all(torch.equal(a_, b_) for a_, b_ in zip(pk + ck, pk2 + ck2)),
+                "fused_update: two launches differ on an insurance table")
+    groups["fused_update"] = dict(
+        calls=[f"{len(u['ps'])} leaves" for u in updates], max_abs_err=err,
+        ms=time_ms(lambda: [chains(u) for u in updates], torch),
+        plain_ms=time_ms(lambda: [chains_plain(u) for u in updates], torch),
+        library_ms=None, floor_ms=floor_ms(len(updates), torch))
+    groups["fused_update"]["bound_ms"], groups["fused_update"]["bound_by"] = \
+        bound(20 * n_elems, 12 * n_elems)
+    out["groups"] = groups
+    return out
+
+
+def dump_summary(host_seconds: dict) -> dict:
+    """``host_seconds`` with its per-dump records summed by kind (a long
+    run's hundreds of records do not fit on one line)."""
+    out = {k: v for k, v in host_seconds.items() if k != "dumps"}
+    by_kind = {}
+    for rec in host_seconds.get("dumps", []):
+        agg = by_kind.setdefault(rec["kind"], {"n": 0})
+        agg["n"] += 1
+        for k in ("enqueue_s", "readback_s", "write_s"):
+            agg[k] = agg.get(k, 0.0) + rec.get(k, 0.0)
+    out["dumps_summed"] = by_kind
+    return out
+
+
+def insurance_phase(torch, smi: str) -> dict:
+    """The insurance program as a user runs it (``insurance_main`` at its
+    reference defaults: 5,000 steps at batch 50, the grid, grid-extras and
+    prediction dumps every 100 steps, K = 100 steps a call), twice in
+    temporary res-paths: as given (the launch counters zeroed just before
+    and read just after; the dumps' shapes, the metrics JSONL, the zips
+    read back bit for bit, the scores) and with ``--sync-dumps`` (every
+    dump byte-identical); then, on one trainer of the program, 2 x
+    INS_TURN_K eager steps against two graphed calls (bitwise) and the
+    eager and the graphed step timed in turns.  Returns the phase's line."""
+    import numpy as np
+
+    from gan_deeplearning4j_tpu_torch.graph import serialization
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.train import fused_step, insurance_main
+    from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
+
+    def read_csv(path):
+        return np.loadtxt(path, delimiter=",", ndmin=2)
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="gan4j_ins_")
+    try:
+        dirs = {k: f"{root}/{k}" for k in ("async", "sync", "turns")}
+        out = io.StringIO()  # the program's 5,000 step lines, counted
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            trainer, res = insurance_main.run(insurance_main.parse_args(
+                ["--res-path", dirs["async"]]))
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        step_lines = sum(ln.startswith("step ")
+                         for ln in out.getvalue().splitlines())
+        seconds_async = time.perf_counter() - t0
+        # one warm-up step before the capture, then a replay per step; the
+        # dumps and the evaluation run inference forwards only
+        calls = INS_STEPS + 1
+        expected = {"fused_update": 3 * calls, "bn_act": 4 * calls,
+                    "upsample_bwd": 0, "bn_moments": 0, "bn_apply": 0,
+                    "bn_act_4d": 0}
+        require(launches == expected,
+                f"insurance: launch counts {launches} != expected {expected}")
+        require(res["steps"] == INS_STEPS and res["graphed"]
+                and res["steps_per_call"] == INS_K and res["resident"]
+                and step_lines == INS_STEPS,
+                f"insurance: {step_lines} step lines, {res}")
+        d = dirs["async"]
+        ks = range(100, INS_STEPS + 1, 100)
+        dumps = {f"insurance_out_{k}.csv": (2500, 12) for k in ks}
+        dumps.update({f"insurance_out_pred_{k}.csv": (2500, 1) for k in ks})
+        dumps.update({f"insurance_test_predictions_{k}.csv": (300, 1)
+                      for k in ks})
+        for f, shape in dumps.items():
+            a = read_csv(f"{d}/{f}")
+            require(a.shape == shape and bool(np.isfinite(a).all()),
+                    f"insurance: {f} is {a.shape}, not {shape}, or not finite")
+        recs = [json.loads(ln) for ln in open(f"{d}/insurance_metrics.jsonl")]
+        require([r["step"] for r in recs] == list(range(1, INS_STEPS + 1)),
+                "insurance: the metrics JSONL does not hold one record a step")
+        require(os.path.getsize(f"{d}/evaluation_stats.txt") > 0,
+                "insurance: no evaluation_stats.txt")
+        for g, path in trainer.model_paths().items():
+            back = serialization.read_model(path, trainer.device)
+            live = getattr(trainer, g)
+            require(back.params.keys() == live.params.keys()
+                    and all(torch.equal(back.params[ly][n], t)
+                            for ly, lp in live.params.items()
+                            for n, t in lp.items()),
+                    f"insurance: {path} does not read back as the trained "
+                    f"{g} graph")
+        require(isinstance(res.get("test_auroc"), float)
+                and math.isfinite(res["test_auroc"]) and res["test_auroc"] > 0.5
+                and math.isfinite(res.get("test_f1", float("nan"))),
+                f"insurance: test_auroc {res.get('test_auroc')}, test_f1 "
+                f"{res.get('test_f1')}")
+        del trainer
+
+        for k in ("sync", "turns"):
+            os.makedirs(dirs[k])
+            for f in ("insurance_train.csv", "insurance_test.csv"):
+                shutil.copy(f"{d}/{f}", f"{dirs[k]}/{f}")
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, res_sync = insurance_main.run(insurance_main.parse_args(
+                ["--res-path", dirs["sync"], "--sync-dumps"]))
+        seconds_sync = time.perf_counter() - t1
+        for f in dumps:
+            require(open(f"{d}/{f}", "rb").read()
+                    == open(f"{dirs['sync']}/{f}", "rb").read(),
+                    f"insurance: {f} differs between async and --sync-dumps")
+
+        # the program's step, graphed against eager, on one trainer
+        trainer = GANTrainer(
+            device=res["device"], workload=insurance_main.InsuranceWorkload(),
+            config=insurance_main.default_config(
+                res_path=dirs["turns"], num_iterations=0, print_every=0,
+                save_every=0, metrics=False, steps_per_call=INS_TURN_K))
+        graphed = trainer.graphed
+        z_gen = torch.Generator(device=trainer.device)
+        z_gen.set_state(trainer.z_gen.get_state())
+        box = {"state": fused_step.clone_state(graphed.state)}
+        step = trainer.step_fn(INS_TURN_K)
+        inputs = (trainer.features, trainer.labels, trainer.y_real,
+                  trainer.y_fake, trainer.ones)
+
+        def eager():
+            box["state"], losses = step(box["state"], *inputs, z_gen=z_gen)
+            return torch.stack(losses, -1).cpu()
+
+        def replays():
+            return graphed(INS_TURN_K)
+
+        le = torch.cat([eager() for _ in range(2)])
+        lg = torch.cat([replays() for _ in range(2)])
+        require(torch.equal(le, lg)
+                and state_digest(box["state"]) == state_digest(graphed.state),
+                "insurance: the graphed step's bits differ from the eager "
+                f"step's (losses max |d| {max_err(le, lg)})")
+
+        def turn(fn):
+            times = []
+            for _ in range(TURN_CALLS):
+                t2 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t2)
+            return statistics.median(times) / INS_TURN_K * 1e3
+
+        turns = [turn(eager), turn(replays), turn(replays), turn(eager)]
+        launches_per_replay = graphed.launches
+        del trainer, graphed, box
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    eager_ms, graphed_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    return dict(
+        seconds=time.perf_counter() - t0, seconds_as_given=seconds_async,
+        seconds_sync_dumps=seconds_sync, steps=res["steps"], batch=INS_BATCH,
+        steps_per_call=res["steps_per_call"], launches=launches,
+        expected_launches=expected, launches_per_replay=launches_per_replay,
+        examples_per_sec=res["examples_per_sec"],
+        examples_per_sec_sync_dumps=res_sync["examples_per_sec"],
+        step_ms_median=res["step_ms_median"],
+        turns_ms=turns, eager_ms=eager_ms, graphed_ms=graphed_ms,
+        eager_examples_per_s=INS_BATCH / eager_ms * 1e3,
+        graphed_examples_per_s=INS_BATCH / graphed_ms * 1e3,
+        graphed_bitwise_eager=True, losses=[
+            res[k] for k in ("d_loss", "g_loss", "clf_loss")],
+        test_auroc=res["test_auroc"], test_f1=res["test_f1"],
+        test_auroc_sync_dumps=res_sync["test_auroc"],
+        host_seconds=dump_summary(res["host_seconds"]),
+        host_seconds_sync=dump_summary(res_sync["host_seconds"]),
+        dumps_checked=len(dumps), sync_dumps_byte_identical=True,
+        nvidia_smi=smi)
 
 
 def graph_phase(cfg, torch):
@@ -406,7 +873,7 @@ def graph_phase(cfg, torch):
     return out
 
 
-def dp_rank(group, host):
+def dp_rank(group, host, ins):
     """One rank of the dp phase (a spawned process)."""
     import torch
 
@@ -482,6 +949,8 @@ def dp_rank(group, host):
     out["pa_launches"] = kernels.launch_counts()
     out["pa_digest"] = state_digest(fused_step.state_from_graphs(
         pa.dis, pa.gen, pa.gan, pa.classifier, start_step=pa.steps))
+    del pa, trainer
+    out["insurance"] = insurance_dp(group, ins)
     return out
 
 
@@ -1074,6 +1543,10 @@ def main() -> int:
         bytes=sum(8 * n + 16 * s[1] for n, s in zip(n_4d, shapes_4d)),
         flops=sum(10 * n for n in n_4d)))
 
+    # the insurance step's kernels at its shapes
+    ins_kernels = insurance_kernels(torch, randn, dev, bw, sms)
+    emit("kernel_insurance", nvidia_smi=smi, **ins_kernels)
+
     for r in report:
         t_bytes, t_ops = r["bytes"] / bw * 1e3, r["flops"] / PEAK_F32_FLOPS * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
@@ -1148,7 +1621,8 @@ def main() -> int:
 
     # -- 7. data parallel ----------------------------------------------------
     n_cards = torch.cuda.device_count()
-    ranks = mesh.spawn(dp_rank, DP_WORLD, (host,), device="cuda",
+    ins_host = insurance_host(torch, INS_DP_STEPS)
+    ranks = mesh.spawn(dp_rank, DP_WORLD, (host, ins_host), device="cuda",
                        timeout=DP_TIMEOUT_S)
     r0 = ranks[0]
     dp_expected = {"fused_update": 3 * MAIN_STEPS,
@@ -1204,6 +1678,25 @@ def main() -> int:
     require(len({r["pa_digest"] for r in ranks}) == 1,
             "dp param_averaging: the ranks' states differ after the last "
             "average")
+    ins_expected = {"fused_update": 3 * INS_DP_STEPS, "bn_act": 0,
+                    "upsample_bwd": 0, "bn_moments": 4 * INS_DP_STEPS,
+                    "bn_apply": 4 * INS_DP_STEPS, "bn_act_4d": 0}
+    ins_dp = [r["insurance"] for r in ranks]
+    emit("dp_insurance", world=DP_WORLD, backend=r0["backend"],
+         steps=INS_DP_STEPS, global_batch=INS_BATCH,
+         losses=ins_dp[0]["losses"], launches=[r["launches"] for r in ins_dp],
+         expected_launches=ins_expected,
+         vs_single=[r["vs_single"] for r in ins_dp],
+         digests=[r["digest"] for r in ins_dp], tolerance=INS_STEP_TOL)
+    for rank, r in enumerate(ins_dp):
+        require(r["launches"] == ins_expected,
+                f"dp insurance rank {rank}: launch counts {r['launches']} != "
+                f"expected {ins_expected}")
+        for i, (loss_err, worst) in enumerate(r["vs_single"]):
+            require_step_match(f"dp insurance rank {rank} step {i + 1} vs "
+                               "single", loss_err, worst, INS_STEP_TOL)
+    require(len({r["digest"] for r in ins_dp}) == 1,
+            "dp insurance: the ranks' states differ after the run")
     # a 1-rank NCCL group in this process, so the NCCL path runs on a
     # one-card machine too
     rdv = tempfile.mkdtemp(prefix="gan4j_nccl1_")
@@ -1229,13 +1722,24 @@ def main() -> int:
     # -- 8. the CV program end to end -----------------------------------------
     emit("cv_main", **cv_main_phase(torch, smi))
 
-    # -- 9. the kernels line and the result ----------------------------------
+    # -- 9. the insurance program end to end ----------------------------------
+    ins = insurance_phase(torch, smi)
+    emit("insurance", **ins)
+
+    # -- 10. the kernels line and the result ---------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
     # pair, and the kernel phase's check for the 4-D BN, which no model
     # path runs (as in the JAX package)
     counted = {**launches, "bn_moments": r0["launches"]["bn_moments"],
                "bn_apply": r0["launches"]["bn_apply"],
                "bn_act_4d": bn4d_launches}
+    # the insurance path's own: the program's run for bn_act and
+    # fused_update, the dp phase's insurance steps (rank 0) for the pair
+    ins_counted = {"bn_act": ins["launches"]["bn_act"],
+                   "fused_update": ins["launches"]["fused_update"],
+                   "bn_moments": ins_dp[0]["launches"]["bn_moments"],
+                   "bn_apply": ins_dp[0]["launches"]["bn_apply"]}
+    ins_groups = ins_kernels["groups"]
     print(json.dumps({"kernels": [
         {"name": r["name"], "route": "cuda",
          "source": f"gan_deeplearning4j_tpu_torch/csrc/{SOURCES[r['name']]}",
@@ -1244,7 +1748,13 @@ def main() -> int:
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "floor_ms": r["floor_ms"],
-         **{k: r[k] for k in ("enqueue_ms",) if k in r}}
+         **{k: r[k] for k in ("enqueue_ms",) if k in r},
+         **({"insurance": {
+             "launches": ins_counted[r["name"]],
+             **{k: ins_groups[r["name"]][k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "floor_ms")}}}
+            if r["name"] in ins_groups else {})}
         for r in report]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,11 @@
 program's CSV contract (own copies of ``synthetic_mnist``,
 ``export_mnist_csv``, ``ensure_mnist_csv`` and ``load_split`` in
 ``gan_deeplearning4j_tpu/data/datasets.py``; tests/test_torch_graph.py and
-tests/test_torch_data.py pin them byte-equal to those).
+tests/test_torch_data.py pin them byte-equal to those), and the insurance
+program's transaction lattices and CSV pair (own copies of
+``synthetic_transactions``, ``prepare_insurance`` and
+``ensure_insurance_csv``; tests/test_torch_insurance.py pins the files
+byte-equal).
 
 The reference's data (a Keras MNIST download) is unavailable offline, so
 both packages train on procedural bitmap-font digits with real class
@@ -178,6 +182,101 @@ def ensure_mnist_csv(data_dir: str, n_train: int = 60000,
             f"one of {train} / {test} exists without the other; refusing to "
             "overwrite — delete the stray file or provide both")
     export_mnist_csv(data_dir, n_train, n_test)
+    return train, test
+
+
+# ---------------------------------------------------------------------------
+# Insurance: synthetic transaction lattices (notebook cell 8 pipeline)
+# ---------------------------------------------------------------------------
+
+N_POLICIES = 1000
+N_PERIODS = 4       # tensorDimOneSize (dl4jGANInsurance.java:70)
+N_TYPES = 3         # tensorDimTwoSize (:71)
+
+
+def synthetic_transactions(
+    n_policies: int = N_POLICIES, seed: int = SEED,
+    difficulty: str = "calibrated",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Label-dependent transaction lattices: (transactions[n, 4, 3],
+    risk[n]), standing in for the reference's R-generated
+    ``data/transactions.csv`` + ``data/claim_risk.csv``.  High-risk policies
+    (P = 0.3) escalate claim-type activity across the periods; low-risk
+    ones keep flat premium-type activity.
+
+    ``"calibrated"`` (the default) makes the risk signal heterogeneous so
+    that the AUROC cannot saturate: each risky policy's escalation is scaled
+    by a Gamma(2) random effect and 8% of benign policies get claim bursts.
+    ``"v1"`` is the cleanly separable tier."""
+    rng = np.random.RandomState(seed)
+    risk = (rng.rand(n_policies) < 0.3).astype(np.int64)
+    base = np.array([[6.0, 3.0, 0.5]] * N_PERIODS)  # premium, service, claim
+    lam = np.tile(base, (n_policies, 1, 1))
+    escalate = np.array([0.5, 1.0, 2.0, 4.0]).reshape(1, N_PERIODS)
+    if difficulty == "calibrated":
+        gamma = rng.gamma(2.0, 0.5, n_policies)     # mean-1 random effect
+        eff = risk * gamma
+        burst = (risk == 0) & (rng.rand(n_policies) < 0.08)
+        eff = eff + burst * rng.uniform(0.4, 1.0, n_policies)
+        lam[:, :, 2] += eff.reshape(-1, 1) * escalate * 1.5
+        lam[:, :, 0] -= eff.reshape(-1, 1) * escalate * 0.5
+    elif difficulty == "v1":
+        lam[:, :, 2] += risk.reshape(-1, 1) * escalate * 2.0
+        lam[:, :, 0] -= risk.reshape(-1, 1) * escalate * 0.8
+    else:
+        raise KeyError(difficulty)
+    lam = np.clip(lam, 0.1, None)
+    trans = rng.poisson(lam).astype(np.float64)
+    return trans, risk
+
+
+def prepare_insurance(out_dir: str, n_policies: int = N_POLICIES,
+                      test_fraction: float = 0.3,
+                      seed: int = SEED) -> Tuple[str, str]:
+    """The notebook's cell-8 pipeline: reshape to (n, 12), a 70/30 split
+    by a seeded permutation, min-max scaling by the train split's
+    statistics, and ``insurance_{train,test}.csv`` (12 features ``%.6f``,
+    the label as column 12)."""
+    os.makedirs(out_dir, exist_ok=True)
+    trans, risk = synthetic_transactions(n_policies, seed)
+    flat = trans.reshape(n_policies, N_PERIODS * N_TYPES)
+
+    # train_test_split(..., test_size=0.3, random_state=666) semantics
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(n_policies)
+    n_test = int(round(n_policies * test_fraction))
+    test_idx, train_idx = perm[:n_test], perm[n_test:]
+    x_train, x_test = flat[train_idx], flat[test_idx]
+    y_train, y_test = risk[train_idx], risk[test_idx]
+
+    lo = x_train.min(axis=0)
+    hi = x_train.max(axis=0)
+    span = np.where(hi > lo, hi - lo, 1.0)
+    x_train = (x_train - lo) / span
+    x_test = (x_test - lo) / span  # train stats, per the notebook
+
+    paths = []
+    for split, x, y in (("train", x_train, y_train), ("test", x_test, y_test)):
+        path = os.path.join(out_dir, f"insurance_{split}.csv")
+        table = np.concatenate([x, y.reshape(-1, 1).astype(np.float64)], axis=1)
+        np.savetxt(path, table, delimiter=",", fmt="%.6f")
+        paths.append(path)
+    return tuple(paths)
+
+
+def ensure_insurance_csv(data_dir: str) -> Tuple[str, str]:
+    """Return (train_csv, test_csv), writing them only when neither
+    exists; a half-present pair is an error, not an overwrite."""
+    train = os.path.join(data_dir, "insurance_train.csv")
+    test = os.path.join(data_dir, "insurance_test.csv")
+    have = (os.path.exists(train), os.path.exists(test))
+    if have == (True, True):
+        return train, test
+    if have != (False, False):
+        raise FileExistsError(
+            f"one of {train} / {test} exists without the other; refusing to "
+            "overwrite — delete the stray file or provide both")
+    prepare_insurance(data_dir)
     return train, test
 
 

@@ -103,15 +103,32 @@ class GraphBuilder:
         self.output_names = list(names)
         return self
 
+    def _infer_input_shape(self, input_name: str) -> Tuple[int, ...]:
+        """DL4J infers an input's size from its first consumer's nIn when no
+        InputType is given (the insurance discriminator does this): the
+        first consumer that declares ``n_in``, else ``n``."""
+        for node in self.nodes.values():
+            if input_name in node.inputs:
+                n_in = getattr(node.layer, "n_in", None)
+                if n_in is None:
+                    n_in = getattr(node.layer, "n", None)
+                if n_in is not None:
+                    return (int(n_in),)
+        raise ValueError(
+            f"input {input_name!r}: no InputType set and no consumer declares nIn")
+
     def build(self, device=None) -> "ComputationGraph":
-        """``device``: None = the card (raises when there is none)."""
+        """``device``: None = the card (raises when there is none).  An
+        input without ``set_input_types`` becomes a feed-forward input of
+        its consumer's declared size."""
         if not self.output_names:
             raise ValueError("set_outputs() not called")
         shapes = {}
+        specs = dict(self.input_specs)
         for inp in self.input_names:
-            if inp not in self.input_specs:
-                raise ValueError(f"input {inp!r}: set_input_types() not called")
-            shapes[inp] = self.input_specs[inp].node_shape()
+            if inp not in specs:
+                specs[inp] = InputSpec.feed_forward(self._infer_input_shape(inp)[0])
+            shapes[inp] = specs[inp].node_shape()
         resolved: Dict[str, Node] = {}
         for name, node in self.nodes.items():
             layer = node.layer.resolved(self.default_activation, self.default_updater)
@@ -128,7 +145,7 @@ class GraphBuilder:
             shapes[name] = out_shape
         return ComputationGraph(
             nodes=resolved, input_names=list(self.input_names),
-            input_specs=dict(self.input_specs),
+            input_specs=specs,
             output_names=list(self.output_names), seed=self.seed, l2=self.l2,
             clip_threshold=self.clip_threshold, device=device)
 

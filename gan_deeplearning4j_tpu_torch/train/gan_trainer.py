@@ -85,7 +85,7 @@ class GANTrainerConfig:
     dataset_name: str
     num_features: int
     label_index: int
-    num_classes: int            # classifier label width (10 CV)
+    num_classes: int            # classifier label width (10 CV, 1 insurance)
     batch_size: int             # batchSizePerWorker
     batch_size_pred: int        # batchSizePred
     num_iterations: int
@@ -111,10 +111,11 @@ class GANTrainerConfig:
 
 
 class Workload:
-    """What a model family supplies (``cv_main.CVWorkload``)."""
+    """What a model family supplies (``cv_main.CVWorkload``,
+    ``insurance_main.InsuranceWorkload``)."""
 
     name: str
-    classifier_model_name: str  # "CV" in the final zip names
+    classifier_model_name: str  # "CV" / "insurance" in the final zip names
     # weight-sync maps: lists of (dst_layer, src_layer, param_names)
     dis_to_gan: list
     gan_to_gen: list
@@ -126,6 +127,15 @@ class Workload:
     def ensure_data(self, res_path: str):
         """Return (train_csv, test_csv)."""
         raise NotImplementedError
+
+    def grid_extra_arrays(self, trainer: "GANTrainer", grid_out: torch.Tensor,
+                          step: int) -> List:
+        """Further files of a grid dump, as ``[(path, tensor)]`` (the
+        insurance program's classifier predictions over the generated
+        lattices).  Called on the training thread, where any device work
+        is enqueued; the tensors are copied to the host and written with
+        the grid, by the same writer."""
+        return []
 
 
 def latent_grid(n: int, z_size: int) -> np.ndarray:
@@ -208,34 +218,39 @@ def resolve_steps_per_call(iterations: int,
     return k
 
 
-def _host_copy(t: torch.Tensor):
-    """Start ``t``'s copy to host memory on the current stream ->
-    (host tensor, event or None); the event completes with the copy."""
-    if t.device.type != "cuda":
-        return t.detach(), None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
+def _host_copy(ts: Sequence[torch.Tensor]):
+    """Start each tensor's copy to host memory on the current stream ->
+    (host tensors, event or None); the event completes with the copies."""
+    if not any(t.device.type == "cuda" for t in ts):
+        return [t.detach() for t in ts], None
+    hosts = []
+    for t in ts:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        hosts.append(host)
     event = torch.cuda.Event()
     event.record()
-    return host, event
+    return hosts, event
 
 
 class GANTrainer:
-    """Builds the four DCGAN graphs and the training table on one device
-    (None = the card; a ``group`` brings its rank's device) and trains
-    them, data-parallel over ``group`` when one is given.
+    """Builds the four graphs and the training table on one device (None =
+    the card; a ``group`` brings its rank's device) and trains them,
+    data-parallel over ``group`` when one is given.
 
-    The bare loop (the keyword options): ``steps_per_call`` caps K (None =
+    The bare loop (the keyword options; the DCGAN graphs on an in-memory
+    MNIST table): ``steps_per_call`` caps K (None =
     ``MAX_STEPS_PER_CALL``), ``ema_decay`` in [0, 1) keeps the generator
     EMA (fused step only), ``fused=False`` or ``dp_mode="param_averaging"``
     select the unfused per-fit loop (under a group through
     ``DataParallelGraph``: ``dp_mode``, ``averaging_frequency``); no
     cadences, no files.
 
-    The program (``cv_main``): ``config`` (a ``GANTrainerConfig``, which
-    then supplies batch_size, steps_per_call, ema_decay, fused, dp_mode
-    and averaging_frequency: leave those at their defaults) and
-    ``workload`` (its graphs, sync maps and CSV files)."""
+    The programs (``cv_main``, ``insurance_main``): ``config`` (a
+    ``GANTrainerConfig``, which then supplies batch_size, steps_per_call,
+    ema_decay, fused, dp_mode and averaging_frequency: leave those at their
+    defaults) and ``workload`` (its graphs, sync maps, CSV files and grid
+    extras)."""
 
     def __init__(self, cfg: M.CVConfig = M.CVConfig(), batch_size: int = 200,
                  n_train: int = 60000, device=None,
@@ -281,7 +296,7 @@ class GANTrainer:
         self.device = dev = backend.resolve_device(device)
         self.group = group
         self.rank0 = group is None or group.rank == 0
-        self.cfg, self.batch_size = cfg, c.batch_size
+        self.batch_size = c.batch_size
         self.steps_per_call, self.ema_decay = c.steps_per_call, c.ema_decay
         self.dp_mode = c.dp_mode
         self.workload = workload
@@ -640,12 +655,12 @@ class GANTrainer:
 
     # -- artifact dumps --------------------------------------------------------
 
-    def _submit_dump(self, kind: str, path: str, out: torch.Tensor,
-                     t0: float) -> None:
-        """Start ``out``'s copy to host and hand the CSV write to the
-        writer, which waits for the copy first.  Records the host seconds:
-        enqueue (this thread), readback wait and write (the writer)."""
-        host, event = _host_copy(out)
+    def _submit_dump(self, kind: str, files: List, t0: float) -> None:
+        """Start the copies to host of ``files`` (``[(path, tensor)]``)
+        behind one event and hand their CSV writes to the writer, which
+        waits for the event first.  Records the host seconds: enqueue (this
+        thread), readback wait and write (the writer)."""
+        hosts, event = _host_copy([out for _, out in files])
         rec = {"kind": kind, "step": self.steps,
                "enqueue_s": time.perf_counter() - t0}
         self.timings["dumps"].append(rec)
@@ -655,20 +670,25 @@ class GANTrainer:
             if event is not None:
                 event.synchronize()
             t2 = time.perf_counter()
-            write_csv_matrix(path, host.numpy())
+            for (path, _), host in zip(files, hosts):
+                write_csv_matrix(path, host.numpy())
             rec["readback_s"], rec["write_s"] = t2 - t1, time.perf_counter() - t2
 
         self._dumper.submit(write)
 
     def _dump_grid(self) -> None:
         """The generator over the latent grid, inference mode ->
-        ``<dataset>_out_<step>.csv``."""
+        ``<dataset>_out_<step>.csv``, and the workload's extra files of
+        that grid (``Workload.grid_extra_arrays``)."""
         t0 = time.perf_counter()
         c = self.c
         out = self.gen.output(self.z_grid)[0].reshape(
             self.z_grid.shape[0], c.num_features)
-        self._submit_dump("grid", os.path.join(
-            c.res_path, f"{c.dataset_name}_out_{self.steps}.csv"), out, t0)
+        extras = (self.workload.grid_extra_arrays(self, out, self.steps)
+                  if self.workload is not None else [])
+        self._submit_dump("grid", [(os.path.join(
+            c.res_path, f"{c.dataset_name}_out_{self.steps}.csv"), out),
+            *extras], t0)
 
     def _dump_predictions(self) -> None:
         """The classifier over the test set, inference mode ->
@@ -688,9 +708,9 @@ class GANTrainer:
             self._test_x = [torch.from_numpy(b).to(self.device)
                             for b in batches]
         outs = [self.classifier.output(x)[0] for x in self._test_x]
-        self._submit_dump("predictions", os.path.join(
+        self._submit_dump("predictions", [(os.path.join(
             c.res_path, f"{c.dataset_name}_test_predictions_{self.steps}.csv"),
-            torch.cat(outs) if len(outs) > 1 else outs[0], t0)
+            torch.cat(outs) if len(outs) > 1 else outs[0])], t0)
 
     # -- models ----------------------------------------------------------------
 

@@ -1,8 +1,11 @@
 """Where the protocol step's time goes on the card.
 
 Run: ``python -m gan_deeplearning4j_tpu_torch.train.profile_step``
-(``--steps``, ``--warmup``, ``--batch-size``, ``--eager``).
-Builds the trainer on the GPU (which captures the step as a CUDA graph)
+(``--steps``, ``--warmup``, ``--batch-size``, ``--eager``, ``--workload``).
+Builds the trainer on the GPU (which captures the step as a CUDA graph):
+``--workload cv`` (the default) the DCGAN's on an in-memory MNIST table of
+``--n-train`` rows at batch 200, ``--workload insurance`` the insurance
+program's on its CSV pair (written to a temporary directory) at batch 50,
 and profiles calls of ``--steps`` steps, each ending in one readback of
 its losses: by default the graphed step (``--steps`` replays a call), with
 ``--eager`` the eager step, called directly on a copy of the trainer's
@@ -21,8 +24,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 from typing import Dict
 
@@ -32,7 +37,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
 from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
-from gan_deeplearning4j_tpu_torch.train import fused_step
+from gan_deeplearning4j_tpu_torch.train import fused_step, insurance_main
 from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
 
 # each port kernel's device function (csrc/*.cu), as the trace names it
@@ -47,16 +52,33 @@ def main(argv=None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--warmup", type=int, default=2)
-    p.add_argument("--batch-size", type=int, default=200)
+    p.add_argument("--workload", default="cv", choices=["cv", "insurance"])
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="default: 200 (cv), 50 (insurance)")
     p.add_argument("--n-train", type=int, default=10000)
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--eager", action="store_true",
                    help="profile the eager step instead of the graphed one")
     args = p.parse_args(argv)
     n = args.steps
-    trainer = GANTrainer(M.CVConfig(), batch_size=args.batch_size,
-                         n_train=args.n_train, device="cuda",
-                         steps_per_call=n)
+    if args.batch_size is None:
+        args.batch_size = 200 if args.workload == "cv" else 50
+    if args.workload == "cv":
+        trainer = GANTrainer(M.CVConfig(), batch_size=args.batch_size,
+                             n_train=args.n_train, device="cuda",
+                             steps_per_call=n)
+    else:
+        # the program's trainer; its CSV pair is decoded at construction
+        res = tempfile.mkdtemp(prefix="gan4j_profile_")
+        try:
+            trainer = GANTrainer(
+                device="cuda", workload=insurance_main.InsuranceWorkload(),
+                config=insurance_main.default_config(
+                    res_path=res, batch_size=args.batch_size,
+                    num_iterations=0, print_every=0, save_every=0,
+                    metrics=False, steps_per_call=n))
+        finally:
+            shutil.rmtree(res, ignore_errors=True)
     if args.eager:
         box = {"state": fused_step.clone_state(trainer.state)}
         step = trainer.step_fn(n)
@@ -111,6 +133,7 @@ def main(argv=None) -> Dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
     out = {
         "mode": "eager" if args.eager else "graphed",
+        "workload": args.workload,
         "device": torch.cuda.get_device_name(0),
         "batch": args.batch_size, "steps": n,
         "nvidia_smi": subprocess.run(

@@ -25,6 +25,7 @@ from gan_deeplearning4j_tpu.ops.pallas.bn_act import (
 from gan_deeplearning4j_tpu.ops.pallas.dma_pipeline import upsample_bwd_dma
 from gan_deeplearning4j_tpu.ops.pallas.fused_update import fused_rmsprop_chain as chain_jax
 from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as MT
+from gan_deeplearning4j_tpu_torch.models import mlpgan_insurance as MI
 from gan_deeplearning4j_tpu_torch.ops import activations as act_lib
 from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
 from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act as bn2d
@@ -290,6 +291,12 @@ PLAN_4D = [(200, 64, 12, 12), (128, 64, 32, 32), (128, 128, 16, 16),
            (1, 64, 32, 32), (3, 5, 7, 7), (8, 1, 28, 28), (16, 300, 1, 1),
            (2, 7, 6, 6)]
 ALIGNED, MISALIGNED = 256, 260  # data_ptr values: 16-byte aligned or not
+# the insurance step's 2-D BNs on one device (dis [100, 12] ELU, gan
+# [50, 2] TANH and [50, 12] ELU, classifier [50, 100] ELU) and a 2-rank
+# step's per-rank shapes, 25 rows (the gan's and the classifier's; the
+# discriminator's is [50, 12])
+INSURANCE_2D = [(100, 12), (50, 2), (50, 12), (50, 100)]
+INSURANCE_RANK = [(25, 2), (25, 12), (25, 100)]
 
 
 def thread_offsets_4d(begin, end, threads, hw, row_stride):
@@ -356,7 +363,7 @@ def test_bn_act_4d_plan(shape, ptr):
     np.testing.assert_array_equal(np.sort(seen), want)
 
 
-@pytest.mark.parametrize("shape", PLAN_2D)
+@pytest.mark.parametrize("shape", PLAN_2D + INSURANCE_2D + INSURANCE_RANK)
 def test_bn_act_plan(shape):
     """The 2-D plan's limits, and that its blocks' rows and lanes' columns
     cover every element exactly once."""
@@ -403,6 +410,7 @@ def test_plans_at_the_main_shapes():
 # shapes and ragged ones: F = 2 (the scalar path), 130 (a ragged group),
 # 6272; B = 1, 5, 100
 PLAN_PAIR = [(B, F) for F in (2, 130, 6272) for B in (1, 5, 100)]
+PAIR_CASES = PLAN_PAIR + [(20000, 64)] + INSURANCE_2D + INSURANCE_RANK
 
 
 def moments_thread_rows(B, ty, rt):
@@ -422,8 +430,8 @@ def apply_thread_rows(r0, r1, ty, rt):
             if r0 + ty + u * rt < r1]
 
 
-@pytest.mark.parametrize("shape", PLAN_PAIR + [(20000, 64)],
-                         ids=[f"{b}x{f}" for b, f in PLAN_PAIR + [(20000, 64)]])
+@pytest.mark.parametrize("shape", PAIR_CASES,
+                         ids=[f"{b}x{f}" for b, f in PAIR_CASES])
 def test_bn_moments_plan(shape):
     """The moments plan: one block per column group, whole warps of
     row-threads (at most 32), and the row-threads' rounds reading each row
@@ -443,8 +451,8 @@ def test_bn_moments_plan(shape):
     assert (count == 1).all()
 
 
-@pytest.mark.parametrize("shape", PLAN_PAIR + [(20000, 64)],
-                         ids=[f"{b}x{f}" for b, f in PLAN_PAIR + [(20000, 64)]])
+@pytest.mark.parametrize("shape", PAIR_CASES,
+                         ids=[f"{b}x{f}" for b, f in PAIR_CASES])
 def test_bn_apply_plan(shape):
     """The apply plan: column groups cover F, row chunks of APPLY_ROWS rows
     a row-thread cover B (the C entry refuses a longer chunk), whole warps
@@ -474,6 +482,27 @@ def test_pair_plans_at_the_main_shapes():
     assert [tuple(bn2d.apply_plan(100, f)) for f in (2, 6272, 1024)] == [
         (4, 8, (13, 1)), (32, 64, (2, 196)), (8, 16, (7, 32))]
     assert tuple(bn2d.moments_plan(20000, 64)) == (32, 2)
+
+
+def test_plans_at_the_insurance_shapes():
+    """The splits the card runs on the insurance step: on one device a
+    cluster of 8 blocks per 32-column group even for 100 floats ([50, 2]),
+    the last block holding the remainder of the rows (one row at B = 50;
+    at 25 rows the eighth block holds none and adds zeros); at 2 ranks the
+    pair's one block per group and the smallest apply blocks."""
+    assert [tuple(bn2d.launch_plan(*s)) for s in INSURANCE_2D + INSURANCE_RANK] == [
+        (8, 13, 7, 8, 1664, True), (8, 7, 4, 8, 896, True),
+        (8, 7, 4, 8, 896, True), (8, 7, 4, 32, 896, True),
+        (8, 4, 2, 8, 512, True), (8, 4, 2, 8, 512, True),
+        (8, 4, 2, 32, 512, True)]
+    rank_shapes = [(50, 12)] + INSURANCE_RANK
+    assert [tuple(bn2d.moments_plan(*s)) for s in rank_shapes] == [
+        (8, 1), (4, 1), (4, 1), (4, 4)]
+    assert [tuple(bn2d.apply_plan(*s)) for s in rank_shapes] == [
+        (4, 8, (7, 1)), (4, 8, (4, 1)), (4, 8, (4, 1)), (4, 8, (4, 4))]
+    # the [25, 2] BN takes the pair's scalar path (F % 4 != 0)
+    assert not bn2d.float4_ok(2, torch.zeros(25, 2))
+    assert bn2d.float4_ok(12, torch.zeros(25, 12), torch.zeros(2, 12))
 
 
 def test_pair_float4_flag():
@@ -513,7 +542,8 @@ def emulate_bn_moments(x):
 
 
 @pytest.mark.parametrize("shape", [(100, 2), (100, 1024), (5, 130), (1, 6),
-                                   (300, 8)])
+                                   (300, 8), (50, 12), (25, 2), (25, 12),
+                                   (25, 100)])
 def test_bn_moments_partition_emulation(shape):
     """The moments kernel's summation order, emulated, gives
     bn_moments_plain's values (f32, another summation order: 1e-6 on values
@@ -590,6 +620,23 @@ def test_bn_act_4d_partition_emulation(shape, ptr):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("shape,act", [
+    ((100, 12), "elu"), ((50, 2), "tanh"), ((50, 12), "elu"),
+    ((50, 100), "elu"), ((25, 2), "tanh"), ((25, 100), "elu")])
+def test_bn_act_partition_emulation_insurance(shape, act):
+    """The insurance shapes' row splits (a remainder block, and at 25 rows
+    an empty eighth block), summed block by block and combined in rank
+    order, give bn_act_plain's values with the step's activations
+    (tolerance as below)."""
+    rng = np.random.RandomState(shape[0] * 3 + shape[1])
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32))
+    gamma = torch.from_numpy((rng.rand(shape[1]) + 0.5).astype(np.float32))
+    beta = torch.from_numpy(rng.randn(shape[1]).astype(np.float32))
+    got = emulate_bn_act(x, gamma, beta, 1e-5, act)
+    for a, b in zip(got, bn_act_plain(x, gamma, beta, 1e-5, act)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("shape", [(200, 2), (13, 300), (9, 33), (25, 64)])
 def test_bn_act_partition_emulation(shape):
     """The 2-D plan's row split, summed block by block and combined in rank
@@ -660,6 +707,20 @@ def dcgan_leaves():
     out = {}
     for name, g in (("dis", dis), ("gan", MT.build_gan(cfg, "cpu")),
                     ("classifier", MT.build_classifier(dis, cfg))):
+        keys = [(layer, n) for layer, lp in g.params.items() for n in lp]
+        out[name] = ([tuple(g.params[layer][n].shape) for layer, n in keys],
+                     [g.updater.rates(layer, n) for layer, n in keys],
+                     g.updater.clip_threshold)
+    return out
+
+
+@pytest.fixture(scope="module")
+def insurance_leaves():
+    """The same for the insurance step's three graph updates."""
+    dis = MI.build_discriminator(device="cpu")
+    out = {}
+    for name, g in (("dis", dis), ("gan", MI.build_gan(device="cpu")),
+                    ("classifier", MI.build_classifier(dis))):
         keys = [(layer, n) for layer, lp in g.params.items() for n in lp]
         out[name] = ([tuple(g.params[layer][n].shape) for layer, n in keys],
                      [g.updater.rates(layer, n) for layer, n in keys],
@@ -741,6 +802,43 @@ def test_fused_update_plan_dcgan(dcgan_leaves, graph, leaves):
     assert plan.launches[0].clip == clip == 1.0
     assert all(plan.vec)
     check_plan(sizes, plan)
+
+
+@pytest.mark.parametrize("graph,leaves,elements", [
+    ("dis", 8, 1449), ("gan", 20, 23169), ("classifier", 12, 1849)])
+def test_fused_update_plan_insurance(insurance_leaves, graph, leaves,
+                                     elements):
+    """The insurance step's three updates over tables of tiny leaves (BNs
+    of 2 and 12 features, a 100x1 and a 12x100 dense): one launch each,
+    the leaves' own rates (the gan's frozen tail at lr 0), every element
+    once."""
+    shapes, rates, clip = insurance_leaves[graph]
+    sizes = [int(np.prod(s)) for s in shapes]
+    assert len(sizes) == leaves and sum(sizes) == elements
+    for ptr in (256, 260):
+        plan = fu.launch_plan(sizes, [ptr] * len(sizes), rates, clip)
+        assert len(plan.launches) == 1 and clip == 1.0
+        assert plan.launches[0].rates == tuple(rates)
+        assert plan.vec == (ptr == 256,) * len(sizes)
+        check_plan(sizes, plan)
+
+
+@pytest.mark.parametrize("graph", ["dis", "gan", "classifier"])
+def test_fused_update_block_walk_emulation_insurance(insurance_leaves, graph):
+    """The kernel's block walk over each insurance leaf table, float4 and
+    scalar leaves mixed, gives the plain chain's bits leaf by leaf."""
+    shapes, rates, clip = insurance_leaves[graph]
+    rng = np.random.RandomState(4)
+    ps, gs, cs = ([torch.from_numpy((f(rng, s) * k).astype(np.float32))
+                   for s in shapes]
+                  for f, k in ((lambda r, s: r.randn(*s), 0.05),
+                               (lambda r, s: r.randn(*s), 0.02),
+                               (lambda r, s: np.abs(r.randn(*s)), 1e-3)))
+    got = emulate_fused_update(ps, gs, cs, rates, clip, lambda i: i % 2 == 0)
+    for j, (p, g, c, r) in enumerate(zip(ps, gs, cs, rates)):
+        want = rmsprop_chain_plain(p, g, c, lr=r.lr, rho=r.rho, eps=r.eps,
+                                   l2=r.l2, clip=clip)
+        assert torch.equal(got[0][j], want[0]) and torch.equal(got[1][j], want[1])
 
 
 @pytest.mark.parametrize("sizes", [ODD_SIZES, LONG_SIZES, [5]],

@@ -2,8 +2,9 @@
 process or in spawned gloo ranks.
 
 This module imports torch, numpy and the port only — never jax — because
-it also holds the rank jobs that ``tests/test_torch_dp.py`` and
-``tests/test_torch_steps.py`` hand to ``mesh.spawn``: a spawned rank
+it also holds the rank jobs that ``tests/test_torch_dp.py``,
+``tests/test_torch_steps.py`` and ``tests/test_torch_insurance.py`` hand to
+``mesh.spawn``: a spawned rank
 imports the module its function lives in,
 and a rank must not import jax or the JAX package.
 """
@@ -16,6 +17,7 @@ import torch
 
 from gan_deeplearning4j_tpu_torch import interop
 from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as MT
+from gan_deeplearning4j_tpu_torch.models import mlpgan_insurance as MI
 from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
 from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
     bn_apply_sums_plain,
@@ -36,7 +38,8 @@ DPG_CASES = (("gradient_sync", "gradient_sync", 1),
 T = torch.from_numpy
 
 
-# -- rank jobs (spawned by tests/test_torch_dp.py and test_torch_steps.py) ----
+# -- rank jobs (spawned by tests/test_torch_dp.py, test_torch_steps.py and
+# test_torch_insurance.py) -------------------------------------------------
 
 def state_from_numpy(trees, it: int) -> FT.ProtocolState:
     return FT.ProtocolState(
@@ -50,13 +53,16 @@ def state_to_numpy(state: FT.ProtocolState):
 
 def run_protocol(group, p):
     """len(p["z"]) protocol steps from p["state"] on the resident table,
-    with the injected global latents -> [(state as numpy, losses)]."""
-    d = MT.build_discriminator(device="cpu")
-    graphs = (d, MT.build_generator(device="cpu"), MT.build_gan(device="cpu"),
-              MT.build_classifier(d))
+    with the injected global latents -> [(state as numpy, losses)].  The
+    DCGAN's step, or with p["model"] == "insurance" the insurance MLP-GAN's
+    (tests/test_torch_insurance.py)."""
+    M, features = ((MI, 12) if p.get("model") == "insurance" else (MT, 784))
+    d = M.build_discriminator(device="cpu")
+    graphs = (d, M.build_generator(device="cpu"), M.build_gan(device="cpu"),
+              M.build_classifier(d))
     step = FT.make_protocol_step(
-        *graphs, MT.DIS_TO_GAN, MT.GAN_TO_GEN, MT.DIS_TO_CLASSIFIER,
-        z_size=2, num_features=784, group=group)
+        *graphs, M.DIS_TO_GAN, M.GAN_TO_GEN, M.DIS_TO_CLASSIFIER,
+        z_size=2, num_features=features, group=group)
     state = state_from_numpy(p["state"], 0)
     out = []
     for z1, z2 in p["z"]:

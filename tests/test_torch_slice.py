@@ -162,7 +162,8 @@ from gan_deeplearning4j_tpu_torch.eval import (evaluation, fid,
                                                fid_extractor, metrics)
 from gan_deeplearning4j_tpu_torch.graph import serialization
 from gan_deeplearning4j_tpu_torch.parallel import data_parallel, mesh
-from gan_deeplearning4j_tpu_torch.train import cv_main
+from gan_deeplearning4j_tpu_torch.models import mlpgan_insurance
+from gan_deeplearning4j_tpu_torch.train import cv_main, insurance_main
 from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
 from gan_deeplearning4j_tpu_torch.utils import async_dump, metrics as logger
 assert fid_extractor.load_extractor("cpu").params["feat"]["W"].shape == (512, 256)
@@ -170,6 +171,9 @@ t = GANTrainer(batch_size=4, n_train=8, device="cpu")
 r = t.train(1, log=None)
 assert r["steps"] == 1, r
 assert tuple(t.sample_grid(3).shape) == (9, 1, 28, 28)
+dis = mlpgan_insurance.build_discriminator(device="cpu")
+assert dis.input_specs["dis_input_layer_0"].shape == (12,)
+assert insurance_main.default_config().num_classes == 1
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "gan_deeplearning4j_tpu"
