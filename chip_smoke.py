@@ -106,7 +106,26 @@ exits non-zero:
                 AUROC above 0.5; then with ``--sync-dumps`` (every dump
                 byte-identical).  Then the program's step graphed against
                 eager (bitwise over 20 steps) and the two timed in turns.
- 10. the ``kernels`` line (each kernel's insurance numbers beside the
+ 10. resume   — checkpoints, preemption and resume, each check required:
+                the insurance program at its defaults in child processes,
+                one sent SIGTERM after step 2,000 (exit 75, PREEMPTED.json,
+                a verified checkpoint at its step) and one resuming it to
+                5,000, bitwise the insurance phase's uninterrupted run (the
+                four zips' params and updater state, every metrics record,
+                test_auroc); the CV program at full width, 400 steps at
+                batch 200 with checkpoints every 100, preempted at 200 and
+                resumed in this process (bitwise the uninterrupted run,
+                with the resumed path's launch counts), and in a child
+                process from a copy of that checkpoint (the largest param
+                difference and the bound it meets); the latent generator's state after graph replays
+                against eager draws; the insurance step at world 2 over
+                gloo on one card, checkpointed at 4 and resumed to 8
+                (equal to the uninterrupted world-2 run); one run whose
+                first CSV read meets an injected transient OSError (one
+                retry); and the cost of a checkpoint (snapshot ms, sync
+                and async save seconds, bytes, restore seconds, the
+                capture after a resume) for both models.
+ 11. the ``kernels`` line (each kernel's insurance numbers beside the
      CV step's, where the insurance path runs it), the nvidia-smi line,
      and last {"ok": true, "device": {...}}.
 
@@ -644,7 +663,7 @@ def dump_summary(host_seconds: dict) -> dict:
     return out
 
 
-def insurance_phase(torch, smi: str) -> dict:
+def insurance_phase(torch, smi: str, keep: str) -> dict:
     """The insurance program as a user runs it (``insurance_main`` at its
     reference defaults: 5,000 steps at batch 50, the grid, grid-extras and
     prediction dumps every 100 steps, K = 100 steps a call), twice in
@@ -653,7 +672,9 @@ def insurance_phase(torch, smi: str) -> dict:
     read back bit for bit, the scores) and with ``--sync-dumps`` (every
     dump byte-identical); then, on one trainer of the program, 2 x
     INS_TURN_K eager steps against two graphed calls (bitwise) and the
-    eager and the graphed step timed in turns.  Returns the phase's line."""
+    eager and the graphed step timed in turns.  The first run's CSV pair,
+    four model zips and metrics JSONL are copied to ``keep`` (the resume
+    phase's uninterrupted run).  Returns the phase's line."""
     import numpy as np
 
     from gan_deeplearning4j_tpu_torch.graph import serialization
@@ -720,6 +741,12 @@ def insurance_phase(torch, smi: str) -> dict:
                 f"insurance: test_auroc {res.get('test_auroc')}, test_f1 "
                 f"{res.get('test_f1')}")
         del trainer
+        os.makedirs(keep, exist_ok=True)
+        for f in ["insurance_train.csv", "insurance_test.csv",
+                  "insurance_metrics.jsonl",
+                  *(f"insurance_{g}_model.zip"
+                    for g in ("dis", "gan", "gen", "insurance"))]:
+            shutil.copy(f"{d}/{f}", f"{keep}/{f}")
 
         for k in ("sync", "turns"):
             os.makedirs(dirs[k])
@@ -762,6 +789,14 @@ def insurance_phase(torch, smi: str) -> dict:
                 and state_digest(box["state"]) == state_digest(graphed.state),
                 "insurance: the graphed step's bits differ from the eager "
                 f"step's (losses max |d| {max_err(le, lg)})")
+        # what a checkpoint saves of the latent generator: its state after
+        # the replays of a graph it is registered with must be the eager
+        # generator's after as many steps
+        z_eager, z_graphed = z_gen.get_state(), trainer.z_gen.get_state()
+        require(torch.equal(z_eager, z_graphed),
+                "insurance: the graph-registered generator's state "
+                f"{z_graphed.tolist()} after {2 * INS_TURN_K} replays is not "
+                f"the eager generator's {z_eager.tolist()}")
 
         def turn(fn):
             times = []
@@ -788,7 +823,8 @@ def insurance_phase(torch, smi: str) -> dict:
         turns_ms=turns, eager_ms=eager_ms, graphed_ms=graphed_ms,
         eager_examples_per_s=INS_BATCH / eager_ms * 1e3,
         graphed_examples_per_s=INS_BATCH / graphed_ms * 1e3,
-        graphed_bitwise_eager=True, losses=[
+        graphed_bitwise_eager=True, z_gen_state_after_replays_is_eager=True,
+        z_gen_state=z_graphed.tolist(), losses=[
             res[k] for k in ("d_loss", "g_loss", "clf_loss")],
         test_auroc=res["test_auroc"], test_f1=res["test_f1"],
         test_auroc_sync_dumps=res_sync["test_auroc"],
@@ -1127,6 +1163,482 @@ def cv_main_phase(torch, smi: str) -> dict:
         host_seconds_streamed=res_stream["host_seconds"],
         sync_dumps_byte_identical=True, streamed_losses_bitwise=True,
         nvidia_smi=smi)
+
+
+# -- the resume phase ---------------------------------------------------------
+
+RES_INS_EVERY = 500  # the insurance children's --checkpoint-every
+RES_INS_SIGNAL_AFTER = 2000  # SIGTERM after this step's "Completed Batch"
+# the CV runs: full width, batch 200, 400 steps in calls of K = 100, the
+# CSV pair cut as in the cv_main phase, no FID
+RES_CV_BASE = ["--n-train", "10000", "--n-test", "2000", "--iterations",
+               "400", "--print-every", "100", "--save-every", "100",
+               "--fid-samples", "0"]
+RES_CV_CKPT = ["--checkpoint-every", "100"]
+RES_CV_STEPS = 400
+RES_CV_STOP = 200
+RES_DP_STEPS = (4, 8)  # the world-2 run: a checkpoint at 4, resumed to 8
+RES_CHILD_TIMEOUT_S = 300
+# the cross-process CV resume against the in-process run: the largest
+# param difference is reported with the first of these bounds it meets;
+# beyond the last, the phase fails
+RES_CV_BOUNDS = (0.0, 1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 5e-2)
+LOSS_KEYS = ("classifier_loss", "d_loss", "g_loss")
+
+
+class _SignalAt(io.TextIOBase):
+    """A stdout that sends SIGTERM to this process when ``line`` is
+    written (the in-process preemption), discarding everything."""
+
+    def __init__(self, line: str):
+        self.line, self.fired = line, False
+
+    def write(self, text: str) -> int:
+        if not self.fired and self.line in text:
+            import signal
+
+            self.fired = True
+            os.kill(os.getpid(), signal.SIGTERM)
+        return len(text)
+
+
+def run_child(module: str, args, stop_after=None):
+    """``python -m module args`` in a child process from this checkout ->
+    (exit code, its last JSON line or None, seconds, stderr tail); with
+    ``stop_after``, SIGTERM once it printed ``Completed Batch
+    {stop_after}!``.  The child is killed at RES_CHILD_TIMEOUT_S."""
+    import signal
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen([sys.executable, "-m", module, *args],
+                                cwd=root, env=env, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+        killer = threading.Timer(RES_CHILD_TIMEOUT_S, proc.kill)
+        killer.start()
+        last, sent = None, False
+        try:
+            for line in proc.stdout:
+                if (stop_after is not None and not sent and line.startswith(
+                        f"Completed Batch {stop_after}!")):
+                    proc.send_signal(signal.SIGTERM)
+                    sent = True
+                if line.startswith("{"):
+                    last = line
+            rc = proc.wait()
+        finally:
+            killer.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        tail = err.read()[-3000:]
+    return (rc, json.loads(last) if last else None,
+            time.perf_counter() - t0, tail)
+
+
+def zip_arrays(path: str) -> dict:
+    """A model zip's params and updater state, {member/key: array}."""
+    import zipfile
+
+    import numpy as np
+
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        for member in ("params.npz", "updater.npz"):
+            with np.load(io.BytesIO(zf.read(member))) as z:
+                out.update({f"{member[:-4]}/{k}": z[k] for k in z.files})
+    return out
+
+
+def zips_diff(ref_dir: str, got_dir: str, prefix: str, names) -> tuple:
+    """(largest |difference|, (first differing leaf, its difference) or
+    None) over the params and updater state of two runs' model zips."""
+    import numpy as np
+
+    worst, first = 0.0, None
+    for g in names:
+        a = zip_arrays(f"{ref_dir}/{prefix}_{g}_model.zip")
+        b = zip_arrays(f"{got_dir}/{prefix}_{g}_model.zip")
+        require(a.keys() == b.keys(), f"{prefix}_{g}: the zips' leaves differ")
+        for k in sorted(a):
+            d = (float(np.abs(a[k].astype(np.float64) - b[k]).max())
+                 if a[k].size else 0.0)
+            if not math.isfinite(d):
+                d = float("inf")
+            if d > 0 and first is None:
+                first = (f"{g}:{k}", d)
+            worst = max(worst, d)
+    return worst, first
+
+
+def metrics_by_step(path: str) -> dict:
+    """A metrics JSONL by step, the last record of a step winning (a
+    resumed run appends to the file)."""
+    out = {}
+    for ln in open(path):
+        rec = json.loads(ln)
+        if "step" in rec:
+            out[rec["step"]] = rec
+    return out
+
+
+def manifest_bytes(ckpt_dir: str) -> int:
+    with open(f"{ckpt_dir}/MANIFEST.json") as f:
+        return sum(m["bytes"] for m in json.load(f)["files"].values())
+
+
+def checkpoint_costs(trainer, root: str, torch) -> dict:
+    """The cost of checkpointing ``trainer``'s state at its step: the
+    snapshot (copies to pinned host memory behind one event: the host's
+    enqueue ms and the ms until the copies are done), a synchronous save,
+    an asynchronous one (the
+    seconds that block the caller, and until durable; its manifest must be
+    the synchronous one's), the bytes, and a restore of the saved
+    checkpoint (which must give back the state, bit for bit)."""
+    from gan_deeplearning4j_tpu_torch.checkpoint import (
+        AsyncCheckpointer,
+        TrainCheckpointer,
+    )
+    from gan_deeplearning4j_tpu_torch.checkpoint.checkpointer import (
+        snapshot_state,
+    )
+    from gan_deeplearning4j_tpu_torch.train import fused_step
+
+    fused_step.state_to_graphs(trainer.state, trainer.dis, trainer.gen,
+                               trainer.gan, trainer.classifier)
+    graphs, step = trainer._graphs(), trainer.steps
+    extra, spec = trainer._checkpoint_extra(), trainer._mesh_spec()
+    want = {f"{g}/{f}/{ly}/{n}": t.detach().clone()
+            for g, gr in graphs.items() for f in ("params", "opt_state")
+            for ly, lp in getattr(gr, f).items() for n, t in lp.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = snapshot_state(graphs, step, extra, mesh_spec=spec)
+    t1 = time.perf_counter()
+    snap["event"].synchronize()
+    snapshot = {"enqueue_ms": (t1 - t0) * 1e3,
+                "copied_ms": (time.perf_counter() - t0) * 1e3}
+    del snap
+    sync_dir, async_dir = f"{root}/sync", f"{root}/async"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    TrainCheckpointer(sync_dir).save(step, graphs, extra, mesh_spec=spec)
+    sync_s = time.perf_counter() - t0
+    ack = AsyncCheckpointer(TrainCheckpointer(async_dir))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ack.save(step, graphs, extra, mesh_spec=spec)
+    async_blocking_s = time.perf_counter() - t0
+    ack.wait()
+    async_total_s = time.perf_counter() - t0
+    ack.close()
+    m_sync = json.load(open(f"{sync_dir}/ckpt_{step}/MANIFEST.json"))
+    m_async = json.load(open(f"{async_dir}/ckpt_{step}/MANIFEST.json"))
+    require(m_sync == m_async,
+            "the async checkpoint's manifest differs from the sync one's")
+    t0 = time.perf_counter()
+    TrainCheckpointer(sync_dir).restore(graphs, mesh_spec=spec)
+    restore_s = time.perf_counter() - t0
+    got = {f"{g}/{f}/{ly}/{n}": t
+           for g, gr in graphs.items() for f in ("params", "opt_state")
+           for ly, lp in getattr(gr, f).items() for n, t in lp.items()}
+    require(want.keys() == got.keys()
+            and all(torch.equal(want[k], got[k]) for k in want),
+            "the restored checkpoint is not the saved state")
+    return {"snapshot": snapshot, "sync_save_s": sync_s,
+            "async_save_blocking_s": async_blocking_s,
+            "async_save_s": async_total_s,
+            "bytes": manifest_bytes(f"{sync_dir}/ckpt_{step}"),
+            "files": sorted(m_sync["files"]), "restore_s": restore_s,
+            "leaves": len(want)}
+
+
+def resume_insurance(ref: str, ref_auroc: float, root: str) -> dict:
+    """The insurance program at its defaults in child processes: child A
+    with ``--checkpoint-every RES_INS_EVERY --preempt-signal SIGTERM``,
+    sent SIGTERM after step RES_INS_SIGNAL_AFTER, must exit 75 and leave
+    PREEMPTED.json and a verified checkpoint at its step; child B resumes
+    it to INS_STEPS.  The four zips (params and updater state), every
+    metrics record's losses and test_auroc must be bitwise those of the
+    insurance phase's uninterrupted run (``ref``)."""
+    from gan_deeplearning4j_tpu_torch.checkpoint import TrainCheckpointer
+
+    module = "gan_deeplearning4j_tpu_torch.train.insurance_main"
+    d = f"{root}/ins"
+    os.makedirs(d)
+    for f in ("insurance_train.csv", "insurance_test.csv"):
+        shutil.copy(f"{ref}/{f}", f"{d}/{f}")
+    args = ["--res-path", d, "--checkpoint-every", str(RES_INS_EVERY),
+            "--preempt-signal", "SIGTERM"]
+    rc_a, res_a, sec_a, err = run_child(module, args,
+                                        stop_after=RES_INS_SIGNAL_AFTER)
+    require(rc_a == 75 and res_a is not None and res_a.get("preempted"),
+            f"insurance child A: exit {rc_a}, {res_a}; stderr: {err}")
+    marker = json.load(open(f"{d}/PREEMPTED.json"))
+    stop = marker["step"]
+    ck = TrainCheckpointer(f"{d}/checkpoints", sweep_debris=False)
+    require(RES_INS_SIGNAL_AFTER <= stop < INS_STEPS
+            and marker["signal"] == "SIGTERM"
+            and ck.latest_verified_step() == stop == res_a["step"],
+            f"insurance child A: marker {marker}, checkpoints {ck.steps()}")
+    ckpt_bytes = manifest_bytes(f"{d}/checkpoints/ckpt_{stop}")
+    rc_b, res_b, sec_b, err = run_child(module, args + ["--resume"])
+    require(rc_b == 0 and res_b is not None
+            and res_b.get("steps") == INS_STEPS
+            and not os.path.exists(f"{d}/PREEMPTED.json"),
+            f"insurance child B: exit {rc_b}, {res_b}; stderr: {err}")
+    worst, first = zips_diff(ref, d, "insurance",
+                             ("dis", "gan", "gen", "insurance"))
+    m_ref = metrics_by_step(f"{ref}/insurance_metrics.jsonl")
+    m_got = metrics_by_step(f"{d}/insurance_metrics.jsonl")
+    require(sorted(m_got) == list(range(1, INS_STEPS + 1)),
+            "insurance resume: the metrics JSONL misses steps")
+    bad = [s for s in sorted(m_ref)
+           if any(m_ref[s][k] != m_got[s][k] for k in LOSS_KEYS)]
+    require(worst == 0.0 and not bad and res_b["test_auroc"] == ref_auroc,
+            f"insurance resume is not bitwise the uninterrupted run: first "
+            f"differing leaf {first}, largest difference {worst}; metrics "
+            f"differ at {len(bad)} steps (first {bad[:1]}); test_auroc "
+            f"{res_b['test_auroc']} vs {ref_auroc}")
+    hs = res_b["host_seconds"]
+    return {"stopped_at": stop, "exit_a": rc_a, "marker": marker,
+            "checkpoint_bytes": ckpt_bytes, "seconds_a": sec_a,
+            "seconds_b": sec_b, "bitwise": True, "largest_param_diff": worst,
+            "metrics_steps_equal": INS_STEPS, "test_auroc": ref_auroc,
+            "b_restore_s": hs.get("restore_s"),
+            "b_capture_s": hs.get("capture_s"),
+            "b_checkpoint_s": hs.get("checkpoint_s")}
+
+
+def resume_cv(torch, root: str) -> dict:
+    """The CV program at full width, RES_CV_STEPS steps at batch 200 in
+    calls of K = 100, checkpoints every 100: (1) in this process, U runs
+    uninterrupted, P is preempted (SIGTERM to itself after step
+    RES_CV_STOP's line: the emergency checkpoint), R resumes it with the
+    launch counters zeroed just before and read just after; R's final
+    state and latent generator must be U's, bitwise.  (2) The generator's
+    state after U's replays must be that of a fresh generator after
+    2 x RES_CV_STEPS eager draws (the resume route of a checkpoint without
+    ``z_gen_state``).  (3) The cost of a checkpoint of R's state.  (4)
+    Across processes: a child resumes a copy of P's directory (its
+    checkpoint and PREEMPTED.json) to RES_CV_STEPS; its zips against U's,
+    with the bound they meet.  (The insurance part sends SIGTERM to a
+    child; here the signal reaches this process, which keeps the CV part
+    to one child.)"""
+    from gan_deeplearning4j_tpu_torch.data import datasets
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.runtime import prng
+    from gan_deeplearning4j_tpu_torch.train import cv_main, fused_step
+    from gan_deeplearning4j_tpu_torch.train.gan_trainer import advance_latents
+
+    data = f"{root}/cv_data"
+    datasets.ensure_mnist_csv(data, 10000, 2000)
+
+    def res_dir(name: str) -> str:
+        d = f"{root}/{name}"
+        os.makedirs(d)
+        for f in ("mnist_train.csv", "mnist_test.csv"):
+            shutil.copy(f"{data}/{f}", f"{d}/{f}")
+        return d
+
+    def run(args, out=None):
+        with contextlib.redirect_stdout(out or io.StringIO()):
+            return cv_main.run(cv_main.parse_args(RES_CV_BASE + args))
+
+    t0 = time.perf_counter()
+    u = res_dir("cv_u")
+    tu, ru = run(["--res-path", u])
+    p = res_dir("cv_p")
+    sig = _SignalAt(f"Completed Batch {RES_CV_STOP}!")
+    tp, rp = run(RES_CV_CKPT + ["--res-path", p, "--preempt-signal",
+                                "SIGTERM", "--async-checkpoint"], sig)
+    require(sig.fired and tp is None and rp.get("preempted")
+            and rp["step"] == RES_CV_STOP
+            and os.path.exists(f"{p}/PREEMPTED.json"),
+            f"cv: the in-process preemption gave {rp}")
+    # the preempted run as this process left it, for a resume in another
+    x = f"{root}/cv_x"
+    shutil.copytree(p, x)
+    kernels.reset_launch_counts()
+    tr, rr = run(RES_CV_CKPT + ["--res-path", p, "--resume",
+                                "--async-checkpoint"])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    calls = 1 + RES_CV_STEPS - RES_CV_STOP  # the warm-up step and replays
+    expected = {"fused_update": 3 * calls, "bn_act": 3 * calls,
+                "upsample_bwd": 2 * calls, "bn_moments": 0, "bn_apply": 0,
+                "bn_act_4d": 0}
+    require(launches == expected,
+            f"cv resume: launch counts {launches} != expected {expected}")
+    require(rr["steps"] == RES_CV_STEPS and rr["graphed"],
+            f"cv resume: {rr}")
+    lu, lr = fused_step._leaves(tu.state), fused_step._leaves(tr.state)
+    differ = [(".".join(k), max_err(lu[k], lr[k])) for k in lu
+              if not torch.equal(lu[k], lr[k])]
+    z_u, z_r = tu.z_gen.get_state(), tr.z_gen.get_state()
+    require(not differ and torch.equal(z_u, z_r)
+            and int(tu.state.it) == int(tr.state.it) == RES_CV_STEPS,
+            f"cv: the in-process resume is not bitwise the uninterrupted run "
+            f"({len(differ)} leaves differ, first {differ[:1]}; generator "
+            f"states equal: {torch.equal(z_u, z_r)})")
+    # the generator: replays of a registered generator against eager draws
+    z_fresh = prng.generator(prng.NUMBER_OF_THE_BEAST, "train-z", tu.device)
+    advance_latents(z_fresh, RES_CV_STEPS, BATCH, 2, tu.device)
+    require(torch.equal(z_fresh.get_state(), z_u),
+            f"cv: the generator's state after {RES_CV_STEPS} graphed steps "
+            f"{z_u.tolist()} is not that of {2 * RES_CV_STEPS} eager draws "
+            f"{z_fresh.get_state().tolist()}")
+    seconds_in_process = time.perf_counter() - t0
+    costs = checkpoint_costs(tr, f"{root}/cv_costs", torch)
+    restore_s, capture_s = tr.timings["restore_s"], tr.timings["capture_s"]
+    resumed_checkpoint_s = tr.timings.get("checkpoint_s")
+    del tu, tr
+
+    # across processes: a child resumes the copy of P's directory
+    rc_b, res_b, sec_b, err = run_child(
+        "gan_deeplearning4j_tpu_torch.train.cv_main",
+        RES_CV_BASE + RES_CV_CKPT + ["--res-path", x, "--resume"])
+    require(rc_b == 0 and res_b is not None
+            and res_b.get("steps") == RES_CV_STEPS
+            and not os.path.exists(f"{x}/PREEMPTED.json"),
+            f"cv child: exit {rc_b}, {res_b}; stderr: {err}")
+    worst, first = zips_diff(u, x, "mnist", ("dis", "gan", "gen", "CV"))
+    bound = next((b for b in RES_CV_BOUNDS if worst <= b), None)
+    require(bound is not None,
+            f"cv: the cross-process resume differs from the uninterrupted "
+            f"run by {worst} (first differing leaf {first}), beyond "
+            f"{RES_CV_BOUNDS[-1]}")
+    return {"steps": RES_CV_STEPS, "stopped_at": RES_CV_STOP,
+            "in_process_bitwise": True, "launches": launches,
+            "expected_launches": expected,
+            "z_gen_state_is_eager_draws": True, "z_gen_state": z_u.tolist(),
+            "seconds_in_process": seconds_in_process,
+            "resumed_run_restore_s": restore_s,
+            "resumed_run_capture_s": capture_s,
+            "resumed_run_checkpoint_s": resumed_checkpoint_s,
+            "examples_per_sec_uninterrupted": ru["examples_per_sec"],
+            "examples_per_sec_resumed": rr["examples_per_sec"],
+            "costs": costs,
+            "cross_process": {"largest_param_diff": worst,
+                              "first_differing_leaf": first,
+                              "bound_met": bound, "bitwise": worst == 0.0,
+                              "seconds": sec_b,
+                              "checkpoint_s": res_b["host_seconds"].get(
+                                  "checkpoint_s"),
+                              "restore_s": res_b["host_seconds"].get(
+                                  "restore_s"),
+                              "capture_s": res_b["host_seconds"].get(
+                                  "capture_s")}}
+
+
+def resume_dp_rank(group, dirs) -> dict:
+    """One rank of the world-2 resume (a spawned process): the insurance
+    program's trainer run uninterrupted for RES_DP_STEPS[1] steps, then in
+    a second res-path for RES_DP_STEPS[0] steps with a checkpoint there
+    and resumed to RES_DP_STEPS[1] -> the two final states' digests."""
+    from gan_deeplearning4j_tpu_torch.train import insurance_main
+    from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
+
+    every, steps = RES_DP_STEPS
+
+    def run(res, n, **kw):
+        t = GANTrainer(group=group, workload=insurance_main.InsuranceWorkload(),
+                       config=insurance_main.default_config(
+                           res_path=res, num_iterations=n, print_every=every,
+                           save_every=every, metrics=False, **kw))
+        t.train(log=None)
+        return t
+
+    u = run(dirs["u"], steps)
+    run(dirs["r"], every, checkpoint_every=every)
+    b = run(dirs["r"], steps, checkpoint_every=every, resume=True)
+    return {"rank": group.rank, "backend": group.backend,
+            "uninterrupted": state_digest(u.state),
+            "resumed": state_digest(b.state), "steps": b.steps,
+            "restore_s": b.timings.get("restore_s")}
+
+
+def resume_dp(root: str) -> dict:
+    from gan_deeplearning4j_tpu_torch.data import datasets
+    from gan_deeplearning4j_tpu_torch.parallel import mesh
+
+    dirs = {k: f"{root}/dp_{k}" for k in ("u", "r")}
+    for d in dirs.values():
+        datasets.ensure_insurance_csv(d)  # before the ranks read it
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(resume_dp_rank, DP_WORLD, (dirs,), device="cuda",
+                       timeout=DP_TIMEOUT_S)
+    digests = {r["uninterrupted"] for r in ranks} | {r["resumed"]
+                                                    for r in ranks}
+    require(len(digests) == 1
+            and all(r["steps"] == RES_DP_STEPS[1] for r in ranks),
+            f"dp resume: the resumed world-2 run is not the uninterrupted "
+            f"one: {ranks}")
+    return {"world": DP_WORLD, "backend": ranks[0]["backend"],
+            "checkpoint_at": RES_DP_STEPS[0], "steps": RES_DP_STEPS[1],
+            "equal": True, "ranks": ranks,
+            "seconds": time.perf_counter() - t0}
+
+
+def resume_data_retry(root: str, torch) -> dict:
+    """One insurance run with ``--data-retries 3`` whose first CSV read
+    meets an injected transient OSError -> its retry count (must be 1),
+    and the checkpoint costs at the insurance model's size."""
+    from gan_deeplearning4j_tpu_torch.data.csv import CSVRecordReader
+    from gan_deeplearning4j_tpu_torch.train import insurance_main
+    from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
+
+    orig = CSVRecordReader.read
+    calls = {"n": 0}
+
+    def flaky(self, path, *a, **kw):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise OSError(f"injected transient read error on {path}")
+        return orig(self, path, *a, **kw)
+
+    CSVRecordReader.read = flaky
+    try:
+        t = GANTrainer(workload=insurance_main.InsuranceWorkload(),
+                       config=insurance_main.default_config(
+                           res_path=f"{root}/retry", num_iterations=100,
+                           data_retries=3, metrics=False))
+    finally:
+        CSVRecordReader.read = orig
+    res = t.train(log=None)
+    retries = t.data_health.retries_total
+    require(retries == 1 and res["steps"] == 100,
+            f"data retries: {retries} retries, {res['steps']} steps")
+    costs = checkpoint_costs(t, f"{root}/ins_costs", torch)
+    return {"retries": retries, "reads": calls["n"], "steps": res["steps"],
+            "insurance_costs": costs,
+            "insurance_capture_s": t.timings.get("capture_s")}
+
+
+def resume_phase(torch, smi: str, ins_ref: str, ins_auroc: float) -> dict:
+    """Checkpoints, preemption and resume on the card (see the module
+    docstring, phase 10)."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="gan4j_resume_")
+    try:
+        out = {"insurance": resume_insurance(ins_ref, ins_auroc, root)}
+        t1 = time.perf_counter()
+        out["cv"] = resume_cv(torch, root)
+        t2 = time.perf_counter()
+        out["dp"] = resume_dp(root)
+        out["data_retry"] = resume_data_retry(root, torch)
+        out["seconds_by_part"] = {"insurance": t1 - t0, "cv": t2 - t1,
+                                  "dp_and_retry": time.perf_counter() - t2}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["nvidia_smi"] = smi
+    return out
 
 
 def main() -> int:
@@ -1723,10 +2235,17 @@ def main() -> int:
     emit("cv_main", **cv_main_phase(torch, smi))
 
     # -- 9. the insurance program end to end ----------------------------------
-    ins = insurance_phase(torch, smi)
-    emit("insurance", **ins)
+    ins_ref = tempfile.mkdtemp(prefix="gan4j_ins_ref_")
+    try:
+        ins = insurance_phase(torch, smi, ins_ref)
+        emit("insurance", **ins)
 
-    # -- 10. the kernels line and the result ---------------------------------
+        # -- 10. checkpoints, preemption and resume ---------------------------
+        emit("resume", **resume_phase(torch, smi, ins_ref, ins["test_auroc"]))
+    finally:
+        shutil.rmtree(ins_ref, ignore_errors=True)
+
+    # -- 11. the kernels line and the result ---------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
     # pair, and the kernel phase's check for the 4-D BN, which no model
     # path runs (as in the JAX package)

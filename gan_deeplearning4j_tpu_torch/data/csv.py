@@ -17,8 +17,10 @@ Semantics matched:
   - ``shuffle``: a per-epoch permutation that is a pure function of
     (``shuffle_seed``, epoch), so ``state()`` is O(1)
 
-The JAX reader's native C++ parser and its row quarantine
-(``data/resilient.py``) are not ported.
+With a ``quarantine`` (``data/resilient.py`` ``RecordQuarantine``) the
+decode is row-tolerant: malformed records (wrong width, unparseable,
+non-finite, an out-of-range label) are skipped and charged with file:line
+(or row) provenance.  The JAX reader's native C++ parser is not ported.
 """
 
 from __future__ import annotations
@@ -59,13 +61,17 @@ class CSVRowError(ValueError):
 class CSVRecordReader:
     """DataVec ``CSVRecordReader(numLinesToSkip, delimiter)`` equivalent:
     decodes the entire file eagerly with numpy's C parser.  A malformed
-    record raises ``CSVRowError`` naming its file:line."""
+    record raises ``CSVRowError`` naming its file:line; with a
+    ``quarantine`` it is skipped and charged instead (the row parser)."""
 
     def __init__(self, skip_lines: int = 0, delimiter: str = ","):
         self.skip_lines = skip_lines
         self.delimiter = delimiter
 
-    def read(self, path: str, dtype=np.float32) -> np.ndarray:
+    def read(self, path: str, dtype=np.float32,
+             quarantine=None) -> np.ndarray:
+        if quarantine is not None:
+            return self._read_rows(path, dtype, quarantine.charge)
         try:
             # comments=None: the contract is pure numeric CSV — without it
             # numpy silently DROPS any '#'-prefixed line
@@ -74,7 +80,7 @@ class CSVRecordReader:
                               ndmin=2, comments=None)
         except ValueError:
             # re-parse row by row to name the first bad record
-            def raise_row(file, line=None, reason="", raw=""):
+            def raise_row(file, line=None, row=None, reason="", raw=""):
                 raise CSVRowError(file, line, reason, raw)
 
             return self._read_rows(path, dtype, raise_row)
@@ -115,7 +121,8 @@ class CSVRecordReader:
             on_bad_row(path, line=lineno, reason=reason, raw=raw)
         rows = [v.astype(dtype) for _, v, _ in parsed if v.shape[0] == ncols]
         if not rows:
-            raise ValueError(f"{path}: no valid rows")
+            raise ValueError(
+                f"{path}: no valid rows survived the tolerant decode")
         return np.stack(rows)
 
 
@@ -123,19 +130,35 @@ class RecordReaderDataSetIterator:
     """DL4J ``RecordReaderDataSetIterator(reader, batch, labelIndex,
     numClasses)``: fixed-size batches over a decoded table; ``reset()``
     rewinds.  ``source`` is a CSV path or a 2-D array (the table itself,
-    label column included)."""
+    label column included).  ``quarantine``: bad records (and, for an
+    array source, rows with a non-finite value; for a one-hot label, rows
+    whose label is outside [0, num_classes)) are skipped and charged."""
 
     def __init__(self, source, batch_size: int,
                  label_index: Optional[int] = None, num_classes: int = 1,
                  reader: Optional[CSVRecordReader] = None, dtype=np.float32,
                  strict: bool = False, shuffle: bool = False,
-                 shuffle_seed: int = 0):
+                 shuffle_seed: int = 0, quarantine=None):
+        src_name = "<array>"
         if isinstance(source, (str, os.PathLike)):
-            table = (reader or CSVRecordReader()).read(str(source), dtype=dtype)
+            src_name = str(source)
+            reader = reader or CSVRecordReader()
+            if quarantine is not None:
+                table = reader.read(str(source), dtype=dtype,
+                                    quarantine=quarantine)
+            else:
+                table = reader.read(str(source), dtype=dtype)
         else:
             table = np.asarray(source, dtype=dtype)
             if table.ndim != 2:
                 raise ValueError(f"expected 2-D table, got shape {table.shape}")
+            if quarantine is not None:
+                bad = ~np.isfinite(table).all(axis=1)
+                if bad.any():
+                    for i in np.nonzero(bad)[0]:
+                        quarantine.charge(src_name, row=int(i),
+                                          reason="non-finite value")
+                    table = np.ascontiguousarray(table[~bad])
         if strict and table.shape[0] % batch_size != 0:
             raise ValueError(
                 f"{table.shape[0]} rows is not a multiple of "
@@ -143,6 +166,19 @@ class RecordReaderDataSetIterator:
         self.batch_size = batch_size
         self.label_index = label_index
         self.num_classes = num_classes
+        if label_index is not None and num_classes >= 2 \
+                and quarantine is not None and table.shape[0]:
+            # a label outside [0, num_classes) is a corrupt record
+            raw = table[:, label_index]
+            idx = raw.astype(np.int64)
+            bad = (idx < 0) | (idx >= num_classes)
+            if bad.any():
+                for i in np.nonzero(bad)[0]:
+                    quarantine.charge(
+                        src_name, row=int(i),
+                        reason=f"label {raw[i]!r} outside "
+                               f"[0, {num_classes})")
+                table = np.ascontiguousarray(table[~bad])
         if label_index is None:
             self._features = table
             self._labels = None

@@ -17,6 +17,10 @@ compute stream), so chunk k+1 crosses the host link while chunk k trains.
 A staging slot goes back to the worker only after that copy: the worker
 waits on the event the consumer recorded behind it before refilling the
 slot.  On the CPU the same protocol runs with plain host arrays.
+
+``restore_state`` repositions either pipeline at a source state (a
+checkpoint's ``iter_state``): the staged batches are dropped and a fresh
+worker starts there.
 """
 
 from __future__ import annotations
@@ -138,6 +142,39 @@ class PrefetchIterator:
         """The source's state after the batches already delivered."""
         return self._consumed_state
 
+    def _discard(self, item) -> None:
+        """Drop a staged item that a restore made stale."""
+
+    def restore_state(self, state) -> None:
+        """Reposition the whole pipeline at ``state``: stop the worker,
+        discard everything staged (it predates the restore point), restore
+        the source, and start a fresh worker from there.  The source must
+        implement ``restore_state``."""
+        restore = getattr(self.source, "restore_state", None)
+        if restore is None:
+            raise AttributeError(f"{type(self.source).__name__} does not "
+                                 "expose restore_state")
+        self._stop.set()
+        try:
+            while True:  # unblock a worker parked mid-put; drop staged
+                item = self._q.get_nowait()
+                if isinstance(item, tuple):
+                    self._discard(item)
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=10.0)
+        if self._thread.is_alive():
+            raise RuntimeError("prefetch worker did not quiesce for "
+                               "restore_state (source wedged in next()?)")
+        self.error = None  # pre-restore failures died with the worker
+        restore(state)
+        self._consumed_state = self._source_state()
+        self._q = queue.Queue(maxsize=self.prefetch_depth)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker,
+                                        name="gan4j-prefetch", daemon=True)
+        self._thread.start()
+
     def close(self, timeout: float = 5.0) -> None:
         """Stop the worker; a worker exception still queued is kept on
         ``error``."""
@@ -248,7 +285,11 @@ class ChunkPrefetchIterator(PrefetchIterator):
                     dl.copy_(hl, non_blocking=True)
                     self._ready[s].record(self._side)
             if not self._put_stop_aware((s, st)):
+                self._free.put(s)
                 return
+
+    def _discard(self, item) -> None:
+        self._free.put(item[0])  # the staged chunk's slot
 
     def next_into(self, features: torch.Tensor, labels: torch.Tensor) -> None:
         """Copy the next chunk into ``features``/``labels`` (raises

@@ -13,6 +13,10 @@ rank and joins them in a ``torch.distributed`` group).
   all_reduce_mean_diff(t, group)                differentiable mean over
                                                 ranks (``lax.pmean`` inside
                                                 ``shard_map(check_vma=False)``)
+  barrier(group)                                every rank waits for all
+  agree_preemption(triggered, step, group)      (any rank triggered, the
+                                                least step) in one
+                                                all-reduce
   spawn(fn, world, args, device, timeout)       run ``fn`` in one process
                                                 per rank and collect results
 
@@ -26,12 +30,13 @@ collective; an NCCL group never copies.
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue as queue_lib
 import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -157,6 +162,27 @@ def all_reduce_mean_diff(t: torch.Tensor, group: DataGroup) -> torch.Tensor:
     return _AllReduceSum.apply(t) / group.world
 
 
+def barrier(group: DataGroup) -> None:
+    """Every rank of ``group`` waits here until all have arrived."""
+    dist.barrier(device_ids=[group.device.index]
+                 if group.backend == "nccl" else None)
+
+
+def agree_preemption(triggered: bool, step: int,
+                     group: DataGroup) -> Tuple[bool, int]:
+    """The ranks' consensus at a boundary (the JAX package's
+    ``multihost.agree_preemption``): one all-reduce of (triggered, -step)
+    with MAX -> (whether any rank was signalled, the least step).  Every
+    rank must enter it at every boundary while its guard is armed, so a
+    signal that reaches one rank stops them all at the same step."""
+    dev = group.device if group.backend == "nccl" else torch.device("cpu")
+    t = torch.tensor([int(bool(triggered)), -int(step)], dtype=torch.int64,
+                     device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    flag, neg_step = t.tolist()
+    return bool(flag), -int(neg_step)
+
+
 def reducer(group: Optional[DataGroup]):
     """The ``reduce(loss, state_updates, grads)`` hook of
     ``ComputationGraph._train_step``: their mean over ranks (None without a
@@ -192,7 +218,8 @@ JOIN_TIMEOUT_S = 300.0
 
 
 def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
-          timeout: float = 600.0) -> List[Any]:
+          timeout: float = 600.0,
+          forward_signals: Sequence[int] = ()) -> List[Any]:
     """Run ``fn(group, *args)`` in ``world`` fresh processes (start method
     ``spawn``), rank r on ``device`` (``cpu``, or None/``cuda`` for
     ``cuda:r``), joined through a ``file://`` rendezvous in a temporary
@@ -202,7 +229,11 @@ def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
     seconds from the start to join the group; ``timeout`` counts from the
     moment the last rank joined.  A child that fails, or misses either
     limit, fails the call: stragglers are killed, and no process outlives
-    it."""
+    it.  ``forward_signals``: signals this process passes on to every live
+    rank while it waits (a scheduler's SIGTERM to the parent reaches the
+    ranks' preemption guards); call from the main thread."""
+    import signal
+
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -215,6 +246,13 @@ def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
     joined, got, failed = set(), {}, []
     deadline = time.monotonic() + JOIN_TIMEOUT_S
     grace = float("inf")
+
+    def forward(signum, frame):
+        for p in procs:
+            if p.pid is not None and p.is_alive():
+                os.kill(p.pid, signum)
+
+    prev = {s: signal.signal(s, forward) for s in forward_signals}
     try:
         for p in procs:
             p.start()
@@ -241,6 +279,8 @@ def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
         for p in procs:
             p.join(max(0.0, min(deadline, grace) - time.monotonic()) + 5.0)
     finally:
+        for s, handler in prev.items():
+            signal.signal(s, handler)
         alive = [p for p in procs if p.is_alive()]
         for p in alive:
             p.kill()

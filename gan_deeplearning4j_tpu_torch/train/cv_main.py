@@ -28,14 +28,21 @@ and prints rank 0's per-step losses, then one JSON line (``steps``,
 over NCCL; gloo ranks with ``--device cpu``): this process writes the CSV
 pair first, every rank decodes it, and rank 0 alone dumps, saves, logs
 metrics and evaluates.  ``--dp-mode param_averaging`` runs the unfused
-per-fit loop.
+per-fit loop.  Supervision, as in the JAX program: ``--checkpoint-every N``
+(checkpoints in the JAX format under ``res-path/checkpoints``),
+``--resume``, ``--max-restarts``, ``--async-checkpoint``,
+``--preempt-signal SIG`` (an emergency checkpoint, ``PREEMPTED.json`` and
+exit code 75; with ``--n-devices`` this process forwards the signal to the
+ranks), ``--data-retries`` and ``--max-quarantine``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import sys
 import time
 from typing import Dict, Optional, Tuple
 
@@ -53,7 +60,16 @@ from gan_deeplearning4j_tpu_torch.train.gan_trainer import (
     GANTrainer,
     GANTrainerConfig,
     Workload,
+    add_recovery_args,
+    check_recovery_args,
+    recovery_config_kwargs,
     resolve_n_devices,
+    run_with_recovery,
+)
+from gan_deeplearning4j_tpu_torch.train.preemption import (
+    EXIT_PREEMPTED,
+    PreemptionError,
+    parse_signals,
 )
 
 
@@ -127,7 +143,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "torch versions of the kernels)")
-    return p.parse_args(argv)
+    add_recovery_args(p)
+    args = p.parse_args(argv)
+    check_recovery_args(p, args)
+    return args
 
 
 def evaluate(trainer: GANTrainer, fid_samples: int = 10000) -> Dict[str, float]:
@@ -201,46 +220,71 @@ def _config(args: argparse.Namespace, overrides: Dict) -> GANTrainerConfig:
         res_path=args.res_path, print_every=args.print_every,
         save_every=args.save_every, dp_mode=args.dp_mode, averaging_frequency=args.averaging_frequency,
         steps_per_call=args.steps_per_call, async_dumps=not args.sync_dumps,
-        ema_decay=args.ema_decay, seed=args.seed, **overrides)
+        ema_decay=args.ema_decay, seed=args.seed,
+        **recovery_config_kwargs(args), **overrides)
 
 
 def _train_and_evaluate(args: argparse.Namespace, config: GANTrainerConfig,
                         group: Optional[mesh.DataGroup] = None
                         ) -> Tuple[GANTrainer, Dict]:
     cfg = M.CVConfig(seed=args.seed)
-    trainer = GANTrainer(
-        cfg, device=args.device, group=group, config=config,
-        workload=CVWorkload(cfg, n_train=args.n_train, n_test=args.n_test))
     rank0 = group is None or group.rank == 0
-    result = trainer.train(log=print if rank0 else None)
+
+    def make_trainer(resume: bool) -> GANTrainer:
+        c = dataclasses.replace(config, resume=True) if resume else config
+        return GANTrainer(
+            cfg, device=args.device, group=group, config=c,
+            workload=CVWorkload(cfg, n_train=args.n_train,
+                                n_test=args.n_test))
+
+    trainer, result = run_with_recovery(
+        make_trainer, max_restarts=args.max_restarts,
+        log=print if rank0 else None)
     if rank0:
         result.update(evaluate(trainer, fid_samples=args.fid_samples))
         result["host_seconds"] = trainer.timings
     return trainer, result
 
 
+def _preempted(e: PreemptionError, args: argparse.Namespace) -> Dict:
+    """The result of a preempted run: the resumable state, not a traceback
+    (``cli`` exits 75 on it)."""
+    return {"preempted": True, "step": e.step, "checkpoint": e.checkpoint,
+            "res_path": args.res_path}
+
+
 def _rank(group: mesh.DataGroup, args: argparse.Namespace,
           config: GANTrainerConfig) -> Dict:
-    return _train_and_evaluate(args, config, group)[1]
+    try:
+        return _train_and_evaluate(args, config, group)[1]
+    except PreemptionError as e:
+        return _preempted(e, args)
 
 
 def run(args: argparse.Namespace, timeout: float = 3600.0, **overrides
         ) -> Tuple[Optional[GANTrainer], Dict]:
     """The program for parsed ``args`` -> (the trainer, or None when the
-    run was spread over ranks in other processes; rank 0's result).
+    run was spread over ranks in other processes or was preempted; rank
+    0's result, ``{"preempted": True, ...}`` after a preemption).
     ``overrides`` set further ``GANTrainerConfig`` fields (e.g.
     ``data_on_device``, ``stream_chunk_bytes``)."""
     config = _config(args, overrides)
     world = resolve_n_devices(args.n_devices, args.batch_size, args.device)
     if world == 1:
-        return _train_and_evaluate(args, config)
+        try:
+            return _train_and_evaluate(args, config)
+        except PreemptionError as e:
+            return None, _preempted(e, args)
     t0 = time.perf_counter()
     datasets.ensure_mnist_csv(args.res_path, args.n_train, args.n_test)
     csv_s = time.perf_counter() - t0
     dev = backend.resolve_device(args.device)
-    result = mesh.spawn(_rank, world, (args, config), device=dev.type,
-                        timeout=timeout)[0]
-    result["host_seconds"]["csv_ready_s"] = csv_s
+    result = mesh.spawn(
+        _rank, world, (args, config), device=dev.type, timeout=timeout,
+        forward_signals=parse_signals(config.preempt_signals)
+        if config.preempt_signals else ())[0]
+    if not result.get("preempted"):
+        result["host_seconds"]["csv_ready_s"] = csv_s
     return None, result
 
 
@@ -251,5 +295,12 @@ def main(argv=None) -> Dict:
     return result
 
 
+def cli(argv=None) -> None:
+    """The ``python -m`` entry: ``main``, exiting 75 (EX_TEMPFAIL: requeue
+    me) when the run was preempted."""
+    if main(argv).get("preempted"):
+        sys.exit(EXIT_PREEMPTED)
+
+
 if __name__ == "__main__":
-    main()
+    cli()

@@ -38,36 +38,89 @@ the next call (a replay overwrites the graph's static state), and their
 device work and copy to pinned host memory are enqueued on the training
 thread; ``AsyncArtifactWriter``'s worker waits for the copy and writes the
 CSV.  Under a group only rank 0 dumps, logs metrics and saves.
-Checkpoints, telemetry and supervision are not ported yet.
+
+Supervision (the JAX trainer's, in its checkpoint format):
+  - every ``checkpoint_every`` steps a checkpoint of the four graphs, the
+    label softening, the data position (``iter_state``), the generator EMA
+    and the latent generator's state (``z_gen_state``, the port's own key:
+    its latents come from a sequential generator, where the JAX package's
+    are counter-based) through ``checkpoint/`` (``async_checkpoint``: the
+    serialization on a worker).  The snapshot reads the state through
+    pinned host copies behind one event at the call boundary, before the
+    next replay overwrites the graph's static buffers.  Only rank 0 writes;
+    every rank waits on a barrier behind the save;
+  - ``resume``: the newest verified checkpoint is restored in the
+    constructor, before the step is captured, so the restored params, the
+    step counter, the EMA and the generator's state go into the graph; a
+    checkpoint without ``z_gen_state`` (one the JAX package wrote) puts the
+    generator at its step by replaying its draws;
+  - ``preempt_signals``: a signal latches a flag polled at each call
+    boundary (the ranks agree on it); the trainer then takes an emergency
+    checkpoint, writes ``PREEMPTED.json`` and raises ``PreemptionError``;
+  - the data plane: retries on transient read errors (``data_retries``)
+    and a corrupt-record quarantine (``max_quarantine``);
+  - ``train_with_recovery`` / ``run_with_recovery``: restart after a
+    retryable failure from the newest checkpoint.
+The watchdog, the divergence sentinel, rollback and telemetry are not
+ported yet (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import math
 import os
+import random
 import statistics
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from gan_deeplearning4j_tpu_torch.checkpoint import (
+    AsyncCheckpointer,
+    CheckpointCorruptError,
+    NoVerifiedCheckpointError,
+    TrainCheckpointer,
+)
+from gan_deeplearning4j_tpu_torch.checkpoint.checkpointer import mesh_spec_dict
 from gan_deeplearning4j_tpu_torch.data import codec as codec_lib
 from gan_deeplearning4j_tpu_torch.data import datasets
 from gan_deeplearning4j_tpu_torch.data.csv import (
+    CSVRecordReader,
     RecordReaderDataSetIterator,
     write_csv_matrix,
 )
 from gan_deeplearning4j_tpu_torch.data.prefetch import ChunkPrefetchIterator
+from gan_deeplearning4j_tpu_torch.data.resilient import (
+    QUARANTINE_NAME,
+    DataHealth,
+    DataQuarantineError,
+    RecordQuarantine,
+    RetryingReader,
+    RetryingSource,
+    ValidatingSource,
+)
 from gan_deeplearning4j_tpu_torch.graph import serialization
 from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
 from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.parallel.data_parallel import DataParallelGraph
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
 from gan_deeplearning4j_tpu_torch.train import fused_step
-from gan_deeplearning4j_tpu_torch.utils.async_dump import AsyncArtifactWriter
+from gan_deeplearning4j_tpu_torch.train.preemption import (
+    MARKER_NAME,
+    PreemptionError,
+    PreemptionGuard,
+    parse_signals,
+    preempt_exit,
+)
+from gan_deeplearning4j_tpu_torch.utils.async_dump import (
+    AsyncArtifactWriter,
+    host_copy,
+)
 from gan_deeplearning4j_tpu_torch.utils.metrics import MetricsLogger
 
 log_ = logging.getLogger(__name__)
@@ -108,6 +161,20 @@ class GANTrainerConfig:
     metrics: bool = True
     ema_decay: float = 0.0
     async_dumps: bool = True
+    # -- supervision (the JAX trainer's fields, names and defaults) --
+    checkpoint_every: int = 0         # 0 = end-of-run models only
+    checkpoint_keep: int = 3
+    resume: bool = False
+    # serialize/fsync on a background worker; the same bytes
+    async_checkpoint: bool = False
+    # comma-separated signal names ("SIGTERM,SIGUSR1") that arm the
+    # preemption path; None = signals keep their inherited behavior
+    preempt_signals: Optional[str] = None
+    # bounded retries on transient data-source I/O errors (0 = none)
+    data_retries: int = 3
+    data_retry_backoff_s: float = 0.1
+    # corrupt-record budget (0 = strict: the first bad record raises)
+    max_quarantine: int = 0
 
 
 class Workload:
@@ -218,19 +285,170 @@ def resolve_steps_per_call(iterations: int,
     return k
 
 
-def _host_copy(ts: Sequence[torch.Tensor]):
-    """Start each tensor's copy to host memory on the current stream ->
-    (host tensors, event or None); the event completes with the copies."""
-    if not any(t.device.type == "cuda" for t in ts):
-        return [t.detach() for t in ts], None
-    hosts = []
-    for t in ts:
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        hosts.append(host)
-    event = torch.cuda.Event()
-    event.record()
-    return hosts, event
+def advance_latents(z_gen: torch.Generator, steps: int, batch_size: int,
+                    z_size: int, device) -> None:
+    """Put ``z_gen`` where it stands after ``steps`` protocol steps from
+    its seed: each step draws z1 and z2, [batch_size, z_size] each (the
+    resume route for a checkpoint without ``z_gen_state``)."""
+    for _ in range(2 * steps):
+        torch.rand((batch_size, z_size), generator=z_gen, device=device)
+
+
+def train_with_recovery(make_trainer: Callable[[bool], "GANTrainer"],
+                        max_restarts: int = 2,
+                        log: Optional[Callable[[str], None]] = print,
+                        backoff_base_s: float = 1.0,
+                        backoff_max_s: float = 30.0) -> Dict:
+    """Run ``make_trainer(resume).train()``; after a retryable failure,
+    build a new trainer that resumes from the newest checkpoint (the JAX
+    package's classification):
+
+    * fatal, re-raised at once: ``ValueError``/``TypeError`` (configuration
+      and checkpoint structure mismatches), ``CheckpointCorruptError`` and
+      ``DataQuarantineError`` (a restart replays the same failure);
+    * ``PreemptionError`` is re-raised: the emergency checkpoint is on disk
+      and the scheduler restarts the job (the mains exit 75);
+    * everything else is retried, with backoff ``backoff_base_s * 2^n``
+      (capped) and jitter x[0.5, 1.5).  The budget is progress-aware: a
+      failure at a later step than the previous one resets it.
+
+    The failed incarnation's checkpointer is quiesced (an async save in
+    flight becomes durable, its worker is reaped) before the next trainer
+    is built.  The JAX wrapper's further classes (watchdog timeouts,
+    rollback requests, NaN alarms, divergence) come with the next slice
+    and are not caught here.  Under a data-parallel group each rank runs
+    its own wrapper: a failure that reaches every rank restarts them all,
+    while one rank failing alone leaves the others in a collective until
+    ``mesh.spawn``'s timeout."""
+
+    def quiesce_checkpointer(trainer) -> None:
+        ck_close = getattr(getattr(trainer, "checkpointer", None), "close",
+                           None)
+        if ck_close is not None:
+            try:
+                ck_close()
+            except Exception as ce:
+                if log is not None:
+                    log(f"checkpoint writer failed during restart quiesce "
+                        f"({ce!r}); the restart falls back to the previous "
+                        "verified checkpoint")
+
+    attempt = 0
+    resume_next = False
+    last_failure_step: Optional[int] = None
+    while True:
+        trainer = None
+        try:
+            trainer = make_trainer(resume_next)
+            return trainer.train(log=log)
+        except (KeyboardInterrupt, PreemptionError):
+            raise
+        except (ValueError, TypeError, CheckpointCorruptError,
+                DataQuarantineError):
+            raise  # fatal class: a restart replays the same failure
+        except Exception as e:  # retryable class
+            quiesce_checkpointer(trainer)
+            step = int(getattr(trainer, "steps", 0) or 0)
+            if last_failure_step is not None and step > last_failure_step:
+                attempt = 0  # progress since the last failure
+            last_failure_step = step
+            attempt += 1
+            resume_next = True
+            if attempt > max_restarts:
+                raise
+            delay = 0.0
+            if backoff_base_s > 0:
+                delay = min(backoff_max_s,
+                            backoff_base_s * (2 ** (attempt - 1)))
+                delay *= 0.5 + random.random()
+            if log is not None:
+                log(f"training failed ({e!r}) at step {step}; restart "
+                    f"{attempt}/{max_restarts} from the latest checkpoint"
+                    + (f" after {delay:.1f}s backoff" if delay else ""))
+            if delay:
+                time.sleep(delay)
+
+
+def add_recovery_args(parser) -> None:
+    """The mains' checkpoint, resume, restart and preemption flags and the
+    resilient data plane's (the JAX mains' names, defaults and meaning)."""
+    parser.add_argument("--checkpoint-every", type=int, default=0,
+                        help="checkpoint every N steps into "
+                             "res-path/checkpoints (0 = none)")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the newest verified checkpoint "
+                             "(consumes PREEMPTED.json)")
+    parser.add_argument(
+        "--max-restarts", type=int, default=0,
+        help="auto-resume from the latest checkpoint on failure, up to N "
+             "times (needs --checkpoint-every); the budget is "
+             "progress-aware and fatal errors (configuration or structure "
+             "mismatch, a corrupt explicit checkpoint, the quarantine "
+             "budget) are not retried")
+    parser.add_argument(
+        "--async-checkpoint", action="store_true",
+        help="serialize/fsync checkpoints on a background worker — the "
+             "training thread pays only the snapshot; the bytes on disk "
+             "are those of a synchronous save")
+    parser.add_argument(
+        "--preempt-signal", action="append", default=None, metavar="SIG",
+        help="signal name (e.g. SIGTERM; repeatable) that triggers an "
+             "emergency checkpoint and a resumable PREEMPTED.json marker, "
+             "then exit code 75 (EX_TEMPFAIL): requeue and resume with "
+             "--resume")
+    parser.add_argument(
+        "--data-retries", type=int, default=3, metavar="N",
+        help="bounded retries (exponential backoff + jitter) on transient "
+             "data-source I/O errors; exhaustion is a retryable "
+             "DataSourceError for --max-restarts (0 = die on the first "
+             "I/O error)")
+    parser.add_argument(
+        "--max-quarantine", type=int, default=0, metavar="N",
+        help="corrupt-record tolerance: skip up to N malformed records "
+             "(bad width/parse/non-finite/label), logging each to "
+             "res-path/quarantine.jsonl with file:line provenance; "
+             "exceeding the budget is a fatal DataQuarantineError.  0 = "
+             "strict: the first malformed record raises, naming its "
+             "file:line")
+
+
+def recovery_config_kwargs(args) -> Dict:
+    """The add_recovery_args flags as ``GANTrainerConfig`` overrides."""
+    return dict(
+        checkpoint_every=args.checkpoint_every, resume=args.resume,
+        async_checkpoint=args.async_checkpoint,
+        preempt_signals=(",".join(args.preempt_signal)
+                         if args.preempt_signal else None),
+        data_retries=args.data_retries, max_quarantine=args.max_quarantine)
+
+
+def check_recovery_args(parser, args) -> None:
+    """The mains' validation of the recovery flags."""
+    if args.max_restarts > 0 and args.checkpoint_every <= 0:
+        parser.error("--max-restarts needs --checkpoint-every (without "
+                     "checkpoints every restart replays from step 0)")
+
+
+def run_with_recovery(make_trainer: Callable[[bool], "GANTrainer"],
+                      max_restarts: int = 0,
+                      log: Optional[Callable[[str], None]] = print
+                      ) -> Tuple["GANTrainer", Dict]:
+    """The mains' wiring: ``make_trainer(resume)`` builds a trainer (with
+    ``resume`` forced on for a restart) and it trains, under
+    ``train_with_recovery`` when ``max_restarts`` > 0 -> (the last trainer,
+    its result)."""
+    holder = {}
+
+    def make(resume: bool) -> "GANTrainer":
+        holder["trainer"] = make_trainer(resume)
+        return holder["trainer"]
+
+    if max_restarts > 0:
+        result = train_with_recovery(make, max_restarts=max_restarts,
+                                     log=log)
+    else:
+        result = make(False).train(log=log)
+    return holder["trainer"], result
 
 
 class GANTrainer:
@@ -291,6 +509,22 @@ class GANTrainer:
         if c.steps_per_call is not None and c.steps_per_call < 1:
             raise ValueError(f"steps_per_call must be >= 1, got "
                              f"{c.steps_per_call}")
+        # the supervision options fail before any side effect (an unknown
+        # signal name must not surface inside a grace window)
+        self._preempt_signal_nums = (parse_signals(c.preempt_signals)
+                                     if c.preempt_signals else ())
+        if c.data_retries < 0:
+            raise ValueError(f"data_retries must be >= 0, got "
+                             f"{c.data_retries}")
+        if c.max_quarantine < 0:
+            raise ValueError(f"max_quarantine must be >= 0, got "
+                             f"{c.max_quarantine}")
+        wants_ckpt = bool(c.checkpoint_every or c.resume
+                          or self._preempt_signal_nums)
+        if wants_ckpt and not c.res_path:
+            raise ValueError("checkpoint_every, resume and preempt_signals "
+                             "need a res_path (checkpoints go to "
+                             "res_path/checkpoints)")
         if group is not None:
             device = group.device
         self.device = dev = backend.resolve_device(device)
@@ -318,26 +552,68 @@ class GANTrainer:
 
         # -- the data: decoded before anything reads its address ------------
         test_iter = None
+        # the resilient data plane: the CSV decode retries transient I/O
+        # errors and, with a budget, skips and charges corrupt records
+        self.data_health = DataHealth()
+        self._quarantine = None
+        if c.max_quarantine:
+            self._quarantine = RecordQuarantine(
+                os.path.join(c.res_path, QUARANTINE_NAME)
+                if c.res_path and self.rank0 else os.devnull,
+                budget=c.max_quarantine, health=self.data_health)
+        reader = CSVRecordReader()
+        if c.data_retries:
+            reader = RetryingReader(reader, retries=c.data_retries,
+                                    backoff_s=c.data_retry_backoff_s,
+                                    health=self.data_health, seed=c.seed)
+        iter_kw = dict(reader=reader, quarantine=self._quarantine)
         if workload is not None:
             t0 = time.perf_counter()
             train_csv, test_csv = workload.ensure_data(c.res_path)
             self.timings["csv_ready_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             train_iter = RecordReaderDataSetIterator(
-                train_csv, B, c.label_index, c.num_classes)
+                train_csv, B, c.label_index, c.num_classes, **iter_kw)
             test_iter = RecordReaderDataSetIterator(
-                test_csv, c.batch_size_pred, c.label_index, c.num_classes)
+                test_csv, c.batch_size_pred, c.label_index, c.num_classes,
+                **iter_kw)
             self.timings["decode_s"] = time.perf_counter() - t0
         else:
             train_iter = RecordReaderDataSetIterator(
                 datasets.mnist_table(n_train), B, c.label_index,
-                c.num_classes)
+                c.num_classes, **iter_kw)
         if train_iter.num_examples() < B:
             raise ValueError(f"the training table has {train_iter.num_examples()}"
                              f" rows, less than one batch of {B}")
         if c.save_every and test_iter is None:
             raise ValueError("save_every needs a test iterator")
         self.train_iter, self.test_iter = train_iter, test_iter
+        self._iter_state_consumed: Optional[Dict] = None
+
+        # the run's random state: the label softening, drawn once, and the
+        # latent generator
+        soften = prng.generator(c.seed, "soften")
+        self.soften_real = 0.05 * torch.randn((B, 1), generator=soften).to(dev)
+        self.soften_fake = 0.05 * torch.randn((B, 1), generator=soften).to(dev)
+        self.z_gen = prng.generator(c.seed, "train-z", dev)
+
+        # checkpoints (only rank 0 writes; the others read, so they leave
+        # rank 0's in-flight temp dirs alone), then the resume, before the
+        # step count fixes the streamed chunk size and before the capture
+        self.checkpointer = None
+        self._saved_step: Optional[int] = None
+        if wants_ckpt:
+            ck = TrainCheckpointer(
+                os.path.join(c.res_path, "checkpoints"),
+                keep=c.checkpoint_keep, sweep_debris=self.rank0)
+            if c.async_checkpoint and self.rank0:
+                ck = AsyncCheckpointer(ck)
+            self.checkpointer = ck
+        self._maybe_resume()
+        self.ones = torch.ones((B, 1), device=dev)
+        self.y_real = self.ones + self.soften_real
+        self.y_fake = self.soften_fake
+
         resident_f32 = not self.fused or self._resident_data_ok(train_iter)
         codec = None
         if (self.fused and not resident_f32 and c.use_data_codec
@@ -369,11 +645,6 @@ class GANTrainer:
             torch.cuda.synchronize(dev)
         self.timings["upload_s"] = time.perf_counter() - t0
 
-        soften = prng.generator(c.seed, "soften")
-        self.ones = torch.ones((B, 1), device=dev)
-        self.y_real = self.ones + 0.05 * torch.randn((B, 1), generator=soften).to(dev)
-        self.y_fake = 0.05 * torch.randn((B, 1), generator=soften).to(dev)
-        self.z_gen = prng.generator(c.seed, "train-z", dev)
         self.z_grid = torch.from_numpy(
             latent_grid(c.num_gen_samples, c.z_size)).to(dev)
         self.state: Optional[fused_step.ProtocolState] = None
@@ -383,7 +654,7 @@ class GANTrainer:
         if self.fused:
             self.state = fused_step.state_from_graphs(
                 self.dis, self.gen, self.gan, self.classifier,
-                ema=c.ema_decay > 0)
+                start_step=self.steps, ema=c.ema_decay > 0)
             # one card: the step as a CUDA graph.  The CPU and groups stay
             # eager by configuration (gloo cannot be captured; capturing
             # NCCL is later work)
@@ -405,7 +676,10 @@ class GANTrainer:
         metrics_path = (os.path.join(c.res_path,
                                      f"{c.dataset_name}_metrics.jsonl")
                         if c.metrics and c.res_path and self.rank0 else None)
-        self.metrics = MetricsLogger(metrics_path)
+        # a resumed run appends to its own history (one timeline; a reader
+        # de-duplicates by step, the last record winning)
+        self.metrics = MetricsLogger(metrics_path, append=c.resume)
+        self._preempt_guard: Optional[PreemptionGuard] = None
         # inline until train() swaps in the background writer, so the dump
         # methods also work when called directly
         self._dumper = AsyncArtifactWriter(synchronous=True)
@@ -432,7 +706,7 @@ class GANTrainer:
         feat_bytes = 5 if codec == "u8x100" else 4
         return resolve_steps_per_call(
             c.num_iterations, c.steps_per_call,
-            cadences=(c.print_every, c.save_every),
+            cadences=(c.print_every, c.save_every, c.checkpoint_every),
             byte_cap=byte_cap,
             step_bytes=c.batch_size * (feat_bytes * c.num_features
                                        + 4 * c.num_classes),
@@ -530,20 +804,39 @@ class GANTrainer:
         self._last = (float("nan"),) * 3
         self._steady = None
         self._dumper = AsyncArtifactWriter(synchronous=not c.async_dumps)
-        with self._dumper:
-            if self.resident:
-                self._resident_loop()
-            else:
-                chunks = ChunkPrefetchIterator(
-                    self.train_iter, k, c.batch_size, prefetch_depth=1,
-                    device=self.device,
-                    encode_features=(codec_lib.u8x100_encode
-                                     if self.data_codec else None),
-                    feature_dtype=np.uint8 if self.data_codec else np.float32)
-                try:
-                    self._chunked_stream_loop(chunks)
-                finally:
-                    chunks.close()
+        # the preemption guard brackets the loops (main thread only); its
+        # handlers are restored on every way out
+        if self._preempt_signal_nums:
+            self._preempt_guard = PreemptionGuard(
+                self._preempt_signal_nums).install()
+        try:
+            with self._dumper:
+                if self.resident:
+                    self._resident_loop()
+                else:
+                    chunks = ChunkPrefetchIterator(
+                        self._wrap_stream(self.train_iter), k, c.batch_size,
+                        prefetch_depth=1, device=self.device,
+                        encode_features=(codec_lib.u8x100_encode
+                                         if self.data_codec else None),
+                        feature_dtype=(np.uint8 if self.data_codec
+                                       else np.float32))
+                    try:
+                        self._chunked_stream_loop(chunks)
+                    finally:
+                        chunks.close()
+            # an async checkpointer's queued save is durable before the
+            # run reports success
+            ck_wait = getattr(self.checkpointer, "wait", None)
+            if ck_wait is not None:
+                ck_wait()
+        except BaseException:
+            self.metrics.close()  # what the run logged stays on disk
+            raise
+        finally:
+            if self._preempt_guard is not None:
+                self._preempt_guard.uninstall()
+                self._preempt_guard = None
         t_end = time.perf_counter()  # every dump written
         self._sync_graphs()
         if c.res_path and self.rank0:
@@ -582,7 +875,7 @@ class GANTrainer:
         the step counter."""
         c = self.c
         run = min(self._k, c.num_iterations - self.steps)
-        for cad in (c.print_every, c.save_every):
+        for cad in (c.print_every, c.save_every, c.checkpoint_every):
             if cad:
                 run = min(run, cad - self.steps % cad)
         if run != self._k:
@@ -613,7 +906,11 @@ class GANTrainer:
         while self.steps < self.c.num_iterations:
             run = self._next_chunk()
             chunks.next_into(self.features, self.labels)
-            self._bookkeeping(self._timed_call(run))
+            rows = self._timed_call(run)
+            # the position after the chunk just trained, aligned with the
+            # step count: what a checkpoint at this boundary records
+            self._iter_state_consumed = chunks.state()
+            self._bookkeeping(rows)
 
     def _bookkeeping(self, rows: torch.Tensor) -> None:
         """One call's log lines and metrics (the JAX trainer's per-step
@@ -642,16 +939,211 @@ class GANTrainer:
         self._boundary_bookkeeping()
 
     def _boundary_bookkeeping(self) -> None:
+        """The dumps (rank 0), then the checkpoint, then the preemption
+        poll, in the JAX trainer's order."""
         c = self.c
         grid = bool(c.print_every) and self.steps % c.print_every == 0
         preds = bool(c.save_every) and self.steps % c.save_every == 0
-        if not self.rank0 or not (grid or preds):
+        if self.rank0 and (grid or preds):
+            self._sync_graphs()
+            if grid:
+                self._dump_grid()
+            if preds:
+                self._dump_predictions()
+        self._maybe_checkpoint()
+        self._maybe_preempt()
+
+    def _wrap_stream(self, source):
+        """The streamed tier's source behind the resilience wrappers:
+        retries of transient ``next``/``reset`` errors and, with a budget,
+        the per-record contract (bad rows skipped and charged).  Both
+        delegate ``state``/``restore_state``/``features``."""
+        c = self.c
+        if c.data_retries:
+            source = RetryingSource(source, retries=c.data_retries,
+                                    backoff_s=c.data_retry_backoff_s,
+                                    health=self.data_health, seed=c.seed)
+        if self._quarantine is not None:
+            source = ValidatingSource(source, self._quarantine,
+                                      num_features=c.num_features,
+                                      name=f"{c.dataset_name}:train-stream")
+        return source
+
+    # -- checkpoints, resume, preemption ---------------------------------------
+
+    def _graphs(self) -> Dict[str, object]:
+        return {"dis": self.dis, "gen": self.gen, "gan": self.gan,
+                "classifier": self.classifier}
+
+    def _mesh_spec(self) -> Dict:
+        return mesh_spec_dict(self.group.world if self.group else 1)
+
+    def _iter_state(self) -> Optional[Dict]:
+        """The training data's consumed position at this boundary: the
+        streamed tier's stash, else (the resident table, which the step
+        slices by its counter) the iterator's position for the step count."""
+        if self._iter_state_consumed is not None:
+            return self._iter_state_consumed
+        try:
+            return self.train_iter.state_for_step(self.steps)
+        except ValueError:
+            return None
+
+    def _checkpoint_extra(self) -> Dict:
+        """The run state the graphs' params do not carry, under the JAX
+        trainer's keys (``soften_real``, ``soften_fake``, ``iter_state``,
+        ``ema:{layer}:{name}``), and ``z_gen_state``: the latent
+        generator's state (the JAX package derives its latents from the
+        step count and needs none)."""
+        extra = {"soften_real": self.soften_real,
+                 "soften_fake": self.soften_fake}
+        st = self._iter_state()
+        if st is not None:
+            extra["iter_state"] = json.dumps(st, sort_keys=True)
+        ema = getattr(self.gen, "ema_params", None)
+        if ema is not None:
+            for layer, lp in ema.items():
+                for n, v in lp.items():
+                    extra[f"ema:{layer}:{n}"] = v
+        extra["z_gen_state"] = self.z_gen.get_state()
+        return extra
+
+    def _save(self) -> str:
+        """Rank 0's save of the state at this boundary: the graphs are
+        pointed at the state's tensors (the graph's static buffers, read
+        by the snapshot's copies ahead of the next replay)."""
+        if self.fused:
+            fused_step.state_to_graphs(self.state, self.dis, self.gen,
+                                       self.gan, self.classifier)
+        t0 = time.perf_counter()
+        path = self.checkpointer.save(self.steps, self._graphs(),
+                                      extra=self._checkpoint_extra(),
+                                      mesh_spec=self._mesh_spec())
+        self.timings.setdefault("checkpoint_s", []).append(
+            time.perf_counter() - t0)
+        self._saved_step = self.steps
+        return path
+
+    def _maybe_checkpoint(self) -> None:
+        """The cadence save at this boundary.  Rank 0 writes; every rank
+        then meets it at a barrier (a synchronous save has committed by
+        then; an async one commits before rank 0's run returns, and an
+        emergency save is waited for before its barrier).  Under
+        ``param_averaging`` the ranks also hold equal params here: the
+        unfused loop's ``fit`` averages params and updater state at the end
+        of every job (``averaging_frequency`` acts only inside
+        ``fit_batches``), as in the JAX package, so rank 0's checkpoint is
+        the run's state without a cadence constraint or an extra average."""
+        c = self.c
+        if not (self.checkpointer and c.checkpoint_every
+                and self.steps % c.checkpoint_every == 0):
             return
-        self._sync_graphs()
-        if grid:
-            self._dump_grid()
-        if preds:
-            self._dump_predictions()
+        if self.rank0:
+            # queued dumps first: a resume continues past this step and
+            # would never write them again
+            self._dumper.flush()
+            self._save()
+        if self.group is not None:
+            mesh.barrier(self.group)
+
+    def _emergency_checkpoint(self) -> Optional[str]:
+        """The state to disk now (rank 0), durable before this returns:
+        the async writer is waited for.  When this boundary's cadence save
+        already holds the step, that checkpoint is the emergency one (the
+        JAX trainer writes the same bytes a second time).  Every rank then
+        waits until it is committed."""
+        path = None
+        if self.rank0:
+            ck = self.checkpointer
+            if self._saved_step == self.steps:
+                path = os.path.join(ck.directory, f"ckpt_{self.steps}")
+            else:
+                self._dumper.flush()
+                path = self._save()
+            wait = getattr(ck, "wait", None)
+            if wait is not None:
+                wait()
+        if self.group is not None:
+            mesh.barrier(self.group)
+        return path
+
+    def _maybe_preempt(self) -> None:
+        """Poll the preemption guard at a boundary (the call has been read
+        back).  Under a group every rank enters the consensus at every
+        boundary, so one signalled rank stops them all at the same step."""
+        guard = self._preempt_guard
+        if guard is None:
+            return
+        if self.group is not None:
+            any_trig, agreed = mesh.agree_preemption(guard.triggered,
+                                                     self.steps, self.group)
+        else:
+            any_trig, agreed = guard.triggered, self.steps
+        if not any_trig:
+            return
+        if agreed != self.steps:
+            log_.warning("preemption: agreed step %d != local step %d",
+                         agreed, self.steps)
+        self.metrics.flush()
+        path = self._emergency_checkpoint()
+        if self.rank0:
+            preempt_exit(self.c.res_path, guard, local_step=self.steps,
+                         fleet_min_step=agreed, checkpoint=path)
+        raise PreemptionError(
+            f"preempted at step {self.steps} (rank {self.group.rank}); "
+            f"rank 0 holds the emergency checkpoint", step=self.steps)
+
+    def _maybe_resume(self) -> None:
+        """With ``resume``: restore the newest verified checkpoint into the
+        graphs (every rank reads rank 0's), then the step count, the
+        softening, the EMA, the latent generator and the data position.  A
+        ``PREEMPTED.json`` marker is consumed; with no checkpoint that
+        verifies the run starts from step 0."""
+        c = self.c
+        if not (c.resume and self.checkpointer is not None):
+            return
+        marker = os.path.join(c.res_path, MARKER_NAME)
+        if self.rank0 and os.path.exists(marker):
+            log_.info("resuming a preempted run (consuming %s)", marker)
+            os.remove(marker)
+        if self.group is not None:
+            mesh.barrier(self.group)  # rank 0 has swept the directory
+        t0 = time.perf_counter()
+        try:
+            step, extra = self.checkpointer.restore(
+                self._graphs(), mesh_spec=self._mesh_spec())
+        except NoVerifiedCheckpointError as e:
+            log_.warning("resume requested but %s; starting from step 0", e)
+            return
+        dev = self.device
+        self.steps = step
+        self.soften_real = torch.from_numpy(
+            np.asarray(extra["soften_real"], np.float32)).to(dev)
+        self.soften_fake = torch.from_numpy(
+            np.asarray(extra["soften_fake"], np.float32)).to(dev)
+        ema: Dict[str, Dict] = {}
+        for k, v in extra.items():
+            if k.startswith("ema:"):
+                _, layer, name = k.split(":", 2)
+                ema.setdefault(layer, {})[name] = torch.from_numpy(
+                    np.asarray(v)).to(dev)
+        if ema:
+            # every layer of the generator, the param-less ones empty
+            self.gen.ema_params = {layer: ema.get(layer, {})
+                                   for layer in self.gen.params}
+        if "z_gen_state" in extra:
+            self.z_gen.set_state(torch.from_numpy(
+                np.asarray(extra["z_gen_state"], np.uint8)))
+        else:  # a JAX checkpoint: replay the generator's draws
+            advance_latents(self.z_gen, step, self.c.batch_size,
+                            self.c.z_size, dev)
+        # the data position (the streamed tier reads the iterator; the
+        # resident step slices by its counter): the checkpoint's, else the
+        # loops' consumption pattern after ``step`` batches, by arithmetic
+        raw = extra.get("iter_state")
+        self.train_iter.restore_state(json.loads(raw) if raw is not None
+                                      else self.train_iter.state_for_step(step))
+        self.timings["restore_s"] = time.perf_counter() - t0
 
     # -- artifact dumps --------------------------------------------------------
 
@@ -660,7 +1152,7 @@ class GANTrainer:
         behind one event and hand their CSV writes to the writer, which
         waits for the event first.  Records the host seconds: enqueue (this
         thread), readback wait and write (the writer)."""
-        hosts, event = _host_copy([out for _, out in files])
+        hosts, event = host_copy([out for _, out in files])
         rec = {"kind": kind, "step": self.steps,
                "enqueue_s": time.perf_counter() - t0}
         self.timings["dumps"].append(rec)

@@ -29,15 +29,21 @@ and prints rank 0's per-step losses, then one JSON line (``steps``,
 ``test_f1``, ``host_seconds``, ...).  ``--n-devices N`` trains
 data-parallel in N processes (rank r on card r over NCCL; gloo ranks with
 ``--device cpu``); ``--dp-mode param_averaging`` runs the unfused per-fit
-loop.  The JAX program's lattice PNGs, checkpoints and telemetry are not
-ported.
+loop.  Supervision, as in the JAX program: ``--checkpoint-every N``
+(checkpoints in the JAX format under ``res-path/checkpoints``),
+``--resume``, ``--max-restarts``, ``--async-checkpoint``,
+``--preempt-signal SIG`` (an emergency checkpoint, ``PREEMPTED.json`` and
+exit code 75), ``--data-retries`` and ``--max-quarantine``.  The JAX
+program's lattice PNGs and telemetry are not ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import sys
 import time
 from typing import Dict, Optional, Tuple
 
@@ -51,7 +57,16 @@ from gan_deeplearning4j_tpu_torch.train.gan_trainer import (
     GANTrainer,
     GANTrainerConfig,
     Workload,
+    add_recovery_args,
+    check_recovery_args,
+    recovery_config_kwargs,
     resolve_n_devices,
+    run_with_recovery,
+)
+from gan_deeplearning4j_tpu_torch.train.preemption import (
+    EXIT_PREEMPTED,
+    PreemptionError,
+    parse_signals,
 )
 
 
@@ -125,7 +140,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "torch versions of the kernels)")
-    return p.parse_args(argv)
+    add_recovery_args(p)
+    args = p.parse_args(argv)
+    check_recovery_args(p, args)
+    return args
 
 
 def evaluate(trainer: GANTrainer) -> Dict[str, float]:
@@ -155,44 +173,68 @@ def _config(args: argparse.Namespace, overrides: Dict) -> GANTrainerConfig:
         save_every=args.save_every, dp_mode=args.dp_mode,
         averaging_frequency=args.averaging_frequency,
         steps_per_call=args.steps_per_call, async_dumps=not args.sync_dumps,
-        ema_decay=args.ema_decay, seed=args.seed, **overrides)
+        ema_decay=args.ema_decay, seed=args.seed,
+        **recovery_config_kwargs(args), **overrides)
 
 
 def _train_and_evaluate(args: argparse.Namespace, config: GANTrainerConfig,
                         group: Optional[mesh.DataGroup] = None
                         ) -> Tuple[GANTrainer, Dict]:
-    trainer = GANTrainer(
-        device=args.device, group=group, config=config,
-        workload=InsuranceWorkload(M.InsuranceConfig(seed=args.seed)))
     rank0 = group is None or group.rank == 0
-    result = trainer.train(log=print if rank0 else None)
+
+    def make_trainer(resume: bool) -> GANTrainer:
+        c = dataclasses.replace(config, resume=True) if resume else config
+        return GANTrainer(
+            device=args.device, group=group, config=c,
+            workload=InsuranceWorkload(M.InsuranceConfig(seed=args.seed)))
+
+    trainer, result = run_with_recovery(
+        make_trainer, max_restarts=args.max_restarts,
+        log=print if rank0 else None)
     if rank0:
         result.update(evaluate(trainer))
         result["host_seconds"] = trainer.timings
     return trainer, result
 
 
+def _preempted(e: PreemptionError, args: argparse.Namespace) -> Dict:
+    """The result of a preempted run: the resumable state, not a traceback
+    (``cli`` exits 75 on it)."""
+    return {"preempted": True, "step": e.step, "checkpoint": e.checkpoint,
+            "res_path": args.res_path}
+
+
 def _rank(group: mesh.DataGroup, args: argparse.Namespace,
           config: GANTrainerConfig) -> Dict:
-    return _train_and_evaluate(args, config, group)[1]
+    try:
+        return _train_and_evaluate(args, config, group)[1]
+    except PreemptionError as e:
+        return _preempted(e, args)
 
 
 def run(args: argparse.Namespace, timeout: float = 3600.0, **overrides
         ) -> Tuple[Optional[GANTrainer], Dict]:
     """The program for parsed ``args`` -> (the trainer, or None when the
-    run was spread over ranks in other processes; rank 0's result).
+    run was spread over ranks in other processes or was preempted; rank
+    0's result, ``{"preempted": True, ...}`` after a preemption).
     ``overrides`` set further ``GANTrainerConfig`` fields."""
     config = _config(args, overrides)
     world = resolve_n_devices(args.n_devices, args.batch_size, args.device)
     if world == 1:
-        return _train_and_evaluate(args, config)
+        try:
+            return _train_and_evaluate(args, config)
+        except PreemptionError as e:
+            return None, _preempted(e, args)
     t0 = time.perf_counter()
     datasets.ensure_insurance_csv(args.res_path)
     csv_s = time.perf_counter() - t0
     dev = backend.resolve_device(args.device)
-    result = mesh.spawn(_rank, world, (args, config), device=dev.type,
-                        timeout=timeout)[0]
-    result["host_seconds"]["csv_ready_s"] = csv_s
+    result = mesh.spawn(
+        _rank, world, (args, config), device=dev.type, timeout=timeout,
+        forward_signals=parse_signals(config.preempt_signals)
+        if config.preempt_signals else ())[0]
+    if not result.get("preempted"):
+        result["host_seconds"]["csv_ready_s"] = csv_s
     return None, result
 
 
@@ -204,8 +246,10 @@ def main(argv=None) -> Dict:
 
 
 def cli(argv=None) -> None:
-    """Console entry: main() without its result dict (exit status 0)."""
-    main(argv)
+    """The ``python -m`` entry: ``main``, exiting 75 (EX_TEMPFAIL: requeue
+    me) when the run was preempted."""
+    if main(argv).get("preempted"):
+        sys.exit(EXIT_PREEMPTED)
 
 
 if __name__ == "__main__":

@@ -19,7 +19,25 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
+
+import torch
+
+
+def host_copy(ts: Sequence[torch.Tensor]):
+    """Start each tensor's copy to host memory on the current stream ->
+    (host tensors, event or None); the event completes with the copies.
+    Tensors already on the host come back detached, uncopied."""
+    if not any(t.device.type == "cuda" for t in ts):
+        return [t.detach() for t in ts], None
+    hosts = []
+    for t in ts:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        hosts.append(host)
+    event = torch.cuda.Event()
+    event.record()
+    return hosts, event
 
 
 class AsyncArtifactWriter:

@@ -23,7 +23,10 @@ from typing import Dict, List, Optional, Sequence
 
 class MetricsLogger:
     def __init__(self, path: Optional[str] = None, flush_every: int = 100,
-                 ring_size: int = 10000):
+                 ring_size: int = 10000, append: bool = False):
+        """``append``: a resumed run adds to the file it finds (one
+        timeline; a reader de-duplicates by step, the last record
+        winning); otherwise the file starts empty."""
         self.path = path
         self.flush_every = flush_every
         self._pending: List[Dict] = []
@@ -32,7 +35,8 @@ class MetricsLogger:
         self._last_step_t = self._t0
         if path:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-            open(path, "w").close()  # one file per run
+            if not append:
+                open(path, "w").close()  # one file per run
 
     def log_step(self, step: int, examples: int = 0, **metrics) -> None:
         """Record one step (``metrics``: host floats)."""

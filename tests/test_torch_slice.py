@@ -157,13 +157,17 @@ def test_cv_main_runs_on_cpu(capsys, tmp_path):
 
 _HYGIENE = r"""
 import sys
-from gan_deeplearning4j_tpu_torch.data import codec, csv, datasets, prefetch
+from gan_deeplearning4j_tpu_torch.checkpoint import (AsyncCheckpointer,
+                                                    TrainCheckpointer)
+from gan_deeplearning4j_tpu_torch.data import (codec, csv, datasets, prefetch,
+                                               resilient)
 from gan_deeplearning4j_tpu_torch.eval import (evaluation, fid,
                                                fid_extractor, metrics)
 from gan_deeplearning4j_tpu_torch.graph import serialization
 from gan_deeplearning4j_tpu_torch.parallel import data_parallel, mesh
 from gan_deeplearning4j_tpu_torch.models import mlpgan_insurance
-from gan_deeplearning4j_tpu_torch.train import cv_main, insurance_main
+from gan_deeplearning4j_tpu_torch.train import (checkpoint_ab, cv_main,
+                                                insurance_main, preemption)
 from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
 from gan_deeplearning4j_tpu_torch.utils import async_dump, metrics as logger
 assert fid_extractor.load_extractor("cpu").params["feat"]["W"].shape == (512, 256)
