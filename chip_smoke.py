@@ -125,9 +125,25 @@ exits non-zero:
                 retry); and the cost of a checkpoint (snapshot ms, sync
                 and async save seconds, bytes, restore seconds, the
                 capture after a resume) for both models.
- 11. the ``kernels`` line (each kernel's insurance numbers beside the
-     CV step's, where the insurance path runs it), the nvidia-smi line,
-     and last {"ok": true, "device": {...}}.
+ 11. roadmap  — the roadmap families (``roadmap_main``: CelebA-64 DCGAN and
+                WGAN-GP on the ``GANPair`` engine, Adam) at full width and
+                batch 128: ``bn_act`` at their generators' gen_bn0 shapes
+                ([128, 8192] and [128, 6272], relu) against its plain
+                version and its gradient, bitwise repeat, timed against
+                ``F.batch_norm`` in turns; one iteration of each family on
+                the card against the CPU path from the same params and
+                draws; RM_K graphed iterations against RM_K eager ones,
+                bitwise, with and without the EMA, the capture's seconds
+                and pool memory, and the two timed in turns; each program
+                as a child process (artifacts and result line); each
+                family's ``train`` in this process with the launch counters
+                zeroed just before and read just after (one ``bn_act`` an
+                iteration, the warm-up included); and celeba checkpointed at
+                100 and resumed in this process, its zips byte-equal to the
+                200-iteration straight run's.
+ 12. the ``kernels`` line (each kernel's insurance numbers beside the
+     CV step's, where the insurance path runs it, and ``bn_act``'s roadmap
+     numbers), the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is available.
 Imports nothing of JAX.
@@ -1641,6 +1657,376 @@ def resume_phase(torch, smi: str, ins_ref: str, ins_auroc: float) -> dict:
     return out
 
 
+# -- the roadmap phase --------------------------------------------------------
+
+RM_BATCH = 128  # roadmap_main.DEFAULT_BATCH_SIZE
+# bn_act's two shapes on the roadmap path: the generators' gen_bn0 (one
+# launch per G-step)
+RM_BN = {"celeba": ((RM_BATCH, 4 * 4 * 8 * 64), "relu"),
+         "wgan-gp": ((RM_BATCH, 7 * 7 * 4 * 32), "relu")}
+RM_N_TRAIN = 2000
+RM_K = 10  # iterations per call of the graphed-vs-eager runs
+RM_TURN_CALLS = 3  # calls of RM_K iterations in one timed turn
+RM_EMA = 0.999
+# the programs as child processes: (iterations, print_every)
+RM_CHILD = {"celeba": (200, 100), "wgan-gp": (100, 50)}
+RM_RESUME = (200, 100)  # celeba in this process: straight, then 100 + resume
+# one iteration on the card against one on the CPU, from the same state and
+# draws, each held against the CPU in float64.  A GAN's first generator
+# gradients are mostly cancellation (D's outputs sit near 0.5, and a
+# train-mode BN's backward subtracts means): the CPU's own f32 gradients
+# of the celeba generator lie ~3.5% (in norm) from the f64 ones, the
+# card's ~4%.  So the card is held to the CPU's f32 accuracy, not to the
+# CPU: leaf by leaf, the gradients read from Adam's m and v
+# (||m' - m64|| / ||m64||) within 4x the CPU's distance plus 2e-3 (the
+# celeba D-step's dis_bn3.gamma sits 1.1e-3 from f64 on the card, 2e-6 on
+# the CPU: its var = E[x^2] - E[x]^2 cancels, and the two sum in other
+# orders); the share of a leaf's params more than 2.5e-5 (a quarter of the
+# smallest learning rate) from f64's within 2x the CPU's share plus 2%
+# (Adam's first step moves an element by about lr * sign(g), so a
+# gradient near 0 may flip: 1.2% of gen_bn1.gamma on the card, none on the
+# CPU); every param within 2 lr per update of the CPU's; the losses within
+# 1e-4 of f64's, relative.
+RM_CARD_TOL = {"loss": 1e-4, "moment_ratio": 4.0, "moment_slack": 2e-3,
+               "param": 2.5e-5, "share_ratio": 2.0, "share_slack": 0.02,
+               "flip_lr": 2.0}
+
+
+def roadmap_kernels(torch, randn, bw: float, sms: int) -> dict:
+    """``bn_act`` at the roadmap path's two shapes: against its plain
+    version (and its gradient), a bitwise repeat, its time against
+    ``F.batch_norm`` in turns, one launch's floor and its bound."""
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act as bn2d
+    from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import bn_act_plain
+
+    torch_f = torch.nn.functional
+    rows = {}
+    for family, ((b, f), act) in RM_BN.items():
+        x, gm, bt = (randn(b, f, scale=0.5, shift=0.2),
+                     randn(f, scale=0.1, shift=1.0), randn(f, scale=0.1))
+        yk, mk, vk = kernels.fused_bn_act_train(x, gm, bt, 1e-5, act)
+        yp, mp, vp = bn_act_plain(x, gm, bt, 1e-5, act)
+        require(within(yk, yp, 1e-5, 1e-4) and within(mk, mp, 1e-6, 1e-4)
+                and within(vk, vp, 1e-6, 1e-4),
+                f"bn_act disagrees with its plain version at [{b},{f}] {act}")
+        require(bitwise_repeat(lambda *t: kernels.fused_bn_act_train(
+            *t, 1e-5, act), [(x, gm, bt)], torch),
+            f"bn_act: two launches differ at [{b},{f}]")
+        leaves = [t.clone().requires_grad_(True) for t in (x, gm, bt)]
+        gy = randn(b, f)
+        gk = torch.autograd.grad(kernels.fused_bn_act_train(
+            *leaves, 1e-5, act)[0], leaves, gy)
+        gp = torch.autograd.grad(bn_act_plain(*leaves, 1e-5, act)[0], leaves, gy)
+        require(all(within(u, v, 1e-4, 1e-3) for u, v in zip(gk, gp)),
+                f"bn_act gradient disagrees at [{b},{f}] {act}")
+        ms, library_ms, turns = in_turns(
+            lambda: kernels.fused_bn_act_train(x, gm, bt, 1e-5, act),
+            lambda: torch_f.batch_norm(x, None, None, gm, bt, training=True,
+                                       eps=1e-5), torch)
+        t_bytes = (8 * b * f + 16 * f) / bw * 1e3
+        t_ops = 10 * b * f / PEAK_F32_FLOPS * 1e3
+        rows[family] = dict(
+            shape=[b, f], act=act, plan=bn2d.launch_plan(b, f, sms)._asdict(),
+            max_abs_err=max(max_err(yk, yp), max_err(mk, mp), max_err(vk, vp)),
+            ms=ms, library_ms=library_ms, turns_ms=turns,
+            plain_ms=time_ms(lambda: bn_act_plain(x, gm, bt, 1e-5, act), torch),
+            floor_ms=floor_ms(1, torch), bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_call="F.batch_norm(training=True), without the activation",
+            kernel_slower_than_library=ms > library_ms)
+    return rows
+
+
+@contextlib.contextmanager
+def _plain_bn_act():
+    """The 2-D BN layer on ``bn_act``'s plain version (the float64
+    reference; the kernel's wrapper takes f32 only)."""
+    from gan_deeplearning4j_tpu_torch.graph import layers
+    from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import bn_act_plain
+
+    fused = layers.fused_bn_act_train
+    layers.fused_bn_act_train = (
+        lambda x, g, b, eps, act, group=None: bn_act_plain(x, g, b, eps, act))
+    try:
+        yield
+    finally:
+        layers.fused_bn_act_train = fused
+
+
+def _pair_to(tree, dev, dtype):
+    return {k: _pair_to(v, dev, dtype) if isinstance(v, dict)
+            else v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+            for k, v in tree.items()}
+
+
+def roadmap_card_vs_cpu(family: str, torch) -> dict:
+    """One iteration (n_critic D-steps, one G-step) at full width and batch
+    RM_BATCH on the card, on the CPU and on the CPU in float64, from the
+    same params and draws (made on the CPU): within RM_CARD_TOL."""
+    from gan_deeplearning4j_tpu_torch.train import fused_step, roadmap_main
+    from gan_deeplearning4j_tpu_torch.train.gan_pair import Draws, PairState
+
+    base, cfg, _ = roadmap_main._build(family, "cpu")
+    n_critic = getattr(cfg, "n_critic", 1)
+    real_label = getattr(cfg, "real_label", 1.0) if base.mode == "gan" else 1.0
+    table = torch.from_numpy(roadmap_main._data(family, 512, 7))
+    draws = base.draw(torch.Generator().manual_seed(8), 512, RM_BATCH,
+                      n_critic, cfg.z_size, "cpu")
+    runs = {}
+    for key, dev, dtype in (("f64", "cpu", torch.float64),
+                            ("cpu", "cpu", torch.float32),
+                            ("card", "cuda", torch.float32)):
+        pair, _, _ = roadmap_main._build(family, dev)
+        for g in (pair.gen, pair.dis):
+            src = base.gen if g is pair.gen else base.dis
+            g.params = _pair_to(src.params, dev, dtype)
+            g.opt_state = _pair_to(g.opt_state, dev, dtype)
+        d = Draws(*[None if v is None else
+                    [_pair_to({0: t}, dev, dtype)[0] for t in v]
+                    if isinstance(v, list) else v.to(dev, dtype)
+                    for v in draws])
+        state = PairState(pair.gen.params, pair.gen.opt_state, pair.dis.params,
+                          pair.dis.opt_state, torch.tensor(0, device=dev))
+        labels = [t.to(dtype) for t in pair.label_vectors(RM_BATCH, real_label)]
+        one = pair.iteration(RM_BATCH, n_critic, cfg.z_size)
+        with _plain_bn_act() if dtype == torch.float64 else contextlib.nullcontext():
+            runs[key] = one(state, table.to(dev, dtype), *labels, draws=d)
+    tol = RM_CARD_TOL
+    out = {k: [float(v) for v in r[1]] for k, r in runs.items()}
+    out["loss_rel_err"] = {k: max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-6)
+                                  for a, b in zip(runs[k][1], runs["f64"][1]))
+                           for k in ("cpu", "card")}
+    require(out["loss_rel_err"]["card"] <= tol["loss"],
+            f"roadmap {family} card vs f64: loss relative error "
+            f"{out['loss_rel_err']['card']} > {tol['loss']}")
+    leaves = {k: fused_step._leaves(r[0]) for k, r in runs.items()}
+    steps = {"gen": 1, "dis": n_critic}
+    worst = {"moment": (-1.0, ""), "share": (-1.0, ""), "flip_lr": (0.0, "")}
+    detail = {}
+    for path, ref in leaves["f64"].items():
+        field = path[0]
+        if field == "it" or ref.dim() == 0:
+            continue
+        g = field.split("_")[0]
+        cpu, card = leaves["cpu"][path].double(), leaves["card"][path].cpu().double()
+        where = ".".join(map(str, path))
+        if field.endswith("_opt"):
+            nref = float(ref.norm())
+            if nref == 0:
+                continue
+            e_cpu = float((cpu - ref).norm()) / nref
+            e_card = float((card - ref).norm()) / nref
+            margin = e_card - (tol["moment_ratio"] * e_cpu + tol["moment_slack"])
+            detail[where] = (e_cpu, e_card)
+            if margin >= worst["moment"][0] or worst["moment"][1] == "":
+                worst["moment"] = (margin, where)
+        else:
+            lr = getattr(base, g).updater.updater_for(path[1]).learning_rate
+            s_cpu = float(((cpu - ref).abs() > tol["param"]).double().mean())
+            s_card = float(((card - ref).abs() > tol["param"]).double().mean())
+            margin = s_card - (tol["share_ratio"] * s_cpu + tol["share_slack"])
+            detail[where] = (s_cpu, s_card)
+            if margin >= worst["share"][0] or worst["share"][1] == "":
+                worst["share"] = (margin, where)
+            flip = float((card - cpu).abs().max()) / (lr * steps[g])
+            if flip >= worst["flip_lr"][0]:
+                worst["flip_lr"] = (flip, where)
+    out["worst"] = {k: (v, w, detail.get(w)) for k, (v, w) in worst.items()}
+    out["tolerance"] = tol
+    require(worst["moment"][0] <= 0 and worst["share"][0] <= 0
+            and worst["flip_lr"][0] <= tol["flip_lr"],
+            f"roadmap {family} card vs cpu: {out['worst']} beyond {tol}")
+    return out
+
+
+def roadmap_graphed_vs_eager(family: str, torch) -> dict:
+    """From one start at full width and batch RM_BATCH: RM_K graphed
+    iterations (one call of RM_K replays) against RM_K eager ones, bit for
+    bit (losses and every leaf of the state), without and with the EMA;
+    the capture's seconds and pool memory; without the EMA also the eager
+    and the graphed iteration timed in turns (E G G E, RM_TURN_CALLS calls
+    of RM_K iterations each, a call ending in its readback) and
+    examples/s = batch * (n_critic + 1) per iteration."""
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.runtime import prng
+    from gan_deeplearning4j_tpu_torch.train import fused_step, roadmap_main
+
+    out = {}
+    for ema in (0.0, RM_EMA):
+        pair, cfg, _ = roadmap_main._build(family, "cuda")
+        n_critic = getattr(cfg, "n_critic", 1)
+        real_label = getattr(cfg, "real_label", 1.0) if pair.mode == "gan" else 1.0
+        table = torch.from_numpy(roadmap_main._data(
+            family, RM_N_TRAIN, prng.NUMBER_OF_THE_BEAST)).cuda()
+        kw = dict(batch_size=RM_BATCH, steps_per_call=RM_K, n_critic=n_critic,
+                  real_label=real_label, z_size=cfg.z_size, ema_decay=ema)
+        z_g = prng.generator(cfg.seed, "roadmap-z", "cuda")
+        fg, sg = pair.make_multistep(table, z_gen=z_g, graphed=True, **kw)
+        z_e = torch.Generator(device="cuda")
+        z_e.set_state(z_g.get_state())
+        box = {"e": fused_step.clone_state(sg), "g": sg}
+        fe, _ = pair.make_multistep(table, z_gen=z_e, graphed=False, **kw)
+
+        def eager():
+            box["e"], (d, g) = fe(box["e"])
+            return torch.stack([d, g], -1).cpu()
+
+        def graphed():
+            box["g"], (d, g) = fg(box["g"])  # the static state, replayed
+            return torch.stack([d, g], -1).cpu()
+
+        le, lg = eager(), graphed()
+        le_leaves = fused_step._leaves(box["e"])
+        lg_leaves = fused_step._leaves(box["g"])
+        res = dict(iterations=RM_K, losses_bitwise=torch.equal(le, lg),
+                   loss_max_abs_diff=max_err(le, lg),
+                   state_bitwise=le_leaves.keys() == lg_leaves.keys() and all(
+                       torch.equal(le_leaves[k], lg_leaves[k]) for k in le_leaves),
+                   generator_state_equal=torch.equal(z_e.get_state(),
+                                                     z_g.get_state()),
+                   setup=fg.graphed.setup,
+                   launches_per_replay=fg.graphed.launches,
+                   losses_last=lg[-1].tolist())
+        require(res["losses_bitwise"] and res["state_bitwise"]
+                and res["generator_state_equal"],
+                f"roadmap {family} (ema {ema}): the graphed iterations' bits "
+                f"differ from the eager ones' ({res})")
+        require(bool(torch.isfinite(lg).all()),
+                f"roadmap {family}: non-finite losses {lg.tolist()}")
+        if not ema:
+            def turn(fn):
+                times = []
+                for _ in range(RM_TURN_CALLS):
+                    t0 = time.perf_counter()
+                    fn()
+                    times.append(time.perf_counter() - t0)
+                return statistics.median(times) / RM_K * 1e3
+
+            turns = [turn(eager), turn(graphed), turn(graphed), turn(eager)]
+            res["turns_ms"] = turns
+            res["eager_ms"] = (turns[0] + turns[3]) / 2
+            res["graphed_ms"] = (turns[1] + turns[2]) / 2
+            per_it = RM_BATCH * (n_critic + 1)
+            res["eager_examples_per_s"] = per_it / res["eager_ms"] * 1e3
+            res["graphed_examples_per_s"] = per_it / res["graphed_ms"] * 1e3
+        out["ema" if ema else "plain"] = res
+        del pair, fg, fe, sg, box, table
+        kernels.reset_launch_counts()
+        torch.cuda.empty_cache()
+    return out
+
+
+def roadmap_children(root: str) -> dict:
+    """``roadmap_main`` as a user runs it, one child process per family at
+    its defaults but the length (RM_CHILD) and ``--n-train`` RM_N_TRAIN:
+    the exit code, the artifact set and the result line."""
+    out = {}
+    for family, (iters, every) in RM_CHILD.items():
+        res = f"{root}/{family}_child"
+        rc, result, secs, tail = run_child(
+            "gan_deeplearning4j_tpu_torch.train.roadmap_main",
+            ["--family", family, "--iterations", str(iters), "--n-train",
+             str(RM_N_TRAIN), "--print-every", str(every), "--res-path", res])
+        require(rc == 0 and result is not None,
+                f"roadmap_main {family}: exit {rc}, stderr {tail}")
+        want = sorted([f"{family}_samples_{s}.png"
+                       for s in range(every, iters + 1, every)]
+                      + [f"{family}_metrics.jsonl", f"{family}_gen_model.zip",
+                         f"{family}_dis_model.zip"])
+        files = sorted(os.listdir(res))
+        with open(f"{res}/{family}_metrics.jsonl") as f:
+            steps = [json.loads(line)["step"] for line in f]
+        require(files == want and steps == list(range(1, iters + 1)),
+                f"roadmap_main {family}: files {files}, metrics steps "
+                f"{steps[:3]}..{steps[-3:]}")
+        require(result["family"] == family and result["steps"] == iters
+                and result["graphed"] and result["device"].startswith("cuda")
+                and math.isfinite(result["d_loss"])
+                and math.isfinite(result["g_loss"])
+                and result["examples_per_sec"] > 0,
+                f"roadmap_main {family}: result {result}")
+        out[family] = dict(seconds=secs, files=len(files), result=result)
+    return out
+
+
+def roadmap_counted_and_resume(torch, root: str) -> dict:
+    """The main path in this process: ``roadmap_main.train`` for celeba
+    (RM_RESUME[0] iterations) and wgan-gp (RM_CHILD's length), each with
+    the launch counters zeroed just before and read just after (one
+    ``bn_act`` a G-step: the warm-up iteration and every replay).  Then
+    celeba checkpointed at RM_RESUME[1] and resumed in this process to
+    RM_RESUME[0]: its zips must be the straight run's, byte for byte."""
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.train import roadmap_main
+
+    out = {}
+    straight = {}
+    for family, iters in (("celeba", RM_RESUME[0]),
+                          ("wgan-gp", RM_CHILD["wgan-gp"][0])):
+        res = f"{root}/{family}_counted"
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        r = roadmap_main.train(family, iters, RM_BATCH, res, RM_N_TRAIN, 100,
+                               device="cuda", log=None)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        expected = {k: 0 for k in launches}
+        expected["bn_act"] = iters + 1  # the warm-up iteration and the replays
+        require(launches == expected,
+                f"roadmap {family}: launch counts {launches} != {expected}")
+        straight[family] = res
+        out[family] = dict(iterations=iters, launches=launches,
+                           expected_launches=expected,
+                           steps_per_call=r["steps_per_call"],
+                           examples_per_sec=r["examples_per_sec"],
+                           host_seconds=r["host_seconds"],
+                           losses=[r["d_loss"], r["g_loss"]])
+    res = f"{root}/celeba_resumed"
+    total, stop = RM_RESUME
+    roadmap_main.train("celeba", stop, RM_BATCH, res, RM_N_TRAIN, 100,
+                       device="cuda", checkpoint_every=stop, log=None)
+    r = roadmap_main.train("celeba", total, RM_BATCH, res, RM_N_TRAIN, 100,
+                           device="cuda", checkpoint_every=stop, resume=True,
+                           log=None)
+    same = {}
+    for name in ("gen", "dis"):
+        with open(f"{straight['celeba']}/celeba_{name}_model.zip", "rb") as f:
+            a = f.read()
+        with open(f"{res}/celeba_{name}_model.zip", "rb") as f:
+            same[name] = a == f.read()
+    require(all(same.values()) and r["steps"] == total,
+            f"roadmap celeba resume: zips equal {same}, steps {r['steps']}")
+    out["resume"] = dict(stop=stop, total=total, zips_bitwise=same,
+                         restore_s=r["host_seconds"].get("restore_s"))
+    return out
+
+
+def roadmap_phase(torch, smi: str, randn, bw: float, sms: int) -> dict:
+    """The roadmap families on the card (module docstring, phase 11)."""
+    t0 = time.perf_counter()
+    out = {"kernels": roadmap_kernels(torch, randn, bw, sms)}
+    t1 = time.perf_counter()
+    out["card_vs_cpu"] = {f: roadmap_card_vs_cpu(f, torch) for f in RM_BN}
+    t2 = time.perf_counter()
+    out["graph"] = {f: roadmap_graphed_vs_eager(f, torch) for f in RM_BN}
+    t3 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="gan4j_roadmap_")
+    try:
+        out["program"] = roadmap_children(root)
+        t4 = time.perf_counter()
+        out["main"] = roadmap_counted_and_resume(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds_by_part"] = {
+        "kernels": t1 - t0, "card_vs_cpu": t2 - t1, "graph": t3 - t2,
+        "program": t4 - t3, "main_and_resume": time.perf_counter() - t4}
+    out["seconds"] = time.perf_counter() - t0
+    out["batch"] = RM_BATCH
+    out["nvidia_smi"] = smi
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2245,7 +2631,11 @@ def main() -> int:
     finally:
         shutil.rmtree(ins_ref, ignore_errors=True)
 
-    # -- 11. the kernels line and the result ---------------------------------
+    # -- 11. the roadmap families ---------------------------------------------
+    rm = roadmap_phase(torch, smi, randn, bw, sms)
+    emit("roadmap", **rm)
+
+    # -- 12. the kernels line and the result ---------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
     # pair, and the kernel phase's check for the 4-D BN, which no model
     # path runs (as in the JAX package)
@@ -2273,7 +2663,15 @@ def main() -> int:
              **{k: ins_groups[r["name"]][k] for k in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "floor_ms")}}}
-            if r["name"] in ins_groups else {})}
+            if r["name"] in ins_groups else {}),
+         **({"roadmap": {
+             family: {"launches": rm["main"][family]["launches"]["bn_act"],
+                      "launches_per_iteration": rm["graph"][family]["plain"][
+                          "launches_per_replay"]["bn_act"],
+                      **{k: rm["kernels"][family][k] for k in (
+                          "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms", "floor_ms")}}
+             for family in RM_BN}} if r["name"] == "bn_act" else {})}
         for r in report]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

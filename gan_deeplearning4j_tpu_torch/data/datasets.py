@@ -6,7 +6,8 @@ tests/test_torch_data.py pin them byte-equal to those), and the insurance
 program's transaction lattices and CSV pair (own copies of
 ``synthetic_transactions``, ``prepare_insurance`` and
 ``ensure_insurance_csv``; tests/test_torch_insurance.py pins the files
-byte-equal).
+byte-equal), and the roadmap families' CelebA surrogate (own copy of
+``synthetic_celeba``; tests/test_torch_roadmap.py pins it byte-equal).
 
 The reference's data (a Keras MNIST download) is unavailable offline, so
 both packages train on procedural bitmap-font digits with real class
@@ -306,3 +307,67 @@ def mnist_table(n: int, seed: int = SEED) -> np.ndarray:
     feats, labels = synthetic_mnist(n, seed=seed)
     return np.concatenate([contract_pixels(feats),
                            labels.reshape(-1, 1).astype(np.float32)], axis=1)
+
+
+# ---------------------------------------------------------------------------
+# CelebA (surrogate): procedural 64x64 faces for the roadmap DCGAN
+# ---------------------------------------------------------------------------
+
+# CelebA-style binary attribute names for the surrogate (real CelebA is a
+# 40-binary-attribute dataset; these 8 are the ones the procedural
+# generator controls).  Thresholds split each ~50/50 over the draw laws.
+CELEBA_ATTR_NAMES = (
+    "face_right", "face_low", "big_face", "pale_skin",
+    "bright_bg", "dark_hair", "wide_mouth", "tall_face",
+)
+
+
+def synthetic_celeba(n: int, seed: int = SEED, size: int = 64,
+                     return_attrs: bool = False):
+    """CelebA surrogate: procedural 64x64 'faces' — skin-toned ellipse,
+    two eyes, mouth, hair band, varying pose/colors/background.  Returns
+    [n, 3*size*size] float32 in [-1, 1], NCHW-flattened; with
+    ``return_attrs`` also [n, 8] float32 binary attributes (the analog of
+    CelebA's attribute labels, ``CELEBA_ATTR_NAMES``) derived from the
+    SAME procedural draws — the pixel stream is bit-identical either way.
+    The DCGAN itself is unconditional; the attributes exist to train the
+    frozen 64x64 FID feature extractor (eval/fid_extractor.py)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.linspace(-1, 1, size), np.linspace(-1, 1, size),
+                         indexing="ij")
+    out = np.empty((n, 3, size, size), dtype=np.float32)
+    attrs = np.empty((n, len(CELEBA_ATTR_NAMES)), dtype=np.float32)
+    for i in range(n):
+        cx, cy = rng.uniform(-0.15, 0.15, 2)
+        rx = rng.uniform(0.45, 0.6)
+        ry = rng.uniform(0.55, 0.75)
+        face = (((xx - cx) / rx) ** 2 + (((yy - cy) / ry) ** 2)) < 1.0
+        skin_scale = rng.uniform(0.7, 1.1)
+        skin = np.array([0.9, 0.65, 0.5]) * skin_scale
+        bg = rng.uniform(-1.0, 1.0, 3)
+        img = np.empty((3, size, size), dtype=np.float32)
+        for c in range(3):
+            img[c] = np.where(face, 2 * skin[c] - 1, bg[c])
+        # hair: top band of the face ellipse
+        hair_color = rng.uniform(-1.0, 0.0, 3)
+        hair = face & (yy < cy - 0.25 * ry)
+        for c in range(3):
+            img[c] = np.where(hair, hair_color[c], img[c])
+        # eyes and mouth
+        for ex in (-0.22, 0.22):
+            eye = (((xx - cx - ex) / 0.07) ** 2
+                   + ((yy - cy + 0.12) / 0.05) ** 2) < 1.0
+            img[:, eye] = -0.9
+        mouth_rx = rng.uniform(0.12, 0.25)
+        mouth = (((xx - cx) / mouth_rx) ** 2
+                 + (((yy - cy - 0.35) / 0.05) ** 2)) < 1.0
+        img[0, mouth] = 0.6
+        img[1:, mouth] = -0.6
+        img += rng.randn(3, size, size).astype(np.float32) * 0.04
+        out[i] = np.clip(img, -1.0, 1.0)
+        attrs[i] = (cx > 0.0, cy > 0.0, rx * ry > 0.34,
+                    skin_scale > 0.9, bg.mean() > 0.0,
+                    hair_color.mean() < -0.5, mouth_rx > 0.185, ry > 0.65)
+    if return_attrs:
+        return out.reshape(n, -1), attrs
+    return out.reshape(n, -1)

@@ -1,2 +1,2 @@
-"""Evaluation of the port: the classifier report and FID (plain, frozen
-and EMA)."""
+"""Evaluation of the port: the classifier report, FID (plain, frozen and
+EMA) and the sample-grid PNGs."""

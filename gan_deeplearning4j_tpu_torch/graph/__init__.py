@@ -6,9 +6,11 @@ from gan_deeplearning4j_tpu_torch.graph.graph import (  # noqa: F401
 from gan_deeplearning4j_tpu_torch.graph.layers import (  # noqa: F401
     BatchNorm,
     Conv2D,
+    ConvTranspose2D,
     Dense,
     Dropout,
     MaxPool2D,
+    MinibatchStdDev,
     Output,
     Upsampling2D,
 )

@@ -1,6 +1,7 @@
 """Layer configurations of the named-layer graph (torch twin of
-``gan_deeplearning4j_tpu/graph/layers.py``, the layers the DCGAN protocol
-uses).
+``gan_deeplearning4j_tpu/graph/layers.py``: the layers the DCGAN protocol
+uses, and ``ConvTranspose2D`` and ``MinibatchStdDev`` of the roadmap
+families).
 
 Each config is a dataclass with three methods:
   out_shape(in_shape)      -- shape inference, batch dim excluded (FF
@@ -31,6 +32,7 @@ from gan_deeplearning4j_tpu_torch.ops import (
     batch_norm_train,
     conv2d,
     conv2d_out_size,
+    conv_transpose2d,
     initializers,
     max_pool2d,
     upsample2d,
@@ -136,6 +138,36 @@ class Conv2D(Layer):
 
 
 @dataclasses.dataclass
+class ConvTranspose2D(Layer):
+    """Transposed conv of the roadmap DCGANs.  W: [n_out, n_in, kh, kw]
+    (the JAX package's layout and Xavier fans)."""
+
+    kernel: Sequence[int] = (4, 4)
+    stride: Sequence[int] = (2, 2)
+    padding: Sequence[int] = (1, 1)
+    n_in: Optional[int] = None
+    n_out: int = 0
+
+    def out_shape(self, in_shape):
+        _, h, w = in_shape
+        (kh, kw), (sh, sw), (ph, pw) = self.kernel, self.stride, self.padding
+        return (self.n_out, (h - 1) * sh - 2 * ph + kh,
+                (w - 1) * sw - 2 * pw + kw)
+
+    def init(self, gen, in_shape):
+        n_in = self.n_in if self.n_in is not None else in_shape[0]
+        kh, kw = self.kernel
+        fan_in, fan_out = initializers.fan_in_out_conv(n_in, self.n_out, (kh, kw))
+        w = initializers.xavier(gen, (self.n_out, n_in, kh, kw), fan_in, fan_out)
+        return {"W": w, "b": initializers.zeros((self.n_out,))}
+
+    def apply(self, params, x, train, gen, group=None):
+        y = conv_transpose2d(x, params["W"], params["b"], self.stride,
+                             self.padding)
+        return self._act(y), None
+
+
+@dataclasses.dataclass
 class MaxPool2D(Layer):
     """DL4J SubsamplingLayer(MAX)."""
 
@@ -230,3 +262,53 @@ class Dropout(Layer):
 
     def apply(self, params, x, train, gen, group=None):
         return dropout_op(x, self.rate, gen, train), None
+
+
+@dataclasses.dataclass
+class MinibatchStdDev(Layer):
+    """Minibatch standard deviation (Karras et al. 2018), parameter-free:
+    appends one channel (one feature for FF input) holding, for each
+    contiguous group of ``group_size`` rows, the mean over positions of the
+    rows' standard deviation.  Contiguous groups keep the D-step's real and
+    fake halves apart.  A batch that ``group_size`` does not divide takes
+    the largest group that does; under a group of more than one rank that
+    raises instead, as the JAX layer does under a mesh (each rank's
+    grouping would differ from the single-device run's).  The layer applies
+    no activation."""
+
+    group_size: int = 4
+    eps: float = 1e-8
+
+    @property
+    def has_params(self):
+        return False
+
+    def out_shape(self, in_shape):
+        if len(in_shape) == 3:
+            c, h, w = in_shape
+            return (c + 1, h, w)
+        return (math.prod(in_shape) + 1,)
+
+    def apply(self, params, x, train, gen, group=None):
+        B = x.shape[0]
+        g = self.group_size
+        if B % g:
+            if group is not None and group.world > 1:
+                raise ValueError(
+                    f"MinibatchStdDev: per-rank batch {B} not divisible by "
+                    f"group_size {self.group_size}; pick a batch whose share "
+                    "is a group multiple (the grouping must be the "
+                    "single-device run's)")
+            g = max(d for d in range(1, min(g, B) + 1) if B % d == 0)
+        grouped = x.reshape((B // g, g) + tuple(x.shape[1:]))
+        mean = torch.mean(grouped, dim=1, keepdim=True)
+        var = torch.mean(torch.square(grouped - mean), dim=1)
+        std = torch.sqrt(var + self.eps)
+        # one scalar per group, broadcast to that group's rows
+        stat = torch.mean(std.reshape(B // g, -1), dim=1)
+        stat = stat[:, None].expand(B // g, g).reshape(B)
+        if x.dim() == 4:
+            feat = stat.reshape(B, 1, 1, 1).expand((B, 1) + tuple(x.shape[2:]))
+        else:
+            feat = stat.reshape(B, 1)
+        return torch.cat([x, feat.to(x.dtype)], dim=1), None

@@ -11,8 +11,9 @@ on read when set), so a zip written here is the zip the JAX package writes
 for the same graph and state.  Member timestamps are ``_ZIP_EPOCH``, the
 ``.npz`` members are stored, not deflated a second time, and arrays go
 through ``np.lib.format.write_array`` as C-contiguous f32 host copies.
-Only the RmsProp updater is ported: a zip that names another updater or a
-schedule raises ``NotImplementedError``.
+The updaters are RmsProp, Adam and ``Scheduled`` with the four schedule
+dataclasses, nested with ``__type__`` tags as the JAX package writes them;
+a zip that names Sgd, Nesterovs or AdaGrad raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,13 +34,21 @@ from gan_deeplearning4j_tpu_torch.graph.graph import (
     InputSpec,
 )
 from gan_deeplearning4j_tpu_torch.graph.preprocessors import FeedForwardToCnn
+from gan_deeplearning4j_tpu_torch.optim.adam import Adam
 from gan_deeplearning4j_tpu_torch.optim.rmsprop import RmsProp
+from gan_deeplearning4j_tpu_torch.optim.schedules import (
+    ExponentialSchedule,
+    PolySchedule,
+    Scheduled,
+    SigmoidSchedule,
+    StepSchedule,
+)
 
 FORMAT_VERSION = 1
 
 LAYER_TYPES = {cls.__name__: cls for cls in (
-    L.Dense, L.Output, L.Conv2D, L.MaxPool2D, L.Upsampling2D, L.BatchNorm,
-    L.Dropout)}
+    L.Dense, L.Output, L.Conv2D, L.ConvTranspose2D, L.MaxPool2D,
+    L.Upsampling2D, L.BatchNorm, L.Dropout, L.MinibatchStdDev)}
 PREPROCESSOR_TYPES = {"FeedForwardToCnn": FeedForwardToCnn}
 
 # The JAX layer dataclasses' fields, in their order; a field the port's
@@ -50,30 +59,49 @@ _FILE_FIELDS = {
     "Output": _BASE + ("n_out", "n_in", "bf16_matmul", "loss"),
     "Conv2D": _BASE + ("kernel", "stride", "padding", "n_in", "n_out",
                        "bf16_matmul"),
+    "ConvTranspose2D": _BASE + ("kernel", "stride", "padding", "n_in",
+                                "n_out", "bf16_matmul"),
     "MaxPool2D": _BASE + ("kernel", "stride"),
     "Upsampling2D": _BASE + ("size",),
     "BatchNorm": _BASE + ("n", "decay", "eps"),
     "Dropout": _BASE + ("rate",),
+    "MinibatchStdDev": _BASE + ("group_size", "eps"),
 }
+
+# updater and schedule kinds by type tag (a config without a tag is
+# RmsProp); ``Scheduled`` nests a base updater and a schedule
+_UPDATER_TYPES = {cls.__name__: cls for cls in (
+    RmsProp, Adam, Scheduled, StepSchedule, ExponentialSchedule,
+    PolySchedule, SigmoidSchedule)}
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP Queue 1 item 8: the optimizers "
-        "and the roadmap families)")
+        "sgd, nesterovs and adagrad)")
 
 
-def _updater_to_dict(u: RmsProp) -> dict:
-    return {"__type__": type(u).__name__,
-            **{f.name: getattr(u, f.name) for f in dataclasses.fields(u)}}
+def _updater_to_dict(u) -> dict:
+    """A dataclass updater or schedule as the JAX package writes it: the
+    type tag first, then the fields, a dataclass field nested."""
+    if _UPDATER_TYPES.get(type(u).__name__) is not type(u):
+        raise TypeError(f"cannot serialize updater/schedule {type(u)!r}")
+    d = {"__type__": type(u).__name__}
+    for f in dataclasses.fields(u):
+        v = getattr(u, f.name)
+        d[f.name] = _updater_to_dict(v) if dataclasses.is_dataclass(v) else v
+    return d
 
 
-def _updater_from_dict(d: dict) -> RmsProp:
+def _updater_from_dict(d: dict):
     d = dict(d)
     kind = d.pop("__type__", "RmsProp")
-    if kind != "RmsProp":
+    if kind not in _UPDATER_TYPES:
         raise _not_ported(f"updater {kind!r}")
-    return RmsProp(**d)
+    return _UPDATER_TYPES[kind](**{
+        k: (_updater_from_dict(v) if isinstance(v, dict) and "__type__" in v
+            else v)
+        for k, v in d.items()})
 
 
 def _jsonable(v):
@@ -177,15 +205,18 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
         if isinstance(v, dict):
             out.update(_flatten(v, key + "/"))
         else:
-            out[key] = np.ascontiguousarray(
+            # np.require, not np.ascontiguousarray: that makes a 0-d
+            # array (Adam's step count) 1-d
+            out[key] = np.require(
                 v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                else np.asarray(v))
+                else np.asarray(v), requirements="C")
     return out
 
 
 def _unflatten(flat, device) -> Dict:
-    """Inverse of ``_flatten`` onto ``device``; accepts an ``np.load``
-    handle (``.files``) or a plain {key: array} mapping."""
+    """Inverse of ``_flatten`` onto ``device``, any depth (Adam's state is
+    {layer: {param: {m, v, t}}}), each array's dtype kept; accepts an
+    ``np.load`` handle (``.files``) or a plain {key: array} mapping."""
     tree: Dict = {}
     for key in (flat.files if hasattr(flat, "files") else flat):
         parts = key.split("/")
@@ -251,7 +282,7 @@ def write_model(graph: ComputationGraph, path: str,
 
 def read_model(path: str, device=None) -> ComputationGraph:
     """The graph of a model zip with its params (and updater state: a zip
-    without ``updater.npz`` gets fresh RmsProp caches) on ``device``
+    without ``updater.npz`` gets a fresh one) on ``device``
     (None = the card)."""
     with zipfile.ZipFile(path) as zf:
         graph = graph_from_config_dict(json.loads(zf.read("config.json")),

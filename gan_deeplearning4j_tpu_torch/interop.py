@@ -6,7 +6,10 @@ dtype/device move with shape checks.  The port only sees numpy: a caller
 holding JAX arrays passes ``jax.tree.map(np.asarray, graph.params)``.  The
 generator EMA (``ProtocolState.ema_gen``) is a params tree of the
 generator's layout and crosses with ``params_from_numpy`` /
-``params_to_numpy`` like any other.
+``params_to_numpy`` like any other.  Updater state is a tree of any depth
+(RmsProp: the cache per param; Adam: ``{m, v, t}``; ``Scheduled``:
+``{t, inner}``) and keeps the JAX dtypes: float leaves f32, the
+``Scheduled`` counter int32.
 """
 
 from __future__ import annotations
@@ -45,11 +48,43 @@ def params_to_numpy(params: TorchTree) -> NumpyTree:
             for layer, lp in params.items()}
 
 
-def opt_state_from_numpy(tree: Mapping, device,
-                         like: Optional[TorchTree] = None) -> TorchTree:
-    """The RmsProp caches: the same tree shape as the params."""
-    return params_from_numpy(tree, device, like)
+def _leaf_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    dtype = np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
+    return torch.tensor(a.astype(dtype, copy=False), device=device)
 
 
-def opt_state_to_numpy(opt_state: TorchTree) -> NumpyTree:
-    return params_to_numpy(opt_state)
+def _check_like(tree: Mapping, like: Mapping, path: str) -> None:
+    if set(tree) != set(like):
+        raise ValueError(f"{path or 'tree'}: keys differ: "
+                         f"{sorted(set(tree) ^ set(like))}")
+    for k, v in tree.items():
+        where = f"{path}.{k}" if path else k
+        if isinstance(v, Mapping):
+            if not isinstance(like[k], Mapping):
+                raise ValueError(f"{where}: a tree where a leaf is expected")
+            _check_like(v, like[k], where)
+        elif tuple(np.shape(v)) != tuple(like[k].shape):
+            raise ValueError(f"{where}: shape {np.shape(v)} != "
+                             f"{tuple(like[k].shape)}")
+
+
+def opt_state_from_numpy(tree: Mapping, device, like: Optional[Dict] = None
+                         ) -> Dict:
+    """Updater state onto ``device``: float leaves as f32, integer leaves
+    (the ``Scheduled`` counter) as int32.  With ``like`` (e.g. a graph's
+    ``opt_state``) the tree's keys and leaf shapes must match it."""
+    if like is not None:
+        _check_like(tree, like, "")
+
+    def conv(t):
+        return {k: conv(v) if isinstance(v, Mapping)
+                else _leaf_from_numpy(v, device) for k, v in t.items()}
+
+    return conv(tree)
+
+
+def opt_state_to_numpy(opt_state: Dict) -> Dict:
+    """Updater state as host arrays of the same dtypes, any depth."""
+    return {k: opt_state_to_numpy(v) if isinstance(v, dict)
+            else v.detach().cpu().numpy() for k, v in opt_state.items()}

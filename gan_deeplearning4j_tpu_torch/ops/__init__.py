@@ -9,7 +9,7 @@ from gan_deeplearning4j_tpu_torch.ops.batchnorm import (
 from gan_deeplearning4j_tpu_torch.ops.conv import conv2d, conv2d_out_size
 from gan_deeplearning4j_tpu_torch.ops.dense import dense, dropout
 from gan_deeplearning4j_tpu_torch.ops.pool import max_pool2d
-from gan_deeplearning4j_tpu_torch.ops.upsample import upsample2d
+from gan_deeplearning4j_tpu_torch.ops.upsample import conv_transpose2d, upsample2d
 
 __all__ = [
     "activations",
@@ -20,6 +20,7 @@ __all__ = [
     "batch_norm_train",
     "conv2d",
     "conv2d_out_size",
+    "conv_transpose2d",
     "dense",
     "dropout",
     "max_pool2d",

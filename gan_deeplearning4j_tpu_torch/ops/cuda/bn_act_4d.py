@@ -8,8 +8,10 @@ Replaces ``fused_bn_act_train_4d`` / ``_fused_kernel_4d`` of
     y       = act((x - mean) * rsqrt(var + eps) * gamma + beta)
 
 Returns (y, mean[C], var[C]).  As in the JAX package it is an op with its
-gradient and no caller on a model path (the DCGAN's only 4-D BN has
-C = 1 and stays plain torch, as it stays XLA there).  The TPU version falls
+gradient and no caller on a model path: the BatchNorm layer sends only
+2-D input to a kernel (the JAX ``graph/layers.py:298``), so every model's
+4-D BNs — the DCGAN's C = 1 input BN, the CelebA-64 DCGAN's six — run
+plain torch, as they run XLA there.  The TPU version falls
 back to XLA when an 8-channel block exceeds VMEM (``supports_4d``); the
 card's kernel takes every shape: a channel too large for its cluster's
 shared memory takes the kernel's streamed branch, so there is no fallback.

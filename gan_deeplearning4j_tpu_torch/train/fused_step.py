@@ -77,12 +77,13 @@ class ProtocolState(NamedTuple):
 TREES = ProtocolState._fields[:7]
 
 
-def state_trees(state: ProtocolState) -> List[Tuple[str, Dict]]:
-    """(field, tree) for every tree of ``state``, the EMA last when on."""
-    out = [(f, getattr(state, f)) for f in TREES]
-    if state.ema_gen is not None:
-        out.append(("ema_gen", state.ema_gen))
-    return out
+def state_trees(state) -> List[Tuple[str, Dict]]:
+    """(field, tree) for every tree of a step state (a NamedTuple whose
+    fields are trees, 0-d tensors such as the counter ``it``, or None), in
+    field order: for ``ProtocolState`` the seven graphs' trees, then the
+    EMA when on."""
+    return [(f, v) for f, v in zip(state._fields, state)
+            if isinstance(v, dict)]
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -256,57 +257,75 @@ def state_to_graphs(state: ProtocolState, dis, gen, gan, classifier) -> None:
     gen.ema_params = state.ema_gen  # None unless the step keeps an EMA
 
 
-def clone_state(state: ProtocolState) -> ProtocolState:
-    """A copy of ``state`` in fresh buffers, one per leaf (leaves that
-    share a tensor get one copy each)."""
-    def tree(t):
-        return None if t is None else {
-            layer: {n: v.detach().clone() for n, v in lp.items()}
-            for layer, lp in t.items()}
-
-    return ProtocolState(*(tree(getattr(state, f)) for f in TREES),
-                         state.it.clone(), tree(state.ema_gen))
+def _clone_tree(tree: Dict) -> Dict:
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in tree.items()}
 
 
-def _leaves(state: ProtocolState) -> Dict[Tuple[str, str, str], torch.Tensor]:
-    return {(f, layer, n): t for f, tree in state_trees(state)
-            for layer, lp in tree.items() for n, t in lp.items()}
+def clone_state(state):
+    """A copy of a step state in fresh buffers, one per leaf (leaves that
+    share a tensor get one copy each); trees of any depth (Adam's updater
+    state is {layer: {param: {m, v, t}}})."""
+    return type(state)(*(
+        _clone_tree(v) if isinstance(v, dict)
+        else v.clone() if isinstance(v, torch.Tensor) else v
+        for v in state))
 
 
-def copy_state_(dst: ProtocolState, src: ProtocolState) -> None:
-    """Copy every leaf of ``src`` into the same leaf of ``dst``, the float
-    leaves in one multi-tensor copy.  ``dst``'s leaves must be distinct
-    buffers (``clone_state``'s), and no leaf of ``src`` may be a buffer of
-    ``dst`` at another place: the copies would then depend on their
-    order."""
+def _tree_leaves(tree: Dict, prefix: Tuple) -> Dict[Tuple, torch.Tensor]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_tree_leaves(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _leaves(state) -> Dict[Tuple, torch.Tensor]:
+    """Every tensor of a step state by path: (field, layer, param, ...) for
+    tree leaves, (field,) for a 0-d tensor field such as ``it``."""
+    out = {}
+    for f, v in zip(state._fields, state):
+        if isinstance(v, dict):
+            out.update(_tree_leaves(v, (f,)))
+        elif isinstance(v, torch.Tensor):
+            out[(f,)] = v
+    return out
+
+
+def copy_state_(dst, src) -> None:
+    """Copy every leaf of ``src`` into the same leaf of ``dst``, one
+    multi-tensor copy per dtype.  ``dst``'s leaves must be distinct buffers
+    (``clone_state``'s), and no leaf of ``src`` may be a buffer of ``dst``
+    at another place: the copies would then depend on their order."""
     d, s = _leaves(dst), _leaves(src)
     if d.keys() != s.keys():
         raise ValueError(f"copy_state_: the leaves differ: "
                          f"{sorted(set(d) ^ set(s))}")
     place = {id(t): key for key, t in d.items()}
-    pairs = []
+    pairs: Dict[torch.dtype, List] = {}
     for key, a in d.items():
         b = s[key]
         if place.get(id(b), key) != key:
             raise ValueError(f"copy_state_: the source of {key} is the "
                              f"destination {place[id(b)]}")
         if a is not b:
-            pairs.append((a, b))
-    if pairs:
-        torch._foreach_copy_([a for a, _ in pairs], [b for _, b in pairs])
-    if dst.it is not src.it:
-        dst.it.copy_(src.it)
+            pairs.setdefault(a.dtype, []).append((a, b))
+    for group in pairs.values():
+        torch._foreach_copy_([a for a, _ in group], [b for _, b in group])
 
 
 def graph_body(step, inputs, z_gen: Optional[torch.Generator], ring: int,
-               state: ProtocolState, losses: torch.Tensor) -> None:
+               state, losses: torch.Tensor) -> None:
     """What the CUDA graph of ``GraphedStep`` records: one ``step`` from
-    ``state`` (on the table and targets ``inputs``, latents from
+    ``state`` (on the table and targets ``inputs``, random draws from
     ``z_gen``), its losses written to row ``it % ring`` of ``losses`` [ring,
-    3] through a device index, and the new state copied into ``state``."""
+    n_losses] through a device index, and the new state copied into
+    ``state``."""
     slot = (state.it % ring).view(1)
     new, out = step(state, *inputs, z_gen=z_gen)
-    losses.index_copy_(0, slot, torch.stack(out).view(1, 3))
+    losses.index_copy_(0, slot, torch.stack(out).view(1, -1))
     copy_state_(state, new)
 
 
@@ -319,14 +338,15 @@ def replay(graph, replays: int, per_replay: Dict[str, int]) -> None:
 
 
 class GraphedStep:
-    """The single-card protocol step as a CUDA graph: captured once, a call
-    replays it K times back to back and reads the [K, 3] losses back once.
+    """A single-card step as a CUDA graph: captured once, a call replays it
+    K times back to back and reads the [K, n_losses] losses back once.  The
+    protocol step (3 losses) and ``GANPair``'s iteration (2) both run so.
 
     The graph's inputs are static tensors: ``self.state`` (a copy of the
     start state, one buffer per leaf, that the step reads and, at its end,
-    overwrites with the new state), the resident table and targets, and
-    the latent generator ``z_gen``, registered with the graph so that each
-    replay draws new latents exactly as an eager step would.  Replay j
+    overwrites with the new state), ``inputs`` (the resident table and
+    targets), and the generator ``z_gen``, registered with the graph so that
+    each replay draws new latents exactly as an eager step would.  Replay j
     writes its losses to row ``it % ring`` of ``self.losses``.  Before the
     capture, one eager step on copies of the state and on a side stream
     builds every kernel and runs each one-time setup (the kernels' shared
@@ -335,17 +355,17 @@ class GraphedStep:
     replay gives the bits of the first eager step.  A capture that fails
     raises."""
 
-    def __init__(self, step, state: ProtocolState, real, labels, y_real,
-                 y_fake, ones, z_gen: torch.Generator,
-                 ring: int = MAX_STEPS_PER_CALL):
-        dev = real.device
+    def __init__(self, step, state, *inputs: torch.Tensor,
+                 z_gen: torch.Generator, ring: int = MAX_STEPS_PER_CALL,
+                 n_losses: int = 3):
+        dev = inputs[0].device
         if dev.type != "cuda":
             raise ValueError(f"GraphedStep captures a CUDA graph; the table "
                              f"is on {dev}")
         self.ring = ring
-        self.inputs = (real, labels, y_real, y_fake, ones)
+        self.inputs = inputs
         self.state = clone_state(state)
-        self.losses = torch.zeros((ring, 3), device=dev)
+        self.losses = torch.zeros((ring, n_losses), device=dev)
         self.steps = int(state.it)
         t0 = time.perf_counter()
         z_start = z_gen.get_state()
@@ -374,8 +394,8 @@ class GraphedStep:
             "pool_reserved_bytes": torch.cuda.memory_reserved(dev) - mem[1]}
 
     def __call__(self, n: int) -> torch.Tensor:
-        """Run ``n`` steps (1 <= n <= ring) -> their losses, [n, 3] on the
-        host, in step order (one readback)."""
+        """Run ``n`` steps (1 <= n <= ring) -> their losses, [n, n_losses]
+        on the host, in step order (one readback)."""
         if not 1 <= n <= self.ring:
             raise ValueError(f"a call runs 1 to {self.ring} steps, not {n}")
         replay(self.graph, n, self.launches)

@@ -661,7 +661,7 @@ class GANTrainer:
             if dev.type == "cuda" and group is None:
                 self.graphed = fused_step.GraphedStep(
                     self.step_fn(1), self.state, self.features, self.labels,
-                    self.y_real, self.y_fake, self.ones, self.z_gen,
+                    self.y_real, self.y_fake, self.ones, z_gen=self.z_gen,
                     ring=c.steps_per_call or fused_step.MAX_STEPS_PER_CALL)
                 self.state = self.graphed.state
                 self.timings["capture_s"] = (self.graphed.setup["warmup_s"]

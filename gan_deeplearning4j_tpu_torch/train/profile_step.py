@@ -1,4 +1,4 @@
-"""Where the protocol step's time goes on the card.
+"""Where a training step's time goes on the card.
 
 Run: ``python -m gan_deeplearning4j_tpu_torch.train.profile_step``
 (``--steps``, ``--warmup``, ``--batch-size``, ``--eager``, ``--workload``).
@@ -6,10 +6,13 @@ Builds the trainer on the GPU (which captures the step as a CUDA graph):
 ``--workload cv`` (the default) the DCGAN's on an in-memory MNIST table of
 ``--n-train`` rows at batch 200, ``--workload insurance`` the insurance
 program's on its CSV pair (written to a temporary directory) at batch 50,
-and profiles calls of ``--steps`` steps, each ending in one readback of
-its losses: by default the graphed step (``--steps`` replays a call), with
-``--eager`` the eager step, called directly on a copy of the trainer's
-state (the trainer itself has no eager mode on one card).  After
+``--workload celeba`` / ``wgan-gp`` a roadmap family's ``GANPair``
+iteration (n_critic D-steps and a G-step, ``roadmap_main``'s build and
+surrogate table of ``--n-train`` rows) at batch 128, and profiles calls of
+``--steps`` steps, each ending in one readback of its losses: by default
+the graphed step (``--steps`` replays a call), with ``--eager`` the eager
+step, called directly on a copy of the trainer's state (the trainer itself
+has no eager mode on one card).  After
 ``--warmup`` calls it times REPEATS untraced calls, then traces one
 with ``torch.profiler`` (CPU and CUDA activities) between two CUDA events,
 and prints one JSON line: the host-clock step time (untraced median, and
@@ -37,7 +40,12 @@ from torch.profiler import ProfilerActivity, profile
 
 from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
 from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
-from gan_deeplearning4j_tpu_torch.train import fused_step, insurance_main
+from gan_deeplearning4j_tpu_torch.runtime import prng
+from gan_deeplearning4j_tpu_torch.train import (
+    fused_step,
+    insurance_main,
+    roadmap_main,
+)
 from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
 
 # each port kernel's device function (csrc/*.cu), as the trace names it
@@ -52,9 +60,11 @@ def main(argv=None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--warmup", type=int, default=2)
-    p.add_argument("--workload", default="cv", choices=["cv", "insurance"])
+    p.add_argument("--workload", default="cv",
+                   choices=["cv", "insurance", *roadmap_main.PORTED_FAMILIES])
     p.add_argument("--batch-size", type=int, default=None,
-                   help="default: 200 (cv), 50 (insurance)")
+                   help="default: 200 (cv), 50 (insurance), 128 (celeba, "
+                        "wgan-gp)")
     p.add_argument("--n-train", type=int, default=10000)
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--eager", action="store_true",
@@ -62,7 +72,10 @@ def main(argv=None) -> Dict:
     args = p.parse_args(argv)
     n = args.steps
     if args.batch_size is None:
-        args.batch_size = 200 if args.workload == "cv" else 50
+        args.batch_size = {"cv": 200, "insurance": 50}.get(
+            args.workload, roadmap_main.DEFAULT_BATCH_SIZE)
+    if args.workload in roadmap_main.PORTED_FAMILIES:
+        return _profile(args, *_pair_calls(args))
     if args.workload == "cv":
         trainer = GANTrainer(M.CVConfig(), batch_size=args.batch_size,
                              n_train=args.n_train, device="cuda",
@@ -93,6 +106,31 @@ def main(argv=None) -> Dict:
         def call():
             return trainer.graphed(n)
 
+    return _profile(args, call, None if args.eager else trainer.graphed.setup)
+
+
+def _pair_calls(args):
+    """(call, capture set-up or None) for a roadmap family's iteration:
+    K = ``--steps`` iterations a call, graphed or (``--eager``) eager."""
+    pair, cfg, _ = roadmap_main._build(args.workload, "cuda")
+    table = torch.from_numpy(roadmap_main._data(
+        args.workload, args.n_train, prng.NUMBER_OF_THE_BEAST)).cuda()
+    step, box = pair.make_multistep(
+        table, batch_size=args.batch_size, steps_per_call=args.steps,
+        n_critic=getattr(cfg, "n_critic", 1),
+        real_label=getattr(cfg, "real_label", 1.0), z_size=cfg.z_size,
+        graphed=not args.eager)
+    state = {"s": box}
+
+    def call():
+        state["s"], (dl, gl) = step(state["s"])
+        return torch.stack([dl, gl], -1).cpu()
+
+    return call, None if args.eager else step.graphed.setup
+
+
+def _profile(args, call, setup) -> Dict:
+    n = args.steps
     for _ in range(args.warmup):
         call()
     times = []
@@ -160,8 +198,8 @@ def main(argv=None) -> Dict:
                                            if fn in k) / n}
             for kernel, fn in PORT_KERNELS.items()},
     }
-    if not args.eager:
-        out["capture"] = trainer.graphed.setup
+    if setup is not None:
+        out["capture"] = setup
     print(json.dumps(out))
     return out
 

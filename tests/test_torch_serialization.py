@@ -129,7 +129,8 @@ def test_frozen_extractor_round_trip_is_byte_equal(tmp_path):
 
 
 @pytest.mark.parametrize("kind", ["Dense", "Output", "Conv2D", "MaxPool2D",
-                                  "Upsampling2D", "BatchNorm", "Dropout"])
+                                  "Upsampling2D", "BatchNorm", "Dropout",
+                                  "ConvTranspose2D", "MinibatchStdDev"])
 def test_file_fields_are_the_jax_dataclass_fields(kind):
     assert ser_t._FILE_FIELDS[kind] == tuple(
         f.name for f in dataclasses.fields(LAYERS_J[kind]))
@@ -149,7 +150,7 @@ def _with_layer(path, out, **changes):
 
 
 @pytest.mark.parametrize("changes,match", [
-    ({"updater": {"__type__": "Adam", "learning_rate": 1e-3}},
+    ({"updater": {"__type__": "Sgd", "learning_rate": 1e-3}},
      "ROADMAP Queue 1 item 8"),
     ({"bf16_matmul": True}, "bf16_matmul")])
 def test_what_the_port_cannot_run_raises(tmp_path, changes, match):
