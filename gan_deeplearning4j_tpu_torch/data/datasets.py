@@ -6,8 +6,10 @@ tests/test_torch_data.py pin them byte-equal to those), and the insurance
 program's transaction lattices and CSV pair (own copies of
 ``synthetic_transactions``, ``prepare_insurance`` and
 ``ensure_insurance_csv``; tests/test_torch_insurance.py pins the files
-byte-equal), and the roadmap families' CelebA surrogate (own copy of
-``synthetic_celeba``; tests/test_torch_roadmap.py pins it byte-equal).
+byte-equal), and the roadmap families' CelebA and CIFAR-10 surrogates (own
+copies of ``synthetic_celeba`` and ``synthetic_cifar10``;
+tests/test_torch_roadmap.py and tests/test_torch_cgan.py pin them
+byte-equal).
 
 The reference's data (a Keras MNIST download) is unavailable offline, so
 both packages train on procedural bitmap-font digits with real class
@@ -307,6 +309,69 @@ def mnist_table(n: int, seed: int = SEED) -> np.ndarray:
     feats, labels = synthetic_mnist(n, seed=seed)
     return np.concatenate([contract_pixels(feats),
                            labels.reshape(-1, 1).astype(np.float32)], axis=1)
+
+
+# ---------------------------------------------------------------------------
+# CIFAR-10 (surrogate): class glyphs in class hues for the conditional GAN
+# ---------------------------------------------------------------------------
+
+def synthetic_cifar10(
+    n: int, seed: int = SEED, size: int = 32,
+    difficulty: str = "v1",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """CIFAR-10 surrogate: 10 classes = glyph shape in a class hue over a
+    random background tint, random affine pose.  Returns
+    (features[n, 3*size*size] float32 in [-1, 1] NCHW-flattened,
+    labels[n] int64).
+
+    ``difficulty``: "v1" (crisp class identity) or "calibrated": an 18%
+    tail of samples carries label-preserving ambiguity (the glyph faded to
+    3-35% contrast, extra pixel noise, the hue moved to the boundary with a
+    random neighbour class), so a probe classifier's Bayes ceiling sits
+    below 1.0.  The tail draws come from their own stream,
+    ``RandomState(seed + 9001)``: non-tail pixels are bit-identical across
+    the two tiers."""
+    if difficulty not in ("v1", "calibrated"):
+        raise ValueError(f"unknown difficulty {difficulty!r}")
+    rng = np.random.RandomState(seed)
+    gray, labels = synthetic_mnist(n, seed=seed + 1, noise=0.04,
+                                   difficulty="v1")
+    gray = gray.reshape(n, 28, 28)
+    hues = np.linspace(0.0, 1.0, 10, endpoint=False)
+    out = np.empty((n, 3, size, size), dtype=np.float32)
+    pad = (size - 28) // 2
+    rng_tail = (np.random.RandomState(seed + 9001)
+                if difficulty == "calibrated" else None)
+
+    def hue_rgb(h):
+        phase = h[:, None, None]
+        return np.stack([
+            0.5 + 0.5 * np.cos(2 * np.pi * (phase + off))
+            for off in (0.0, 1 / 3, 2 / 3)], axis=1).astype(np.float32)
+
+    for lo in range(0, n, 4096):
+        hi = min(lo + 4096, n)
+        m = hi - lo
+        g = np.zeros((m, size, size), dtype=np.float32)
+        g[:, pad:pad + 28, pad:pad + 28] = gray[lo:hi]
+        h = hues[labels[lo:hi]] + rng.uniform(-0.03, 0.03, m)
+        rgb = hue_rgb(h)
+        bg = rng.uniform(-0.25, 0.25, (m, 3, 1, 1)).astype(np.float32)
+        img = bg + g[:, None] * (2.0 * rgb - 1.0 - bg)
+        if rng_tail is not None:
+            tail = rng_tail.rand(m) < 0.18
+            nb = rng_tail.choice([-1.0, 1.0], m)
+            h2 = (hues[labels[lo:hi]] + nb * 0.05
+                  + rng_tail.uniform(-0.008, 0.008, m))
+            fade = rng_tail.uniform(0.03, 0.35, m).astype(np.float32)
+            noise = rng_tail.randn(m, 3, size, size).astype(np.float32)
+            rgb2 = hue_rgb(h2)
+            g2 = g * fade[:, None, None]
+            img2 = (bg + g2[:, None] * (2.0 * rgb2 - 1.0 - bg)
+                    + 0.12 * noise)
+            img[tail] = img2[tail]
+        out[lo:hi] = np.clip(img, -1.0, 1.0)
+    return out.reshape(n, -1), labels
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,10 @@ class InputSpec:
     def convolutional_flat(height: int, width: int, channels: int) -> "InputSpec":
         return InputSpec("cnn_flat", (height, width, channels))
 
+    @staticmethod
+    def convolutional(channels: int, height: int, width: int) -> "InputSpec":
+        return InputSpec("cnn", (channels, height, width))
+
     def node_shape(self) -> Tuple[int, ...]:
         if self.kind == "cnn_flat":
             h, w, c = self.shape
@@ -134,12 +138,22 @@ class GraphBuilder:
             layer = node.layer.resolved(self.default_activation, self.default_updater)
             if layer.weight_init == "xavier":
                 layer = dataclasses.replace(layer, weight_init=self.weight_init)
-            if len(node.inputs) != 1:
-                raise ValueError(f"layer {name!r} expects exactly one input")
             pre = self._preprocessors.get(name)
-            in_shape = shapes[node.inputs[0]]
-            if pre is not None:
-                in_shape = pre.out_shape(in_shape)
+            in_shapes = [shapes[i] for i in node.inputs]
+            if layer.multi_input:
+                if pre is not None:
+                    raise ValueError(
+                        f"vertex {name!r}: preprocessors are not supported "
+                        "on multi-input vertices (attach one to the "
+                        "consuming layer instead)")
+                in_shape = in_shapes
+            else:
+                if len(in_shapes) != 1:
+                    raise ValueError(
+                        f"layer {name!r} expects exactly one input")
+                in_shape = in_shapes[0]
+                if pre is not None:
+                    in_shape = pre.out_shape(in_shape)
             out_shape = layer.out_shape(in_shape)
             resolved[name] = Node(name, layer, node.inputs, pre, in_shape, out_shape)
             shapes[name] = out_shape
@@ -210,9 +224,12 @@ class ComputationGraph:
             values[inp] = x
         state_updates: Dict[str, Dict[str, torch.Tensor]] = {}
         for name, node in self.nodes.items():
-            x = values[node.inputs[0]]
-            if node.preprocessor is not None:
-                x = node.preprocessor(x)
+            if node.layer.multi_input:
+                x = [values[i] for i in node.inputs]
+            else:
+                x = values[node.inputs[0]]
+                if node.preprocessor is not None:
+                    x = node.preprocessor(x)
             y, upd = node.layer.apply(params[name], x,
                                       train and name not in self.frozen, gen,
                                       group)
@@ -224,7 +241,9 @@ class ComputationGraph:
     def output(self, *xs: torch.Tensor, params: Optional[Tree] = None
                ) -> List[torch.Tensor]:
         """Inference forward (running BN stats, no dropout) — DL4J
-        ``ComputationGraph.output``.  Returns a list, one per output layer."""
+        ``ComputationGraph.output``: one tensor per input, in the order of
+        ``input_names``; ``params`` (e.g. the EMA weights) in place of the
+        graph's own.  Returns a list, one per output layer."""
         with torch.no_grad():
             values, _ = self._forward(
                 self.params if params is None else params,

@@ -1,7 +1,8 @@
 """Layer configurations of the named-layer graph (torch twin of
 ``gan_deeplearning4j_tpu/graph/layers.py``: the layers the DCGAN protocol
-uses, and ``ConvTranspose2D`` and ``MinibatchStdDev`` of the roadmap
-families).
+uses; ``ConvTranspose2D`` and ``MinibatchStdDev`` of the roadmap families;
+and the multi-input vertices of the conditional family, ``Merge``,
+``ElementWise``, ``ConditionalBatchNorm`` and ``ProjectionOutput``).
 
 Each config is a dataclass with three methods:
   out_shape(in_shape)      -- shape inference, batch dim excluded (FF
@@ -13,6 +14,8 @@ Each config is a dataclass with three methods:
   apply(params, x, train, gen, group) -- forward; returns
                               (y, state_updates|None); ``group`` is the
                               data-parallel group (sync-BN) or None
+A ``multi_input`` layer gets the list of its input shapes and the list of
+its input values, in the order the builder named its inputs.
 
 An ``activation``/``updater`` of None inherits the graph default; the BN
 layer applies its activation after normalizing, as DL4J does.
@@ -29,7 +32,9 @@ import torch
 from gan_deeplearning4j_tpu_torch.ops import (
     activations as act_lib,
     batch_norm_inference,
+    batch_norm_inference_cond,
     batch_norm_train,
+    batch_norm_train_cond,
     conv2d,
     conv2d_out_size,
     conv_transpose2d,
@@ -59,6 +64,11 @@ class Layer:
     @property
     def has_params(self) -> bool:
         return True
+
+    @property
+    def multi_input(self) -> bool:
+        """Vertices that take a list of inputs."""
+        return False
 
     def resolved(self, default_activation: str, default_updater: Optional[RmsProp]):
         new = dataclasses.replace(self)
@@ -221,7 +231,8 @@ class BatchNorm(Layer):
         n = self.n if self.n is not None else (
             in_shape[0] if len(in_shape) == 3 else math.prod(in_shape))
         return {"gamma": initializers.ones((n,)), "beta": initializers.zeros((n,)),
-                "mean": initializers.zeros((n,)), "var": initializers.ones((n,))}
+                "mean": initializers.zeros((n,)),
+                "var": initializers.ones((n,))}
 
     def apply(self, params, x, train, gen, group=None):
         if not train:
@@ -312,3 +323,155 @@ class MinibatchStdDev(Layer):
         else:
             feat = stat.reshape(B, 1)
         return torch.cat([x, feat.to(x.dtype)], dim=1), None
+
+
+@dataclasses.dataclass
+class Merge(Layer):
+    """DL4J MergeVertex: concatenation on the feature/channel axis (axis 0
+    for 1-D input)."""
+
+    @property
+    def has_params(self):
+        return False
+
+    @property
+    def multi_input(self):
+        return True
+
+    def out_shape(self, in_shape):
+        return (sum(s[0] for s in in_shape),) + tuple(in_shape[0][1:])
+
+    def apply(self, params, xs, train, gen, group=None):
+        return torch.cat(list(xs), dim=1 if xs[0].dim() > 1 else 0), None
+
+
+@dataclasses.dataclass
+class ElementWise(Layer):
+    """DL4J ElementWiseVertex: same-shaped inputs combined elementwise,
+    ``op`` one of add, product, subtract (two inputs), average, max.  The
+    explicit "identity" default keeps it free of the graph's default
+    activation, as DL4J's vertex is."""
+
+    op: str = "add"
+    activation: Optional[str] = "identity"
+
+    @property
+    def has_params(self):
+        return False
+
+    @property
+    def multi_input(self):
+        return True
+
+    def out_shape(self, in_shape):
+        if self.op == "subtract" and len(in_shape) != 2:
+            raise ValueError("subtract takes exactly two inputs")
+        first = tuple(in_shape[0])
+        for s in in_shape[1:]:
+            if tuple(s) != first:
+                raise ValueError(
+                    f"ElementWise inputs must share a shape; got {in_shape}")
+        return first
+
+    def apply(self, params, xs, train, gen, group=None):
+        if self.op == "add":
+            out = sum(xs[1:], xs[0])
+        elif self.op == "product":
+            out = xs[0]
+            for x in xs[1:]:
+                out = out * x
+        elif self.op == "subtract":
+            if len(xs) != 2:
+                raise ValueError("subtract takes exactly two inputs")
+            out = xs[0] - xs[1]
+        elif self.op == "average":
+            out = sum(xs[1:], xs[0]) / len(xs)
+        elif self.op == "max":
+            out = xs[0]
+            for x in xs[1:]:
+                out = torch.maximum(out, x)
+        else:
+            raise ValueError(f"unknown ElementWise op {self.op!r}")
+        return self._act(out), None
+
+
+@dataclasses.dataclass
+class ConditionalBatchNorm(Layer):
+    """Conditional BatchNorm (Dumoulin et al. 2017): batch statistics, one
+    running mean/var as in plain BN, and per-class gamma/beta [K, n]
+    selected by a one-hot condition.  Inputs (x, one-hot label).  At init
+    every class row is gamma 1, beta 0: plain BN.  Applies its (inherited)
+    activation after normalizing.  No kernel route: the JAX layer calls
+    the plain op too."""
+
+    num_classes: int = 0
+    n: Optional[int] = None
+    decay: float = 0.9
+    eps: float = 1e-5
+
+    @property
+    def multi_input(self):
+        return True
+
+    def out_shape(self, in_shape):
+        return tuple(in_shape[0])
+
+    def init(self, gen, in_shape):
+        x_shape = in_shape[0]
+        n = self.n if self.n is not None else (
+            x_shape[0] if len(x_shape) == 3 else math.prod(x_shape))
+        if self.num_classes <= 0:
+            raise ValueError("ConditionalBatchNorm needs num_classes > 0")
+        k = self.num_classes
+        return {"gamma": initializers.ones((k, n)),
+                "beta": initializers.zeros((k, n)),
+                "mean": initializers.zeros((n,)),
+                "var": initializers.ones((n,))}
+
+    def apply(self, params, xs, train, gen, group=None):
+        x, y = xs
+        gamma_b = y @ params["gamma"]  # [B, n]: the one-hot row select
+        beta_b = y @ params["beta"]
+        if train:
+            out, new_mean, new_var = batch_norm_train_cond(
+                x, gamma_b, beta_b, params["mean"], params["var"],
+                self.decay, self.eps, group)
+            return self._act(out), {"mean": new_mean, "var": new_var}
+        return self._act(batch_norm_inference_cond(
+            x, gamma_b, beta_b, params["mean"], params["var"], self.eps)), None
+
+
+@dataclasses.dataclass
+class ProjectionOutput(Layer):
+    """Projection discriminator head (Miyato & Koyama 2018):
+    ``logit = phi @ W + b + sum(phi * (y @ V), -1)``, inputs (features,
+    one-hot label).  Carries a ``loss`` like ``Output``.  W: [n_in, 1],
+    V: [K, n_in]."""
+
+    n_in: Optional[int] = None
+    num_classes: int = 0
+    loss: str = "xent"
+
+    @property
+    def multi_input(self):
+        return True
+
+    def out_shape(self, in_shape):
+        return (1,)
+
+    def init(self, gen, in_shape):
+        n_in = self.n_in if self.n_in is not None else math.prod(in_shape[0])
+        k = self.num_classes
+        if k <= 0:
+            raise ValueError("ProjectionOutput needs num_classes > 0")
+        return {"W": initializers.xavier(gen, (n_in, 1), n_in, 1),
+                "b": initializers.zeros((1,)),
+                "V": initializers.xavier(gen, (k, n_in), k, n_in)}
+
+    def apply(self, params, xs, train, gen, group=None):
+        phi, y = xs
+        phi = _as_ff(phi)
+        logit = phi @ params["W"] + params["b"]
+        logit = logit + torch.sum(phi * (y @ params["V"]), dim=-1,
+                                  keepdim=True)
+        return self._act(logit), None

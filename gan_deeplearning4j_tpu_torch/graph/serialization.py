@@ -48,7 +48,8 @@ FORMAT_VERSION = 1
 
 LAYER_TYPES = {cls.__name__: cls for cls in (
     L.Dense, L.Output, L.Conv2D, L.ConvTranspose2D, L.MaxPool2D,
-    L.Upsampling2D, L.BatchNorm, L.Dropout, L.MinibatchStdDev)}
+    L.Upsampling2D, L.BatchNorm, L.Dropout, L.Merge, L.ElementWise,
+    L.ConditionalBatchNorm, L.MinibatchStdDev, L.ProjectionOutput)}
 PREPROCESSOR_TYPES = {"FeedForwardToCnn": FeedForwardToCnn}
 
 # The JAX layer dataclasses' fields, in their order; a field the port's
@@ -65,7 +66,11 @@ _FILE_FIELDS = {
     "Upsampling2D": _BASE + ("size",),
     "BatchNorm": _BASE + ("n", "decay", "eps"),
     "Dropout": _BASE + ("rate",),
+    "Merge": _BASE,
+    "ElementWise": _BASE + ("op",),
+    "ConditionalBatchNorm": _BASE + ("num_classes", "n", "decay", "eps"),
     "MinibatchStdDev": _BASE + ("group_size", "eps"),
+    "ProjectionOutput": _BASE + ("n_in", "num_classes", "loss"),
 }
 
 # updater and schedule kinds by type tag (a config without a tag is

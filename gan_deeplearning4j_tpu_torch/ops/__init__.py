@@ -4,7 +4,9 @@ XLA, and ``ops.cuda`` for what it wrote as Pallas kernels."""
 from gan_deeplearning4j_tpu_torch.ops import activations, clipping, initializers, losses
 from gan_deeplearning4j_tpu_torch.ops.batchnorm import (
     batch_norm_inference,
+    batch_norm_inference_cond,
     batch_norm_train,
+    batch_norm_train_cond,
 )
 from gan_deeplearning4j_tpu_torch.ops.conv import conv2d, conv2d_out_size
 from gan_deeplearning4j_tpu_torch.ops.dense import dense, dropout
@@ -17,7 +19,9 @@ __all__ = [
     "initializers",
     "losses",
     "batch_norm_inference",
+    "batch_norm_inference_cond",
     "batch_norm_train",
+    "batch_norm_train_cond",
     "conv2d",
     "conv2d_out_size",
     "conv_transpose2d",

@@ -6,7 +6,8 @@ graphs, so they are passed in and returned, never hidden in a module
 buffer.  The batch variance is the biased E[x^2] - E[x]^2 and the running
 update is decay*running + (1-decay)*batch — not ``F.batch_norm``'s running
 update, which takes the unbiased variance.  2-D input normalizes per
-feature, 4-D input [B, C, H, W] per channel.  With a data-parallel group
+feature, 4-D input [B, C, H, W] per channel.  The ``_cond`` pair takes a
+per-sample gamma/beta [B, C] (conditional BN).  With a data-parallel group
 the batch statistics are the global batch's (sync-BN).
 """
 
@@ -63,3 +64,39 @@ def batch_norm_inference(x, gamma, beta, running_mean, running_var,
                          eps: float = DEFAULT_EPS) -> torch.Tensor:
     out = (x - _shaped(running_mean, x)) * torch.rsqrt(_shaped(running_var, x) + eps)
     return out * _shaped(gamma, x) + _shaped(beta, x)
+
+
+def _shaped_per_sample(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-sample scale/shift [B, C] broadcast against x."""
+    if x.dim() == 2:
+        return p
+    return p.reshape(p.shape[0], p.shape[1], 1, 1)
+
+
+def batch_norm_train_cond(x, gamma_b, beta_b, running_mean, running_var,
+                          decay: float = DEFAULT_DECAY,
+                          eps: float = DEFAULT_EPS,
+                          group: Optional[mesh.DataGroup] = None):
+    """Conditional BN (Dumoulin et al. 2017): batch-stat normalization with
+    per-sample gamma/beta [B, C] (selected upstream by the condition).  The
+    statistics are class-agnostic, one running mean/var as in plain BN;
+    only the affine is conditioned.  Returns (out, new_mean, new_var)."""
+    dims = _reduce_dims(x)
+    mean = torch.mean(x, dim=dims)
+    m2 = torch.mean(torch.square(x), dim=dims)
+    if group is not None:
+        stats = mesh.all_reduce_mean_diff(torch.stack([mean, m2]), group)
+        mean, m2 = stats[0], stats[1]
+    var = m2 - torch.square(mean)
+    out = (x - _shaped(mean, x)) * torch.rsqrt(_shaped(var, x) + eps)
+    out = out * _shaped_per_sample(gamma_b, x) + _shaped_per_sample(beta_b, x)
+    new_mean = decay * running_mean + (1.0 - decay) * mean
+    new_var = decay * running_var + (1.0 - decay) * var
+    return out, new_mean, new_var
+
+
+def batch_norm_inference_cond(x, gamma_b, beta_b, running_mean, running_var,
+                              eps: float = DEFAULT_EPS) -> torch.Tensor:
+    out = (x - _shaped(running_mean, x)) * torch.rsqrt(
+        _shaped(running_var, x) + eps)
+    return out * _shaped_per_sample(gamma_b, x) + _shaped_per_sample(beta_b, x)

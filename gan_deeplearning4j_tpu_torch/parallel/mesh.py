@@ -195,26 +195,58 @@ def reducer(group: Optional[DataGroup]):
 
 # -- one process per rank ----------------------------------------------------
 
+class RankFailedError(RuntimeError):
+    """One or more ranks of a ``spawn`` raised.  ``failures`` holds, per
+    failed rank, ``(rank, class names, traceback)``: the names are the
+    exception's class and its bases (its MRO), so the parent can classify a
+    failure by class across the process boundary, as ``isinstance`` would
+    in the rank (``has_class``)."""
+
+    def __init__(self, failures: Sequence[Tuple[int, Tuple[str, ...], str]]):
+        self.failures = list(failures)
+        super().__init__("data-parallel rank failed:\n" + "\n".join(
+            f"rank {rank} ({names[0]}):\n{tb}"
+            for rank, names, tb in self.failures))
+
+    def has_class(self, *names: str) -> bool:
+        """Whether any failed rank raised an instance of a class named in
+        ``names`` (a subclass counts)."""
+        return any(set(names) & set(cls) for _, cls, _ in self.failures)
+
+
+def _failure(e: BaseException) -> Tuple[Tuple[str, ...], str]:
+    return (tuple(c.__name__ for c in type(e).__mro__),
+            traceback.format_exc())
+
+
 def _rank_main(fn, rank, world, init_method, device, args, results):
     if device == "cpu":
         torch.set_num_threads(1)
     try:
         group = data_group(rank, world, init_method, device)
-        results.put((rank, "joined", None))
-        try:
-            out = fn(group, *args)
-        finally:
-            group.close()
-        results.put((rank, "done", out))
-    except BaseException:  # reported to the parent, which raises
-        results.put((rank, "failed", traceback.format_exc()))
+    except BaseException as e:  # reported to the parent, which raises
+        results.put((rank, "failed", _failure(e)))
         raise
+    results.put((rank, "joined", None))
+    try:
+        out = fn(group, *args)
+    except BaseException as e:
+        # reported before the group is left: leaving may wait on peers
+        # that sit in a collective with this rank
+        results.put((rank, "failed", _failure(e)))
+        raise
+    finally:
+        group.close()
+    results.put((rank, "done", out))
 
 
 # seconds a spawned rank may take from its start to joining the group: a
 # fresh interpreter imports torch and the job's module first, slowly on a
 # loaded host
 JOIN_TIMEOUT_S = 300.0
+# seconds the other ranks get, once one rank has failed or died, to report
+# their own errors before they are killed
+FAIL_GRACE_S = 5.0
 
 
 def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
@@ -229,7 +261,11 @@ def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
     seconds from the start to join the group; ``timeout`` counts from the
     moment the last rank joined.  A child that fails, or misses either
     limit, fails the call: stragglers are killed, and no process outlives
-    it.  ``forward_signals``: signals this process passes on to every live
+    it.  The call fails fast: once one rank reports a failure or dies, the
+    others get FAIL_GRACE_S seconds to report theirs (a rank left in a
+    collective with the failed one never returns), then all are killed and
+    ``RankFailedError`` names every failure with its class.
+    ``forward_signals``: signals this process passes on to every live
     rank while it waits (a scheduler's SIGTERM to the parent reaches the
     ranks' preemption guards); call from the main thread."""
     import signal
@@ -264,9 +300,8 @@ def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
                 rank, what, out = results.get(timeout=min(left, 1.0))
             except queue_lib.Empty:
                 if any(p.exitcode not in (None, 0) for p in procs):
-                    # a rank died without reporting; give the others a
-                    # moment to report their own errors, then stop
-                    grace = min(grace, time.monotonic() + 5.0)
+                    # a rank died without reporting
+                    grace = min(grace, time.monotonic() + FAIL_GRACE_S)
                 continue
             if what == "joined":
                 joined.add(rank)
@@ -275,9 +310,12 @@ def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
             elif what == "done":
                 got[rank] = out
             else:
-                failed.append(f"rank {rank}:\n{out}")
-        for p in procs:
-            p.join(max(0.0, min(deadline, grace) - time.monotonic()) + 5.0)
+                failed.append((rank, *out))
+                grace = min(grace, time.monotonic() + FAIL_GRACE_S)
+        if not failed:
+            for p in procs:
+                p.join(max(0.0, min(deadline, grace) - time.monotonic())
+                       + 5.0)
     finally:
         for s, handler in prev.items():
             signal.signal(s, handler)
@@ -289,7 +327,7 @@ def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
         results.close()
         shutil.rmtree(tmp, ignore_errors=True)
     if failed:
-        raise RuntimeError("data-parallel rank failed:\n" + "\n".join(failed))
+        raise RankFailedError(failed)
     codes = {p.name: p.exitcode for p in procs}
     if len(joined) < world:
         raise RuntimeError(f"ranks {sorted(set(range(world)) - joined)} did "

@@ -12,18 +12,26 @@ then, with ``ema_decay``, the generator EMA.
     a second-order backward through the critic (run in inference mode).
   - G-step: D in inference mode (running BN statistics), the gradient
     taken over G's leaves only (D's params never require grad);
-    ``ms_weight`` adds the mode-seeking term on a second latent z2.
+    ``ms_weight`` adds the mode-seeking term on a second latent z2 (with
+    the same condition).
 Labels: the D-step's real label is ``real_label`` in ``gan`` mode and 1 in
 ``wgan-gp``; the fake label 0, or -1 in ``wgan-gp``; the G-step's 1.
+
+A conditional pair (a generator with a second input, cgan-cifar10's
+one-hot ``label``) feeds the condition to both graphs under that input's
+name: the D-step conditions G's fakes and D's real and fake halves on the
+real rows' labels, the G-step draws rows of its own and conditions on
+their labels (the JAX multistep's rule).
 
 Random draws.  The JAX package derives each iteration's draws from the
 iteration count (``fold_in(key0, it)``); torch cannot reproduce threefry,
 so the port draws from one sequential ``torch.Generator`` (``z_gen``), in
 this order per iteration: for each D-step the batch rows (uniform with
 replacement), z ~ U[-1, 1) and, in ``wgan-gp``, alpha ~ U[0, 1) [B, 1];
-then the G-step's z and, with ``ms_weight``, z2.  A checkpoint therefore
-saves the generator's state.  Tests inject the JAX draws instead
-(``Draws``).
+then, for a conditional pair only, the G-step's rows; then the G-step's z
+and, with ``ms_weight``, z2 (an unconditional pair draws no G-step
+rows).  A checkpoint therefore saves the generator's state.  Tests inject the JAX
+draws instead (``Draws``).
 
 On one card ``make_multistep`` captures one iteration as a CUDA graph
 (``fused_step.GraphedStep``) and a call replays it K times; on the CPU the
@@ -40,6 +48,7 @@ import torch
 from gan_deeplearning4j_tpu_torch.graph.graph import ComputationGraph
 from gan_deeplearning4j_tpu_torch.graph.layers import (
     BatchNorm,
+    ConditionalBatchNorm,
     MinibatchStdDev,
 )
 from gan_deeplearning4j_tpu_torch.ops import losses as loss_lib
@@ -68,13 +77,15 @@ class Draws(NamedTuple):
     """One iteration's random inputs, injected in place of ``z_gen``'s:
     per D-step the batch rows [B] (int64), z [B, z_size] and, in
     ``wgan-gp``, alpha [B, 1]; the G-step's z and, with ``ms_weight``,
-    z2."""
+    z2; for a conditional pair the G-step's rows [B] (int64), whose labels
+    condition it."""
 
     d_idx: List[torch.Tensor]
     d_z: List[torch.Tensor]
     d_alpha: Optional[List[torch.Tensor]]
     g_z: torch.Tensor
     g_z2: Optional[torch.Tensor] = None
+    g_idx: Optional[torch.Tensor] = None
 
 
 def _detach(tree: Tree) -> Tree:
@@ -123,7 +134,9 @@ class GANPair:
             # gradient of the summed critic output: exact only for a critic
             # that couples no examples
             coupled = [name for name, node in dis.nodes.items()
-                       if isinstance(node.layer, (BatchNorm, MinibatchStdDev))]
+                       if isinstance(node.layer, (BatchNorm,
+                                                  ConditionalBatchNorm,
+                                                  MinibatchStdDev))]
             if coupled:
                 raise ValueError(
                     f"a wgan-gp critic must not couple examples; {coupled} "
@@ -131,6 +144,15 @@ class GANPair:
         if gen.device != dis.device:
             raise ValueError(f"gen on {gen.device}, dis on {dis.device}")
         self.gen, self.dis = gen, dis
+        # the condition's input name (the generator's second input), fed
+        # to both graphs; None for an unconditional pair
+        self.label_name = (gen.input_names[1] if len(gen.input_names) > 1
+                           else None)
+        if self.label_name is not None and \
+                self.label_name not in dis.input_names:
+            raise ValueError(
+                f"the generator is conditioned on {self.label_name!r}, which "
+                f"the discriminator does not take ({dis.input_names})")
         self.mode = mode
         self.gp_weight = float(gp_weight)
         self.ms_weight = float(ms_weight)
@@ -140,15 +162,25 @@ class GANPair:
 
     # -- pure forwards -----------------------------------------------------
 
-    def _gen_forward(self, params: Tree, z: torch.Tensor, train: bool):
+    def _cond(self, cond: Optional[torch.Tensor]) -> Dict:
+        if (cond is None) != (self.label_name is None):
+            raise ValueError(
+                "a conditional pair needs its condition and an "
+                "unconditional one takes none" if cond is None else
+                "an unconditional pair takes no condition")
+        return {} if cond is None else {self.label_name: cond}
+
+    def _gen_forward(self, params: Tree, z: torch.Tensor, train: bool,
+                     cond: Optional[torch.Tensor] = None):
         values, updates = self.gen._forward(
-            params, {self.gen.input_names[0]: z}, train)
+            params, {self.gen.input_names[0]: z, **self._cond(cond)}, train)
         out = values[self.gen.output_names[0]]
         return out.reshape(out.shape[0], -1), updates  # flat, dis-input layout
 
-    def _dis_forward(self, params: Tree, x: torch.Tensor, train: bool):
+    def _dis_forward(self, params: Tree, x: torch.Tensor, train: bool,
+                     cond: Optional[torch.Tensor] = None):
         values, updates = self.dis._forward(
-            params, {self.dis.input_names[0]: x}, train)
+            params, {self.dis.input_names[0]: x, **self._cond(cond)}, train)
         return values[self.dis.output_names[0]], updates
 
     def _dis_loss(self, out: torch.Tensor, labels: torch.Tensor):
@@ -160,16 +192,25 @@ class GANPair:
 
     def _d_step(self, pd: Tree, od: Tree, pg: Tree, real: torch.Tensor,
                 z: torch.Tensor, y_real: torch.Tensor, y_fake: torch.Tensor,
-                alpha: Optional[torch.Tensor] = None):
-        """-> (new dis params, new dis updater state, loss)."""
+                alpha: Optional[torch.Tensor] = None,
+                cond_real: Optional[torch.Tensor] = None,
+                cond_fake: Optional[torch.Tensor] = None,
+                z_cond: Optional[torch.Tensor] = None):
+        """-> (new dis params, new dis updater state, loss).  A conditional
+        pair's D sees ``cond_real`` / ``cond_fake`` beside its halves, and
+        G makes the fakes from ``z_cond`` (default: ``cond_fake``)."""
+        z_cond = cond_fake if z_cond is None else z_cond
         with torch.no_grad():
-            fake, _ = self._gen_forward(pg, z, False)
+            fake, _ = self._gen_forward(pg, z, False, z_cond)
+        cond = None if cond_real is None else torch.cat([cond_real, cond_fake])
         leaves = _grad_leaves(pd)
-        out, updates = self._dis_forward(leaves, torch.cat([real, fake]), True)
+        out, updates = self._dis_forward(leaves, torch.cat([real, fake]),
+                                         True, cond)
         loss = self._dis_loss(out, torch.cat([y_real, y_fake]))
         if self.mode == "wgan-gp":
+            # the penalty's critic: inference mode, the real rows' labels
             gp = loss_lib.gradient_penalty(
-                lambda xi: self._dis_forward(leaves, xi, False)[0],
+                lambda xi: self._dis_forward(leaves, xi, False, cond_real)[0],
                 real, fake, alpha)
             loss = loss + self.gp_weight * gp
         grads = _grads(loss, leaves)
@@ -179,14 +220,20 @@ class GANPair:
         return new_params, new_opt, loss.detach()
 
     def _g_step(self, pg: Tree, og: Tree, pd: Tree, z: torch.Tensor,
-                y_gen: torch.Tensor, z2: Optional[torch.Tensor] = None):
-        """-> (new gen params, new gen updater state, loss)."""
+                y_gen: torch.Tensor, z2: Optional[torch.Tensor] = None,
+                cond_fake: Optional[torch.Tensor] = None,
+                z_cond: Optional[torch.Tensor] = None):
+        """-> (new gen params, new gen updater state, loss).  A conditional
+        pair's G makes its fakes (and the mode-seeking z2's) from
+        ``z_cond`` (default: ``cond_fake``), and D judges them under
+        ``cond_fake``."""
+        z_cond = cond_fake if z_cond is None else z_cond
         leaves = _grad_leaves(pg)
-        fake, updates = self._gen_forward(leaves, z, True)
-        out, _ = self._dis_forward(pd, fake, False)
+        fake, updates = self._gen_forward(leaves, z, True, z_cond)
+        out, _ = self._dis_forward(pd, fake, False, cond_fake)
         loss = self._dis_loss(out, y_gen)
         if self.ms_weight:
-            fake2, _ = self._gen_forward(leaves, z2, True)
+            fake2, _ = self._gen_forward(leaves, z2, True, z_cond)
             img_d = torch.mean(torch.abs(fake - fake2))
             z_d = torch.mean(torch.abs(z - z2))
             loss = loss + self.ms_weight / (img_d / (z_d + 1e-8) + 1e-5)
@@ -201,13 +248,15 @@ class GANPair:
     def iteration(self, batch_size: int, n_critic: int, z_size: int,
                   ema_decay: float = 0.0):
         """One iteration as a step of ``fused_step``'s calling convention:
-        ``(state, table, y_real, y_fake, y_gen, z_gen=None, draws=None) ->
-        (state', (d_loss, g_loss))``, the draws from ``z_gen`` unless
-        ``draws`` (a ``Draws``) is given."""
+        ``(state, table, y_real, y_fake, y_gen, table_cond=None,
+        z_gen=None, draws=None) -> (state', (d_loss, g_loss))``, the draws
+        from ``z_gen`` unless ``draws`` (a ``Draws``) is given;
+        ``table_cond`` [n, K] holds a conditional pair's row labels (the
+        rows it gathers live in the graph's pool, as the table's do)."""
         B, wgan = batch_size, self.mode == "wgan-gp"
 
         def one(state: PairState, table, y_real, y_fake, y_gen,
-                z_gen: Optional[torch.Generator] = None,
+                table_cond=None, z_gen: Optional[torch.Generator] = None,
                 draws: Optional[Draws] = None):
             pg, og, pd, od, it, ema = state
             if draws is None:
@@ -215,14 +264,21 @@ class GANPair:
                     raise ValueError("pass z_gen or draws")
                 draws = self.draw(z_gen, table.shape[0], B, n_critic, z_size,
                                   table.device)
+
+            def cond_of(idx):
+                return (None if table_cond is None
+                        else table_cond.index_select(0, idx))
+
             d_loss = None
             for j in range(n_critic):
+                c = cond_of(draws.d_idx[j])
                 pd, od, d_loss = self._d_step(
                     pd, od, pg, table.index_select(0, draws.d_idx[j]),
                     draws.d_z[j], y_real, y_fake,
-                    draws.d_alpha[j] if wgan else None)
-            pg, og, g_loss = self._g_step(pg, og, pd, draws.g_z, y_gen,
-                                          draws.g_z2)
+                    draws.d_alpha[j] if wgan else None, c, c)
+            pg, og, g_loss = self._g_step(
+                pg, og, pd, draws.g_z, y_gen, draws.g_z2,
+                None if table_cond is None else cond_of(draws.g_idx))
             if ema_decay:
                 ema = ema_lib.ema_update(ema, pg, ema_decay)
             return PairState(pg, og, pd, od, it + 1, ema), (d_loss, g_loss)
@@ -241,10 +297,13 @@ class GANPair:
             if wgan:
                 alphas.append(torch.rand((B, 1), generator=z_gen,
                                          device=device))
+        g_idx = (torch.randint(0, n_rows, (B,), generator=z_gen,
+                               device=device)
+                 if self.label_name is not None else None)
         z = _uniform((B, z_size), -1.0, 1.0, z_gen, device)
         z2 = (_uniform((B, z_size), -1.0, 1.0, z_gen, device)
               if self.ms_weight else None)
-        return Draws(idx, zs, alphas if wgan else None, z, z2)
+        return Draws(idx, zs, alphas if wgan else None, z, z2, g_idx)
 
     def label_vectors(self, batch_size: int, real_label: float = 1.0):
         """(y_real, y_fake, y_gen) [B, 1] on the pair's device."""
@@ -273,11 +332,13 @@ class GANPair:
         times and returns the state and the losses read back to the host.
         ``z_gen`` (default: ``prng.generator(gen.seed, "pair-multi")`` on
         the table's device) is registered with the graph.  ``start_step``
-        seeds the counter; a resumed run also restores ``z_gen``."""
-        if table_cond is not None:
-            raise NotImplementedError(
-                "conditional tables (cgan-cifar10) are not ported yet "
-                "(ROADMAP Queue 1 item 8)")
+        seeds the counter; a resumed run also restores ``z_gen``.
+        ``table_cond`` [n, K]: a conditional pair's one-hot row labels,
+        resident beside the table (required for it, refused otherwise)."""
+        if (table_cond is None) != (self.label_name is None):
+            raise ValueError(
+                "a conditional pair needs table_cond" if table_cond is None
+                else "an unconditional pair takes no table_cond")
         if int(steps_per_call) != steps_per_call or steps_per_call < 1:
             raise ValueError(f"steps_per_call must be a positive int, got "
                              f"{steps_per_call}")
@@ -288,6 +349,8 @@ class GANPair:
             z_gen = prng.generator(self.gen.seed, "pair-multi", dev)
         one = self.iteration(batch_size, n_critic, z_size, ema_decay)
         inputs = (table_x,) + self.label_vectors(batch_size, real_label)
+        if table_cond is not None:
+            inputs += (table_cond,)
         state0 = PairState(
             self.gen.params, self.gen.opt_state, self.dis.params,
             self.dis.opt_state,
@@ -333,20 +396,38 @@ class GANPair:
 
     # -- public single steps ---------------------------------------------------
 
-    @staticmethod
-    def _z(z_inputs) -> torch.Tensor:
-        if isinstance(z_inputs, dict):
-            if len(z_inputs) != 1:
-                raise NotImplementedError(
-                    "conditional inputs are not ported yet (ROADMAP Queue 1 "
-                    "item 8)")
-            return next(iter(z_inputs.values()))
-        return z_inputs
+    def _z(self, z_inputs):
+        """(z, the generator's condition or None) from a tensor or a dict
+        by input name."""
+        if not isinstance(z_inputs, dict):
+            return z_inputs, None
+        unknown = set(z_inputs) - set(self.gen.input_names)
+        if unknown:
+            raise ValueError(f"unknown generator inputs {sorted(unknown)}")
+        return (z_inputs[self.gen.input_names[0]],
+                z_inputs.get(self.label_name) if self.label_name else None)
 
-    def d_step(self, real: torch.Tensor, z_inputs, y_real=None, y_fake=None,
+    @staticmethod
+    def _one(cond) -> Optional[torch.Tensor]:
+        """A condition (a tensor, or the JAX API's {input name: labels})
+        -> its one tensor, or None when empty."""
+        if cond is None or isinstance(cond, torch.Tensor):
+            return cond
+        if not cond:
+            return None
+        if len(cond) != 1:
+            raise ValueError(f"one condition input, got {sorted(cond)}")
+        return next(iter(cond.values()))
+
+    def d_step(self, real: torch.Tensor, z_inputs, cond_real=None,
+               cond_fake=None, y_real=None, y_fake=None,
                alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One D-step on the graphs' own state -> the loss.  Targets default
-        to 1 and 0 (-1 in ``wgan-gp``); ``alpha`` defaults to a draw."""
+        """One D-step on the graphs' own state -> the loss.  ``z_inputs``:
+        z, or a dict by the generator's input names (z and, for a
+        conditional pair, the fakes' labels); ``cond_real`` /
+        ``cond_fake``: D's labels for the halves ({input name: labels}).
+        Targets default to 1 and 0 (-1 in ``wgan-gp``); ``alpha`` defaults
+        to a draw."""
         B = real.shape[0]
         if y_real is None:
             y_real = torch.ones((B, 1), device=self.device)
@@ -355,22 +436,25 @@ class GANPair:
                       else torch.zeros((B, 1), device=self.device))
         if self.mode == "wgan-gp" and alpha is None:
             alpha = torch.rand((B, 1), generator=self._gen, device=self.device)
+        z, z_cond = self._z(z_inputs)
         self.dis.params, self.dis.opt_state, loss = self._d_step(
-            self.dis.params, self.dis.opt_state, self.gen.params, real,
-            self._z(z_inputs), y_real, y_fake, alpha)
+            self.dis.params, self.dis.opt_state, self.gen.params, real, z,
+            y_real, y_fake, alpha, self._one(cond_real), self._one(cond_fake),
+            z_cond)
         self.dis.score = loss
         return loss
 
-    def g_step(self, z_inputs, y_gen=None,
+    def g_step(self, z_inputs, cond_fake=None, y_gen=None,
                z2: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One G-step on the graphs' own state -> the loss."""
-        z = self._z(z_inputs)
+        """One G-step on the graphs' own state -> the loss.  ``z_inputs``
+        as ``d_step``'s; ``cond_fake``: D's labels for the fakes."""
+        z, z_cond = self._z(z_inputs)
         if y_gen is None:
             y_gen = torch.ones((z.shape[0], 1), device=self.device)
         if self.ms_weight and z2 is None:
             z2 = _uniform(tuple(z.shape), -1.0, 1.0, self._gen, self.device)
         self.gen.params, self.gen.opt_state, loss = self._g_step(
-            self.gen.params, self.gen.opt_state, self.dis.params, z, y_gen, z2)
+            self.gen.params, self.gen.opt_state, self.dis.params, z, y_gen,
+            z2, self._one(cond_fake), z_cond)
         self.gen.score = loss
         return loss
-

@@ -60,7 +60,9 @@ Supervision (the JAX trainer's, in its checkpoint format):
   - the data plane: retries on transient read errors (``data_retries``)
     and a corrupt-record quarantine (``max_quarantine``);
   - ``train_with_recovery`` / ``run_with_recovery``: restart after a
-    retryable failure from the newest checkpoint.
+    retryable failure from the newest checkpoint; a data-parallel world
+    restarts as a whole (``spawn_with_recovery``: one failed rank
+    re-spawns every rank).
 The watchdog, the divergence sentinel, rollback and telemetry are not
 ported yet (ROADMAP Queue 1 item 6).
 """
@@ -294,61 +296,36 @@ def advance_latents(z_gen: torch.Generator, steps: int, batch_size: int,
         torch.rand((batch_size, z_size), generator=z_gen, device=device)
 
 
-def train_with_recovery(make_trainer: Callable[[bool], "GANTrainer"],
-                        max_restarts: int = 2,
-                        log: Optional[Callable[[str], None]] = print,
-                        backoff_base_s: float = 1.0,
-                        backoff_max_s: float = 30.0) -> Dict:
-    """Run ``make_trainer(resume).train()``; after a retryable failure,
-    build a new trainer that resumes from the newest checkpoint (the JAX
-    package's classification):
+# the failures a restart would only replay (configuration and checkpoint
+# structure mismatches, a corrupt explicit checkpoint, the quarantine
+# budget): re-raised at once
+FATAL_CLASSES = (ValueError, TypeError, CheckpointCorruptError,
+                 DataQuarantineError)
 
-    * fatal, re-raised at once: ``ValueError``/``TypeError`` (configuration
-      and checkpoint structure mismatches), ``CheckpointCorruptError`` and
-      ``DataQuarantineError`` (a restart replays the same failure);
-    * ``PreemptionError`` is re-raised: the emergency checkpoint is on disk
-      and the scheduler restarts the job (the mains exit 75);
-    * everything else is retried, with backoff ``backoff_base_s * 2^n``
-      (capped) and jitter x[0.5, 1.5).  The budget is progress-aware: a
-      failure at a later step than the previous one resets it.
 
-    The failed incarnation's checkpointer is quiesced (an async save in
-    flight becomes durable, its worker is reaped) before the next trainer
-    is built.  The JAX wrapper's further classes (watchdog timeouts,
-    rollback requests, NaN alarms, divergence) come with the next slice
-    and are not caught here.  Under a data-parallel group each rank runs
-    its own wrapper: a failure that reaches every rank restarts them all,
-    while one rank failing alone leaves the others in a collective until
-    ``mesh.spawn``'s timeout."""
-
-    def quiesce_checkpointer(trainer) -> None:
-        ck_close = getattr(getattr(trainer, "checkpointer", None), "close",
-                           None)
-        if ck_close is not None:
-            try:
-                ck_close()
-            except Exception as ce:
-                if log is not None:
-                    log(f"checkpoint writer failed during restart quiesce "
-                        f"({ce!r}); the restart falls back to the previous "
-                        "verified checkpoint")
-
+def _recover(run_once: Callable[[bool], Dict], failure_step: Callable,
+             is_fatal: Callable[[BaseException], bool], cleanup: Callable,
+             max_restarts: int, log: Optional[Callable[[str], None]],
+             backoff_base_s: float, backoff_max_s: float) -> Dict:
+    """The restart loop both recovery wrappers share: ``run_once(resume)``
+    until it returns; ``PreemptionError`` and the fatal class re-raise;
+    anything else is retried after ``cleanup(e)``, with resume, backoff
+    ``backoff_base_s * 2^n`` (capped) and jitter x[0.5, 1.5), while the
+    progress-aware budget lasts: a failure at a later ``failure_step(e)``
+    than the previous one resets it."""
     attempt = 0
     resume_next = False
     last_failure_step: Optional[int] = None
     while True:
-        trainer = None
         try:
-            trainer = make_trainer(resume_next)
-            return trainer.train(log=log)
+            return run_once(resume_next)
         except (KeyboardInterrupt, PreemptionError):
             raise
-        except (ValueError, TypeError, CheckpointCorruptError,
-                DataQuarantineError):
-            raise  # fatal class: a restart replays the same failure
-        except Exception as e:  # retryable class
-            quiesce_checkpointer(trainer)
-            step = int(getattr(trainer, "steps", 0) or 0)
+        except Exception as e:
+            if is_fatal(e):
+                raise  # a restart replays the same failure
+            cleanup(e)
+            step = int(failure_step(e) or 0)
             if last_failure_step is not None and step > last_failure_step:
                 attempt = 0  # progress since the last failure
             last_failure_step = step
@@ -367,6 +344,89 @@ def train_with_recovery(make_trainer: Callable[[bool], "GANTrainer"],
                     + (f" after {delay:.1f}s backoff" if delay else ""))
             if delay:
                 time.sleep(delay)
+
+
+def train_with_recovery(make_trainer: Callable[[bool], "GANTrainer"],
+                        max_restarts: int = 2,
+                        log: Optional[Callable[[str], None]] = print,
+                        backoff_base_s: float = 1.0,
+                        backoff_max_s: float = 30.0) -> Dict:
+    """Run ``make_trainer(resume).train()``; after a retryable failure,
+    build a new trainer that resumes from the newest checkpoint (the JAX
+    package's classification):
+
+    * fatal, re-raised at once: ``FATAL_CLASSES`` (a restart replays the
+      same failure);
+    * ``PreemptionError`` is re-raised: the emergency checkpoint is on disk
+      and the scheduler restarts the job (the mains exit 75);
+    * everything else is retried, with backoff ``backoff_base_s * 2^n``
+      (capped) and jitter x[0.5, 1.5).  The budget is progress-aware: a
+      failure at a later step than the previous one resets it.
+
+    The failed incarnation's checkpointer is quiesced (an async save in
+    flight becomes durable, its worker is reaped) before the next trainer
+    is built.  The JAX wrapper's further classes (watchdog timeouts,
+    rollback requests, NaN alarms, divergence) come with the next slice
+    and are not caught here.  A data-parallel world recovers as a whole
+    (``spawn_with_recovery``): its ranks run without this wrapper."""
+    box: Dict = {}
+
+    def run_once(resume: bool) -> Dict:
+        box["trainer"] = None
+        box["trainer"] = make_trainer(resume)
+        return box["trainer"].train(log=log)
+
+    def quiesce_checkpointer(e) -> None:
+        ck_close = getattr(getattr(box["trainer"], "checkpointer", None),
+                           "close", None)
+        if ck_close is not None:
+            try:
+                ck_close()
+            except Exception as ce:
+                if log is not None:
+                    log(f"checkpoint writer failed during restart quiesce "
+                        f"({ce!r}); the restart falls back to the previous "
+                        "verified checkpoint")
+
+    return _recover(run_once,
+                    lambda e: getattr(box["trainer"], "steps", 0),
+                    lambda e: isinstance(e, FATAL_CLASSES),
+                    quiesce_checkpointer, max_restarts, log,
+                    backoff_base_s, backoff_max_s)
+
+
+def spawn_with_recovery(launch: Callable[[bool], Dict], checkpoint_dir: str,
+                        max_restarts: int = 2,
+                        log: Optional[Callable[[str], None]] = print,
+                        backoff_base_s: float = 1.0,
+                        backoff_max_s: float = 30.0) -> Dict:
+    """Whole-world recovery of a data-parallel run: ``launch(resume)``
+    spawns every rank (``mesh.spawn``) and returns rank 0's result.  When a
+    rank fails, ``mesh.spawn`` kills the others after a short grace and
+    raises ``RankFailedError`` with each failure's class names; this
+    wrapper then re-spawns the whole world with ``resume`` from the newest
+    checkpoint the ranks verify, under ``train_with_recovery``'s rules: a
+    rank of a fatal class (by name, subclasses included) re-raises at once,
+    a preempted world returns its result, anything else is retried with the
+    same backoff and budget.  A world's progress is the newest verified
+    checkpoint's step under ``checkpoint_dir`` (the ranks' own step does
+    not cross the process boundary): a failure after a newer checkpoint
+    resets the budget."""
+    fatal = tuple(c.__name__ for c in FATAL_CLASSES)
+
+    def is_fatal(e: BaseException) -> bool:
+        if isinstance(e, mesh.RankFailedError):
+            return e.has_class(*fatal)
+        return isinstance(e, FATAL_CLASSES)
+
+    def newest_checkpoint(e) -> int:
+        if not os.path.isdir(checkpoint_dir):
+            return 0
+        ck = TrainCheckpointer(checkpoint_dir, sweep_debris=False)
+        return ck.latest_verified_step() or 0
+
+    return _recover(launch, newest_checkpoint, is_fatal, lambda e: None,
+                    max_restarts, log, backoff_base_s, backoff_max_s)
 
 
 def add_recovery_args(parser) -> None:

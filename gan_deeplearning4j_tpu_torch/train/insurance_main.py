@@ -31,7 +31,9 @@ data-parallel in N processes (rank r on card r over NCCL; gloo ranks with
 ``--device cpu``); ``--dp-mode param_averaging`` runs the unfused per-fit
 loop.  Supervision, as in the JAX program: ``--checkpoint-every N``
 (checkpoints in the JAX format under ``res-path/checkpoints``),
-``--resume``, ``--max-restarts``, ``--async-checkpoint``,
+``--resume``, ``--max-restarts`` (with ``--n-devices``, one failed rank
+restarts the whole world from the newest checkpoint),
+``--async-checkpoint``,
 ``--preempt-signal SIG`` (an emergency checkpoint, ``PREEMPTED.json`` and
 exit code 75), ``--data-retries`` and ``--max-quarantine``.  The JAX
 program's lattice PNGs and telemetry are not ported.
@@ -62,6 +64,7 @@ from gan_deeplearning4j_tpu_torch.train.gan_trainer import (
     recovery_config_kwargs,
     resolve_n_devices,
     run_with_recovery,
+    spawn_with_recovery,
 )
 from gan_deeplearning4j_tpu_torch.train.preemption import (
     EXIT_PREEMPTED,
@@ -188,8 +191,9 @@ def _train_and_evaluate(args: argparse.Namespace, config: GANTrainerConfig,
             device=args.device, group=group, config=c,
             workload=InsuranceWorkload(M.InsuranceConfig(seed=args.seed)))
 
+    # a data-parallel world recovers as a whole, in the parent (``run``)
     trainer, result = run_with_recovery(
-        make_trainer, max_restarts=args.max_restarts,
+        make_trainer, max_restarts=args.max_restarts if group is None else 0,
         log=print if rank0 else None)
     if rank0:
         result.update(evaluate(trainer))
@@ -229,10 +233,21 @@ def run(args: argparse.Namespace, timeout: float = 3600.0, **overrides
     datasets.ensure_insurance_csv(args.res_path)
     csv_s = time.perf_counter() - t0
     dev = backend.resolve_device(args.device)
-    result = mesh.spawn(
-        _rank, world, (args, config), device=dev.type, timeout=timeout,
-        forward_signals=parse_signals(config.preempt_signals)
-        if config.preempt_signals else ())[0]
+
+    def launch(resume: bool) -> Dict:
+        c = dataclasses.replace(config, resume=True) if resume else config
+        return mesh.spawn(
+            _rank, world, (args, c), device=dev.type, timeout=timeout,
+            forward_signals=parse_signals(config.preempt_signals)
+            if config.preempt_signals else ())[0]
+
+    if args.max_restarts > 0:
+        # one failed rank restarts the whole world from the checkpoint
+        result = spawn_with_recovery(
+            launch, os.path.join(args.res_path, "checkpoints"),
+            max_restarts=args.max_restarts)
+    else:
+        result = launch(False)
     if not result.get("preempted"):
         result["host_seconds"]["csv_ready_s"] = csv_s
     return None, result

@@ -6,9 +6,10 @@ Builds the trainer on the GPU (which captures the step as a CUDA graph):
 ``--workload cv`` (the default) the DCGAN's on an in-memory MNIST table of
 ``--n-train`` rows at batch 200, ``--workload insurance`` the insurance
 program's on its CSV pair (written to a temporary directory) at batch 50,
-``--workload celeba`` / ``wgan-gp`` a roadmap family's ``GANPair``
-iteration (n_critic D-steps and a G-step, ``roadmap_main``'s build and
-surrogate table of ``--n-train`` rows) at batch 128, and profiles calls of
+``--workload celeba`` / ``wgan-gp`` / ``cgan-cifar10`` a roadmap family's
+``GANPair`` iteration (n_critic D-steps and a G-step, ``roadmap_main``'s
+build and surrogate table of ``--n-train`` rows, with its labels for the
+conditional family) at batch 128, and profiles calls of
 ``--steps`` steps, each ending in one readback of its losses: by default
 the graphed step (``--steps`` replays a call), with ``--eager`` the eager
 step, called directly on a copy of the trainer's state (the trainer itself
@@ -61,10 +62,10 @@ def main(argv=None) -> Dict:
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--workload", default="cv",
-                   choices=["cv", "insurance", *roadmap_main.PORTED_FAMILIES])
+                   choices=["cv", "insurance", *roadmap_main.FAMILIES])
     p.add_argument("--batch-size", type=int, default=None,
-                   help="default: 200 (cv), 50 (insurance), 128 (celeba, "
-                        "wgan-gp)")
+                   help="default: 200 (cv), 50 (insurance), 128 (the "
+                        "roadmap families)")
     p.add_argument("--n-train", type=int, default=10000)
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--eager", action="store_true",
@@ -74,7 +75,7 @@ def main(argv=None) -> Dict:
     if args.batch_size is None:
         args.batch_size = {"cv": 200, "insurance": 50}.get(
             args.workload, roadmap_main.DEFAULT_BATCH_SIZE)
-    if args.workload in roadmap_main.PORTED_FAMILIES:
+    if args.workload in roadmap_main.FAMILIES:
         return _profile(args, *_pair_calls(args))
     if args.workload == "cv":
         trainer = GANTrainer(M.CVConfig(), batch_size=args.batch_size,
@@ -113,10 +114,12 @@ def _pair_calls(args):
     """(call, capture set-up or None) for a roadmap family's iteration:
     K = ``--steps`` iterations a call, graphed or (``--eager``) eager."""
     pair, cfg, _ = roadmap_main._build(args.workload, "cuda")
-    table = torch.from_numpy(roadmap_main._data(
-        args.workload, args.n_train, prng.NUMBER_OF_THE_BEAST)).cuda()
+    x, y = roadmap_main._data(args.workload, args.n_train,
+                              prng.NUMBER_OF_THE_BEAST)
     step, box = pair.make_multistep(
-        table, batch_size=args.batch_size, steps_per_call=args.steps,
+        torch.from_numpy(x).cuda(),
+        None if y is None else torch.from_numpy(y).cuda(),
+        batch_size=args.batch_size, steps_per_call=args.steps,
         n_critic=getattr(cfg, "n_critic", 1),
         real_label=getattr(cfg, "real_label", 1.0), z_size=cfg.z_size,
         graphed=not args.eager)

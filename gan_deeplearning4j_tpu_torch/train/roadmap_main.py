@@ -1,22 +1,26 @@
 """Roadmap model-family trainer (torch twin of ``gan_deeplearning4j_tpu/
-train/roadmap_main.py``, the families ``celeba`` and ``wgan-gp``) on the
-two-graph ``GANPair`` engine.
+train/roadmap_main.py``, the families ``celeba``, ``wgan-gp`` and
+``cgan-cifar10``) on the two-graph ``GANPair`` engine.
 
 Run: ``python -m gan_deeplearning4j_tpu_torch.train.roadmap_main --family
 celeba --res-path outputs/celeba_torch`` (on the card; ``--device cpu``
 runs the plain torch versions).
 
 The data is the JAX package's synthetic surrogate, resident on the device:
-``synthetic_celeba`` (64x64x3 in [-1, 1]) or ``synthetic_mnist`` (28x28x1
-in [0, 1], for wgan-gp's sigmoid head).  K iterations run per call, K the
+``synthetic_celeba`` (64x64x3 in [-1, 1]), ``synthetic_mnist`` (28x28x1
+in [0, 1], for wgan-gp's sigmoid head) or, for the conditional family,
+``synthetic_cifar10`` in its calibrated tier (32x32x3 in [-1, 1]) with its
+one-hot labels resident beside it.  K iterations run per call, K the
 largest divisor of gcd(iterations, print_every, 100[, checkpoint_every][,
 start iteration]) up to ``MAX_STEPS_PER_CALL`` (or ``--steps-per-call``);
-on one card a call replays a CUDA graph of one iteration K times
-(``GRAPHED_FAMILIES``).  Written to ``--res-path``:
+on one card a call replays a CUDA graph of one iteration K times (every
+family: wgan-gp's double backward and cgan-cifar10's label gather record
+like the rest).  Written to ``--res-path``:
   - ``{family}_samples_{it}.png`` every ``print_every`` iterations and at
     the end (an 8x8 grid from a fixed U[-1, 1) latent batch), and
     ``{family}_samples_ema.png`` from the EMA generator, on the background
-    artifact writer;
+    artifact writer (cgan-cifar10's grid is conditioned on the labels
+    ``arange(64) % K``: each row of the grid cycles through the classes);
   - ``{family}_metrics.jsonl``, one record per iteration (``step``,
     ``wall_s``, ``step_s``, ``d_loss``, ``g_loss``);
   - ``{family}_{gen,dis}_model.zip`` and, with ``--ema-decay``,
@@ -27,11 +31,20 @@ on one card a call replays a CUDA graph of one iteration K times
     sequential, the JAX package's counter-based).
 Then one JSON line: ``family``, ``steps``, ``d_loss``, ``g_loss``,
 ``examples_per_sec`` (batch * (n_critic + 1) per iteration over the
-steady window, every call after the first), ``host_seconds`` and the run's
-``graphed``, ``steps_per_call`` and ``device``.  A preempted run exits 75.
+steady window, every call after the first), ``host_seconds``, the run's
+``graphed``, ``steps_per_call`` and ``device``, and ``port_launches``: each
+port kernel's launches from the capture's warm-up iteration to the last
+iteration (0 on the CPU, where the plain versions run).  cgan-cifar10
+adds, with ``--fidelity-steps`` > 0, ``conditional_fidelity``,
+``fidelity_per_class``, ``probe_train_acc`` (``eval/conditional.py``)
+and, when every class has at least 50 rows, ``per_class_fid``,
+``mean_class_fid`` and ``diversity_ratio`` in the frozen CIFAR space;
+with ``--ema-decay`` also ``conditional_fidelity_ema``,
+``mean_class_fid_ema`` and ``diversity_ratio_ema``.  A preempted run
+exits 75.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``cgan-cifar10``, ``--n-devices`` > 1, ``--data-dir``,
+item): ``--n-devices`` > 1, ``--data-dir``,
 ``--profile``, ``--metrics-port``, ``--bf16`` and ``--mp``; the JAX run's
 ``events.jsonl``, ``run_manifest.json`` and goodput record are left out.
 """
@@ -57,6 +70,7 @@ from gan_deeplearning4j_tpu_torch.checkpoint import (
 from gan_deeplearning4j_tpu_torch.checkpoint.checkpointer import mesh_spec_dict
 from gan_deeplearning4j_tpu_torch.eval.plots import save_rgb_grid_png
 from gan_deeplearning4j_tpu_torch.graph import serialization
+from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
 from gan_deeplearning4j_tpu_torch.train import fused_step
 from gan_deeplearning4j_tpu_torch.train.gan_pair import GANPair
@@ -74,12 +88,10 @@ from gan_deeplearning4j_tpu_torch.utils.async_dump import (
 from gan_deeplearning4j_tpu_torch.utils.metrics import MetricsLogger
 
 FAMILIES = ("cgan-cifar10", "wgan-gp", "celeba")
-PORTED_FAMILIES = ("wgan-gp", "celeba")
 DEFAULT_BATCH_SIZE = 128
-# The families whose iteration runs as a captured CUDA graph on one card
-# (the others would run eagerly there).  Both: wgan-gp's double backward
-# through cuDNN's convolutions records like any other work (PERF.md).
-GRAPHED_FAMILIES = ("wgan-gp", "celeba")
+# the conditional family's class-metrics gate: every class needs this many
+# real rows (a covariance over fewer samples is degenerate, not a metric)
+MIN_CLASS_ROWS = 50
 
 SAMPLE_SHAPES = {
     "cgan-cifar10": (3, 32, 32),
@@ -96,8 +108,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 def _check_family(family: str) -> None:
     if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}; choose from {FAMILIES}")
-    if family not in PORTED_FAMILIES:
-        raise _not_ported(f"the {family} family", "8")
 
 
 def _build(family: str, device=None, lr_decay_steps: Optional[int] = None,
@@ -109,12 +119,12 @@ def _build(family: str, device=None, lr_decay_steps: Optional[int] = None,
     if lr_decay_steps is not None and lr_decay_steps <= 0:
         raise ValueError(f"--lr-decay-steps must be positive, "
                          f"got {lr_decay_steps}")
-    if lr_decay_steps and family != "celeba":
-        raise ValueError("--lr-decay-steps is wired for celeba only (and "
-                         "cgan-cifar10, not ported yet)")
-    if ms_weight and family != "celeba":
-        raise ValueError("--ms-weight is wired for celeba only (and "
-                         "cgan-cifar10, not ported yet)")
+    if lr_decay_steps and family == "wgan-gp":
+        raise ValueError("--lr-decay-steps is wired for cgan-cifar10 and "
+                         "celeba only")
+    if ms_weight and family == "wgan-gp":
+        raise ValueError("--ms-weight is wired for cgan-cifar10 and celeba "
+                         "only")
     if family == "wgan-gp":
         from gan_deeplearning4j_tpu_torch.models import wgan_gp as M
 
@@ -123,9 +133,14 @@ def _build(family: str, device=None, lr_decay_steps: Optional[int] = None,
                        M.build_critic(cfg, device), mode="wgan-gp",
                        gp_weight=cfg.gp_weight)
         return pair, cfg, (cfg.channels, cfg.height, cfg.width)
-    from gan_deeplearning4j_tpu_torch.models import dcgan_celeba as M
+    if family == "cgan-cifar10":
+        from gan_deeplearning4j_tpu_torch.models import cgan_cifar10 as M
 
-    cfg = M.CelebAConfig()
+        cfg = M.CGANConfig()
+    else:
+        from gan_deeplearning4j_tpu_torch.models import dcgan_celeba as M
+
+        cfg = M.CelebAConfig()
     if lr_decay_steps:
         cfg = dataclasses.replace(cfg, decay_steps=lr_decay_steps)
     if ms_weight:
@@ -135,14 +150,21 @@ def _build(family: str, device=None, lr_decay_steps: Optional[int] = None,
     return pair, cfg, (cfg.channels, cfg.height, cfg.width)
 
 
-def _data(family: str, n: int, seed: int) -> np.ndarray:
-    """features [n, C*H*W] f32: tanh range, except wgan-gp's [0, 1]."""
+def _data(family: str, n: int, seed: int):
+    """(features [n, C*H*W] f32, one-hot labels [n, 10] f32 or None): tanh
+    range, except wgan-gp's [0, 1]; labels for cgan-cifar10 only (its
+    calibrated tier, whose ambiguous tail keeps the probe's Bayes ceiling
+    below 1)."""
     from gan_deeplearning4j_tpu_torch.data import datasets
 
+    if family == "cgan-cifar10":
+        x, y = datasets.synthetic_cifar10(n, seed=seed,
+                                          difficulty="calibrated")
+        return x, np.eye(10, dtype=np.float32)[y]
     if family == "wgan-gp":
         x, _ = datasets.synthetic_mnist(n, seed=seed)
-        return x.astype(np.float32)
-    return datasets.synthetic_celeba(n, seed=seed)
+        return x.astype(np.float32), None
+    return datasets.synthetic_celeba(n, seed=seed), None
 
 
 def steps_per_call(iterations: int, print_every: int, checkpoint_every: int,
@@ -176,7 +198,7 @@ def train(family: str, iterations: int, batch_size: int, res_path: str,
           checkpoint_keep: int = 3, resume: bool = False,
           steps_per_call_cap: Optional[int] = None,
           lr_decay_steps: Optional[int] = None, ms_weight: float = 0.0,
-          async_checkpoint: bool = False,
+          fidelity_steps: int = 400, async_checkpoint: bool = False,
           preempt_signals: Optional[str] = None,
           log: Optional[Callable[[str], None]] = print) -> Dict:
     """Train one roadmap family end to end -> the result dict (the JSON
@@ -193,8 +215,8 @@ def train(family: str, iterations: int, batch_size: int, res_path: str,
         return _train_impl(family, iterations, batch_size, res_path, n_train,
                            print_every, device, ema_decay, checkpoint_every,
                            checkpoint_keep, resume, steps_per_call_cap,
-                           lr_decay_steps, ms_weight, async_checkpoint,
-                           guard, log)
+                           lr_decay_steps, ms_weight, fidelity_steps,
+                           async_checkpoint, guard, log)
     finally:
         if guard is not None:
             guard.uninstall()
@@ -203,11 +225,11 @@ def train(family: str, iterations: int, batch_size: int, res_path: str,
 def _train_impl(family, iterations, batch_size, res_path, n_train,
                 print_every, device, ema_decay, checkpoint_every,
                 checkpoint_keep, resume, cap, lr_decay_steps, ms_weight,
-                async_checkpoint, guard, log) -> Dict:
+                fidelity_steps, async_checkpoint, guard, log) -> Dict:
     dev = backend.resolve_device(device)
     host: Dict = {}
     t0 = time.perf_counter()
-    x = _data(family, n_train, prng.NUMBER_OF_THE_BEAST)
+    x, y = _data(family, n_train, prng.NUMBER_OF_THE_BEAST)
     host["data_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     pair, cfg, sample_shape = _build(family, dev, lr_decay_steps, ms_weight)
@@ -219,6 +241,10 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
     z_eval = (torch.rand((64, cfg.z_size),
                          generator=prng.generator(cfg.seed, "eval-z")) * 2
               - 1).to(dev)
+    # a conditional grid cycles through the classes along each row
+    eval_in = [z_eval] if y is None else [z_eval, torch.from_numpy(
+        np.eye(y.shape[1], dtype=np.float32)[np.arange(64) % y.shape[1]]
+    ).to(dev)]
     vrange = (0.0, 1.0) if family == "wgan-gp" else (-1.0, 1.0)
 
     ckpt = None
@@ -265,14 +291,18 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
                        cap)
     t0 = time.perf_counter()
     table = torch.from_numpy(x).to(dev)
+    table_cond = None if y is None else torch.from_numpy(y).to(dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     host["upload_s"] = time.perf_counter() - t0
-    graphed = dev.type == "cuda" and family in GRAPHED_FAMILIES
+    graphed = dev.type == "cuda"
+    # the port kernels' launches on this run's path: the capture's warm-up
+    # iteration and every iteration after it
+    launches0 = kernels.launch_counts()
     t0 = time.perf_counter()
     step_fn, state = pair.make_multistep(
-        table, batch_size=batch_size, steps_per_call=K, n_critic=n_critic,
-        real_label=real_label, z_size=cfg.z_size, z_gen=z_gen,
+        table, table_cond, batch_size=batch_size, steps_per_call=K,
+        n_critic=n_critic, real_label=real_label, z_size=cfg.z_size, z_gen=z_gen,
         ema_decay=ema_decay, start_step=start_it, graphed=graphed)
     host["capture_s"] = time.perf_counter() - t0
     metrics = MetricsLogger(os.path.join(res_path, f"{family}_metrics.jsonl"),
@@ -298,7 +328,7 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
     with AsyncArtifactWriter() as dumper:
 
         def dump_samples(tag) -> None:
-            samples = pair.gen.output(z_eval)[0]
+            samples = pair.gen.output(*eval_in)[0]
             (hosted,), event = host_copy([samples])
             path = os.path.join(res_path, f"{family}_samples_{tag}.png")
 
@@ -344,6 +374,8 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
                 preempt_exit(res_path, guard, local_step=it,
                              fleet_min_step=it, checkpoint=saved["path"])
         t_end = time.perf_counter()
+        launches = {k: n - launches0[k]
+                    for k, n in kernels.launch_counts().items()}
         if getattr(pair.gen, "ema_params", None) is not None:
             # the final grid from the trajectory-averaged weights too
             live = pair.gen.params
@@ -373,13 +405,67 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
     host["save_models_s"] = time.perf_counter() - t0
     steps_timed = iterations - steady_start if steady_t0 is not None else 0
     wall = t_end - steady_t0 if steady_t0 is not None else 0.0
-    return {
+    result = {
         "family": family, "steps": it, "d_loss": d_loss, "g_loss": g_loss,
         "examples_per_sec": (steps_timed * batch_size * (n_critic + 1) / wall
                              if steps_timed > 0 else 0.0),
         "host_seconds": host, "graphed": graphed, "steps_per_call": K,
-        "device": str(dev),
+        "device": str(dev), "port_launches": launches,
     }
+    if y is not None and fidelity_steps > 0:
+        t0 = time.perf_counter()
+        result.update(_conditional_metrics(pair, cfg, x, y, sample_shape,
+                                           fidelity_steps, log, family))
+        host["conditional_eval_s"] = time.perf_counter() - t0
+    return result
+
+
+def _conditional_metrics(pair: GANPair, cfg, x: np.ndarray, y: np.ndarray,
+                         sample_shape, fidelity_steps: int, log,
+                         family: str) -> Dict:
+    """The conditional family's end-of-run scores (the JAX main's keys):
+    the probe's label agreement, and with every class at
+    ``MIN_CLASS_ROWS`` rows or more the per-class frozen FID and diversity
+    ratio; each for the EMA weights too when the run kept them."""
+    from gan_deeplearning4j_tpu_torch.eval.conditional import (
+        conditional_class_metrics,
+        conditional_fidelity,
+    )
+
+    gen = pair.gen
+    ema = getattr(gen, "ema_params", None) is not None
+    out: Dict = {}
+    fid = conditional_fidelity(gen, x, y, sample_shape=sample_shape,
+                               z_size=cfg.z_size, probe_steps=fidelity_steps)
+    out["conditional_fidelity"] = fid["fidelity"]
+    out["fidelity_per_class"] = fid["per_class"]
+    out["probe_train_acc"] = fid["probe_train_acc"]
+    log(f"[{family}] conditional fidelity {fid['fidelity']:.3f} (probe "
+        f"train acc {fid['probe_train_acc']:.3f}); per-class "
+        + " ".join(f"{v:.2f}" for v in fid["per_class"]))
+    if ema:
+        # the probe depends only on (x, y, seed): trained once
+        out["conditional_fidelity_ema"] = conditional_fidelity(
+            gen, x, y, sample_shape=sample_shape, z_size=cfg.z_size,
+            use_ema=True, probe=fid["probe"])["fidelity"]
+    counts = np.bincount(np.argmax(y, axis=1), minlength=y.shape[1])
+    if int(counts.min()) >= MIN_CLASS_ROWS:
+        cm = conditional_class_metrics(gen, x, y, sample_shape=sample_shape,
+                                       z_size=cfg.z_size)
+        out["per_class_fid"] = cm["per_class_fid"]
+        out["mean_class_fid"] = cm["mean_class_fid"]
+        out["diversity_ratio"] = cm["mean_diversity_ratio"]
+        log(f"[{family}] per-class frozen FID mean "
+            f"{cm['mean_class_fid']:.2f} "
+            + " ".join(f"{v:.1f}" for v in cm["per_class_fid"])
+            + f"; diversity ratio {cm['mean_diversity_ratio']:.3f}")
+        if ema:
+            cme = conditional_class_metrics(
+                gen, x, y, sample_shape=sample_shape, z_size=cfg.z_size,
+                use_ema=True, real_features=cm["_real_features"])
+            out["mean_class_fid_ema"] = cme["mean_class_fid"]
+            out["diversity_ratio_ema"] = cme["mean_diversity_ratio"]
+    return out
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -405,9 +491,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="signal (repeatable) that triggers an emergency "
                         "checkpoint, PREEMPTED.json and exit code 75")
     p.add_argument("--lr-decay-steps", type=int, default=None,
-                   help="hold-then-sigmoid-decay LR horizon (celeba)")
+                   help="hold-then-sigmoid-decay LR horizon (cgan-cifar10, "
+                        "celeba)")
     p.add_argument("--ms-weight", type=float, default=0.0,
-                   help="mode-seeking regularizer weight (celeba)")
+                   help="mode-seeking regularizer weight (cgan-cifar10, "
+                        "celeba)")
+    p.add_argument("--fidelity-steps", type=int, default=400,
+                   help="probe-classifier training steps of the conditional "
+                        "fidelity evaluation (cgan-cifar10; 0 = skip it)")
     p.add_argument("--ema-decay", type=float, default=0.0,
                    help="generator weight EMA decay (e.g. 0.999)")
     p.add_argument("--profile", default=None, metavar="DIR")
@@ -442,6 +533,7 @@ def main(argv=None) -> Dict:
             checkpoint_every=args.checkpoint_every, resume=args.resume,
             steps_per_call_cap=args.steps_per_call,
             lr_decay_steps=args.lr_decay_steps, ms_weight=args.ms_weight,
+            fidelity_steps=args.fidelity_steps,
             async_checkpoint=args.async_checkpoint,
             preempt_signals=(",".join(args.preempt_signal)
                              if args.preempt_signal else None))

@@ -130,7 +130,9 @@ def test_frozen_extractor_round_trip_is_byte_equal(tmp_path):
 
 @pytest.mark.parametrize("kind", ["Dense", "Output", "Conv2D", "MaxPool2D",
                                   "Upsampling2D", "BatchNorm", "Dropout",
-                                  "ConvTranspose2D", "MinibatchStdDev"])
+                                  "ConvTranspose2D", "MinibatchStdDev",
+                                  "Merge", "ElementWise",
+                                  "ConditionalBatchNorm", "ProjectionOutput"])
 def test_file_fields_are_the_jax_dataclass_fields(kind):
     assert ser_t._FILE_FIELDS[kind] == tuple(
         f.name for f in dataclasses.fields(LAYERS_J[kind]))

@@ -161,13 +161,14 @@ from gan_deeplearning4j_tpu_torch.checkpoint import (AsyncCheckpointer,
                                                     TrainCheckpointer)
 from gan_deeplearning4j_tpu_torch.data import (codec, csv, datasets, prefetch,
                                                resilient)
-from gan_deeplearning4j_tpu_torch.eval import (evaluation, fid,
+from gan_deeplearning4j_tpu_torch.eval import (conditional, evaluation, fid,
                                                fid_extractor, metrics)
 from gan_deeplearning4j_tpu_torch.graph import serialization
 from gan_deeplearning4j_tpu_torch.parallel import data_parallel, mesh
-from gan_deeplearning4j_tpu_torch.models import mlpgan_insurance
+from gan_deeplearning4j_tpu_torch.models import cgan_cifar10, mlpgan_insurance
 from gan_deeplearning4j_tpu_torch.train import (checkpoint_ab, cv_main,
-                                                insurance_main, preemption)
+                                                gan_pair, insurance_main,
+                                                preemption, roadmap_main)
 from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
 from gan_deeplearning4j_tpu_torch.utils import async_dump, metrics as logger
 assert fid_extractor.load_extractor("cpu").params["feat"]["W"].shape == (512, 256)
@@ -178,6 +179,12 @@ assert tuple(t.sample_grid(3).shape) == (9, 1, 28, 28)
 dis = mlpgan_insurance.build_discriminator(device="cpu")
 assert dis.input_specs["dis_input_layer_0"].shape == (12,)
 assert insurance_main.default_config().num_classes == 1
+assert fid_extractor.load_extractor_cifar("cpu").params["feat"]["W"].shape == (
+    1024, 256)
+assert "cgan-cifar10" in roadmap_main.FAMILIES
+g = cgan_cifar10.build_generator(cgan_cifar10.CGANConfig(base_filters=2),
+                                 device="cpu")
+assert g.input_names == ["z", "label"]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "gan_deeplearning4j_tpu"
