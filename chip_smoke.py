@@ -146,10 +146,32 @@ exits non-zero:
                 and read just after; and celeba checkpointed at 100 and
                 resumed in this process, its zips byte-equal to the
                 200-iteration straight run's.
- 12. the ``kernels`` line (each kernel's insurance numbers beside the
+ 12. precision — the reference's precision modes (``--bf16``: bf16
+                operands into every convolution and GEMM, result rounded
+                once; ``--mp``: bf16 params and activations with f32
+                master params, BNs and losses), per workload (cv,
+                insurance, celeba, wgan-gp, cgan-cifar10) in ``--bf16``
+                and ``--mp``, cv and celeba also in both: PR_CALLS graphed
+                calls of PR_K replays against as many eager calls from one
+                start, bit for bit, with each port kernel's launches (eager
+                run and per replay) equal to PR_PER_STEP (``upsample_bwd``
+                0 under ``--mp``: its bf16 cotangent takes the plain block
+                sum, as in the JAX package) and finite losses; the same in
+                parity, whose losses give each mode's drift (max |d| and
+                the final step's); one step at learning rates 0 on the card
+                against the CPU in the mode, within the mode's own distance
+                from parity; each f32-only wrapper refusing bf16; the plain
+                bf16 block sum timed at the CV shapes beside the f32
+                kernel; and ``roadmap_main --family cgan-cifar10 --mp`` and
+                ``cv_main --bf16 --mp`` as child processes, evaluation
+                included.
+ 13. the ``kernels`` line (each kernel's insurance numbers beside the
      CV step's, where the insurance path runs it, ``bn_act``'s roadmap
-     numbers, and each kernel's launches on the cgan-cifar10 path: 0),
-     the nvidia-smi line, and last {"ok": true, "device": {...}}.
+     numbers, each kernel's launches on the cgan-cifar10 path: 0, and
+     its launches per workload and mode in the precision phase), the
+     seconds line (the script's total beside its total before the
+     precision phase was added), the nvidia-smi
+     line, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is available.
 Imports nothing of JAX.
@@ -203,6 +225,10 @@ INS_PAIR = [((50, 12), "elu"), ((25, 2), "tanh"), ((25, 12), "elu"),
 # params held to one generator learning rate of this model (4e-4)
 INS_STEP_TOL = {"loss": 1e-4, "param": 4e-4, "cache": 5e-2}
 REPS = 30
+# the script's whole run before the precision phase was added (from a
+# git archive of that tree, NVIDIA H100 80GB HBM3, 700.00 W)
+TOTAL_BEFORE_PRECISION_S = 419.0
+T_START = 0.0
 SLEEP_CYCLES = 40_000_000  # ~20 ms at the H100's ~2 GHz clock
 # each kernel's CUDA source and the Pallas kernel it replaces
 SOURCES = {"fused_update": "fused_update.cu", "bn_act": "bn_act.cu",
@@ -2083,7 +2109,454 @@ def roadmap_phase(torch, smi: str, randn, bw: float, sms: int) -> dict:
     return out
 
 
+# -- the precision phase ------------------------------------------------------
+
+# the JAX package's two precision flags, as runtime policies
+PR_MODES = {"bf16": {"matmul_bf16": True}, "mp": {"compute_bf16": True},
+            "bf16_mp": {"matmul_bf16": True, "compute_bf16": True}}
+# the modes each workload runs in (CV and celeba also both flags at once)
+PR_WORKLOADS = {"cv": ("bf16", "mp", "bf16_mp"), "insurance": ("bf16", "mp"),
+                "celeba": ("bf16", "mp", "bf16_mp"), "wgan-gp": ("bf16", "mp"),
+                "cgan-cifar10": ("bf16", "mp")}
+PR_K = 10  # steps (iterations) per graphed call
+PR_CALLS = 2  # calls from one start: the graphed-vs-eager and drift runs
+# launches per step (iteration) of each port kernel on each path, the JAX
+# routing's: the BN carve-out keeps bn_act f32 in every mode; under --mp
+# the upsample cotangent is bf16 and takes the plain block sum
+PR_PER_STEP = {"cv": {"fused_update": 3, "bn_act": 3, "upsample_bwd": 2},
+               "insurance": {"fused_update": 3, "bn_act": 4},
+               "celeba": {"bn_act": 1}, "wgan-gp": {"bn_act": 1},
+               "cgan-cifar10": {}}
+# the CV step's two upsample cotangents (the G-step's backward)
+PR_UPSAMPLE = [(BATCH, 128, 14, 14), (BATCH, 64, 28, 28)]
+# the card-vs-CPU step's batch (the CPU runs it in the mode and in parity)
+PR_CPU_BATCH = 16
+PR_PAIR_MODELS = {"celeba": ("dcgan_celeba", "CelebAConfig"),
+                  "wgan-gp": ("wgan_gp", "WGANGPConfig"),
+                  "cgan-cifar10": ("cgan_cifar10", "CGANConfig")}
+PR_CHILD_CGAN = ["--family", "cgan-cifar10", "--iterations", "100",
+                 "--n-train", "2000", "--print-every", "50",
+                 "--fidelity-steps", "100", "--mp"]
+
+
+def pr_expected(workload: str, mode: str, steps: int) -> dict:
+    """Each port kernel's launches over ``steps`` steps of ``workload``
+    under ``mode`` (PR_PER_STEP)."""
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+
+    per = dict(PR_PER_STEP[workload])
+    if workload == "cv" and PR_MODES.get(mode, {}).get("compute_bf16"):
+        per["upsample_bwd"] = 0
+    return {k: per.get(k, 0) * steps for k in kernels.launch_counts()}
+
+
+def pr_runs(workload: str, torch):
+    """(graphed call, eager call, the graph, its generator, the eager
+    generator) for ``workload`` at full width on the card under the current
+    policy: the trainer's captured step (cv at batch 200, insurance at 50)
+    or the pair's captured iteration (batch RM_BATCH), and the same step
+    eager from a copy of the graph's start; each call runs PR_K steps and
+    returns their losses [PR_K, n] on the host."""
+    from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+    from gan_deeplearning4j_tpu_torch.runtime import prng
+    from gan_deeplearning4j_tpu_torch.train import (
+        fused_step,
+        insurance_main,
+        roadmap_main,
+    )
+    from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
+
+    if workload in ("cv", "insurance"):
+        if workload == "cv":
+            trainer = GANTrainer(M.CVConfig(), batch_size=BATCH,
+                                 n_train=N_TRAIN, device="cuda",
+                                 steps_per_call=PR_K)
+        else:
+            res = tempfile.mkdtemp(prefix="gan4j_pr_ins_")
+            try:
+                trainer = GANTrainer(
+                    device="cuda",
+                    workload=insurance_main.InsuranceWorkload(),
+                    config=insurance_main.default_config(
+                        res_path=res, batch_size=INS_BATCH, num_iterations=0,
+                        print_every=0, save_every=0, metrics=False,
+                        steps_per_call=PR_K))
+            finally:
+                shutil.rmtree(res, ignore_errors=True)
+        g = trainer.graphed
+        z_e = torch.Generator(device="cuda")
+        z_e.set_state(trainer.z_gen.get_state())
+        box = {"s": fused_step.clone_state(g.state)}
+        step = trainer.step_fn(PR_K)
+        inputs = (trainer.features, trainer.labels, trainer.y_real,
+                  trainer.y_fake, trainer.ones)
+
+        def eager():
+            box["s"], losses = step(box["s"], *inputs, z_gen=z_e)
+            return torch.stack(losses, -1).cpu()
+
+        return (lambda: g(PR_K)), eager, g, trainer.z_gen, z_e, box
+    pair, cfg, _ = roadmap_main._build(workload, "cuda")
+    n_critic = getattr(cfg, "n_critic", 1)
+    real_label = getattr(cfg, "real_label", 1.0) if pair.mode == "gan" else 1.0
+    x, y = roadmap_main._data(workload, RM_N_TRAIN, prng.NUMBER_OF_THE_BEAST)
+    table = torch.from_numpy(x).cuda()
+    cond = None if y is None else torch.from_numpy(y).cuda()
+    kw = dict(batch_size=RM_BATCH, steps_per_call=PR_K, n_critic=n_critic,
+              real_label=real_label, z_size=cfg.z_size)
+    z_g = prng.generator(cfg.seed, "roadmap-z", "cuda")
+    fg, sg = pair.make_multistep(table, cond, z_gen=z_g, graphed=True, **kw)
+    z_e = torch.Generator(device="cuda")
+    z_e.set_state(z_g.get_state())
+    box = {"s": fused_step.clone_state(sg), "g": sg}
+    fe, _ = pair.make_multistep(table, cond, z_gen=z_e, graphed=False, **kw)
+
+    def eager():
+        box["s"], (d, gl) = fe(box["s"])
+        return torch.stack([d, gl], -1).cpu()
+
+    def graphed():
+        box["g"], (d, gl) = fg(box["g"])
+        return torch.stack([d, gl], -1).cpu()
+
+    return graphed, eager, fg.graphed, z_g, z_e, box
+
+
+def pr_graphed_vs_eager(workload: str, mode: str, torch) -> dict:
+    """Under ``mode``: PR_CALLS graphed calls of PR_K replays against as
+    many eager calls from one start, bit for bit (losses, every leaf of the
+    final state, the generators); the eager run's launches (counters zeroed
+    just before, read just after) and the graph's per replay, each against
+    ``pr_expected``; the graphed losses [PR_CALLS * PR_K, n]; the graphed
+    and eager call ms (host clock around a call ending in its readback,
+    median over the calls after the first); and, off parity, a replay
+    under the parity policy refused."""
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.runtime import backend
+    from gan_deeplearning4j_tpu_torch.train import fused_step
+
+    with backend.configured(**PR_MODES.get(mode, {})):
+        graphed, eager, g, z_g, z_e, box = pr_runs(workload, torch)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        le, te = [], []
+        for _ in range(PR_CALLS):
+            t0 = time.perf_counter()
+            le.append(eager())
+            te.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        eager_launches = kernels.launch_counts()
+        lg, tg = [], []
+        for _ in range(PR_CALLS):
+            t0 = time.perf_counter()
+            lg.append(graphed())
+            tg.append(time.perf_counter() - t0)
+        state_g = g.state
+    # the graph keeps the policy of its capture: a replay under another
+    # (here the policy put back) is refused
+    refused = None
+    if mode != "parity":
+        try:
+            g(1)
+            refused = False
+        except ValueError:
+            refused = True
+    le, lg = torch.cat(le), torch.cat(lg)
+    a, b = fused_step._leaves(box["s"]), fused_step._leaves(state_g)
+    steps = PR_CALLS * PR_K
+    out = dict(
+        steps=steps, losses_bitwise=torch.equal(le, lg),
+        state_bitwise=a.keys() == b.keys() and all(
+            torch.equal(a[k], b[k]) for k in a),
+        generator_state_equal=torch.equal(z_e.get_state(), z_g.get_state()),
+        losses=lg, eager_launches=eager_launches,
+        launches_per_replay=g.launches,
+        expected_per_step=pr_expected(workload, mode, 1),
+        replay_under_parity_refused=refused,
+        graphed_call_ms=statistics.median(tg[1:]) * 1e3 / PR_K,
+        eager_call_ms=statistics.median(te[1:]) * 1e3 / PR_K,
+        capture=g.setup)
+    require(out["losses_bitwise"] and out["state_bitwise"]
+            and out["generator_state_equal"],
+            f"precision {workload} {mode}: the graphed steps' bits differ "
+            f"from the eager ones' (losses max |d| {max_err(le, lg)})")
+    require(eager_launches == pr_expected(workload, mode, steps)
+            and g.launches == out["expected_per_step"],
+            f"precision {workload} {mode}: launches eager {eager_launches}, "
+            f"per replay {g.launches}, expected per step "
+            f"{out['expected_per_step']}")
+    require(bool(torch.isfinite(lg).all()),
+            f"precision {workload} {mode}: non-finite losses {lg.tolist()}")
+    require(refused is not False, f"precision {workload} {mode}: the graph "
+            "replayed under parity")
+    del graphed, eager, g, box
+    kernels.reset_launch_counts()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lr0(cfg):
+    """``cfg`` with every learning rate 0: each update of a step leaves the
+    params where they were, so every gradient is taken at the start."""
+    import dataclasses
+
+    names = {f.name for f in dataclasses.fields(cfg)}
+    return dataclasses.replace(cfg, **{k: 0.0 for k in (
+        "learning_rate", "d_learning_rate", "dis_learning_rate",
+        "gen_learning_rate") if k in names})
+
+
+def pr_step_lr0(workload: str, device, torch):
+    """One step (iteration) of ``workload`` at full width on ``device``
+    under the current policy, learning rates 0, at batch PR_CPU_BATCH (the
+    insurance step's own 50), from the seed-666 init and fixed draws made
+    on the CPU -> (losses, {leaf: gradient}); the gradient
+    read back from the updater state (RmsProp: sqrt(cache), the cache being
+    (1 - 1e-8) g^2; Adam: m / (1 - b1))."""
+    from gan_deeplearning4j_tpu_torch.train import fused_step, roadmap_main
+    from gan_deeplearning4j_tpu_torch.train.gan_pair import Draws, PairState
+
+    gen = torch.Generator().manual_seed(31)
+    if workload in ("cv", "insurance"):
+        if workload == "cv":
+            from gan_deeplearning4j_tpu_torch.data.datasets import (
+                synthetic_mnist,
+            )
+            from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+
+            cfg, B = _lr0(M.CVConfig()), PR_CPU_BATCH
+            feats, lab = synthetic_mnist(B, seed=11)
+            real = torch.from_numpy(feats)
+            labels = torch.nn.functional.one_hot(torch.from_numpy(lab),
+                                                 10).float()
+        else:
+            from gan_deeplearning4j_tpu_torch.models import (
+                mlpgan_insurance as M,
+            )
+
+            cfg, B = _lr0(M.InsuranceConfig()), INS_BATCH
+            real = torch.rand((B, 12), generator=gen)
+            labels = (torch.rand((B, 1), generator=gen) > 0.5).float()
+        d = M.build_discriminator(cfg, device)
+        graphs = (d, M.build_generator(cfg, device), M.build_gan(cfg, device),
+                  M.build_classifier(d, cfg))
+        step = fused_step.make_protocol_step(
+            *graphs, M.DIS_TO_GAN, M.GAN_TO_GEN, M.DIS_TO_CLASSIFIER,
+            z_size=cfg.z_size, num_features=cfg.num_features)
+        host = [real, labels, 1.0 + 0.05 * torch.randn((B, 1), generator=gen),
+                0.05 * torch.randn((B, 1), generator=gen), torch.ones((B, 1)),
+                torch.rand((B, cfg.z_size), generator=gen) * 2 - 1,
+                torch.rand((B, cfg.z_size), generator=gen) * 2 - 1]
+        a = [t.to(device) for t in host]
+        state, losses = step(fused_step.state_from_graphs(*graphs), *a[:5],
+                             z1=a[5], z2=a[6])
+        grads = {k: v.double().sqrt().cpu()
+                 for k, v in fused_step._leaves(state).items()
+                 if k[0].endswith("_opt")}
+        return torch.stack(losses).cpu().double(), grads
+    import importlib
+
+    from gan_deeplearning4j_tpu_torch.train.gan_pair import GANPair
+
+    mod, cls = PR_PAIR_MODELS[workload]
+    M = importlib.import_module(f"gan_deeplearning4j_tpu_torch.models.{mod}")
+    cfg = _lr0(getattr(M, cls)())
+    if workload == "wgan-gp":
+        pair = GANPair(M.build_generator(cfg, device),
+                       M.build_critic(cfg, device), mode="wgan-gp",
+                       gp_weight=cfg.gp_weight)
+    else:
+        pair = GANPair(M.build_generator(cfg, device),
+                       M.build_discriminator(cfg, device),
+                       ms_weight=cfg.ms_weight)
+    n_critic = getattr(cfg, "n_critic", 1)
+    real_label = getattr(cfg, "real_label", 1.0) if pair.mode == "gan" else 1.0
+    x, y = roadmap_main._data(workload, 512, 7)
+    draws = pair.draw(torch.Generator().manual_seed(8), 512, PR_CPU_BATCH,
+                      n_critic, cfg.z_size, "cpu")
+    draws = Draws(*[None if v is None else
+                    [t.to(device) for t in v] if isinstance(v, list)
+                    else v.to(device) for v in draws])
+    state = PairState(pair.gen.params, pair.gen.opt_state, pair.dis.params,
+                      pair.dis.opt_state, torch.tensor(0, device=device))
+    one = pair.iteration(PR_CPU_BATCH, n_critic, cfg.z_size)
+    state, losses = one(state, torch.from_numpy(x).to(device),
+                        *pair.label_vectors(PR_CPU_BATCH, real_label),
+                        None if y is None else torch.from_numpy(y).to(device),
+                        draws=draws)
+    b1 = 0.5  # every roadmap family's Adam beta1
+    grads = {k[:-1]: v.double().cpu() / (1 - b1)
+             for k, v in fused_step._leaves(state).items()
+             if k[0].endswith("_opt") and k[-1] == "m"}
+    return torch.stack(losses).cpu().double(), grads
+
+
+def _grad_rel(ref: dict, got: dict) -> float:
+    num = sum(float((got[k] - v).square().sum()) for k, v in ref.items())
+    den = sum(float(v.square().sum()) for v in ref.values())
+    return math.sqrt(num / den)
+
+
+def pr_card_vs_cpu(workload: str, mode: str, parity_cpu, torch) -> dict:
+    """One step (learning rates 0, ``pr_step_lr0``) under ``mode`` on the
+    card and on the CPU, and the CPU's parity step (``parity_cpu``), from
+    the same params and draws.  The gradients (norm relative over every
+    leaf) of the card lie within PR_CARD_RATIO of the mode's own distance
+    from parity on the CPU (cuDNN's and the CPU's f32 sums round to bf16
+    differently, far less than the mode's roundings move the step); each
+    loss within PR_LOSS_REL of the CPU's, relative (one bf16 rounding of a
+    loss taken from bf16 activations).  The mode's own loss deviation is
+    printed beside it."""
+    from gan_deeplearning4j_tpu_torch.runtime import backend
+
+    with backend.configured(**PR_MODES[mode]):
+        cpu = pr_step_lr0(workload, "cpu", torch)
+        card = pr_step_lr0(workload, "cuda", torch)
+    out = {"loss_err": float((card[0] - cpu[0]).abs().max()),
+           "loss_dev": float((parity_cpu[0] - cpu[0]).abs().max()),
+           "grad_err": _grad_rel(cpu[1], card[1]),
+           "grad_dev": _grad_rel(cpu[1], parity_cpu[1]),
+           "losses_card": card[0].tolist(), "losses_cpu": cpu[0].tolist()}
+    out["loss_rel"] = float(((card[0] - cpu[0]).abs()
+                             / cpu[0].abs().clamp_min(1e-6)).max())
+    out["grad_ratio"] = out["grad_err"] / max(out["grad_dev"], 1e-30)
+    require(bool(torch.isfinite(card[0]).all())
+            and out["loss_rel"] <= PR_LOSS_REL
+            and out["grad_ratio"] <= PR_CARD_RATIO,
+            f"precision {workload} {mode}: the card against the CPU {out}")
+    return out
+
+
+PR_CARD_RATIO = 0.5
+PR_LOSS_REL = 2.0 ** -8
+
+
+def pr_block_sum(torch, bw: float) -> list:
+    """The plain bf16 block sum that a ``--mp`` cotangent takes, at the CV
+    step's two shapes: its device time beside the f32 kernel's on the f32
+    cotangent of the same shape (in turns: kernel, plain, plain, kernel)
+    and the bf16 sum's bound (bf16 read once, written once)."""
+    from gan_deeplearning4j_tpu_torch.ops.cuda.upsample_bwd import upsample_bwd
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for B, C, H, W in PR_UPSAMPLE:
+        g32 = torch.randn((B, C, 2 * H, 2 * W), generator=gen, device="cuda")
+        g16 = g32.bfloat16()
+
+        def plain():
+            return g16.reshape(B, C, H, 2, W, 2).sum((3, 5))
+
+        kernel_ms, plain_ms, turns = in_turns(
+            lambda: upsample_bwd(g32, 2, 2), plain, torch)
+        ref = g16.float().reshape(B, C, H, 2, W, 2).sum((3, 5)).bfloat16()
+        nbytes = 2 * (g16.numel() + B * C * H * W)
+        rows.append(dict(g_shape=[B, C, 2 * H, 2 * W], bf16_plain_ms=plain_ms,
+                         f32_kernel_ms=kernel_ms, turns_ms=turns,
+                         bf16_bound_ms=nbytes / bw * 1e3,
+                         f32_sum_rounded_once=torch.equal(plain(), ref)))
+        require(rows[-1]["f32_sum_rounded_once"],
+                f"precision: the bf16 block sum of g {rows[-1]['g_shape']} is "
+                "not the f32 sum rounded once")
+    return rows
+
+
+def pr_wrappers_refuse_bf16(torch) -> dict:
+    """Each f32-only kernel wrapper refuses a bf16 card tensor (TypeError,
+    before any launch), so a mode's step that ran through a wrapper gave
+    it f32."""
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+
+    x = torch.randn((8, 64), device="cuda").bfloat16()
+    f = torch.ones(64, device="cuda")
+    calls = {
+        "bn_act": lambda: kernels.fused_bn_act_train(x, f, f * 0, 1e-5,
+                                                     "relu"),
+        "upsample_bwd": lambda: kernels.upsample_bwd(
+            x.reshape(2, 4, 8, 8), 2, 2),
+        "fused_update": lambda: kernels.fused_rmsprop_chains(
+            [x.float()], [x], [x.float()], [None])}
+    before = kernels.launch_counts()
+    out = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            out[name] = "accepted"
+        except TypeError as e:
+            out[name] = f"TypeError: {e}"[:120]
+    require(all(v.startswith("TypeError") for v in out.values())
+            and kernels.launch_counts() == before,
+            f"precision: an f32-only wrapper took bf16: {out}")
+    return out
+
+
+def precision_phase(torch, smi: str, bw: float) -> dict:
+    """The reference's precision modes on the card (module docstring,
+    phase 12)."""
+    t0 = time.perf_counter()
+    out = {"wrappers_refuse_bf16": pr_wrappers_refuse_bf16(torch),
+           "upsample_bf16_block_sum": pr_block_sum(torch, bw)}
+    runs, card = {}, {}
+    for workload, modes in PR_WORKLOADS.items():
+        runs[workload] = {m: pr_graphed_vs_eager(workload, m, torch)
+                          for m in ("parity",) + modes}
+        parity_cpu = pr_step_lr0(workload, "cpu", torch)
+        card[workload] = {m: pr_card_vs_cpu(workload, m, parity_cpu, torch)
+                          for m in modes}
+    t1 = time.perf_counter()
+    drift = {}
+    for workload, res in runs.items():
+        ref = res["parity"]["losses"]
+        drift[workload] = {m: {
+            "max_abs": float((r["losses"] - ref).abs().max()),
+            "final": (r["losses"][-1] - ref[-1]).tolist()}
+            for m, r in res.items() if m != "parity"}
+    out["graphed_vs_eager"] = {w: {m: {k: v for k, v in r.items()
+                                       if k != "losses"}
+                                   for m, r in res.items()}
+                               for w, res in runs.items()}
+    out["loss_drift"] = drift
+    out["card_vs_cpu"] = card
+    root = tempfile.mkdtemp(prefix="gan4j_precision_")
+    try:
+        children = {}
+        for name, module, args in (
+                ("roadmap_cgan_mp", "gan_deeplearning4j_tpu_torch.train."
+                 "roadmap_main", PR_CHILD_CGAN + ["--res-path",
+                                                  f"{root}/cgan"]),
+                ("cv_main_bf16_mp", "gan_deeplearning4j_tpu_torch.train."
+                 "cv_main", CV_ARGS + ["--bf16", "--mp", "--res-path",
+                                       f"{root}/cv"])):
+            rc, result, secs, tail = run_child(module, args)
+            require(rc == 0 and result is not None,
+                    f"precision child {name}: exit {rc}, stderr {tail}")
+            children[name] = dict(seconds=secs, result=result)
+        cg = children["roadmap_cgan_mp"]["result"]
+        require(cg["precision"] == {"matmul_bf16": False, "compute_bf16": True}
+                and cg["steps"] == 100 and cg["graphed"]
+                and math.isfinite(cg["d_loss"]) and math.isfinite(cg["g_loss"])
+                and 0.0 <= cg["conditional_fidelity"] <= 1.0
+                and math.isfinite(cg["mean_class_fid"]),
+                f"precision child roadmap_cgan_mp: {cg}")
+        cv = children["cv_main_bf16_mp"]["result"]
+        require(cv["precision"] == {"matmul_bf16": True, "compute_bf16": True}
+                and cv["steps"] == CV_STEPS and cv["graphed"]
+                and all(math.isfinite(cv[k]) for k in (
+                    "d_loss", "g_loss", "test_accuracy", "fid_frozen")),
+                f"precision child cv_main_bf16_mp: {cv}")
+        out["children"] = children
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds_by_part"] = {"steps": t1 - t0,
+                              "children": time.perf_counter() - t1}
+    out["seconds"] = time.perf_counter() - t0
+    out["nvidia_smi"] = smi
+    return out
+
+
 def main() -> int:
+    global T_START
+    T_START = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2691,7 +3164,11 @@ def main() -> int:
     rm = roadmap_phase(torch, smi, randn, bw, sms)
     emit("roadmap", **rm)
 
-    # -- 12. the kernels line and the result ---------------------------------
+    # -- 12. the precision modes ---------------------------------------------
+    prec = precision_phase(torch, smi, bw)
+    emit("precision", **prec)
+
+    # -- 13. the kernels line and the result ---------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
     # pair, and the kernel phase's check for the 4-D BN, which no model
     # path runs (as in the JAX package)
@@ -2731,8 +3208,17 @@ def main() -> int:
              for family in RM_BN}} if r["name"] == "bn_act" else {}),
          # the conditional family's path runs none of the six (the
          # roadmap_children docstring says why): its child's counts
-         "cgan-cifar10": {"launches": cgan_launches[r["name"]]}}
+         "cgan-cifar10": {"launches": cgan_launches[r["name"]]},
+         # each workload's eager run in each mode (PR_CALLS * PR_K steps)
+         "precision": {w: {m: res["eager_launches"][r["name"]]
+                           for m, res in modes.items()}
+                       for w, modes in prec["graphed_vs_eager"].items()}}
         for r in report]}), flush=True)
+    print(json.dumps({"seconds": {
+        "total": time.perf_counter() - T_START,
+        "precision": prec["seconds"],
+        "total_before_the_precision_phase": TOTAL_BEFORE_PRECISION_S}}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -175,7 +175,7 @@ def conditional_class_metrics(
         j = min(i + batch_size, labels.size)
         out = gen.output(zt[i:j], cond[i:j], params=params)[0]
         outs.append(out.reshape(j - i, -1))
-    gen_rows = torch.cat(outs).cpu().numpy()
+    gen_rows = torch.cat(outs).float().cpu().numpy()  # bf16 under --mp
     f_gen = fid_lib.extract_features(frozen, gen_rows, fx.FEATURE_LAYER,
                                      batch_size=batch_size)
     if real_features is None:

@@ -43,7 +43,8 @@ def extract_features(graph, x: np.ndarray, layer: str = DEFAULT_FEATURE_LAYER,
                 {graph.input_names[0]: torch.from_numpy(xb).to(graph.device)},
                 False)
             outs.append(values[layer][:k])
-    return torch.cat(outs).reshape(n, -1).cpu().numpy()
+    # f32 on the host: under --mp the activations are bf16
+    return torch.cat(outs).reshape(n, -1).float().cpu().numpy()
 
 
 def frechet_distance(mu1: np.ndarray, cov1: np.ndarray,
@@ -93,5 +94,5 @@ def synthesize_pixels(gen, n_samples: int, num_features: int,
         z = rng.rand(batch_size, z_size).astype(np.float32) * 2.0 - 1.0
         out = gen.output(torch.from_numpy(z).to(gen.device))[0]
         outs.append(out.reshape(batch_size, num_features)[:k])
-    return torch.cat(outs).cpu().numpy()
+    return torch.cat(outs).float().cpu().numpy()
 

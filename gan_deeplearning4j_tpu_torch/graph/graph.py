@@ -7,6 +7,15 @@ updater state and returns new ones without touching its inputs (``fit``
 runs it on the graph's own state).  So the protocol's cross-graph weight
 syncs are dict assignments that alias tensors, as they are pytree merges
 in the JAX package.  Listeners are not ported.
+
+Under the ``--mp`` policy (``backend.configure(compute_bf16=True)``) the
+forward casts, with explicit casts where the JAX package puts them (not
+``torch.autocast``, whose per-op lists round elsewhere): every f32 input,
+every non-BN layer's params and every f32 layer output to bf16; the
+BatchNorm and ConditionalBatchNorm layers keep f32 params and get their
+(first) input upcast to f32, so batch statistics, running-stat EMAs and
+the BN kernels never see bf16.  Gradients flow through the casts back to
+the f32 master params; the loss is taken on f32 head outputs.
 """
 
 from __future__ import annotations
@@ -16,7 +25,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from gan_deeplearning4j_tpu_torch.graph.layers import Layer
+from gan_deeplearning4j_tpu_torch.graph.layers import (
+    BatchNorm,
+    ConditionalBatchNorm,
+    Layer,
+)
 from gan_deeplearning4j_tpu_torch.ops import losses as loss_lib
 from gan_deeplearning4j_tpu_torch.optim.rmsprop import RmsProp
 from gan_deeplearning4j_tpu_torch.optim.updater import GraphUpdater
@@ -24,6 +37,11 @@ from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
+
+
+def _down(t: torch.Tensor) -> torch.Tensor:
+    """The ``--mp`` cast: f32 to bf16, any other dtype as it is."""
+    return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,7 +231,9 @@ class ComputationGraph:
         (values, state_updates): every node's output by name, plus the BN
         running-stat updates of train-mode layers.  ``group`` turns on
         sync-BN: the inputs are this rank's rows, the batch statistics the
-        global batch's."""
+        global batch's.  The ``--mp`` casts (module docstring) follow the
+        policy at the call."""
+        mp = backend.config().compute_bf16
         values: Dict[str, torch.Tensor] = {}
         for inp in self.input_names:
             x = inputs[inp]
@@ -221,18 +241,27 @@ class ComputationGraph:
             if spec.kind == "cnn_flat":
                 h, w, c = spec.shape
                 x = x.reshape(x.shape[0], c, h, w)
-            values[inp] = x
+            values[inp] = _down(x) if mp else x
         state_updates: Dict[str, Dict[str, torch.Tensor]] = {}
         for name, node in self.nodes.items():
+            is_bn = isinstance(node.layer, (BatchNorm, ConditionalBatchNorm))
             if node.layer.multi_input:
                 x = [values[i] for i in node.inputs]
+                if mp and is_bn:
+                    x = [x[0].float()] + x[1:]
             else:
                 x = values[node.inputs[0]]
                 if node.preprocessor is not None:
                     x = node.preprocessor(x)
-            y, upd = node.layer.apply(params[name], x,
-                                      train and name not in self.frozen, gen,
-                                      group)
+                if mp and is_bn:
+                    x = x.float()
+            p = params[name]
+            if mp and not is_bn:
+                p = {k: _down(v) for k, v in p.items()}
+            y, upd = node.layer.apply(p, x, train and name not in self.frozen,
+                                      gen, group)
+            if mp:
+                y = _down(y)
             if upd:
                 state_updates[name] = upd
             values[name] = y
@@ -257,7 +286,9 @@ class ComputationGraph:
         total = 0.0
         for name in self.output_names:
             loss_name = getattr(self.nodes[name].layer, "loss", "mse")
-            total = total + loss_lib.get(loss_name)(outputs[name], labels[name])
+            # f32 loss in every mode: under --mp the head arrives bf16
+            total = total + loss_lib.get(loss_name)(outputs[name].float(),
+                                                    labels[name])
         return total
 
     def _train_step(self, params: Tree, opt_state: Tree,

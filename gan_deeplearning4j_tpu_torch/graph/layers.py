@@ -18,7 +18,10 @@ A ``multi_input`` layer gets the list of its input shapes and the list of
 its input values, in the order the builder named its inputs.
 
 An ``activation``/``updater`` of None inherits the graph default; the BN
-layer applies its activation after normalizing, as DL4J does.
+layer applies its activation after normalizing, as DL4J does.  A Dense,
+Output, Conv2D or ConvTranspose2D layer's ``bf16_matmul`` of None follows
+the precision policy (``backend.configure(matmul_bf16=...)``); True/False
+pins that layer.
 """
 
 from __future__ import annotations
@@ -45,9 +48,18 @@ from gan_deeplearning4j_tpu_torch.ops import (
 from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import fused_bn_act_train
 from gan_deeplearning4j_tpu_torch.ops.dense import dense as dense_op, dropout as dropout_op
 from gan_deeplearning4j_tpu_torch.optim.rmsprop import RmsProp
+from gan_deeplearning4j_tpu_torch.runtime import backend
 
 Shape = Tuple[int, ...]
 Params = Dict[str, torch.Tensor]
+
+
+def _mxu_bf16(layer_flag: Optional[bool]) -> bool:
+    """A layer's bf16-matmul setting: its own flag when set, else the
+    policy's ``matmul_bf16``."""
+    if layer_flag is not None:
+        return layer_flag
+    return backend.config().matmul_bf16
 
 
 def _as_ff(x: torch.Tensor) -> torch.Tensor:
@@ -97,6 +109,7 @@ class Dense(Layer):
 
     n_out: int = 0
     n_in: Optional[int] = None
+    bf16_matmul: Optional[bool] = None  # None = the policy
 
     def out_shape(self, in_shape):
         return (self.n_out,)
@@ -109,7 +122,8 @@ class Dense(Layer):
         return {"W": w, "b": initializers.zeros((self.n_out,))}
 
     def apply(self, params, x, train, gen, group=None):
-        return self._act(dense_op(_as_ff(x), params["W"], params["b"])), None
+        return self._act(dense_op(_as_ff(x), params["W"], params["b"],
+                                  bf16=_mxu_bf16(self.bf16_matmul))), None
 
 
 @dataclasses.dataclass
@@ -128,6 +142,7 @@ class Conv2D(Layer):
     padding: Sequence[int] = (0, 0)
     n_in: Optional[int] = None
     n_out: int = 0
+    bf16_matmul: Optional[bool] = None  # None = the policy
 
     def out_shape(self, in_shape):
         _, h, w = in_shape
@@ -143,7 +158,8 @@ class Conv2D(Layer):
         return {"W": w, "b": initializers.zeros((self.n_out,))}
 
     def apply(self, params, x, train, gen, group=None):
-        y = conv2d(x, params["W"], params["b"], self.stride, self.padding)
+        y = conv2d(x, params["W"], params["b"], self.stride, self.padding,
+                   bf16=_mxu_bf16(self.bf16_matmul))
         return self._act(y), None
 
 
@@ -157,6 +173,7 @@ class ConvTranspose2D(Layer):
     padding: Sequence[int] = (1, 1)
     n_in: Optional[int] = None
     n_out: int = 0
+    bf16_matmul: Optional[bool] = None  # None = the policy
 
     def out_shape(self, in_shape):
         _, h, w = in_shape
@@ -173,7 +190,7 @@ class ConvTranspose2D(Layer):
 
     def apply(self, params, x, train, gen, group=None):
         y = conv_transpose2d(x, params["W"], params["b"], self.stride,
-                             self.padding)
+                             self.padding, bf16=_mxu_bf16(self.bf16_matmul))
         return self._act(y), None
 
 
@@ -430,7 +447,10 @@ class ConditionalBatchNorm(Layer):
 
     def apply(self, params, xs, train, gen, group=None):
         x, y = xs
-        gamma_b = y @ params["gamma"]  # [B, n]: the one-hot row select
+        # [B, n]: the one-hot row select; under --mp the label arrives
+        # bf16 and, as jnp's matmul promotes it, meets the f32 gamma as f32
+        y = y.to(params["gamma"].dtype)
+        gamma_b = y @ params["gamma"]
         beta_b = y @ params["beta"]
         if train:
             out, new_mean, new_var = batch_norm_train_cond(

@@ -5,10 +5,10 @@ it in both directions; tests/test_torch_serialization.py pins the bytes).
 A model zip holds ``config.json`` (topology, layer dataclasses with type
 tags), ``params.npz`` and ``updater.npz`` (flat ``layer/param`` keys).
 The file is the JAX package's, field for field: every layer dict carries
-the JAX dataclass's fields in its order (``_FILE_FIELDS``), including the
-ones the port's layers lack (``bf16_matmul``, written as null and refused
-on read when set), so a zip written here is the zip the JAX package writes
-for the same graph and state.  Member timestamps are ``_ZIP_EPOCH``, the
+the JAX dataclass's fields in its order (``_FILE_FIELDS``; ``bf16_matmul``
+as the layer holds it, null, true or false), so a zip written here is the
+zip the JAX package writes for the same graph and state.  Member
+timestamps are ``_ZIP_EPOCH``, the
 ``.npz`` members are stored, not deflated a second time, and arrays go
 through ``np.lib.format.write_array`` as C-contiguous f32 host copies.
 The updaters are RmsProp, Adam and ``Scheduled`` with the four schedule
@@ -52,8 +52,7 @@ LAYER_TYPES = {cls.__name__: cls for cls in (
     L.ConditionalBatchNorm, L.MinibatchStdDev, L.ProjectionOutput)}
 PREPROCESSOR_TYPES = {"FeedForwardToCnn": FeedForwardToCnn}
 
-# The JAX layer dataclasses' fields, in their order; a field the port's
-# layer lacks is written as its JAX default, None.
+# The JAX layer dataclasses' fields, in their order.
 _BASE = ("activation", "updater", "weight_init")
 _FILE_FIELDS = {
     "Dense": _BASE + ("n_out", "n_in", "bf16_matmul"),

@@ -8,8 +8,11 @@ three) -> 64x64x3 tanh; the mirror conv stack with LeakyReLU and BN for
 the discriminator, a ``MinibatchStdDev`` channel before its sigmoid head.
 Adam(2e-4 G / 1e-4 D, 0.5, 0.999), elementwise clip 1.0; with
 ``decay_steps`` both networks' Adam runs under a hold-then-sigmoid-decay
-schedule.  The JAX config's ``bf16`` switch has no counterpart (the port
-computes f32).  Every builder takes ``device`` (None = the card).
+schedule.  ``bf16``: None (default) follows the precision policy
+(``backend.configure(matmul_bf16=...)``); True/False pins every
+contraction layer of the model (gen_dense, the transposed convs, the
+convs and dis_out) regardless of it.  Every builder takes ``device``
+(None = the card).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ class CelebAConfig:
     d_learning_rate: float = 0.0001  # TTUR
     real_label: float = 0.9  # one-sided label smoothing
     clip: float = 1.0
+    bf16: Optional[bool] = None  # None = the precision policy
     decay_steps: Optional[int] = None
     minibatch_stddev: bool = True
     ms_weight: float = 0.0
@@ -66,7 +70,8 @@ def build_generator(cfg: CelebAConfig = CelebAConfig(), device=None):
                      clip_threshold=cfg.clip)
     b.add_inputs("z")
     b.set_input_types(InputSpec.feed_forward(cfg.z_size))
-    b.add_layer("gen_dense", Dense(n_out=4 * 4 * 8 * f, updater=lr), "z")
+    b.add_layer("gen_dense", Dense(n_out=4 * 4 * 8 * f, updater=lr,
+                                   bf16_matmul=cfg.bf16), "z")
     b.add_layer("gen_bn0", BatchNorm(updater=lr), "gen_dense")
     chans = [8 * f, 4 * f, 2 * f, f]
     prev = "gen_bn0"
@@ -74,7 +79,8 @@ def build_generator(cfg: CelebAConfig = CelebAConfig(), device=None):
         name = f"gen_deconv{i + 1}"
         b.add_layer(name, ConvTranspose2D(kernel=(4, 4), stride=(2, 2),
                                           padding=(1, 1), n_in=chans[i],
-                                          n_out=chans[i + 1], updater=lr),
+                                          n_out=chans[i + 1], updater=lr,
+                                          bf16_matmul=cfg.bf16),
                     prev)
         if i == 0:
             b.input_preprocessor(name, FeedForwardToCnn(4, 4, 8 * f))
@@ -84,7 +90,7 @@ def build_generator(cfg: CelebAConfig = CelebAConfig(), device=None):
     b.add_layer("gen_deconv4",
                 ConvTranspose2D(kernel=(4, 4), stride=(2, 2), padding=(1, 1),
                                 n_in=f, n_out=cfg.channels, activation="tanh",
-                                updater=lr),
+                                updater=lr, bf16_matmul=cfg.bf16),
                 prev)
     b.set_outputs("gen_deconv4")
     return b.build(device).init()
@@ -104,7 +110,7 @@ def build_discriminator(cfg: CelebAConfig = CelebAConfig(), device=None):
         name = f"dis_conv{i + 1}"
         b.add_layer(name, Conv2D(kernel=(4, 4), stride=(2, 2), padding=(1, 1),
                                  n_in=chans[i], n_out=chans[i + 1],
-                                 updater=lr),
+                                 updater=lr, bf16_matmul=cfg.bf16),
                     prev)
         prev = name
         if i > 0:
@@ -117,7 +123,8 @@ def build_discriminator(cfg: CelebAConfig = CelebAConfig(), device=None):
         prev = "dis_mbstd"
         n_in = (8 * f + 1) * 4 * 4
     b.add_layer("dis_out", Output(n_out=1, n_in=n_in, loss="xent",
-                                  activation="sigmoid", updater=lr),
+                                  activation="sigmoid", updater=lr,
+                                  bf16_matmul=cfg.bf16),
                 prev)
     b.set_outputs("dis_out")
     return b.build(device).init()

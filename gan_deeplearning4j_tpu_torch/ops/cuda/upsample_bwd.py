@@ -27,6 +27,16 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_void_p]
 
 
+def supports_upsample_bwd(g_shape, sh: int, sw: int, dtype) -> bool:
+    """True iff the kernel takes this cotangent: f32, 4-D, each spatial
+    dim a multiple of its factor (the JAX package's ``supports_upsample_bwd``
+    without its TPU VMEM tiling test, which this kernel does not have).
+    ``_Upsample2d.backward`` routes by it: a bf16 cotangent (``--mp``)
+    takes the plain block sum, as the JAX package's does."""
+    return (dtype == torch.float32 and len(g_shape) == 4
+            and g_shape[2] % sh == 0 and g_shape[3] % sw == 0)
+
+
 def upsample_bwd_plain(g: torch.Tensor, sh: int, sw: int) -> torch.Tensor:
     """The block sum in plain torch ops, in the kernel's row-major order."""
     out = None

@@ -52,6 +52,7 @@ from gan_deeplearning4j_tpu_torch.data.codec import U8X100_TABLE
 from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
 from gan_deeplearning4j_tpu_torch.optim import ema as ema_lib
 from gan_deeplearning4j_tpu_torch.parallel import mesh
+from gan_deeplearning4j_tpu_torch.runtime import backend
 
 # Cap on protocol steps per call (the JAX package's, fused_step.py:42): the
 # trainer's K is the largest divisor of the run at most this.
@@ -153,6 +154,9 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
     rank, world = (group.rank, group.world) if group is not None else (0, 1)
     reduce = mesh.reducer(group)
     tables: Dict[torch.device, torch.Tensor] = {}
+    # the precision policy the step is built under, as the JAX step's
+    # trace fixes it
+    policy = backend.config()
 
     def decode(codes: torch.Tensor) -> torch.Tensor:
         if codes.device not in tables:
@@ -164,10 +168,14 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
         return graph._train_step(params, opt, inputs, targets, group=group,
                                  reduce=reduce)
 
-    def one(state: ProtocolState, real, labels, y_real, y_fake, ones,
-            z_gen: Optional[torch.Generator] = None,
-            z1: Optional[torch.Tensor] = None,
-            z2: Optional[torch.Tensor] = None):
+    def one(*args, **kwargs):
+        with backend.configured(policy):
+            return body(*args, **kwargs)
+
+    def body(state: ProtocolState, real, labels, y_real, y_fake, ones,
+             z_gen: Optional[torch.Generator] = None,
+             z1: Optional[torch.Tensor] = None,
+             z2: Optional[torch.Tensor] = None):
         B = ones.shape[0]
         if B % world:
             raise ValueError(f"global batch {B} does not split into {world} "
@@ -353,7 +361,8 @@ class GraphedStep:
     memory attributes, the cluster occupancy checks, cuBLAS and cuDNN
     handles); ``z_gen`` is then put back, so from the same start the first
     replay gives the bits of the first eager step.  A capture that fails
-    raises."""
+    raises.  The graph records the precision policy of its capture, and a
+    call under another policy raises."""
 
     def __init__(self, step, state, *inputs: torch.Tensor,
                  z_gen: torch.Generator, ring: int = MAX_STEPS_PER_CALL,
@@ -364,6 +373,7 @@ class GraphedStep:
                              f"is on {dev}")
         self.ring = ring
         self.inputs = inputs
+        self.policy = backend.config()
         self.state = clone_state(state)
         self.losses = torch.zeros((ring, n_losses), device=dev)
         self.steps = int(state.it)
@@ -398,6 +408,9 @@ class GraphedStep:
         on the host, in step order (one readback)."""
         if not 1 <= n <= self.ring:
             raise ValueError(f"a call runs 1 to {self.ring} steps, not {n}")
+        if backend.config() != self.policy:
+            raise ValueError(f"the graph was captured under {self.policy}, "
+                             f"not under {backend.config()}")
         replay(self.graph, n, self.launches)
         rows = [(self.steps + i) % self.ring for i in range(n)]
         self.steps += n

@@ -53,7 +53,7 @@ from gan_deeplearning4j_tpu_torch.graph.layers import (
 )
 from gan_deeplearning4j_tpu_torch.ops import losses as loss_lib
 from gan_deeplearning4j_tpu_torch.optim import ema as ema_lib
-from gan_deeplearning4j_tpu_torch.runtime import prng
+from gan_deeplearning4j_tpu_torch.runtime import backend, prng
 from gan_deeplearning4j_tpu_torch.train import fused_step
 
 Tree = Dict[str, Dict]
@@ -184,9 +184,14 @@ class GANPair:
         return values[self.dis.output_names[0]], updates
 
     def _dis_loss(self, out: torch.Tensor, labels: torch.Tensor):
+        """The loss on D's head taken in f32, as ``ComputationGraph._loss``
+        takes it and as the ``--mp`` recipe says.  The JAX pair passes the
+        bf16 head as it is: its XENT clip bound 1 - 1e-7 then rounds to
+        1.0, and a real row that D scores above ~0.998 under label
+        smoothing gives an infinite loss (ROADMAP Queue 3)."""
         name = getattr(self.dis.nodes[self.dis.output_names[0]].layer, "loss",
                        "xent")
-        return loss_lib.get(name)(out, labels)
+        return loss_lib.get(name)(out.float(), labels)
 
     # -- steps -------------------------------------------------------------
 
@@ -254,10 +259,17 @@ class GANPair:
         ``table_cond`` [n, K] holds a conditional pair's row labels (the
         rows it gathers live in the graph's pool, as the table's do)."""
         B, wgan = batch_size, self.mode == "wgan-gp"
+        # the precision policy the iteration is built under, as the JAX
+        # multistep's trace fixes it
+        policy = backend.config()
 
-        def one(state: PairState, table, y_real, y_fake, y_gen,
-                table_cond=None, z_gen: Optional[torch.Generator] = None,
-                draws: Optional[Draws] = None):
+        def one(*args, **kwargs):
+            with backend.configured(policy):
+                return body(*args, **kwargs)
+
+        def body(state: PairState, table, y_real, y_fake, y_gen,
+                 table_cond=None, z_gen: Optional[torch.Generator] = None,
+                 draws: Optional[Draws] = None):
             pg, og, pd, od, it, ema = state
             if draws is None:
                 if z_gen is None:

@@ -924,6 +924,7 @@ class GANTrainer:
                 "ema_decay": self.ema_decay, "resident": self.resident,
                 "data_codec": self.data_codec,
                 "device": str(self.device),
+                "precision": dataclasses.asdict(backend.config()),
                 "world": self.group.world if self.group else 1,
                 "backend": self.group.backend if self.group else None}
 

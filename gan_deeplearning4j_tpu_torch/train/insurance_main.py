@@ -143,6 +143,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "torch versions of the kernels)")
+    backend.add_bf16_flag(p)
+    backend.add_mp_flag(p)
     add_recovery_args(p)
     args = p.parse_args(argv)
     check_recovery_args(p, args)
@@ -211,7 +213,9 @@ def _preempted(e: PreemptionError, args: argparse.Namespace) -> Dict:
 def _rank(group: mesh.DataGroup, args: argparse.Namespace,
           config: GANTrainerConfig) -> Dict:
     try:
-        return _train_and_evaluate(args, config, group)[1]
+        # a spawned rank starts from the default policy: the flags set it
+        with backend.configured(**backend.flag_policy(args)):
+            return _train_and_evaluate(args, config, group)[1]
     except PreemptionError as e:
         return _preempted(e, args)
 
@@ -226,7 +230,9 @@ def run(args: argparse.Namespace, timeout: float = 3600.0, **overrides
     world = resolve_n_devices(args.n_devices, args.batch_size, args.device)
     if world == 1:
         try:
-            return _train_and_evaluate(args, config)
+            # --bf16 / --mp over the configured policy, before any graph
+            with backend.configured(**backend.flag_policy(args)):
+                return _train_and_evaluate(args, config)
         except PreemptionError as e:
             return None, _preempted(e, args)
     t0 = time.perf_counter()

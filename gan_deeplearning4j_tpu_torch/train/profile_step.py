@@ -1,7 +1,9 @@
 """Where a training step's time goes on the card.
 
 Run: ``python -m gan_deeplearning4j_tpu_torch.train.profile_step``
-(``--steps``, ``--warmup``, ``--batch-size``, ``--eager``, ``--workload``).
+(``--steps``, ``--warmup``, ``--batch-size``, ``--eager``, ``--workload``,
+and the precision flags ``--bf16`` / ``--mp``, which set the policy before
+anything is built).
 Builds the trainer on the GPU (which captures the step as a CUDA graph):
 ``--workload cv`` (the default) the DCGAN's on an in-memory MNIST table of
 ``--n-train`` rows at batch 200, ``--workload insurance`` the insurance
@@ -19,14 +21,17 @@ with ``torch.profiler`` (CPU and CUDA activities) between two CUDA events,
 and prints one JSON line: the host-clock step time (untraced median, and
 traced), the device's busy time per step and its idle share, of the traced
 wall time and of the untraced step, the events' device time per step, the
-port's kernel launches per step, and the device work that takes most
-time, and each port kernel's own device time per step.  Needs a CUDA
-device.
+port's kernel launches per step, the device work that takes most
+time, each port kernel's own device time per step, and ``split``: the
+device time per step by kind of work (``KINDS``: cuDNN's convolutions by
+dgrad / wgrad / fprop, layout transposes, GEMMs, the port's kernels, the
+rest) with the convolutions' share of it.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import shutil
 import statistics
@@ -41,7 +46,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
 from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
-from gan_deeplearning4j_tpu_torch.runtime import prng
+from gan_deeplearning4j_tpu_torch.runtime import backend, prng
 from gan_deeplearning4j_tpu_torch.train import (
     fused_step,
     insurance_main,
@@ -55,6 +60,21 @@ PORT_KERNELS = {"fused_update": "rmsprop_multi_kernel",
                 "bn_moments": "bn_moments_kernel",
                 "bn_apply": "bn_apply_kernel", "bn_act_4d": "bn_act_4d_kernel"}
 REPEATS = 5
+# kinds of device work by kernel name, first match wins; "other" is the
+# rest (torch's elementwise ops and reductions, copies)
+KINDS = (("conv_dgrad", ("dgrad",)), ("conv_wgrad", ("wgrad",)),
+         ("conv_fprop", ("fprop", "implicit_convolve")),
+         ("layout", ("nchwtonhwc", "nhwctonchw", "transpose")),
+         ("conv_other", ("convolve", "conv2d", "cudnn")),
+         ("port", tuple(PORT_KERNELS.values())), ("gemm", ("gemm",)))
+
+
+def kind_of(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k.lower() in low for k in keys):
+            return kind
+    return "other"
 
 
 def main(argv=None) -> Dict:
@@ -70,7 +90,14 @@ def main(argv=None) -> Dict:
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--eager", action="store_true",
                    help="profile the eager step instead of the graphed one")
+    backend.add_bf16_flag(p)
+    backend.add_mp_flag(p)
     args = p.parse_args(argv)
+    with backend.configured(**backend.flag_policy(args)):
+        return _main(args)
+
+
+def _main(args) -> Dict:
     n = args.steps
     if args.batch_size is None:
         args.batch_size = {"cv": 200, "insurance": 50}.get(
@@ -191,6 +218,7 @@ def _profile(args, call, setup) -> Dict:
         "device_idle_share_untraced": (1.0 - busy_ms / untraced_ms)
         if spans else None,
         "device_events_per_step": len(spans) / n,
+        "precision": dataclasses.asdict(backend.config()),
         "port_launches_per_step": {k: v / n for k, v in launches.items()},
         "top": [{"name": k[:120], "ms_per_step": ms / n, "calls_per_step": c / n}
                 for k, (ms, c) in top],
@@ -201,6 +229,14 @@ def _profile(args, call, setup) -> Dict:
                                            if fn in k) / n}
             for kernel, fn in PORT_KERNELS.items()},
     }
+    split = {kind: 0.0 for kind, _ in KINDS}
+    split["other"] = 0.0
+    for name, (ms, _) in by_name.items():
+        split[kind_of(name)] += ms / n
+    total = sum(split.values())
+    out["split"] = {"ms_per_step": split, "conv_share": sum(
+        v for k, v in split.items() if k.startswith("conv_")) / total
+        if total else None}
     if setup is not None:
         out["capture"] = setup
     print(json.dumps(out))

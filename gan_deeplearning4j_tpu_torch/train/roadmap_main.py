@@ -43,15 +43,17 @@ with ``--ema-decay`` also ``conditional_fidelity_ema``,
 ``mean_class_fid_ema`` and ``diversity_ratio_ema``.  A preempted run
 exits 75.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``--n-devices`` > 1, ``--data-dir``,
-``--profile``, ``--metrics-port``, ``--bf16`` and ``--mp``; the JAX run's
+``--bf16`` and ``--mp`` set the precision policy (``runtime/backend.py``)
+for the whole run, the evaluation included.  Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP item): ``--n-devices`` > 1,
+``--data-dir``, ``--profile`` and ``--metrics-port``; the JAX run's
 ``events.jsonl``, ``run_manifest.json`` and goodput record are left out.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -410,7 +412,8 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
         "examples_per_sec": (steps_timed * batch_size * (n_critic + 1) / wall
                              if steps_timed > 0 else 0.0),
         "host_seconds": host, "graphed": graphed, "steps_per_call": K,
-        "device": str(dev), "port_launches": launches,
+        "device": str(dev), "precision": dataclasses.asdict(backend.config()),
+        "port_launches": launches,
     }
     if y is not None and fidelity_steps > 0:
         t0 = time.perf_counter()
@@ -503,8 +506,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="generator weight EMA decay (e.g. 0.999)")
     p.add_argument("--profile", default=None, metavar="DIR")
     p.add_argument("--metrics-port", type=int, default=None, metavar="PORT")
-    p.add_argument("--bf16", action="store_true")
-    p.add_argument("--mp", action="store_true")
+    backend.add_bf16_flag(p)
+    backend.add_mp_flag(p)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "torch versions of the kernels)")
@@ -518,8 +521,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                           "iteration)", "6.5")
     if args.metrics_port is not None:
         raise _not_ported("--metrics-port (telemetry exporter)", "6.5")
-    if args.bf16 or args.mp:
-        raise _not_ported("--bf16 / --mp", "11")
     return args
 
 
@@ -527,16 +528,18 @@ def main(argv=None) -> Dict:
     args = parse_args(argv)
     res = args.res_path or os.path.join("outputs", args.family)
     try:
-        result = train(
-            args.family, args.iterations, args.batch_size, res, args.n_train,
-            args.print_every, device=args.device, ema_decay=args.ema_decay,
-            checkpoint_every=args.checkpoint_every, resume=args.resume,
-            steps_per_call_cap=args.steps_per_call,
-            lr_decay_steps=args.lr_decay_steps, ms_weight=args.ms_weight,
-            fidelity_steps=args.fidelity_steps,
-            async_checkpoint=args.async_checkpoint,
-            preempt_signals=(",".join(args.preempt_signal)
-                             if args.preempt_signal else None))
+        with backend.configured(**backend.flag_policy(args)):
+            result = train(
+                args.family, args.iterations, args.batch_size, res,
+                args.n_train, args.print_every, device=args.device,
+                ema_decay=args.ema_decay,
+                checkpoint_every=args.checkpoint_every, resume=args.resume,
+                steps_per_call_cap=args.steps_per_call,
+                lr_decay_steps=args.lr_decay_steps, ms_weight=args.ms_weight,
+                fidelity_steps=args.fidelity_steps,
+                async_checkpoint=args.async_checkpoint,
+                preempt_signals=(",".join(args.preempt_signal)
+                                 if args.preempt_signal else None))
     except PreemptionError as e:
         result = {"family": args.family, "preempted": True, "step": e.step,
                   "checkpoint": e.checkpoint, "res_path": res}

@@ -27,7 +27,10 @@ import torch
 def host_copy(ts: Sequence[torch.Tensor]):
     """Start each tensor's copy to host memory on the current stream ->
     (host tensors, event or None); the event completes with the copies.
-    Tensors already on the host come back detached, uncopied."""
+    Tensors already on the host come back detached, uncopied.  A bf16
+    tensor (a head under ``--mp``) is converted to f32 first, exactly:
+    numpy has no bf16, and the JAX callers convert so too."""
+    ts = [t.float() if t.dtype == torch.bfloat16 else t for t in ts]
     if not any(t.device.type == "cuda" for t in ts):
         return [t.detach() for t in ts], None
     hosts = []

@@ -3,12 +3,14 @@ process or in spawned gloo ranks.
 
 This module imports torch, numpy and the port only — never jax — because
 it also holds the rank jobs that ``tests/test_torch_dp.py``,
-``tests/test_torch_steps.py`` and ``tests/test_torch_insurance.py`` hand to
+``tests/test_torch_steps.py``, ``tests/test_torch_insurance.py`` and
+``tests/test_torch_precision.py`` hand to
 ``mesh.spawn``: a spawned rank
 imports the module its function lives in,
 and a rank must not import jax or the JAX package.
 """
 
+import dataclasses
 import sys
 import time
 
@@ -25,6 +27,7 @@ from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
 )
 from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.parallel.data_parallel import DataParallelGraph
+from gan_deeplearning4j_tpu_torch.runtime import backend
 from gan_deeplearning4j_tpu_torch.train import fused_step as FT
 from gan_deeplearning4j_tpu_torch.train.gan_trainer import (
     GANTrainer,
@@ -38,8 +41,8 @@ DPG_CASES = (("gradient_sync", "gradient_sync", 1),
 T = torch.from_numpy
 
 
-# -- rank jobs (spawned by tests/test_torch_dp.py, test_torch_steps.py and
-# test_torch_insurance.py) -------------------------------------------------
+# -- rank jobs (spawned by tests/test_torch_dp.py, test_torch_steps.py,
+# test_torch_insurance.py and test_torch_precision.py) ---------------------
 
 def state_from_numpy(trees, it: int) -> FT.ProtocolState:
     return FT.ProtocolState(
@@ -55,11 +58,21 @@ def run_protocol(group, p):
     """len(p["z"]) protocol steps from p["state"] on the resident table,
     with the injected global latents -> [(state as numpy, losses)].  The
     DCGAN's step, or with p["model"] == "insurance" the insurance MLP-GAN's
-    (tests/test_torch_insurance.py)."""
-    M, features = ((MI, 12) if p.get("model") == "insurance" else (MT, 784))
-    d = M.build_discriminator(device="cpu")
-    graphs = (d, M.build_generator(device="cpu"), M.build_gan(device="cpu"),
-              M.build_classifier(d))
+    (tests/test_torch_insurance.py); with the model config fields
+    p["config"] and under the precision policy p["precision"] when given
+    (tests/test_torch_precision.py)."""
+    with backend.configured(**p.get("precision", {})):
+        return _run_protocol(group, p)
+
+
+def _run_protocol(group, p):
+    M, features, cfg = ((MI, 12, MI.InsuranceConfig())
+                        if p.get("model") == "insurance"
+                        else (MT, 784, MT.CVConfig()))
+    cfg = dataclasses.replace(cfg, **p.get("config", {}))
+    d = M.build_discriminator(cfg, device="cpu")
+    graphs = (d, M.build_generator(cfg, device="cpu"),
+              M.build_gan(cfg, device="cpu"), M.build_classifier(d, cfg))
     step = FT.make_protocol_step(
         *graphs, M.DIS_TO_GAN, M.GAN_TO_GEN, M.DIS_TO_CLASSIFIER,
         z_size=2, num_features=features, group=group)
