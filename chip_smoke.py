@@ -117,7 +117,11 @@ exits non-zero:
                 resumed in this process (bitwise the uninterrupted run,
                 with the resumed path's launch counts), and in a child
                 process from a copy of that checkpoint (the largest param
-                difference and the bound it meets); the latent generator's state after graph replays
+                difference and the bound it meets, reported: cuDNN times
+                its choices per process); then, under cuDNN's untimed
+                deterministic choice in two fresh child processes, a run
+                with checkpoints and a resume of its step-200 checkpoint,
+                bitwise; the latent generator's state after graph replays
                 against eager draws; the insurance step at world 2 over
                 gloo on one card, checkpointed at 4 and resumed to 8
                 (equal to the uninterrupted world-2 run); one run whose
@@ -165,13 +169,40 @@ exits non-zero:
                 kernel; and ``roadmap_main --family cgan-cifar10 --mp`` and
                 ``cv_main --bf16 --mp`` as child processes, evaluation
                 included.
- 13. the ``kernels`` line (each kernel's insurance numbers beside the
+ 13. serve    — the serving plane (``serve/``, ``parallel/inference.py``)
+                with the CV generator at full width, buckets (8, 32, 64),
+                under cuDNN's untimed choice (so that the replica child
+                answers bit for bit what this process answers), each check
+                required: the warm-up captures exactly 3 CUDA graphs (their
+                seconds, the pool's memory); rows 1-130 against the CPU's
+                eager forward of the same params within SERVE_CPU_TOL;
+                each bucket's graph bitwise its eager forward; coalesced
+                requests against the same requests alone; the JAX bench's
+                load (``measure_saturation`` on the size mix, then 5
+                stages at 80% of saturation): saturation req/s, p50/p95/
+                p99, batch fill, 0 captures after warm-up, the host's ms
+                per dispatch cycle by stage, 0 launches of each port
+                kernel; a hot swap from the resume phase's CV checkpoint
+                (cut to ``gen``) under load, the outputs then bitwise the
+                new params' forward; an injected hang (``WatchdogTimeout``
+                within the deadline) and raise (``DispatchError``), the
+                engine serving after each; each bucket's graphed and eager
+                device ms, here and under the default (timed) policy in a
+                child; and the replica as a child process (``python -m
+                ...serve.replica --port 0 --checkpoint``): its ready line,
+                /healthz, the size mix in both encodings bitwise this
+                process's engine, 413 / 400 / 404 / 405 / 429 (admission
+                shedding) / 408 (a slow body) / 503 (wedged), /admin/
+                hotswap, ``run_socket_load`` at 80% of the in-process
+                saturation, SIGTERM -> exit 0.
+ 14. the ``kernels`` line (each kernel's insurance numbers beside the
      CV step's, where the insurance path runs it, ``bn_act``'s roadmap
-     numbers, each kernel's launches on the cgan-cifar10 path: 0, and
-     its launches per workload and mode in the precision phase), the
-     seconds line (the script's total beside its total before the
-     precision phase was added), the nvidia-smi
-     line, and last {"ok": true, "device": {...}}.
+     numbers, each kernel's launches on the cgan-cifar10 path: 0, its
+     launches per workload and mode in the precision phase, and on the
+     serving path: 0), the seconds line (the script's total beside its
+     total before the precision phase was added and before the serve
+     phase in this run), the nvidia-smi line, and last
+     {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is available.
 Imports nothing of JAX.
@@ -1227,10 +1258,29 @@ RES_CV_STEPS = 400
 RES_CV_STOP = 200
 RES_DP_STEPS = (4, 8)  # the world-2 run: a checkpoint at 4, resumed to 8
 RES_CHILD_TIMEOUT_S = 300
-# the cross-process CV resume against the in-process run: the largest
-# param difference is reported with the first of these bounds it meets;
-# beyond the last, the phase fails
+# the cross-process CV resume under the default policy against the
+# in-process run: the largest param difference is reported with the first
+# of these bounds it meets (not gated: cuDNN times its choices per
+# process, and a chaotic GAN run amplifies another choice); under the
+# untimed choice the check is bitwise
 RES_CV_BOUNDS = (0.0, 1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 5e-2)
+# a child process under cuDNN's untimed deterministic choice (benchmark
+# off: the "heuristic" policy of train/moment_triage.py): every entry
+# point sets the parity switches through backend.set_f32_parity, so the
+# child wraps it and then runs the module as ``python -m`` would.  Two
+# fresh processes make the same untimed choices; a process that already
+# timed a shape keeps that choice (cuDNN's plan cache ignores the flag).
+UNTIMED_CHILD = """
+import runpy, sys, torch
+from gan_deeplearning4j_tpu_torch.runtime import backend
+_parity = backend.set_f32_parity
+def _untimed():
+    _parity()
+    torch.backends.cudnn.benchmark = False
+backend.set_f32_parity = _untimed
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
 LOSS_KEYS = ("classifier_loss", "d_loss", "g_loss")
 
 
@@ -1250,20 +1300,31 @@ class _SignalAt(io.TextIOBase):
         return len(text)
 
 
-def run_child(module: str, args, stop_after=None):
-    """``python -m module args`` in a child process from this checkout ->
-    (exit code, its last JSON line or None, seconds, stderr tail); with
-    ``stop_after``, SIGTERM once it printed ``Completed Batch
-    {stop_after}!``.  The child is killed at RES_CHILD_TIMEOUT_S."""
-    import signal
-    import threading
-
+def child_command(module: str, args, untimed: bool = False):
+    """(argv, cwd, env) of ``python -m module args`` from this checkout;
+    ``untimed``: under cuDNN's untimed choice (UNTIMED_CHILD).  With
+    ``module`` None, ``args`` follow the interpreter as they are."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    head = (["-c", UNTIMED_CHILD, module] if untimed
+            else [] if module is None else ["-m", module])
+    return [sys.executable, *head, *args], root, env
+
+
+def run_child(module: str, args, stop_after=None, untimed: bool = False):
+    """``python -m module args`` in a child process from this checkout ->
+    (exit code, its last JSON line or None, seconds, stderr tail); with
+    ``stop_after``, SIGTERM once it printed ``Completed Batch
+    {stop_after}!``; ``untimed``: under cuDNN's untimed choice.  The child
+    is killed at RES_CHILD_TIMEOUT_S."""
+    import signal
+    import threading
+
+    argv, root, env = child_command(module, args, untimed)
     t0 = time.perf_counter()
     with tempfile.TemporaryFile("w+") as err:
-        proc = subprocess.Popen([sys.executable, "-m", module, *args],
+        proc = subprocess.Popen(argv,
                                 cwd=root, env=env, stdout=subprocess.PIPE,
                                 stderr=err, text=True)
         killer = threading.Timer(RES_CHILD_TIMEOUT_S, proc.kill)
@@ -1463,7 +1524,7 @@ def resume_insurance(ref: str, ref_auroc: float, root: str) -> dict:
             "b_checkpoint_s": hs.get("checkpoint_s")}
 
 
-def resume_cv(torch, root: str) -> dict:
+def resume_cv(torch, root: str, serve_src: str) -> dict:
     """The CV program at full width, RES_CV_STEPS steps at batch 200 in
     calls of K = 100, checkpoints every 100: (1) in this process, U runs
     uninterrupted, P is preempted (SIGTERM to itself after step
@@ -1473,11 +1534,16 @@ def resume_cv(torch, root: str) -> dict:
     state after U's replays must be that of a fresh generator after
     2 x RES_CV_STEPS eager draws (the resume route of a checkpoint without
     ``z_gen_state``).  (3) The cost of a checkpoint of R's state.  (4)
-    Across processes: a child resumes a copy of P's directory (its
-    checkpoint and PREEMPTED.json) to RES_CV_STEPS; its zips against U's,
-    with the bound they meet.  (The insurance part sends SIGTERM to a
-    child; here the signal reaches this process, which keeps the CV part
-    to one child.)"""
+    Across processes, under the default policy: a child resumes a copy of
+    P's directory (its checkpoint and PREEMPTED.json) to RES_CV_STEPS; its
+    zips against U's, with the bound they meet (reported).  (5) Across
+    processes under cuDNN's untimed choice: a child W runs uninterrupted
+    with checkpoints, a second child resumes a copy of W's directory cut
+    back to its step-RES_CV_STOP checkpoint (its final zips removed); the
+    two runs' zips must be bitwise equal.  W's checkpoints are copied to
+    ``serve_src`` for the serve phase.  (The insurance part sends SIGTERM
+    to a child; here the signal reaches this process, which keeps the CV
+    part to its children.)"""
     from gan_deeplearning4j_tpu_torch.data import datasets
     from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
     from gan_deeplearning4j_tpu_torch.runtime import prng
@@ -1547,20 +1613,50 @@ def resume_cv(torch, root: str) -> dict:
     resumed_checkpoint_s = tr.timings.get("checkpoint_s")
     del tu, tr
 
-    # across processes: a child resumes the copy of P's directory
+    # across processes under the default policy: a child resumes the copy
+    # of P's directory (reported, not gated)
+    cv_main_mod = "gan_deeplearning4j_tpu_torch.train.cv_main"
+    zips = ("dis", "gan", "gen", "CV")
     rc_b, res_b, sec_b, err = run_child(
-        "gan_deeplearning4j_tpu_torch.train.cv_main",
-        RES_CV_BASE + RES_CV_CKPT + ["--res-path", x, "--resume"])
+        cv_main_mod, RES_CV_BASE + RES_CV_CKPT + ["--res-path", x, "--resume"])
     require(rc_b == 0 and res_b is not None
             and res_b.get("steps") == RES_CV_STEPS
             and not os.path.exists(f"{x}/PREEMPTED.json"),
             f"cv child: exit {rc_b}, {res_b}; stderr: {err}")
-    worst, first = zips_diff(u, x, "mnist", ("dis", "gan", "gen", "CV"))
+    worst, first = zips_diff(u, x, "mnist", zips)
     bound = next((b for b in RES_CV_BOUNDS if worst <= b), None)
-    require(bound is not None,
-            f"cv: the cross-process resume differs from the uninterrupted "
-            f"run by {worst} (first differing leaf {first}), beyond "
-            f"{RES_CV_BOUNDS[-1]}")
+    # across processes under the untimed choice: W uninterrupted, then a
+    # resume of W's step-RES_CV_STOP checkpoint, both fresh children
+    from gan_deeplearning4j_tpu_torch.checkpoint import TrainCheckpointer
+
+    # (checkpoints at RES_CV_STOP only: the resume needs no other)
+    untimed_ckpt = ["--checkpoint-every", str(RES_CV_STOP)]
+    w = res_dir("cv_w")
+    rc_w, res_w, sec_w, err = run_child(
+        cv_main_mod, RES_CV_BASE + untimed_ckpt + ["--res-path", w],
+        untimed=True)
+    require(rc_w == 0 and res_w is not None
+            and res_w.get("steps") == RES_CV_STEPS,
+            f"cv untimed child W: exit {rc_w}, {res_w}; stderr: {err}")
+    y = f"{root}/cv_y"
+    shutil.copytree(w, y)
+    cut = TrainCheckpointer(f"{y}/checkpoints",
+                            sweep_debris=False).prune_above(RES_CV_STOP)
+    for g in zips:
+        os.remove(f"{y}/mnist_{g}_model.zip")
+    rc_y, res_y, sec_y, err = run_child(
+        cv_main_mod, RES_CV_BASE + untimed_ckpt + ["--res-path", y,
+                                                   "--resume"],
+        untimed=True)
+    require(rc_y == 0 and res_y is not None
+            and res_y.get("steps") == RES_CV_STEPS,
+            f"cv untimed resume child: exit {rc_y}, {res_y}; stderr: {err}")
+    worst_u, first_u = zips_diff(w, y, "mnist", zips)
+    require(worst_u == 0.0,
+            f"cv: under cuDNN's untimed choice the cross-process resume "
+            f"differs from the uninterrupted run by {worst_u} (first "
+            f"differing leaf {first_u}); it must be bitwise")
+    shutil.copytree(f"{w}/checkpoints", serve_src, dirs_exist_ok=True)
     return {"steps": RES_CV_STEPS, "stopped_at": RES_CV_STOP,
             "in_process_bitwise": True, "launches": launches,
             "expected_launches": expected,
@@ -1572,7 +1668,13 @@ def resume_cv(torch, root: str) -> dict:
             "examples_per_sec_uninterrupted": ru["examples_per_sec"],
             "examples_per_sec_resumed": rr["examples_per_sec"],
             "costs": costs,
-            "cross_process": {"largest_param_diff": worst,
+            "cross_process_untimed": {
+                "policy": "cudnn deterministic, benchmark off, both children",
+                "largest_param_diff": worst_u, "bitwise": True,
+                "resumed_from": RES_CV_STOP, "checkpoints_cut": cut,
+                "seconds_uninterrupted": sec_w, "seconds_resumed": sec_y},
+            "cross_process": {"policy": "default (timed), not gated",
+                              "largest_param_diff": worst,
                               "first_differing_leaf": first,
                               "bound_met": bound, "bitwise": worst == 0.0,
                               "seconds": sec_b,
@@ -1668,15 +1770,17 @@ def resume_data_retry(root: str, torch) -> dict:
             "insurance_capture_s": t.timings.get("capture_s")}
 
 
-def resume_phase(torch, smi: str, ins_ref: str, ins_auroc: float) -> dict:
+def resume_phase(torch, smi: str, ins_ref: str, ins_auroc: float,
+                 serve_src: str) -> dict:
     """Checkpoints, preemption and resume on the card (see the module
-    docstring, phase 10)."""
+    docstring, phase 10); leaves a CV checkpoint directory in
+    ``serve_src``."""
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="gan4j_resume_")
     try:
         out = {"insurance": resume_insurance(ins_ref, ins_auroc, root)}
         t1 = time.perf_counter()
-        out["cv"] = resume_cv(torch, root)
+        out["cv"] = resume_cv(torch, root, serve_src)
         t2 = time.perf_counter()
         out["dp"] = resume_dp(root)
         out["data_retry"] = resume_data_retry(root, torch)
@@ -2554,6 +2658,599 @@ def precision_phase(torch, smi: str, bw: float) -> dict:
     return out
 
 
+# -- the serve phase ----------------------------------------------------------
+
+SERVE_BUCKETS = (8, 32, 64)  # the DEFAULT_SERVING_BUCKETS
+SERVE_ROWS = (1, 5, 8, 32, 64, 70, 130)
+# the card against the CPU's eager forward of the same params: f32 on
+# both, other convolution code; the generator's sigmoid outputs lie in
+# [0, 1], so this is an absolute bound
+SERVE_CPU_TOL = 1e-5
+# a request served coalesced against the same request served alone:
+# bitwise is expected (one bucket's graph, no row coupling); otherwise it
+# must stay at float32 ulp scale, the JAX package's own bound (rtol, atol)
+SERVE_COALESCE_TOL = (1e-6, 1e-7)
+SERVE_COALESCE = ((3, 5), (5, 6), (1, 4, 16, 32), (70,))
+# the JAX bench's serving methodology (gan_deeplearning4j_tpu/bench.py
+# serve_bench): a geometric ramp to saturation, then stages at 80% of it
+SERVE_SATURATION = {"start_rps": 50.0, "growth": 1.6, "stage_s": 2.0,
+                    "max_stages": 14}
+SERVE_SLO_FRAC = 0.8
+SERVE_SLO_STAGES = 5
+SERVE_SWAP_S = 2.0  # the load stage a hot swap lands in
+SERVE_HANG_DEADLINE_S = 2.0
+SERVE_SOCKET_S = 2.0  # run_socket_load through the replica child
+SERVE_MIX_SIZES = (1, 4, 16, 48)
+SERVE_CHILD_TIMEOUT_S = 180
+
+
+@contextlib.contextmanager
+def untimed_cudnn(torch):
+    """This process under cuDNN's untimed deterministic choice (as
+    UNTIMED_CHILD puts a child), the parity switches put back after."""
+    from gan_deeplearning4j_tpu_torch.runtime import backend
+
+    parity = backend.set_f32_parity
+
+    def untimed():
+        parity()
+        torch.backends.cudnn.benchmark = False
+
+    backend.set_f32_parity = untimed
+    untimed()
+    try:
+        yield
+    finally:
+        backend.set_f32_parity = parity
+        parity()
+
+
+def bucket_device_times(torch, infer) -> dict:
+    """Each captured bucket's device ms: its graph's replay and the eager
+    forward it recorded, on the graph's static inputs (``time_ms``)."""
+    out = {}
+    for key, cap in sorted(infer._graphs.items()):
+        rows = key[0][0]
+        out[str(rows)] = {
+            "graphed_ms": time_ms(cap.graph.replay, torch),
+            "eager_ms": time_ms(lambda c=cap: infer._forward(c.inputs),
+                                torch)}
+    return out
+
+
+def serve_timed_times() -> dict:
+    """The bucket device times under the port's default (timed) cuDNN
+    policy, for a child process: the serve phase itself runs untimed."""
+    import numpy as np
+    import torch
+
+    from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+    from gan_deeplearning4j_tpu_torch.serve import ServeEngine
+
+    eng = ServeEngine(M.build_generator(device="cuda"),
+                      buckets=SERVE_BUCKETS, supervise=False)
+    eng.warmup(np.zeros((1, 2), np.float32))
+    return {"cudnn_benchmark": torch.backends.cudnn.benchmark,
+            "captures": eng.infer.captures,
+            "buckets": bucket_device_times(torch, eng.infer)}
+
+
+def _z(rng, rows):
+    return rng.rand(rows, 2).astype("float32") * 2 - 1
+
+
+def _http(port, method, path, body=None, headers=()):
+    """(status, headers, body) of one request on a fresh connection."""
+    from http.client import HTTPConnection
+
+    conn = HTTPConnection("127.0.0.1", port, timeout=60.0)
+    try:
+        conn.request(method, path, body=body, headers=dict(headers))
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _npy(x) -> bytes:
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, x, allow_pickle=False)
+    return buf.getvalue()
+
+
+def _slow_body_status(port: int, box: dict) -> None:
+    """A slow-loris body: declare 1000 bytes and drip one every 0.05 s
+    until the gateway answers (its total read deadline: 408).  The status
+    and the seconds go to ``box``.  (A body that stops for longer than
+    the gateway's 0.25 s read tick is closed unanswered, as in the JAX
+    gateway: CPython refuses to read a socket again after a timeout.)"""
+    import select
+    import socket
+
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port), timeout=30.0) as s:
+        s.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: x\r\n"
+                  b"Content-Type: application/json\r\n"
+                  b"Content-Length: 1000\r\n\r\n")
+        for _ in range(1000):
+            if select.select([s], [], [], 0.05)[0]:
+                break
+            s.sendall(b" ")
+        line = s.makefile("rb").readline().decode("latin-1")
+    box["status"] = int(line.split()[1]) if line.startswith("HTTP/") else None
+    box["seconds"] = time.perf_counter() - t0
+
+
+def serve_replica_child(torch, ckpt_dir: str, step: int, ref_eng,
+                        rate: float) -> dict:
+    """The replica as a user runs it (``python -m ...serve.replica --port
+    0 --checkpoint``), under the untimed choice as this process is: its
+    ready line, /healthz, replies from the size mix in both encodings
+    bitwise ``ref_eng``'s (this process's engine on the same weights),
+    the wire contract, /admin/hotswap, ``run_socket_load`` at ``rate``
+    and SIGTERM -> exit 0."""
+    import signal
+    import threading
+
+    import numpy as np
+
+    from gan_deeplearning4j_tpu_torch.serve import (
+        GatewayClient,
+        GatewayHTTPError,
+        run_socket_load,
+        z_inputs,
+    )
+
+    argv, cwd, env = child_command(
+        "gan_deeplearning4j_tpu_torch.serve.replica",
+        ["--port", "0", "--checkpoint", ckpt_dir], untimed=True)
+    out = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(argv, cwd=cwd, env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=err)
+        try:
+            box = []
+            reader = threading.Thread(
+                target=lambda: box.append(proc.stdout.readline()),
+                daemon=True)
+            reader.start()
+            reader.join(SERVE_CHILD_TIMEOUT_S)
+            err.seek(0)
+            require(box and box[0].startswith("{"),
+                    f"serve replica: no ready line (exit {proc.poll()}); "
+                    f"stderr: {err.read()[-3000:]}")
+            ready = json.loads(box[0])
+            require(ready["event"] == "replica_ready"
+                    and ready["pid"] == proc.pid, f"ready line {ready}")
+            port = ready["port"]
+            out["ready_s"] = time.perf_counter() - t0
+            client = GatewayClient("127.0.0.1", port, retries=0, seed=13)
+            health = client.healthz()
+            require(health["_status"] == 200 and health["serve"]["ok"],
+                    f"serve replica: /healthz {health}")
+            # first, while nothing else runs: a drip that stalls for the
+            # gateway's 0.25 s read tick is closed, not answered (above)
+            loris = {}
+            _slow_body_status(port, loris)
+            rng = np.random.RandomState(20261018)
+            for rows in SERVE_MIX_SIZES:
+                z = _z(rng, rows)
+                want = ref_eng.generate(z, timeout=120.0)[0]
+                for enc in ("json", "npy"):
+                    got = client.generate([z], encoding=enc)[0]
+                    require(got.dtype == np.float32
+                            and np.array_equal(got, want),
+                            f"serve replica: {rows} rows over {enc} differ "
+                            f"from the in-process engine by "
+                            f"{float(np.abs(got - want).max())}")
+            status = {}
+            conn_headers = (("Content-Type", "application/json"),)
+            from http.client import HTTPConnection
+
+            conn = HTTPConnection("127.0.0.1", port, timeout=60.0)
+            try:
+                conn.putrequest("POST", "/v1/generate")
+                conn.putheader("Content-Type", "application/json")
+                conn.putheader("Content-Length", str(1 << 30))
+                conn.endheaders()
+                resp = conn.getresponse()
+                status["413"] = (resp.status,
+                                 json.loads(resp.read())["type"])
+            finally:
+                conn.close()
+            s, _, body = _http(port, "POST", "/v1/generate",
+                               _npy(np.zeros((2, 2), np.float64)),
+                               (("Content-Type", "application/x-npy"),))
+            status["400"] = (s, json.loads(body)["type"])
+            s, _, body = _http(port, "POST", "/v1/nothing", b"{}",
+                               conn_headers)
+            status["404"] = (s, json.loads(body)["type"])
+            s, _, body = _http(port, "GET", "/v1/generate")
+            status["405"] = (s, json.loads(body)["type"])
+            # 429: admission sheds a request whose estimated wait exceeds
+            # its 1 s budget.  One-row requests teach the rate estimate a
+            # small rows/s; then bursts of maximal requests arrive.
+            shed, attempts = [], []
+            for burst in (8, 16, 32):
+                for _ in range(20):
+                    client.generate([_z(rng, 1)], encoding="npy")
+                big = _z(rng, 4096)
+                results = []
+
+                def one():
+                    try:
+                        client.generate([big], encoding="npy")
+                        results.append(200)
+                    except GatewayHTTPError as e:
+                        results.append((e.status, e.error_type,
+                                        e.retry_after))
+
+                threads = [threading.Thread(target=one, daemon=True)
+                           for _ in range(burst)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(120.0)
+                attempts.append({"burst": burst, "ok": results.count(200),
+                                 "rejected": len(results)
+                                 - results.count(200)})
+                shed = [r for r in results if r != 200]
+                if shed:
+                    break
+            require(shed and all(r[0] == 429 and r[1] == "shed"
+                                 and r[2] is not None and r[2] >= 1
+                                 for r in shed),
+                    f"serve replica: no typed 429 from admission: "
+                    f"{attempts} {shed[:3]}")
+            status["429"] = (shed[0][0], shed[0][1])
+            s, _, body = _http(port, "POST", "/admin/hotswap",
+                               json.dumps({"directory": ckpt_dir}).encode(),
+                               conn_headers)
+            require(s == 200 and json.loads(body)["result"] == {"step": step},
+                    f"serve replica: /admin/hotswap {s} {body[:200]}")
+            slo = run_socket_load(
+                GatewayClient("127.0.0.1", port, retries=2, seed=21), rate,
+                duration_s=SERVE_SOCKET_S, make_inputs=z_inputs(2, seed=22),
+                encoding="npy", seed=23)
+            require(slo["errors"] == 0 and slo["undrained"] == 0,
+                    f"serve replica: socket load {slo}")
+            s, _, _ = _http(port, "POST", "/admin/chaos/wedge",
+                            json.dumps({"seconds": 30}).encode(),
+                            conn_headers)
+            wedged = client.healthz()
+            status["503"] = (wedged["_status"],
+                             wedged["serve"].get("wedged"))
+            status["408"] = (loris.get("status"), loris.get("seconds"))
+            want = {"413": (413, "validation"), "400": (400, "validation"),
+                    "404": (404, "route"), "405": (405, "method"),
+                    "429": (429, "shed"), "503": (503, True)}
+            require(all(status[k] == v for k, v in want.items())
+                    and loris.get("status") == 408,
+                    f"serve replica: wire statuses {status}")
+            client.close()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60.0)
+            require(rc == 0, f"serve replica: exit {rc} after SIGTERM")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+    out.update({"exit_code_after_sigterm": 0, "statuses": status,
+                "shed_attempts": attempts, "hotswap_step": step,
+                "replies_bitwise_in_process": True,
+                "socket_load": slo, "seconds": time.perf_counter() - t0})
+    return out
+
+
+def serve_phase(torch, smi: str, serve_src: str) -> dict:
+    """The serving plane on the card (module docstring, phase 13)."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="gan4j_serve_")
+    try:
+        # the timed policy's bucket times, in a fresh process of its own
+        rc, timed, sec, err = run_child_code(
+            "import chip_smoke, json; "
+            "print(json.dumps(chip_smoke.serve_timed_times()))")
+        require(rc == 0 and timed is not None and timed["captures"] == 3
+                and timed["cudnn_benchmark"],
+                f"serve timed child: exit {rc}, {timed}; stderr: {err}")
+        with untimed_cudnn(torch):
+            out = _serve(torch, root, serve_src)
+        out["timed_policy_child"] = {**timed, "seconds": sec}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["nvidia_smi"] = smi
+    return out
+
+
+def run_child_code(code: str):
+    """``python -c code`` from this checkout -> (exit code, its last JSON
+    line or None, seconds, stderr tail)."""
+    argv, root, env = child_command(None, ["-c", code])
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=RES_CHILD_TIMEOUT_S)
+    last = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    return (proc.returncode, json.loads(last[-1]) if last else None,
+            time.perf_counter() - t0, proc.stderr[-3000:])
+
+
+def _serve(torch, root: str, serve_src: str) -> dict:
+    import threading
+
+    import numpy as np
+
+    from gan_deeplearning4j_tpu_torch.checkpoint import TrainCheckpointer
+    from gan_deeplearning4j_tpu_torch.graph import serialization
+    from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.parallel.inference import (
+        ParallelInference,
+    )
+    from gan_deeplearning4j_tpu_torch.serve import (
+        DispatchError,
+        Request,
+        ServeEngine,
+        measure_saturation,
+        run_load,
+        z_inputs,
+    )
+    from gan_deeplearning4j_tpu_torch.serve import engine as engine_mod
+    from gan_deeplearning4j_tpu_torch.serve.loadgen import DEFAULT_SIZE_MIX
+    from gan_deeplearning4j_tpu_torch.train.watchdog import WatchdogTimeout
+
+    dev = torch.device("cuda")
+    out = {"cudnn_policy": "deterministic, untimed (benchmark off), here "
+                           "and in the replica child",
+           "buckets": list(SERVE_BUCKETS),
+           "size_mix": [list(p) for p in DEFAULT_SIZE_MIX]}
+    # the serving checkpoint: the resume phase's CV run at its newest
+    # verified step, cut to the generator a replica serves ("gen")
+    src = TrainCheckpointer(serve_src, sweep_debris=False)
+    step = src.latest_verified_step()
+    require(step is not None, f"serve: no verified checkpoint in {serve_src}")
+    trained = serialization.read_model(f"{serve_src}/ckpt_{step}/gen_model.zip",
+                                       dev)
+    ckpt_dir = f"{root}/gen_ckpt"
+    TrainCheckpointer(ckpt_dir).save(step, {"gen": trained})
+
+    # 1. capture
+    gen = M.build_generator(device=dev)
+    out["gen_params"] = gen.num_params()
+    infer = ParallelInference(gen, buckets=SERVE_BUCKETS)
+    eng = ServeEngine(infer=infer)
+    with kernels.captured_launches() as in_warmup:
+        t1 = time.perf_counter()
+        eng.warmup(np.zeros((1, 2), np.float32))
+        warmup_s = time.perf_counter() - t1
+    require(infer.captures == len(SERVE_BUCKETS),
+            f"serve: warm-up captured {infer.captures} graphs")
+    out["capture"] = {"captures": infer.captures, "warmup_s": warmup_s,
+                      "capture_s": {str(k): v for k, v in
+                                    infer.capture_seconds.items()},
+                      "pool_bytes": infer.pool_bytes,
+                      "launches_in_warmup": in_warmup}
+
+    # 2. the card against the CPU, graphed against eager, coalesced
+    # against alone
+    rng = np.random.RandomState(20261017)
+    cpu = M.build_generator(device="cpu")
+    cpu.params = {layer: {n: t.cpu() for n, t in lp.items()}
+                  for layer, lp in infer.params.items()}
+    cpu_err = {}
+    for rows in SERVE_ROWS:
+        z = _z(rng, rows)
+        card = infer.output(z)[0].cpu()
+        ref = cpu.output(torch.from_numpy(z))[0]
+        require(tuple(card.shape) == (rows, 1, 28, 28)
+                and bool(torch.isfinite(card).all()),
+                f"serve: {rows} rows gave {tuple(card.shape)}")
+        cpu_err[str(rows)] = max_err(card, ref)
+    require(max(cpu_err.values()) <= SERVE_CPU_TOL,
+            f"serve: card against CPU {cpu_err} beyond {SERVE_CPU_TOL}")
+    for b in SERVE_BUCKETS:
+        z = torch.from_numpy(_z(rng, b)).to(dev)
+        graphed = infer.output(z)[0]
+        eager = gen.output(z, params=infer.params)[0]
+        require(torch.equal(graphed, eager),
+                f"serve: bucket {b}'s graph differs from its eager forward "
+                f"by {max_err(graphed, eager)}")
+    coalesced = {}
+    for sizes in SERVE_COALESCE:
+        reqs = [Request((_z(np.random.RandomState(n), n),)) for n in sizes]
+        one = ServeEngine(infer=infer, supervise=False)
+        for r in reqs:
+            one.admission.submit(r)
+        with one:
+            got = [r.result(timeout=120.0)[0] for r in reqs]
+            batches = one.report()["batches_total"]
+        require(batches == 1, f"serve: {sizes} took {batches} batches")
+        worst = 0.0
+        for n, g in zip(sizes, got):
+            alone = infer.output(_z(np.random.RandomState(n), n))[0].cpu()
+            worst = max(worst, max_err(torch.from_numpy(g), alone))
+            require(within(torch.from_numpy(g), alone,
+                           SERVE_COALESCE_TOL[1], SERVE_COALESCE_TOL[0]),
+                    f"serve: coalesced {sizes} against alone: {worst}")
+        coalesced[str(sizes)] = worst
+    out["card_vs_cpu"] = {"max_abs_err": cpu_err, "tolerance": SERVE_CPU_TOL}
+    out["graphed_vs_eager_bitwise"] = True
+    out["coalesced_vs_alone"] = {"max_abs_err": coalesced,
+                                 "bitwise": not any(coalesced.values()),
+                                 "tolerance": SERVE_COALESCE_TOL}
+
+    # 3. load: saturation, then the SLO stages at 80% of it, with the
+    # port kernels counted around them
+    mk = z_inputs(2, seed=20261017)
+    eng.start()
+    before = eng.stage_report()
+    kernels.reset_launch_counts()
+    sat = measure_saturation(eng, mk, size_mix=DEFAULT_SIZE_MIX, seed=0,
+                             **SERVE_SATURATION)
+    require(sat["saturation_rps"] > 0, f"serve: no stage sustained: {sat}")
+    rate = SERVE_SLO_FRAC * sat["saturation_rps"]
+    slo = [run_load(eng, rate, duration_s=SERVE_SATURATION["stage_s"],
+                    make_inputs=mk, seed=100 + i)
+           for i in range(SERVE_SLO_STAGES)]
+    launches = kernels.launch_counts()
+    rep = eng.report()
+    after = eng.stage_report()
+    require(not any(launches.values()),
+            f"serve: port kernels launched under load: {launches}")
+    require(all(s["errors"] == 0 and s["undrained"] == 0 for s in slo),
+            f"serve: SLO stages {slo}")
+    require(infer.captures == len(SERVE_BUCKETS),
+            f"serve: {infer.captures - len(SERVE_BUCKETS)} captures under "
+            "load")
+    batches = after["batches"] - before["batches"]
+    cycle = {k: (after[k] - before[k]) / batches * 1e3
+             for k in engine_mod.STAGES}
+
+    def med(key):
+        vals = [s[key] for s in slo if s[key] is not None]
+        return statistics.median(vals) if vals else None
+
+    out["load"] = {
+        "saturation_rps": sat["saturation_rps"],
+        "saturation_stages": sat["stages_run"],
+        "saturation_failed_stage": sat["failed_stage"],
+        "slo_rate_rps": rate,
+        "p50_ms": med("p50_ms"), "p95_ms": med("p95_ms"),
+        "p99_ms": med("p99_ms"),
+        "slo_stages": [{k: s[k] for k in (
+            "offered_rps", "achieved_rps", "completed", "shed", "errors",
+            "p50_ms", "p95_ms", "p99_ms")} for s in slo],
+        "batch_fill": rep["batch_fill"],
+        "captures_after_warmup": infer.captures - len(SERVE_BUCKETS),
+        "launches": launches,
+        "host_ms_per_cycle": {**cycle, "total": sum(cycle.values()),
+                              "batches": batches},
+        "engine": {k: rep[k] for k in ("requests_total", "batches_total",
+                                       "shed_total", "rate_rows_per_s",
+                                       "timeouts_total")}}
+
+    # 4. a hot swap from the serving checkpoint, under load
+    swap = {}
+
+    def swapper():
+        time.sleep(SERVE_SWAP_S / 4)
+        t = time.perf_counter()
+        swap["step"] = eng.hotswap_from(ckpt_dir)
+        swap["seconds"] = time.perf_counter() - t
+
+    th = threading.Thread(target=swapper, daemon=True)
+    th.start()
+    during = run_load(eng, rate, duration_s=SERVE_SWAP_S, make_inputs=mk,
+                      seed=300)
+    th.join(60.0)
+    require(swap.get("step") == step and during["errors"] == 0
+            and during["undrained"] == 0
+            and infer.captures == len(SERVE_BUCKETS),
+            f"serve: hot swap {swap} under load {during}, captures "
+            f"{infer.captures}")
+    restored = M.build_generator(device=dev)
+    TrainCheckpointer(ckpt_dir, sweep_debris=False).restore({"gen": restored})
+
+    def served_shapes_forward(z):
+        """The eager forward of ``restored`` at the shapes the engine
+        dispatches ``z`` as (its bucket plan, zero rows appended)."""
+        segs = eng._plan(len(z))
+        zp = np.concatenate([z, np.zeros((sum(segs) - len(z), 2),
+                                         np.float32)])
+        outs, lo = [], 0
+        for seg in segs:
+            outs.append(restored.output(
+                torch.from_numpy(zp[lo:lo + seg]).to(dev))[0])
+            lo += seg
+        return torch.cat(outs)[:len(z)].cpu().numpy()
+
+    for rows in SERVE_MIX_SIZES + (70,):
+        z = _z(rng, rows)
+        got = eng.generate(z, timeout=120.0)[0]
+        want = served_shapes_forward(z)
+        require(np.array_equal(got, want),
+                f"serve: after the swap {rows} rows differ from the new "
+                f"params' forward by {float(np.abs(got - want).max())}")
+    out["hotswap"] = {"step": step, "swap_s": swap["seconds"],
+                      "captures": infer.captures,
+                      "load": {k: during[k] for k in (
+                          "completed", "shed", "errors", "p99_ms")},
+                      "bitwise_new_params": True}
+    eng.stop()
+    out["device_ms"] = bucket_device_times(torch, infer)
+
+    # 5. an injected hang and an injected raise
+    heng = ServeEngine(infer=infer, watchdog_deadline_s=SERVE_HANG_DEADLINE_S)
+    hung, release = threading.Event(), threading.Event()
+
+    def hang():
+        hung.set()
+        while not release.is_set():
+            time.sleep(0.05)
+
+    def boom():
+        engine_mod._chaos_dispatch_hook = None
+        raise RuntimeError("injected dispatch fault")
+
+    faults = {}
+    with heng:
+        heng.generate(_z(rng, 4), timeout=60.0)
+        try:
+            engine_mod._chaos_dispatch_hook = hang
+            t = time.perf_counter()
+            req = heng.submit(_z(rng, 8))
+            require(hung.wait(30.0), "serve: the hang hook never ran")
+            engine_mod._chaos_dispatch_hook = None
+            try:
+                req.result(timeout=60.0)
+                faults["hang"] = "answered"
+            except WatchdogTimeout:
+                faults["hang"] = "WatchdogTimeout"
+            faults["hang_s"] = time.perf_counter() - t
+        finally:
+            engine_mod._chaos_dispatch_hook = None
+            release.set()
+        faults["after_hang_rows"] = heng.generate(
+            _z(rng, 4), timeout=60.0)[0].shape[0]
+        engine_mod._chaos_dispatch_hook = boom
+        try:
+            heng.generate(_z(rng, 8), timeout=60.0)
+            faults["raise"] = "answered"
+        except DispatchError as e:
+            faults["raise"] = ("DispatchError"
+                               if isinstance(e.__cause__, RuntimeError)
+                               else repr(e.__cause__))
+        finally:
+            engine_mod._chaos_dispatch_hook = None
+        faults["after_raise_rows"] = heng.generate(
+            _z(rng, 4), timeout=60.0)[0].shape[0]
+        hrep = heng.report()
+    faults.update(timeouts_total=hrep["timeouts_total"],
+                  errors_total=hrep["errors_total"], ok=hrep["ok"],
+                  deadline_s=SERVE_HANG_DEADLINE_S)
+    require(faults["hang"] == "WatchdogTimeout"
+            and faults["hang_s"] <= SERVE_HANG_DEADLINE_S + 1.0
+            and faults["raise"] == "DispatchError"
+            and faults["after_hang_rows"] == faults["after_raise_rows"] == 4
+            and hrep["timeouts_total"] == 1 and hrep["errors_total"] == 1,
+            f"serve: faults {faults}")
+    out["faults"] = faults
+
+    # 6. the replica as a child process, held against this process's
+    # engine on the same (swapped) weights
+    ref_eng = ServeEngine(infer=infer, supervise=False)
+    with ref_eng:
+        out["replica"] = serve_replica_child(torch, ckpt_dir, step, ref_eng,
+                                             rate)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -3151,12 +3848,15 @@ def main() -> int:
 
     # -- 9. the insurance program end to end ----------------------------------
     ins_ref = tempfile.mkdtemp(prefix="gan4j_ins_ref_")
+    # the resume phase's CV checkpoints, which the serve phase serves
+    serve_src = tempfile.mkdtemp(prefix="gan4j_serve_src_")
     try:
         ins = insurance_phase(torch, smi, ins_ref)
         emit("insurance", **ins)
 
         # -- 10. checkpoints, preemption and resume ---------------------------
-        emit("resume", **resume_phase(torch, smi, ins_ref, ins["test_auroc"]))
+        emit("resume", **resume_phase(torch, smi, ins_ref, ins["test_auroc"],
+                                      serve_src))
     finally:
         shutil.rmtree(ins_ref, ignore_errors=True)
 
@@ -3168,7 +3868,15 @@ def main() -> int:
     prec = precision_phase(torch, smi, bw)
     emit("precision", **prec)
 
-    # -- 13. the kernels line and the result ---------------------------------
+    # -- 13. the serving plane ------------------------------------------------
+    before_serve_s = time.perf_counter() - T_START
+    try:
+        serve = serve_phase(torch, smi, serve_src)
+    finally:
+        shutil.rmtree(serve_src, ignore_errors=True)
+    emit("serve", **serve)
+
+    # -- 14. the kernels line and the result ---------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
     # pair, and the kernel phase's check for the 4-D BN, which no model
     # path runs (as in the JAX package)
@@ -3212,12 +3920,18 @@ def main() -> int:
          # each workload's eager run in each mode (PR_CALLS * PR_K steps)
          "precision": {w: {m: res["eager_launches"][r["name"]]
                            for m, res in modes.items()}
-                       for w, modes in prec["graphed_vs_eager"].items()}}
+                       for w, modes in prec["graphed_vs_eager"].items()},
+         # the serving path's inference forward runs none of the six
+         # (the JAX forward reaches no Pallas kernel): counted around the
+         # serve phase's load stages
+         "serve": {"launches": serve["launches"][r["name"]]}}
         for r in report]}), flush=True)
     print(json.dumps({"seconds": {
         "total": time.perf_counter() - T_START,
         "precision": prec["seconds"],
-        "total_before_the_precision_phase": TOTAL_BEFORE_PRECISION_S}}),
+        "total_before_the_precision_phase": TOTAL_BEFORE_PRECISION_S,
+        "serve": serve["seconds"],
+        "total_before_the_serve_phase": before_serve_s}}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,65 @@
+"""Serving plane — the continuous-batching generation service (torch twin
+of ``gan_deeplearning4j_tpu/serve/``, single host).
+
+``parallel/inference.py`` runs ONE bucketed dispatch, a CUDA graph per
+bucket on the card; this package turns it into a service: an
+admission-controlled request queue (``admission.py``) drained by a
+dedicated dispatch thread (``engine.py``) that coalesces concurrent
+requests into the next bucketed dispatch, an open-loop Poisson load
+harness (``loadgen.py``) that measures p50/p95/p99 and saturation
+throughput, and the network front door: an HTTP gateway (``gateway.py``)
+over a health-aware replica router (``router.py``) with a retrying
+reference client (``client.py``); ``replica.py`` runs the stack as a
+standalone process.  The wire formats, error types, status codes and
+report keys are the JAX package's.
+
+Not ported yet (ROADMAP Queue 1 item 10): the mesh tier (``mesh.py``),
+the control plane and the checkpoint publisher; the fleet tenant bank
+(item 9) raises.
+"""
+
+from gan_deeplearning4j_tpu_torch.serve.admission import (
+    AdmissionQueue,
+    Request,
+    ShedError,
+)
+from gan_deeplearning4j_tpu_torch.serve.client import (
+    GatewayClient,
+    GatewayHTTPError,
+)
+from gan_deeplearning4j_tpu_torch.serve.engine import DispatchError, ServeEngine
+from gan_deeplearning4j_tpu_torch.serve.gateway import Gateway, TokenBucket
+from gan_deeplearning4j_tpu_torch.serve.loadgen import (
+    measure_saturation,
+    percentiles,
+    run_load,
+    run_socket_load,
+    z_inputs,
+)
+from gan_deeplearning4j_tpu_torch.serve.router import (
+    FleetTenantBank,
+    NoHealthyReplicaError,
+    Router,
+    TenantThrottledError,
+)
+
+__all__ = [
+    "AdmissionQueue",
+    "DispatchError",
+    "FleetTenantBank",
+    "Gateway",
+    "GatewayClient",
+    "GatewayHTTPError",
+    "NoHealthyReplicaError",
+    "Request",
+    "Router",
+    "ServeEngine",
+    "ShedError",
+    "TenantThrottledError",
+    "TokenBucket",
+    "measure_saturation",
+    "percentiles",
+    "run_load",
+    "run_socket_load",
+    "z_inputs",
+]

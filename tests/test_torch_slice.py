@@ -171,6 +171,22 @@ from gan_deeplearning4j_tpu_torch.train import (checkpoint_ab, cv_main,
                                                 preemption, roadmap_main)
 from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
 from gan_deeplearning4j_tpu_torch.utils import async_dump, metrics as logger
+from gan_deeplearning4j_tpu_torch.utils import device as device_lib
+from gan_deeplearning4j_tpu_torch.parallel import inference
+from gan_deeplearning4j_tpu_torch.serve import (admission, client, engine,
+                                                gateway, loadgen, replica,
+                                                router)
+from gan_deeplearning4j_tpu_torch.train import watchdog
+import numpy as np
+eng, gw, _ = replica.build_replica(device="cpu")
+try:
+    c = client.GatewayClient("127.0.0.1", gw.port)
+    assert tuple(c.generate([np.zeros((3, 2), np.float32)])[0].shape) == (
+        3, 1, 28, 28)
+    assert c.healthz()["_status"] == 200
+finally:
+    gw.stop()
+    eng.stop()
 assert fid_extractor.load_extractor("cpu").params["feat"]["W"].shape == (512, 256)
 t = GANTrainer(batch_size=4, n_train=8, device="cpu")
 r = t.train(1, log=None)
