@@ -45,7 +45,14 @@ exits non-zero:
                 ``F.batch_norm`` in turns, floor and bound), the pair at a
                 2-rank insurance step's per-rank shapes ([25, 2] on the
                 scalar path) and ``fused_update`` over its three leaf
-                tables.
+                tables.  A ``kernel_roadmap_pair`` line does the same for
+                the pair at the roadmap families' per-rank shapes at world
+                2 ([64, 8192] and [64, 6272], relu): the moments kernel and
+                the apply kernel from the sums, against their plain
+                versions, the float4 path and the offset view's scalar
+                path bit for bit, a bitwise repeat, mean and var the
+                epilogue's bits, each timed against ``torch.var_mean`` /
+                ``F.batch_norm`` in turns, floor and bound.
   4. main     — the trainer (the cv_main entry) on cuda for 20 protocol
                 steps at batch 200, full width, on synthetic MNIST, as
                 cv_main runs it on one card: the step captured as a CUDA
@@ -147,10 +154,32 @@ exits non-zero:
                 prints its ``examples_per_sec``, ``conditional_fidelity``
                 and ``mean_class_fid``); celeba's and wgan-gp's ``train``
                 in this process with the launch counters zeroed just before
-                and read just after; and celeba checkpointed at 100 and
-                resumed in this process, its zips byte-equal to the
-                200-iteration straight run's.
- 12. precision — the reference's precision modes (``--bf16``: bf16
+                and read just after; and celeba checkpointed at
+                RM_RESUME[1] and resumed in this process, its zips
+                byte-equal to the straight run's (RM_RESUME[0]).
+ 12. pair_dp  — the roadmap families on two ranks (``GANPair`` over a
+                group: one per card over NCCL when two cards are attached,
+                else both on cuda:0 over gloo), spawned: on each rank the
+                pair's gradient against its plain composition at the
+                RM_PAIR shapes; per family at full width and global batch
+                128, PD_ITERS eager iterations from the seeded params and
+                one global draw stream, with the launch counters zeroed
+                just before and read just after (per rank: ``bn_moments``
+                = ``bn_apply`` = PD_ITERS for celeba and wgan-gp, 0 for
+                cgan-cifar10, 0 of the other four), the ranks' states and
+                losses bit for bit equal, rank 0's held against the
+                single-process pair over the whole batch on the same
+                draws (PD_TOL), and PD_TIME_ITERS more iterations timed
+                (beside the roadmap phase's one-card graphed and eager
+                ms); then ``roadmap_main --family celeba --n-devices 2``
+                through its entry point: PD_MAIN[0] iterations with a
+                checkpoint, ``--resume`` to PD_MAIN[1] (rank 0's files,
+                metrics steps, the checkpoints' 2-rank mesh spec, its
+                launches); then, when PIL is installed, ``--data-dir`` on
+                PNGs written by the port's PNG writer (the table exactly
+                the pixels, graphed iterations with their ``bn_act``
+                launches), else a line saying it did not run.
+ 13. precision — the reference's precision modes (``--bf16``: bf16
                 operands into every convolution and GEMM, result rounded
                 once; ``--mp``: bf16 params and activations with f32
                 master params, BNs and losses), per workload (cv,
@@ -169,7 +198,7 @@ exits non-zero:
                 kernel; and ``roadmap_main --family cgan-cifar10 --mp`` and
                 ``cv_main --bf16 --mp`` as child processes, evaluation
                 included.
- 13. serve    — the serving plane (``serve/``, ``parallel/inference.py``)
+ 14. serve    — the serving plane (``serve/``, ``parallel/inference.py``)
                 with the CV generator at full width, buckets (8, 32, 64),
                 under cuDNN's untimed choice (so that the replica child
                 answers bit for bit what this process answers), each check
@@ -195,13 +224,15 @@ exits non-zero:
                 shedding) / 408 (a slow body) / 503 (wedged), /admin/
                 hotswap, ``run_socket_load`` at 80% of the in-process
                 saturation, SIGTERM -> exit 0.
- 14. the ``kernels`` line (each kernel's insurance numbers beside the
+ 15. the ``kernels`` line (each kernel's insurance numbers beside the
      CV step's, where the insurance path runs it, ``bn_act``'s roadmap
-     numbers, each kernel's launches on the cgan-cifar10 path: 0, its
-     launches per workload and mode in the precision phase, and on the
-     serving path: 0), the seconds line (the script's total beside its
-     total before the precision phase was added and before the serve
-     phase in this run), the nvidia-smi line, and last
+     numbers, each kernel's launches on the cgan-cifar10 path: 0, at
+     world 2 per roadmap family (``pair_dp``, with the pair's numbers at
+     its per-rank shapes), per workload and mode in the precision phase,
+     and on the serving path: 0), the seconds line (the script's total
+     beside its total before the precision phase was added and before the
+     serve phase in this run, the pair_dp phase's, and every phase
+     line's seconds), the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is available.
@@ -279,7 +310,17 @@ BANDWIDTH = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
              ("H100", 3.35e12))
 
 
+# seconds of the script by phase line: the time from the line before (the
+# script's start for the first) to each line, summed over a phase's lines
+PHASE_SECONDS: dict = {}
+_LAST_LINE = [0.0]
+
+
 def emit(phase: str, **fields) -> None:
+    now = time.perf_counter()
+    PHASE_SECONDS[phase] = (PHASE_SECONDS.get(phase, 0.0) + now
+                            - (_LAST_LINE[0] or T_START))
+    _LAST_LINE[0] = now
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -454,17 +495,16 @@ def group_vs_single(group, host):
 
 
 def state_digest(state) -> str:
-    """sha256 over every tensor of a ProtocolState (the EMA tree included
-    when there is one) and its step counter, in a fixed order."""
-    from gan_deeplearning4j_tpu_torch.train.fused_step import state_trees
+    """sha256 over every tensor of a step state (a ProtocolState or a
+    PairState: the EMA tree included when there is one, updater state of
+    any depth, the step counter), path and bytes, in sorted order."""
+    from gan_deeplearning4j_tpu_torch.train import fused_step
 
     h = hashlib.sha256()
-    for field, tree in state_trees(state):
-        for layer in sorted(tree):
-            for pname, t in sorted(tree[layer].items()):
-                h.update(f"{field}.{layer}.{pname}".encode())
-                h.update(t.detach().cpu().numpy().tobytes())
-    h.update(str(int(state.it)).encode())
+    for path, t in sorted(fused_step._leaves(state).items(),
+                          key=lambda kv: tuple(map(str, kv[0]))):
+        h.update(".".join(map(str, path)).encode())
+        h.update(t.detach().cpu().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -1807,10 +1847,10 @@ RM_K = 10  # iterations per call of the graphed-vs-eager runs
 RM_TURN_CALLS = 3  # calls of RM_K iterations in one timed turn
 RM_EMA = 0.999
 # the programs as child processes: (iterations, print_every)
-RM_CHILD = {"celeba": (200, 100), "wgan-gp": (100, 50),
-            "cgan-cifar10": (200, 100)}
+RM_CHILD = {"celeba": (100, 50), "wgan-gp": (100, 50),
+            "cgan-cifar10": (100, 50)}
 RM_FIDELITY_STEPS = 100  # the cgan child's --fidelity-steps
-RM_RESUME = (200, 100)  # celeba in this process: straight, then 100 + resume
+RM_RESUME = (100, 50)  # celeba in this process: straight, then 50 + resume
 # one iteration on the card against one on the CPU, from the same state and
 # draws, each held against the CPU in float64.  A GAN's first generator
 # gradients are mostly cancellation (D's outputs sit near 0.5, and a
@@ -2151,8 +2191,8 @@ def roadmap_counted_and_resume(torch, root: str) -> dict:
         res = f"{root}/{family}_counted"
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        r = roadmap_main.train(family, iters, RM_BATCH, res, RM_N_TRAIN, 100,
-                               device="cuda", log=None)
+        r = roadmap_main.train(family, iters, RM_BATCH, res, RM_N_TRAIN,
+                               RM_RESUME[1], device="cuda", log=None)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
         expected = {k: 0 for k in launches}
@@ -2168,9 +2208,9 @@ def roadmap_counted_and_resume(torch, root: str) -> dict:
                            losses=[r["d_loss"], r["g_loss"]])
     res = f"{root}/celeba_resumed"
     total, stop = RM_RESUME
-    roadmap_main.train("celeba", stop, RM_BATCH, res, RM_N_TRAIN, 100,
+    roadmap_main.train("celeba", stop, RM_BATCH, res, RM_N_TRAIN, stop,
                        device="cuda", checkpoint_every=stop, log=None)
-    r = roadmap_main.train("celeba", total, RM_BATCH, res, RM_N_TRAIN, 100,
+    r = roadmap_main.train("celeba", total, RM_BATCH, res, RM_N_TRAIN, stop,
                            device="cuda", checkpoint_every=stop, resume=True,
                            log=None)
     same = {}
@@ -2211,6 +2251,514 @@ def roadmap_phase(torch, smi: str, randn, bw: float, sms: int) -> dict:
     out["batch"] = RM_BATCH
     out["nvidia_smi"] = smi
     return out
+
+
+# -- the pair_dp phase ---------------------------------------------------------
+
+# the sync-BN pair's shapes on the roadmap path at world 2: each rank's rows
+# of the celeba and wgan-gp generators' gen_bn0 (one moments and one apply
+# launch per G-step)
+RM_PAIR = {family: ((RM_BATCH // DP_WORLD, f), act)
+           for family, ((_, f), act) in RM_BN.items()}
+PD_ITERS = 3  # world-2 iterations held against the single-process pair
+PD_TIME_ITERS = 4  # eager world-2 iterations timed after them
+PD_N_TRAIN = 512
+# roadmap_main --n-devices 2 in this process: (iterations with a checkpoint
+# at the end, the resumed run's iterations); calls of PD_MAIN_K
+PD_MAIN = (10, 20)
+PD_MAIN_K = 5
+PD_DATA_IMAGES = 64  # the --data-dir run's PNGs (celeba, 64x64 RGB)
+PD_DATA_ITERS = 10
+# the world-2 iterations against the single-process card pair from the
+# same params and global draws.  Losses: the tests' band (rtol 1e-4, atol
+# 1e-5).  Params and BN statistics: each graph's share of elements outside
+# the tests' band (rtol 1e-3, atol 1e-4) within 2x that of a second
+# single-process run with cuDNN off (PyTorch's own convolutions: the same
+# sums in another f32 order) plus 2% (RM_CARD_TOL's share ratio and
+# slack), and no element further from the single-process pair's than two
+# Adam runs of as many updates can move apart (2 lr sum_t c_t, c_t Adam's
+# largest normalized step after t steps; ``adam_spread``).  Not each
+# element within the band: a GAN's first generator gradients are mostly
+# cancellation (celeba's lie ~4% in norm from float64 on the card:
+# RM_CARD_TOL), so the two batch splits' f32 sums differ in many small
+# elements, and Adam turns each such difference into up to +-lr: on an
+# H100 (700 W), 3 celeba iterations put 2.9% of the generator's elements
+# outside the band, and the cuDNN-off run 5.7%.  The sharp checks of the
+# wiring are the losses and the ranks' bitwise equality.
+PD_TOL = {"loss_rtol": 1e-4, "loss_atol": 1e-5, "param_rtol": 1e-3,
+          "param_atol": 1e-4, "share_ratio": 2.0, "share_slack": 0.02}
+
+
+def _draws_to(d, dev):
+    """A ``Draws`` (lists and tensors) moved to ``dev``."""
+    from gan_deeplearning4j_tpu_torch.train.gan_pair import Draws
+
+    return Draws(*(None if v is None else [t.to(dev) for t in v]
+                   if isinstance(v, list) else v.to(dev) for v in d))
+
+
+def pd_setup(family, dev, group, torch):
+    """(pair, cfg, table, cond, draws, n_critic, real_label) of ``family``
+    at full width on ``dev`` (over ``group``): the same data, params
+    (each graph's seeded init) and global draws in every process."""
+    from gan_deeplearning4j_tpu_torch.train import roadmap_main
+
+    pair, cfg, _ = roadmap_main._build(family, dev, group=group)
+    n_critic = getattr(cfg, "n_critic", 1)
+    real_label = getattr(cfg, "real_label", 1.0) if pair.mode == "gan" else 1.0
+    x, y = roadmap_main._data(family, PD_N_TRAIN, 7)
+    gen = torch.Generator().manual_seed(9)
+    draws = [_draws_to(pair.draw(gen, PD_N_TRAIN, RM_BATCH, n_critic,
+                                 cfg.z_size, "cpu"), dev)
+             for _ in range(PD_ITERS + PD_TIME_ITERS)]
+    table = torch.from_numpy(x).to(dev)
+    cond = None if y is None else torch.from_numpy(y).to(dev)
+    return pair, cfg, table, cond, draws, n_critic, real_label
+
+
+def adam_spread(beta1: float, beta2: float, steps: int) -> float:
+    """How far apart, in learning rates, two Adam runs of ``steps`` updates
+    can move an element, whatever their gradients: 2 sum_t c_t, with c_t =
+    max |mhat_t| / sqrt(vhat_t) over gradient sequences (Cauchy-Schwarz:
+    sqrt(sum_i a_i^2 / w_i) sqrt(1 - beta2^t) / (1 - beta1^t), a_i and w_i
+    the weights of g_i in m_t and v_t)."""
+    total = 0.0
+    for t in range(1, steps + 1):
+        s2 = sum(((1 - beta1) * beta1 ** (t - i)) ** 2
+                 / ((1 - beta2) * beta2 ** (t - i)) for i in range(1, t + 1))
+        total += math.sqrt(s2) * math.sqrt(1 - beta2 ** t) / (1 - beta1 ** t)
+    return 2 * total
+
+
+def pd_compare(ref, got, ref_losses, got_losses, steps, updaters,
+               torch) -> dict:
+    """A run (``got``: state, losses) against the single-process pair
+    (``ref``) under PD_TOL's bands -> the losses' worst ratio to their
+    band; per graph, the share of elements outside the params' band (and
+    the leaf with the largest share); the largest difference as a fraction
+    of ``adam_spread`` (``steps``: updates per graph; ``updaters``:
+    {graph: {layer: its updater}})."""
+    from gan_deeplearning4j_tpu_torch.train import fused_step
+
+    t = PD_TOL
+    loss_ratio = max(
+        float(((a.double() - b.double()).abs()
+               / (t["loss_atol"] + t["loss_rtol"] * b.double().abs())).max())
+        for a, b in zip(got_losses, ref_losses))
+    lr_, lg_ = fused_step._leaves(ref), fused_step._leaves(got)
+    outside = {"gen": [0, 0], "dis": [0, 0]}
+    leaf_share, spread = (0.0, ""), (0.0, "")
+    for path, a in lr_.items():
+        field = path[0]
+        if field not in ("gen_params", "dis_params"):
+            continue
+        g = field.split("_")[0]
+        d = (lg_[path].double() - a.double()).abs()
+        out_band = d > t["param_atol"] + t["param_rtol"] * a.double().abs()
+        outside[g][0] += int(out_band.sum())
+        outside[g][1] += out_band.numel()
+        where = ".".join(map(str, path))
+        frac = float(out_band.double().mean())
+        if frac > leaf_share[0]:
+            leaf_share = (frac, where)
+        u = updaters[g][path[1]]
+        u = getattr(u, "base", u)  # Scheduled(Adam)
+        f = float(d.max()) / (u.learning_rate * adam_spread(
+            u.beta1, u.beta2, steps[g]))
+        if f > spread[0]:
+            spread = (f, where)
+    share = {g: n / max(total, 1) for g, (n, total) in outside.items()}
+    return {"loss_ratio": loss_ratio, "graph_share_outside_band": share,
+            "largest_leaf_share": leaf_share, "adam_spread_fraction": spread}
+
+
+def pd_within(got: dict, noise: dict) -> bool:
+    """World 2's comparison (``got``) within PD_TOL, given the cuDNN-off
+    run's (``noise``)."""
+    t = PD_TOL
+    return (got["loss_ratio"] <= 1.0
+            and got["adam_spread_fraction"][0] <= 1.0
+            and all(share <= t["share_ratio"]
+                    * noise["graph_share_outside_band"][g] + t["share_slack"]
+                    for g, share in got["graph_share_outside_band"].items()))
+
+
+def pd_grad_check(group, torch) -> dict:
+    """The sync-BN pair (``fused_bn_act_train`` over ``group``: moments
+    kernel, all-reduce, apply kernel, and its backward) against autograd
+    through the plain composition with the differentiable all-reduce, on
+    this rank's rows of one global batch at each RM_PAIR shape -> the
+    largest difference per shape."""
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import bn_act_plain
+
+    dev = group.device
+    gen = torch.Generator(device=dev).manual_seed(20261019)
+    out = {}
+    for family, ((b, f), act) in RM_PAIR.items():
+        rows = slice(group.rank * b, (group.rank + 1) * b)
+        x = (torch.randn((b * group.world, f), generator=gen, device=dev)
+             * 0.5 + 0.2)[rows]
+        gm = torch.randn(f, generator=gen, device=dev) * 0.1 + 1.0
+        bt = torch.randn(f, generator=gen, device=dev) * 0.1
+        gy = torch.randn((b * group.world, f), generator=gen, device=dev)[rows]
+        res = []
+        for fn in (kernels.fused_bn_act_train, bn_act_plain):
+            leaves = [t.clone().requires_grad_(True) for t in (x, gm, bt)]
+            y, mean, var = fn(*leaves, 1e-5, act, group)
+            res.append((y, mean, var, *torch.autograd.grad(y, leaves, gy)))
+        err = 0.0
+        for a, c, (atol, rtol) in zip(
+                *res, [(1e-5, 1e-4), (1e-6, 1e-4), (1e-6, 1e-4)]
+                + [(1e-4, 1e-3)] * 3):
+            require(within(a.detach(), c.detach(), atol, rtol),
+                    f"pair_dp rank {group.rank}: the sync-BN pair disagrees "
+                    f"with its plain composition at [{b},{f}] {act}")
+            err = max(err, max_err(a.detach(), c.detach()))
+        out[family] = {"shape": [b, f], "act": act, "max_abs_err": err}
+    return out
+
+
+def pair_dp_rank(group) -> dict:
+    """One rank of the pair_dp phase (a spawned process): the pair's
+    gradient check, then per family PD_ITERS world-2 iterations from the
+    seeded params and global draws (``make_multistep``, eager under a
+    group) with the launch counters zeroed just before and read just
+    after, the state's digest, and PD_TIME_ITERS more iterations timed;
+    rank 0 also runs the single-process pair over the whole batch on the
+    same draws (its card, no group), and again with cuDNN off, and holds
+    world 2 and the cuDNN-off run to it."""
+    import torch
+
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.parallel import mesh
+
+    dev = group.device
+    out = {"rank": group.rank, "backend": group.backend, "device": str(dev),
+           "pair_gradient": pd_grad_check(group, torch), "families": {}}
+    for family in RM_FAMILIES:
+        pair, cfg, table, cond, draws, n_critic, real_label = pd_setup(
+            family, dev, group, torch)
+        kw = dict(batch_size=RM_BATCH, n_critic=n_critic,
+                  real_label=real_label, z_size=cfg.z_size)
+        step, state0 = pair.make_multistep(table, cond,
+                                           steps_per_call=PD_ITERS, **kw)
+        torch.cuda.synchronize(dev)
+        kernels.reset_launch_counts()
+        state, (dl, gl) = step(state0, draws=draws[:PD_ITERS])
+        torch.cuda.synchronize(dev)
+        res = {"launches": kernels.launch_counts(),
+               "graphed": step.graphed is not None,
+               "losses": [dl.tolist(), gl.tolist()],
+               "digest": state_digest(state)}
+        # the eager world-2 iteration's time, both ranks starting together
+        # (the iterations are functional: ``state`` stays as it is)
+        timed, _ = pair.make_multistep(table, cond,
+                                       steps_per_call=PD_TIME_ITERS, **kw)
+        mesh.barrier(group)
+        t0 = time.perf_counter()
+        _, (dl2, _) = timed(state, draws=draws[PD_ITERS:])
+        dl2.tolist()  # the call's readback
+        res["eager_iteration_ms"] = ((time.perf_counter() - t0)
+                                     / PD_TIME_ITERS * 1e3)
+        if group.rank == 0:
+            single = []
+            for cudnn in (True, False):
+                torch.backends.cudnn.enabled = cudnn
+                try:
+                    ref, _, table1, cond1, draws1, _, _ = pd_setup(
+                        family, dev, None, torch)
+                    step1, s1 = ref.make_multistep(
+                        table1, cond1, graphed=False,
+                        steps_per_call=PD_ITERS, **kw)
+                    single.append(step1(s1, draws=draws1[:PD_ITERS]))
+                finally:
+                    torch.backends.cudnn.enabled = True
+            updaters = {g: {n: getattr(ref, g).updater.updater_for(n)
+                            for n in getattr(ref, g).params}
+                        for g in ("gen", "dis")}
+            (s1, l1), (s1b, l1b) = single
+            steps = {"gen": PD_ITERS, "dis": PD_ITERS * n_critic}
+            res["vs_single_process"] = pd_compare(s1, state, l1, (dl, gl),
+                                                  steps, updaters, torch)
+            res["cudnn_off_vs_single_process"] = pd_compare(
+                s1, s1b, l1, l1b, steps, updaters, torch)
+            del ref, step1, s1, s1b, single, table1, cond1, draws1
+        out["families"][family] = res
+        del pair, step, timed, state, state0, table, cond, draws
+        torch.cuda.empty_cache()
+    return out
+
+
+def pd_kernels(torch, randn, bw: float) -> dict:
+    """The sync-BN pair at the roadmap path's per-rank shapes (RM_PAIR):
+    the moments kernel and the apply kernel from a world-2 all-reduce's
+    sums, each against its plain version, on the float4 path and from an
+    offset view (the scalar path, the same bits), a bitwise repeat, mean
+    and var the bits of the torch epilogue, each timed against its library
+    call in turns, with one launch's floor and the bound."""
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act as bn2d
+    from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
+        bn_apply_sums_plain,
+        bn_moments_plain,
+    )
+
+    torch_f = torch.nn.functional
+    rows = {}
+    for family, ((b, f), act) in RM_PAIR.items():
+        x = randn(b, f, scale=0.5, shift=0.2)
+        gm, bt = randn(f, scale=0.1, shift=1.0), randn(f, scale=0.1)
+        xo = offset_view(x, torch)
+        stats = torch.empty((2, f), device=x.device)
+        require(bn2d.float4_ok(f, x, stats) and not bn2d.float4_ok(f, xo),
+                f"pair at [{b},{f}]: x must take the float4 path and its "
+                "offset view the scalar one")
+        mk, mp = kernels.bn_moments(x), bn_moments_plain(x)
+        require(all(within(u, v, 1e-6, 1e-4) for u, v in zip(mk, mp)),
+                f"bn_moments disagrees with its plain version at [{b},{f}]")
+        require(bitwise_repeat(kernels.bn_moments, [(x,)], torch)
+                and all(torch.equal(u, v) for u, v in
+                        zip(mk, kernels.bn_moments(xo))),
+                f"bn_moments at [{b},{f}]: a repeat or the scalar path gives "
+                "other bits")
+        noise = randn(2, f, scale=1e-3)
+        sums = torch.stack(mp) * DP_WORLD + noise * noise
+        ak = kernels.bn_apply_sums(x, sums, DP_WORLD, gm, bt, 1e-5, act)
+        ap = bn_apply_sums_plain(x, sums, DP_WORLD, gm, bt, 1e-5, act)
+        mo, vo = old_epilogue(sums, DP_WORLD, torch)
+        require(within(ak[0], ap[0], 1e-5, 1e-4)
+                and torch.equal(ak[1], mo) and torch.equal(ak[2], vo),
+                f"bn_apply (from sums) at [{b},{f}] {act} disagrees with its "
+                "plain version or the epilogue's bits")
+        require(bitwise_repeat(lambda *t: kernels.bn_apply_sums(
+            *t, DP_WORLD, gm, bt, 1e-5, act), [(x, sums)], torch)
+            and all(torch.equal(u, v) for u, v in zip(
+                ak, kernels.bn_apply_sums(xo, sums, DP_WORLD, gm, bt, 1e-5,
+                                          act))),
+            f"bn_apply at [{b},{f}]: a repeat or the scalar path gives other "
+            "bits")
+        m_ms, m_lib, m_turns = in_turns(
+            lambda: kernels.bn_moments(x),
+            lambda: torch.var_mean(x, dim=0, unbiased=False), torch)
+        a_ms, a_lib, a_turns = in_turns(
+            lambda: kernels.bn_apply_sums(x, sums, DP_WORLD, gm, bt, 1e-5,
+                                          act),
+            lambda: torch_f.batch_norm(x, mo, vo, gm, bt, training=False,
+                                       eps=1e-5), torch)
+        floor = floor_ms(1, torch)
+
+        def bound(nbytes, flops):
+            t_b, t_o = nbytes / bw * 1e3, flops / PEAK_F32_FLOPS * 1e3
+            return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+        mb, mby = bound(4 * b * f + 8 * f, 3 * b * f)
+        ab, aby = bound(8 * b * f + 24 * f, 10 * b * f + 5 * f)
+        rows[family] = {"shape": [b, f], "act": act, "bn_moments": dict(
+            max_abs_err=max(max_err(u, v) for u, v in zip(mk, mp)),
+            ms=m_ms, library_ms=m_lib, turns_ms=m_turns,
+            plain_ms=time_ms(lambda: bn_moments_plain(x), torch),
+            floor_ms=floor, bound_ms=mb, bound_by=mby,
+            library_call="torch.var_mean(x, dim=0, unbiased=False)"),
+            "bn_apply": dict(
+            max_abs_err=max_err(ak[0], ap[0]), ms=a_ms, library_ms=a_lib,
+            turns_ms=a_turns,
+            plain_ms=time_ms(lambda: bn_apply_sums_plain(
+                x, sums, DP_WORLD, gm, bt, 1e-5, act), torch),
+            floor_ms=floor, bound_ms=ab, bound_by=aby,
+            library_call="F.batch_norm(training=False) on the epilogue's "
+            "mean/var, without the epilogue or the activation"),
+            "float4_path": True, "bitwise_scalar_path": True,
+            "bitwise_repeat": True,
+            "gradient": "checked in the pair_dp phase (2 ranks, these "
+                        "shapes)"}
+    return rows
+
+
+def pd_program(torch, root: str) -> dict:
+    """``roadmap_main --family celeba --n-devices 2`` through its entry
+    point in this process (two spawned ranks): PD_MAIN[0] iterations with
+    a checkpoint at the end, then ``--resume`` to PD_MAIN[1]: rank 0's
+    files, result lines, the checkpoint's mesh spec (2 ranks) and each
+    run's launches on rank 0 (one moments and one apply an iteration)."""
+    from gan_deeplearning4j_tpu_torch.checkpoint import TrainCheckpointer
+    from gan_deeplearning4j_tpu_torch.checkpoint.checkpointer import (
+        mesh_spec_dict,
+    )
+    from gan_deeplearning4j_tpu_torch.train import roadmap_main
+
+    res = f"{root}/celeba_world2"
+    stop, total = PD_MAIN
+
+    def run(iters, *extra):
+        args = roadmap_main.parse_args(
+            ["--family", "celeba", "--n-devices", str(DP_WORLD),
+             "--iterations", str(iters), "--print-every", str(PD_MAIN_K),
+             "--checkpoint-every", str(stop), "--n-train", str(RM_N_TRAIN),
+             "--res-path", res, *extra])
+        t0 = time.perf_counter()
+        r = roadmap_main.run(args, timeout=DP_TIMEOUT_S)
+        return r, time.perf_counter() - t0
+
+    out = {}
+    for label, iters, extra, done in (("first", stop, (), stop),
+                                      ("resumed", total, ("--resume",),
+                                       total - stop)):
+        r, secs = run(iters, *extra)
+        expected = {k: 0 for k in r["port_launches"]}
+        expected["bn_moments"] = expected["bn_apply"] = done
+        require(r["steps"] == iters and r["world"] == DP_WORLD
+                and not r["graphed"] and r["steps_per_call"] == PD_MAIN_K
+                and math.isfinite(r["d_loss"]) and math.isfinite(r["g_loss"])
+                and r["examples_per_sec"] > 0
+                and r["port_launches"] == expected,
+                f"roadmap_main --n-devices {DP_WORLD} ({label}): {r}, "
+                f"expected launches {expected}")
+        out[label] = dict(seconds=secs, steps=r["steps"],
+                          losses=[r["d_loss"], r["g_loss"]],
+                          examples_per_sec=r["examples_per_sec"],
+                          launches=r["port_launches"],
+                          host_seconds=r["host_seconds"])
+    ck = TrainCheckpointer(f"{res}/celeba_ckpt", sweep_debris=False)
+    with open(f"{res}/celeba_metrics.jsonl") as f:
+        steps = sorted({json.loads(line)["step"] for line in f})
+    want = sorted([f"celeba_samples_{s}.png"
+                   for s in range(PD_MAIN_K, total + 1, PD_MAIN_K)]
+                  + ["celeba_metrics.jsonl", "celeba_gen_model.zip",
+                     "celeba_dis_model.zip", "celeba_ckpt"])
+    files = sorted(os.listdir(res))
+    require(ck.steps() == [stop, total] and files == want
+            and all(ck.mesh_spec(s) == mesh_spec_dict(DP_WORLD)
+                    for s in ck.steps())
+            and steps == list(range(1, total + 1))
+            and out["resumed"]["host_seconds"].get("restore_s") is not None,
+            f"roadmap_main --n-devices {DP_WORLD}: checkpoints {ck.steps()}, "
+            f"files {files}, metrics steps {steps[:3]}..{steps[-3:]}")
+    out.update(checkpoints=ck.steps(), mesh_spec=ck.mesh_spec(total),
+               files=files)
+    return out
+
+
+def pd_data_dir(torch, root: str) -> dict:
+    """``roadmap_main --family celeba --data-dir`` on the card, when PIL is
+    installed: PD_DATA_IMAGES PNGs of synthetic CelebA rows written with
+    the port's PNG writer, the table read back (64x64 already: no resize,
+    so exactly the PNG bytes / 255 in the tanh range), PD_DATA_ITERS
+    graphed iterations.  Without PIL, the reader's ImportError, which
+    names --data-dir, and a line saying the run was left out."""
+    import numpy as np
+
+    from gan_deeplearning4j_tpu_torch.data.datasets import synthetic_celeba
+    from gan_deeplearning4j_tpu_torch.eval.plots import png_bytes, to_u8
+    from gan_deeplearning4j_tpu_torch.train import roadmap_main
+
+    d = f"{root}/celeba_pngs"
+    os.makedirs(d)
+    imgs = to_u8((synthetic_celeba(PD_DATA_IMAGES, seed=5)
+                  .reshape(-1, 3, 64, 64).transpose(0, 2, 3, 1) + 1) / 2)
+    for i, img in enumerate(imgs):
+        with open(f"{d}/img_{i:03d}.png", "wb") as f:
+            f.write(png_bytes(img))
+    try:
+        import PIL  # noqa: F401
+    except ImportError as e:
+        try:
+            roadmap_main._data("celeba", PD_DATA_IMAGES, 0, d)
+        except ImportError as err:
+            require("--data-dir" in str(err),
+                    f"--data-dir without PIL: {err}")
+            return {"run": False, "reason": f"PIL is not installed on this "
+                    f"host ({e}); the reader raised: {err}"}
+        raise RuntimeError("chip_smoke: --data-dir read images without PIL")
+    x, _ = roadmap_main._data("celeba", 10 * PD_DATA_IMAGES, 0, d)
+    want = (imgs.transpose(0, 3, 1, 2).reshape(PD_DATA_IMAGES, -1)
+            .astype(np.float32) / 255.0 * 2.0 - 1.0)
+    require(x.shape == want.shape and np.array_equal(x, want),
+            "--data-dir: the table is not the PNGs' pixels")
+    res = f"{root}/celeba_data_dir"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = roadmap_main.run(roadmap_main.parse_args(
+        ["--family", "celeba", "--data-dir", d, "--iterations",
+         str(PD_DATA_ITERS), "--print-every", str(PD_DATA_ITERS),
+         "--res-path", res]))
+    secs = time.perf_counter() - t0
+    expected = {k: 0 for k in r["port_launches"]}
+    expected["bn_act"] = PD_DATA_ITERS + 1  # the warm-up and the replays
+    require(r["steps"] == PD_DATA_ITERS and r["graphed"]
+            and math.isfinite(r["d_loss"]) and math.isfinite(r["g_loss"])
+            and r["port_launches"] == expected
+            and os.path.exists(f"{res}/celeba_samples_{PD_DATA_ITERS}.png"),
+            f"roadmap_main --data-dir: {r}, expected launches {expected}")
+    return {"run": True, "images": PD_DATA_IMAGES, "table_exact": True,
+            "iterations": PD_DATA_ITERS, "seconds": secs,
+            "launches": r["port_launches"], "losses": [r["d_loss"],
+                                                      r["g_loss"]],
+            "data_s": r["host_seconds"]["data_s"]}
+
+
+def pair_dp_phase(torch, smi: str, rm: dict) -> dict:
+    """The roadmap families on two ranks (module docstring, phase 12);
+    ``rm``: the roadmap phase's line (its one-card graphed ms)."""
+    from gan_deeplearning4j_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    ranks = mesh.spawn(pair_dp_rank, DP_WORLD, (), device="cuda",
+                       timeout=DP_TIMEOUT_S)
+    r0 = ranks[0]
+    require(r0["backend"] == ("nccl" if n_cards >= DP_WORLD else "gloo"),
+            f"pair_dp: backend {r0['backend']} with {n_cards} cards")
+    fams = {}
+    for family in RM_FAMILIES:
+        per = [r["families"][family] for r in ranks]
+        expected = {k: 0 for k in per[0]["launches"]}
+        if family != "cgan-cifar10":
+            expected["bn_moments"] = expected["bn_apply"] = PD_ITERS
+        for rank, p in enumerate(per):
+            require(p["launches"] == expected and not p["graphed"],
+                    f"pair_dp {family} rank {rank}: launches "
+                    f"{p['launches']} != {expected} (graphed {p['graphed']})")
+            require(all(math.isfinite(v) for ls in p["losses"] for v in ls),
+                    f"pair_dp {family} rank {rank}: losses {p['losses']}")
+        require(len({p["digest"] for p in per}) == 1
+                and per[0]["losses"] == per[1]["losses"],
+                f"pair_dp {family}: the ranks' states differ")
+        fams[family] = dict(
+            launches_per_rank=[p["launches"] for p in per],
+            expected_launches=expected, losses=per[0]["losses"],
+            ranks_bitwise=True, vs_single_process=per[0]["vs_single_process"],
+            cudnn_off_vs_single_process=per[0]["cudnn_off_vs_single_process"],
+            eager_world2_iteration_ms=[p["eager_iteration_ms"] for p in per],
+            one_card_graphed_iteration_ms=rm["graph"][family]["plain"][
+                "graphed_ms"],
+            one_card_eager_iteration_ms=rm["graph"][family]["plain"][
+                "eager_ms"])
+    t1 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="gan4j_pair_dp_")
+    try:
+        program = pd_program(torch, root)
+        t2 = time.perf_counter()
+        data_dir = pd_data_dir(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(all(pd_within(f["vs_single_process"],
+                          f["cudnn_off_vs_single_process"])
+                for f in fams.values()),
+            f"pair_dp: world 2 against the single-process pair beyond "
+            f"{PD_TOL}: " + str({family: (f["vs_single_process"],
+                                          f["cudnn_off_vs_single_process"])
+                                for family, f in fams.items()}))
+    return {"world": DP_WORLD, "backend": r0["backend"],
+            "shared_card": n_cards < DP_WORLD,
+            "devices": [r["device"] for r in ranks], "batch": RM_BATCH,
+            "iterations": PD_ITERS, "timed_iterations": PD_TIME_ITERS,
+            "tolerance": PD_TOL,
+            "pair_gradient": [r["pair_gradient"] for r in ranks],
+            "families": fams, "program": program, "data_dir": data_dir,
+            "seconds_by_part": {"ranks": t1 - t0, "program": t2 - t1,
+                                "data_dir": time.perf_counter() - t2},
+            "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
 
 
 # -- the precision phase ------------------------------------------------------
@@ -2596,7 +3144,7 @@ def pr_wrappers_refuse_bf16(torch) -> dict:
 
 def precision_phase(torch, smi: str, bw: float) -> dict:
     """The reference's precision modes on the card (module docstring,
-    phase 12)."""
+    phase 13)."""
     t0 = time.perf_counter()
     out = {"wrappers_refuse_bf16": pr_wrappers_refuse_bf16(torch),
            "upsample_bf16_block_sum": pr_block_sum(torch, bw)}
@@ -2947,7 +3495,7 @@ def serve_replica_child(torch, ckpt_dir: str, step: int, ref_eng,
 
 
 def serve_phase(torch, smi: str, serve_src: str) -> dict:
-    """The serving plane on the card (module docstring, phase 13)."""
+    """The serving plane on the card (module docstring, phase 14)."""
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="gan4j_serve_")
     try:
@@ -3670,6 +4218,12 @@ def main() -> int:
     # the insurance step's kernels at its shapes
     ins_kernels = insurance_kernels(torch, randn, dev, bw, sms)
     emit("kernel_insurance", nvidia_smi=smi, **ins_kernels)
+    # the sync-BN pair at the roadmap families' per-rank shapes (world 2)
+    pd_rows = pd_kernels(torch, randn, bw)
+    emit("kernel_roadmap_pair", nvidia_smi=smi,
+         plans={f: {"bn_moments": bn2d.moments_plan(b, f_)._asdict(),
+                    "bn_apply": bn2d.apply_plan(b, f_, sms)._asdict()}
+                for f, ((b, f_), _) in RM_PAIR.items()}, **pd_rows)
 
     for r in report:
         t_bytes, t_ops = r["bytes"] / bw * 1e3, r["flops"] / PEAK_F32_FLOPS * 1e3
@@ -3864,11 +4418,15 @@ def main() -> int:
     rm = roadmap_phase(torch, smi, randn, bw, sms)
     emit("roadmap", **rm)
 
-    # -- 12. the precision modes ---------------------------------------------
+    # -- 12. the roadmap families on two ranks --------------------------------
+    pdp = pair_dp_phase(torch, smi, rm)
+    emit("pair_dp", **pdp)
+
+    # -- 13. the precision modes ---------------------------------------------
     prec = precision_phase(torch, smi, bw)
     emit("precision", **prec)
 
-    # -- 13. the serving plane ------------------------------------------------
+    # -- 14. the serving plane ------------------------------------------------
     before_serve_s = time.perf_counter() - T_START
     try:
         serve = serve_phase(torch, smi, serve_src)
@@ -3876,7 +4434,7 @@ def main() -> int:
         shutil.rmtree(serve_src, ignore_errors=True)
     emit("serve", **serve)
 
-    # -- 14. the kernels line and the result ---------------------------------
+    # -- 15. the kernels line and the result ---------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
     # pair, and the kernel phase's check for the 4-D BN, which no model
     # path runs (as in the JAX package)
@@ -3917,6 +4475,20 @@ def main() -> int:
          # the conditional family's path runs none of the six (the
          # roadmap_children docstring says why): its child's counts
          "cgan-cifar10": {"launches": cgan_launches[r["name"]]},
+         # the roadmap families at world 2: rank 0's launches over the
+         # pair_dp phase's counted iterations, and the pair's numbers at
+         # the per-rank shapes
+         "pair_dp": {family: {
+             "launches": pdp["families"][family]["launches_per_rank"][0][
+                 r["name"]],
+             "iterations": PD_ITERS,
+             **({k: pd_rows[family][r["name"]][k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "floor_ms")} | {
+                 "shape": pd_rows[family]["shape"]}
+                if family in pd_rows and r["name"] in pd_rows[family]
+                else {})}
+             for family in RM_FAMILIES},
          # each workload's eager run in each mode (PR_CALLS * PR_K steps)
          "precision": {w: {m: res["eager_launches"][r["name"]]
                            for m, res in modes.items()}
@@ -3931,7 +4503,8 @@ def main() -> int:
         "precision": prec["seconds"],
         "total_before_the_precision_phase": TOTAL_BEFORE_PRECISION_S,
         "serve": serve["seconds"],
-        "total_before_the_serve_phase": before_serve_s}}),
+        "total_before_the_serve_phase": before_serve_s,
+        "pair_dp": pdp["seconds"], "by_phase": PHASE_SECONDS}}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,9 @@ zip the JAX package writes for the same graph and state.  Member
 timestamps are ``_ZIP_EPOCH``, the
 ``.npz`` members are stored, not deflated a second time, and arrays go
 through ``np.lib.format.write_array`` as C-contiguous f32 host copies.
-The updaters are RmsProp, Adam and ``Scheduled`` with the four schedule
-dataclasses, nested with ``__type__`` tags as the JAX package writes them;
-a zip that names Sgd, Nesterovs or AdaGrad raises ``NotImplementedError``.
+The updaters are the JAX package's set, RmsProp, Adam, Sgd, Nesterovs,
+AdaGrad and ``Scheduled`` with the four schedule dataclasses, nested with
+``__type__`` tags as the JAX package writes them.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from gan_deeplearning4j_tpu_torch.graph.graph import (
     InputSpec,
 )
 from gan_deeplearning4j_tpu_torch.graph.preprocessors import FeedForwardToCnn
+from gan_deeplearning4j_tpu_torch.optim.adagrad import AdaGrad
 from gan_deeplearning4j_tpu_torch.optim.adam import Adam
 from gan_deeplearning4j_tpu_torch.optim.rmsprop import RmsProp
 from gan_deeplearning4j_tpu_torch.optim.schedules import (
@@ -43,6 +44,7 @@ from gan_deeplearning4j_tpu_torch.optim.schedules import (
     SigmoidSchedule,
     StepSchedule,
 )
+from gan_deeplearning4j_tpu_torch.optim.sgd import Nesterovs, Sgd
 
 FORMAT_VERSION = 1
 
@@ -75,14 +77,8 @@ _FILE_FIELDS = {
 # updater and schedule kinds by type tag (a config without a tag is
 # RmsProp); ``Scheduled`` nests a base updater and a schedule
 _UPDATER_TYPES = {cls.__name__: cls for cls in (
-    RmsProp, Adam, Scheduled, StepSchedule, ExponentialSchedule,
-    PolySchedule, SigmoidSchedule)}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 8: the optimizers "
-        "sgd, nesterovs and adagrad)")
+    RmsProp, Adam, Sgd, Nesterovs, AdaGrad, Scheduled, StepSchedule,
+    ExponentialSchedule, PolySchedule, SigmoidSchedule)}
 
 
 def _updater_to_dict(u) -> dict:
@@ -101,7 +97,8 @@ def _updater_from_dict(d: dict):
     d = dict(d)
     kind = d.pop("__type__", "RmsProp")
     if kind not in _UPDATER_TYPES:
-        raise _not_ported(f"updater {kind!r}")
+        raise ValueError(f"unknown updater or schedule {kind!r}; known: "
+                         f"{sorted(_UPDATER_TYPES)}")
     return _UPDATER_TYPES[kind](**{
         k: (_updater_from_dict(v) if isinstance(v, dict) and "__type__" in v
             else v)

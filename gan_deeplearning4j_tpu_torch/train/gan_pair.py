@@ -35,8 +35,24 @@ draws instead (``Draws``).
 
 On one card ``make_multistep`` captures one iteration as a CUDA graph
 (``fused_step.GraphedStep``) and a call replays it K times; on the CPU the
-iteration runs eagerly.  The JAX data-parallel path (``mesh``) is not
-ported yet: a ``group`` raises (ROADMAP Queue 1 item 8).
+iteration runs eagerly.
+
+Data parallelism (``group``, the JAX pair's ``mesh``): one process per
+rank, each holding the whole state.  Every rank draws the GLOBAL batch's
+draws from the same stream and takes its own rows (rows r*b to (r+1)*b of
+a global batch B, b = B / world): the batch rows, z, the GP's alpha, the
+mode-seeking z2 and the conditional rows.  So ``z_gen`` advances as in a
+one-rank run, and a world-N run is the world-1 run up to the order of its
+sums.  Each step runs on the rank's rows; the train-mode BNs of the graph
+being stepped are sync-BNs (D's in the D-step, G's in the G-step; the
+D-step's generator and the G-step's discriminator run in inference mode
+without a group), and the loss, the gradients and the BN state updates are
+averaged over the ranks before the updater (``mesh.reducer``), so every
+rank applies the same update and the ranks stay bit-equal.  The
+mode-seeking distances are averaged over the ranks before their ratio
+(differentiably), as the JAX step does.  Under a group ``make_multistep``
+runs the iteration eagerly: gloo cannot be captured, and NCCL capture is
+ROADMAP Queue 1 item 7.2.
 """
 
 from __future__ import annotations
@@ -53,6 +69,7 @@ from gan_deeplearning4j_tpu_torch.graph.layers import (
 )
 from gan_deeplearning4j_tpu_torch.ops import losses as loss_lib
 from gan_deeplearning4j_tpu_torch.optim import ema as ema_lib
+from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
 from gan_deeplearning4j_tpu_torch.train import fused_step
 
@@ -110,6 +127,15 @@ def _grads(loss: torch.Tensor, leaves: Tree) -> Tree:
     return out
 
 
+def split_batch(batch_size: int, world: int) -> int:
+    """A rank's share of a global batch over ``world`` ranks; the batch
+    must split evenly (the JAX pair's check, in its words)."""
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} must divide over {world} "
+                         f"devices on the 'data' axis")
+    return batch_size // world
+
+
 def _uniform(shape, lo: float, hi: float, gen: torch.Generator,
              device) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
@@ -118,13 +144,13 @@ def _uniform(shape, lo: float, hi: float, gen: torch.Generator,
 class GANPair:
     def __init__(self, gen: ComputationGraph, dis: ComputationGraph,
                  mode: str = "gan", gp_weight: float = 10.0,
-                 group=None, ms_weight: float = 0.0):
+                 group: Optional[mesh.DataGroup] = None,
+                 ms_weight: float = 0.0):
+        """``group``: train data-parallel over its ranks (module
+        docstring); None or a one-rank group trains on this process's
+        device alone."""
         if mode not in ("gan", "wgan-gp"):
             raise ValueError(f"unknown mode {mode!r}")
-        if group is not None:
-            raise NotImplementedError(
-                "GANPair data parallelism is not ported yet (ROADMAP Queue 1 "
-                "item 8: GANPair over torch.distributed)")
         if ms_weight < 0:
             raise ValueError(
                 f"ms_weight must be >= 0, got {ms_weight} (a negative weight "
@@ -157,8 +183,48 @@ class GANPair:
         self.gp_weight = float(gp_weight)
         self.ms_weight = float(ms_weight)
         self.device = gen.device
+        self.world = group.world if group is not None else 1
+        self.rank = group.rank if group is not None else 0
+        # the group of the sync-BNs and the reductions: none for one rank
+        self.sync = group if self.world > 1 else None
+        self._reduce = mesh.reducer(self.sync)
         # the public single steps' own draws (GP alpha, z2)
         self._gen = prng.generator(gen.seed, "gan-pair", self.device)
+
+    # -- the data-parallel split -------------------------------------------
+
+    def local_batch(self, batch_size: int) -> int:
+        """This rank's rows of a global batch of ``batch_size``.  The batch
+        must split evenly over the ranks (the JAX pair's wording), and a
+        discriminator with ``MinibatchStdDev`` needs shares that are whole
+        groups: a rank's [real; fake] rows then group as the one-rank
+        batch's do."""
+        b = split_batch(batch_size, self.world)
+        if self.world > 1:
+            for name, node in self.dis.nodes.items():
+                if (isinstance(node.layer, MinibatchStdDev)
+                        and b % node.layer.group_size):
+                    raise ValueError(
+                        f"{name}: a rank's share {b} of batch_size "
+                        f"{batch_size} is not a multiple of MinibatchStdDev's "
+                        f"group_size {node.layer.group_size} (the grouping "
+                        "must be the single-device run's)")
+        return b
+
+    def _rows(self, t: Optional[torch.Tensor], b: int
+              ) -> Optional[torch.Tensor]:
+        """This rank's rows of a global-batch tensor (None stays None)."""
+        if t is None or self.world == 1:
+            return t
+        return t[self.rank * b:(self.rank + 1) * b]
+
+    def share(self, draws: Draws, b: int) -> Draws:
+        """This rank's rows of one iteration's global draws."""
+        def rows(v):
+            return ([self._rows(t, b) for t in v] if isinstance(v, list)
+                    else self._rows(v, b))
+
+        return Draws(*(rows(v) for v in draws))
 
     # -- pure forwards -----------------------------------------------------
 
@@ -171,16 +237,18 @@ class GANPair:
         return {} if cond is None else {self.label_name: cond}
 
     def _gen_forward(self, params: Tree, z: torch.Tensor, train: bool,
-                     cond: Optional[torch.Tensor] = None):
+                     cond: Optional[torch.Tensor] = None, group=None):
         values, updates = self.gen._forward(
-            params, {self.gen.input_names[0]: z, **self._cond(cond)}, train)
+            params, {self.gen.input_names[0]: z, **self._cond(cond)}, train,
+            group=group)
         out = values[self.gen.output_names[0]]
         return out.reshape(out.shape[0], -1), updates  # flat, dis-input layout
 
     def _dis_forward(self, params: Tree, x: torch.Tensor, train: bool,
-                     cond: Optional[torch.Tensor] = None):
+                     cond: Optional[torch.Tensor] = None, group=None):
         values, updates = self.dis._forward(
-            params, {self.dis.input_names[0]: x, **self._cond(cond)}, train)
+            params, {self.dis.input_names[0]: x, **self._cond(cond)}, train,
+            group=group)
         return values[self.dis.output_names[0]], updates
 
     def _dis_loss(self, out: torch.Tensor, labels: torch.Tensor):
@@ -203,26 +271,25 @@ class GANPair:
                 z_cond: Optional[torch.Tensor] = None):
         """-> (new dis params, new dis updater state, loss).  A conditional
         pair's D sees ``cond_real`` / ``cond_fake`` beside its halves, and
-        G makes the fakes from ``z_cond`` (default: ``cond_fake``)."""
+        G makes the fakes from ``z_cond`` (default: ``cond_fake``).  Under
+        a group every input is this rank's rows; the loss returned is the
+        ranks' mean."""
         z_cond = cond_fake if z_cond is None else z_cond
         with torch.no_grad():
             fake, _ = self._gen_forward(pg, z, False, z_cond)
         cond = None if cond_real is None else torch.cat([cond_real, cond_fake])
         leaves = _grad_leaves(pd)
         out, updates = self._dis_forward(leaves, torch.cat([real, fake]),
-                                         True, cond)
+                                         True, cond, self.sync)
         loss = self._dis_loss(out, torch.cat([y_real, y_fake]))
         if self.mode == "wgan-gp":
-            # the penalty's critic: inference mode, the real rows' labels
+            # the penalty's critic: inference mode, the real rows' labels,
+            # no collective inside the double backward
             gp = loss_lib.gradient_penalty(
                 lambda xi: self._dis_forward(leaves, xi, False, cond_real)[0],
                 real, fake, alpha)
             loss = loss + self.gp_weight * gp
-        grads = _grads(loss, leaves)
-        new_params, new_opt = self.dis.updater.apply(pd, grads, od)
-        for lname, upd in _detach(updates).items():
-            new_params[lname] = {**new_params[lname], **upd}
-        return new_params, new_opt, loss.detach()
+        return self._update(self.dis, pd, od, loss, leaves, updates)
 
     def _g_step(self, pg: Tree, og: Tree, pd: Tree, z: torch.Tensor,
                 y_gen: torch.Tensor, z2: Optional[torch.Tensor] = None,
@@ -231,22 +298,39 @@ class GANPair:
         """-> (new gen params, new gen updater state, loss).  A conditional
         pair's G makes its fakes (and the mode-seeking z2's) from
         ``z_cond`` (default: ``cond_fake``), and D judges them under
-        ``cond_fake``."""
+        ``cond_fake``.  Under a group as ``_d_step``."""
         z_cond = cond_fake if z_cond is None else z_cond
         leaves = _grad_leaves(pg)
-        fake, updates = self._gen_forward(leaves, z, True, z_cond)
+        fake, updates = self._gen_forward(leaves, z, True, z_cond, self.sync)
         out, _ = self._dis_forward(pd, fake, False, cond_fake)
         loss = self._dis_loss(out, y_gen)
         if self.ms_weight:
-            fake2, _ = self._gen_forward(leaves, z2, True, z_cond)
+            fake2, _ = self._gen_forward(leaves, z2, True, z_cond, self.sync)
             img_d = torch.mean(torch.abs(fake - fake2))
             z_d = torch.mean(torch.abs(z - z2))
+            if self.sync is not None:
+                # the global batch's distances before the ratio: the ranks'
+                # mean of 1/ratio is not 1/(global ratio) (JAX measured
+                # 1.75e-3 of loss divergence without this, 6e-8 with it)
+                d = mesh.all_reduce_mean_diff(torch.stack([img_d, z_d]),
+                                              self.sync)
+                img_d, z_d = d[0], d[1]
             loss = loss + self.ms_weight / (img_d / (z_d + 1e-8) + 1e-5)
+        return self._update(self.gen, pg, og, loss, leaves, updates)
+
+    def _update(self, graph: ComputationGraph, params: Tree, opt: Tree,
+                loss: torch.Tensor, leaves: Tree, updates: Tree):
+        """The gradients of ``loss``, averaged over the ranks with the loss
+        and the BN state updates under a group, then the updater; the BN
+        updates overwrite the running statistics."""
         grads = _grads(loss, leaves)
-        new_params, new_opt = self.gen.updater.apply(pg, grads, og)
-        for lname, upd in _detach(updates).items():
+        loss, updates = loss.detach(), _detach(updates)
+        if self._reduce is not None:
+            loss, updates, grads = self._reduce(loss, updates, grads)
+        new_params, new_opt = graph.updater.apply(params, grads, opt)
+        for lname, upd in updates.items():
             new_params[lname] = {**new_params[lname], **upd}
-        return new_params, new_opt, loss.detach()
+        return new_params, new_opt, loss
 
     # -- the fused iteration -------------------------------------------------
 
@@ -257,8 +341,12 @@ class GANPair:
         z_gen=None, draws=None) -> (state', (d_loss, g_loss))``, the draws
         from ``z_gen`` unless ``draws`` (a ``Draws``) is given;
         ``table_cond`` [n, K] holds a conditional pair's row labels (the
-        rows it gathers live in the graph's pool, as the table's do)."""
+        rows it gathers live in the graph's pool, as the table's do).
+        ``batch_size`` is the global batch; under a group the draws are
+        the global batch's (this rank takes its rows) and the label
+        vectors this rank's [batch_size / world, 1]."""
         B, wgan = batch_size, self.mode == "wgan-gp"
+        b = self.local_batch(B)
         # the precision policy the iteration is built under, as the JAX
         # multistep's trace fixes it
         policy = backend.config()
@@ -276,6 +364,7 @@ class GANPair:
                     raise ValueError("pass z_gen or draws")
                 draws = self.draw(z_gen, table.shape[0], B, n_critic, z_size,
                                   table.device)
+            draws = self.share(draws, b)
 
             def cond_of(idx):
                 return (None if table_cond is None
@@ -299,7 +388,8 @@ class GANPair:
 
     def draw(self, z_gen: torch.Generator, n_rows: int, batch_size: int,
              n_critic: int, z_size: int, device) -> Draws:
-        """One iteration's draws from ``z_gen``, in the module's order."""
+        """One iteration's draws from ``z_gen``, in the module's order, at
+        the global ``batch_size`` (under a group too)."""
         B, wgan = batch_size, self.mode == "wgan-gp"
         idx, zs, alphas = [], [], []
         for _ in range(n_critic):
@@ -318,7 +408,7 @@ class GANPair:
         return Draws(idx, zs, alphas if wgan else None, z, z2, g_idx)
 
     def label_vectors(self, batch_size: int, real_label: float = 1.0):
-        """(y_real, y_fake, y_gen) [B, 1] on the pair's device."""
+        """(y_real, y_fake, y_gen) [batch_size, 1] on the pair's device."""
         dev = self.device
         y_real = torch.full((batch_size, 1), real_label, device=dev)
         y_fake = (-torch.ones((batch_size, 1), device=dev)
@@ -335,7 +425,8 @@ class GANPair:
         """K = ``steps_per_call`` iterations per call on the resident table
         (batches drawn uniformly with replacement).  Returns ``(step_fn,
         state0)``: ``step_fn(state, draws=None) -> (state', (d_losses[K],
-        g_losses[K]))``; ``draws`` is a list of K ``Draws`` (eager only).
+        g_losses[K]))``; ``draws`` is a list of K ``Draws`` (eager only) of
+        the global batch ``batch_size``.
 
         ``graphed`` (default: on a CUDA table) captures one iteration as a
         CUDA graph at this call (``step_fn.graphed`` is the
@@ -346,7 +437,9 @@ class GANPair:
         the table's device) is registered with the graph.  ``start_step``
         seeds the counter; a resumed run also restores ``z_gen``.
         ``table_cond`` [n, K]: a conditional pair's one-hot row labels,
-        resident beside the table (required for it, refused otherwise)."""
+        resident beside the table (required for it, refused otherwise).
+        Under a group every rank holds the whole table and ``step_fn`` runs
+        K eager iterations a call (``graphed`` True raises)."""
         if (table_cond is None) != (self.label_name is None):
             raise ValueError(
                 "a conditional pair needs table_cond" if table_cond is None
@@ -357,10 +450,18 @@ class GANPair:
         if not 0.0 <= ema_decay < 1.0:
             raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay}")
         dev = table_x.device
+        b = self.local_batch(batch_size)
+        if graphed is None:
+            graphed = dev.type == "cuda" and self.sync is None
+        if graphed and self.sync is not None:
+            raise ValueError(
+                "a data-parallel pair runs its iterations eagerly: gloo "
+                "cannot be captured, and capturing NCCL is ROADMAP Queue 1 "
+                "item 7.2")
         if z_gen is None:
             z_gen = prng.generator(self.gen.seed, "pair-multi", dev)
         one = self.iteration(batch_size, n_critic, z_size, ema_decay)
-        inputs = (table_x,) + self.label_vectors(batch_size, real_label)
+        inputs = (table_x,) + self.label_vectors(b, real_label)
         if table_cond is not None:
             inputs += (table_cond,)
         state0 = PairState(
@@ -369,8 +470,6 @@ class GANPair:
             torch.tensor(start_step, dtype=torch.int64, device=dev),
             ema_lib.ema_init(self.gen) if ema_decay else None)
         K = int(steps_per_call)
-        if graphed is None:
-            graphed = dev.type == "cuda"
         if graphed:
             g = fused_step.GraphedStep(one, state0, *inputs, z_gen=z_gen,
                                        ring=K, n_losses=2)
@@ -439,8 +538,10 @@ class GANPair:
         conditional pair, the fakes' labels); ``cond_real`` /
         ``cond_fake``: D's labels for the halves ({input name: labels}).
         Targets default to 1 and 0 (-1 in ``wgan-gp``); ``alpha`` defaults
-        to a draw."""
+        to a draw.  Every input is the global batch's (the JAX pair places
+        them over its mesh): under a group each rank steps on its rows."""
         B = real.shape[0]
+        b = self.local_batch(B)
         if y_real is None:
             y_real = torch.ones((B, 1), device=self.device)
             y_fake = (-torch.ones((B, 1), device=self.device)
@@ -449,24 +550,28 @@ class GANPair:
         if self.mode == "wgan-gp" and alpha is None:
             alpha = torch.rand((B, 1), generator=self._gen, device=self.device)
         z, z_cond = self._z(z_inputs)
+        rows = [self._rows(t, b) for t in (
+            real, z, y_real, y_fake, alpha, self._one(cond_real),
+            self._one(cond_fake), z_cond)]
         self.dis.params, self.dis.opt_state, loss = self._d_step(
-            self.dis.params, self.dis.opt_state, self.gen.params, real, z,
-            y_real, y_fake, alpha, self._one(cond_real), self._one(cond_fake),
-            z_cond)
+            self.dis.params, self.dis.opt_state, self.gen.params, *rows)
         self.dis.score = loss
         return loss
 
     def g_step(self, z_inputs, cond_fake=None, y_gen=None,
                z2: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One G-step on the graphs' own state -> the loss.  ``z_inputs``
-        as ``d_step``'s; ``cond_fake``: D's labels for the fakes."""
+        as ``d_step``'s; ``cond_fake``: D's labels for the fakes; the global
+        batch, as ``d_step``'s."""
         z, z_cond = self._z(z_inputs)
+        b = self.local_batch(z.shape[0])
         if y_gen is None:
             y_gen = torch.ones((z.shape[0], 1), device=self.device)
         if self.ms_weight and z2 is None:
             z2 = _uniform(tuple(z.shape), -1.0, 1.0, self._gen, self.device)
+        rows = [self._rows(t, b) for t in (
+            z, y_gen, z2, self._one(cond_fake), z_cond)]
         self.gen.params, self.gen.opt_state, loss = self._g_step(
-            self.gen.params, self.gen.opt_state, self.dis.params, z, y_gen,
-            z2, self._one(cond_fake), z_cond)
+            self.gen.params, self.gen.opt_state, self.dis.params, *rows)
         self.gen.score = loss
         return loss

@@ -6,16 +6,22 @@ Run: ``python -m gan_deeplearning4j_tpu_torch.train.roadmap_main --family
 celeba --res-path outputs/celeba_torch`` (on the card; ``--device cpu``
 runs the plain torch versions).
 
-The data is the JAX package's synthetic surrogate, resident on the device:
-``synthetic_celeba`` (64x64x3 in [-1, 1]), ``synthetic_mnist`` (28x28x1
-in [0, 1], for wgan-gp's sigmoid head) or, for the conditional family,
-``synthetic_cifar10`` in its calibrated tier (32x32x3 in [-1, 1]) with its
-one-hot labels resident beside it.  K iterations run per call, K the
-largest divisor of gcd(iterations, print_every, 100[, checkpoint_every][,
-start iteration]) up to ``MAX_STEPS_PER_CALL`` (or ``--steps-per-call``);
-on one card a call replays a CUDA graph of one iteration K times (every
-family: wgan-gp's double backward and cgan-cifar10's label gather record
-like the rest).  Written to ``--res-path``:
+The data is resident on the device: the JAX package's synthetic
+surrogate ``synthetic_celeba`` (64x64x3 in [-1, 1]), ``synthetic_mnist``
+(28x28x1 in [0, 1], for wgan-gp's sigmoid head) or, for the conditional
+family, ``synthetic_cifar10`` in its calibrated tier (32x32x3 in [-1,
+1]) with its one-hot labels resident beside it; or, with ``--data-dir
+DIR``, up to ``--n-train`` images read from DIR (``data/images.py``,
+which needs PIL: flat images for celeba and wgan-gp, one subdirectory
+per class for cgan-cifar10, whose label width then follows the class
+count), resized to the family's shape, in [0, 1] for wgan-gp and [-1, 1]
+otherwise.  K iterations run per call, K the largest divisor of
+gcd(iterations, print_every, 100[, checkpoint_every][, start iteration])
+up to ``MAX_STEPS_PER_CALL`` (or ``--steps-per-call``); on one card a
+call replays a CUDA graph of one iteration K times (every family:
+wgan-gp's double backward and cgan-cifar10's label gather record like
+the rest).
+Written to ``--res-path``:
   - ``{family}_samples_{it}.png`` every ``print_every`` iterations and at
     the end (an 8x8 grid from a fixed U[-1, 1) latent batch), and
     ``{family}_samples_ema.png`` from the EMA generator, on the background
@@ -43,11 +49,23 @@ with ``--ema-decay`` also ``conditional_fidelity_ema``,
 ``mean_class_fid_ema`` and ``diversity_ratio_ema``.  A preempted run
 exits 75.
 
+``--n-devices N`` (N > 1; none or 1 is one device) trains data-parallel
+in N processes, ``GANPair`` over a ``torch.distributed`` group: rank r on
+card r over NCCL when there are N cards, else the ranks share the cards
+over gloo (``--device cpu``: gloo ranks on the CPU).  Each rank steps on
+its share of every global batch, eagerly (``graphed`` false); rank 0 alone
+writes the sample grids, the metrics, the zips and the checkpoints (their
+mesh spec says N: a checkpoint resumes at the same N only) and runs the
+conditional evaluation, while the others wait at a barrier; preemption is
+agreed across the ranks at each call boundary, this process forwards
+``--preempt-signal``'s signals to the ranks, and a failed rank ends the
+world (``RankFailedError``).  The result line is rank 0's, with ``world``.
+
 ``--bf16`` and ``--mp`` set the precision policy (``runtime/backend.py``)
 for the whole run, the evaluation included.  Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP item): ``--n-devices`` > 1,
-``--data-dir``, ``--profile`` and ``--metrics-port``; the JAX run's
-``events.jsonl``, ``run_manifest.json`` and goodput record are left out.
+``NotImplementedError`` naming its ROADMAP item): ``--profile`` and
+``--metrics-port``; the JAX run's ``events.jsonl``, ``run_manifest.json``
+and goodput record are left out.
 """
 
 from __future__ import annotations
@@ -73,14 +91,16 @@ from gan_deeplearning4j_tpu_torch.checkpoint.checkpointer import mesh_spec_dict
 from gan_deeplearning4j_tpu_torch.eval.plots import save_rgb_grid_png
 from gan_deeplearning4j_tpu_torch.graph import serialization
 from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
 from gan_deeplearning4j_tpu_torch.train import fused_step
-from gan_deeplearning4j_tpu_torch.train.gan_pair import GANPair
+from gan_deeplearning4j_tpu_torch.train.gan_pair import GANPair, split_batch
 from gan_deeplearning4j_tpu_torch.train.preemption import (
     EXIT_PREEMPTED,
     MARKER_NAME,
     PreemptionError,
     PreemptionGuard,
+    parse_signals,
     preempt_exit,
 )
 from gan_deeplearning4j_tpu_torch.utils.async_dump import (
@@ -113,10 +133,11 @@ def _check_family(family: str) -> None:
 
 
 def _build(family: str, device=None, lr_decay_steps: Optional[int] = None,
-           ms_weight: float = 0.0):
-    """-> (pair, config, sample shape (C, H, W)) on ``device``."""
-    import dataclasses
-
+           ms_weight: float = 0.0, group: Optional[mesh.DataGroup] = None,
+           num_classes: Optional[int] = None):
+    """-> (pair, config, sample shape (C, H, W)) on ``device``, the pair
+    data-parallel over ``group``; ``num_classes``: the conditional
+    family's label width (a ``--data-dir`` tree's class count)."""
     _check_family(family)
     if lr_decay_steps is not None and lr_decay_steps <= 0:
         raise ValueError(f"--lr-decay-steps must be positive, "
@@ -133,12 +154,14 @@ def _build(family: str, device=None, lr_decay_steps: Optional[int] = None,
         cfg = M.WGANGPConfig()
         pair = GANPair(M.build_generator(cfg, device),
                        M.build_critic(cfg, device), mode="wgan-gp",
-                       gp_weight=cfg.gp_weight)
+                       gp_weight=cfg.gp_weight, group=group)
         return pair, cfg, (cfg.channels, cfg.height, cfg.width)
     if family == "cgan-cifar10":
         from gan_deeplearning4j_tpu_torch.models import cgan_cifar10 as M
 
         cfg = M.CGANConfig()
+        if num_classes is not None and num_classes != cfg.num_classes:
+            cfg = dataclasses.replace(cfg, num_classes=num_classes)
     else:
         from gan_deeplearning4j_tpu_torch.models import dcgan_celeba as M
 
@@ -148,17 +171,32 @@ def _build(family: str, device=None, lr_decay_steps: Optional[int] = None,
     if ms_weight:
         cfg = dataclasses.replace(cfg, ms_weight=ms_weight)
     pair = GANPair(M.build_generator(cfg, device),
-                   M.build_discriminator(cfg, device), ms_weight=cfg.ms_weight)
+                   M.build_discriminator(cfg, device), ms_weight=cfg.ms_weight,
+                   group=group)
     return pair, cfg, (cfg.channels, cfg.height, cfg.width)
 
 
-def _data(family: str, n: int, seed: int):
-    """(features [n, C*H*W] f32, one-hot labels [n, 10] f32 or None): tanh
-    range, except wgan-gp's [0, 1]; labels for cgan-cifar10 only (its
-    calibrated tier, whose ambiguous tail keeps the probe's Bayes ceiling
-    below 1)."""
+def _data(family: str, n: int, seed: int, data_dir: Optional[str] = None):
+    """(features [n, C*H*W] f32, one-hot labels [n, K] f32 or None): tanh
+    range, except wgan-gp's [0, 1]; labels for cgan-cifar10 only (the
+    synthetic set's calibrated tier, whose ambiguous tail keeps the probe's
+    Bayes ceiling below 1, K = 10).  ``data_dir``: up to ``n`` images read
+    from that directory instead (flat, or one subdirectory per class for
+    cgan-cifar10, K the class count)."""
     from gan_deeplearning4j_tpu_torch.data import datasets
 
+    if data_dir:
+        from gan_deeplearning4j_tpu_torch.data.images import ImageRecordReader
+
+        c, h, w = SAMPLE_SHAPES[family]
+        reader = ImageRecordReader(h, w, c, tanh_range=family != "wgan-gp")
+        x, labels, classes = reader.read_folder(data_dir, limit=n)
+        if family == "cgan-cifar10":
+            if labels is None:
+                raise ValueError(
+                    "cgan-cifar10 needs class subdirectories in --data-dir")
+            return x, np.eye(len(classes), dtype=np.float32)[labels]
+        return x, None
     if family == "cgan-cifar10":
         x, y = datasets.synthetic_cifar10(n, seed=seed,
                                           difficulty="calibrated")
@@ -202,13 +240,18 @@ def train(family: str, iterations: int, batch_size: int, res_path: str,
           lr_decay_steps: Optional[int] = None, ms_weight: float = 0.0,
           fidelity_steps: int = 400, async_checkpoint: bool = False,
           preempt_signals: Optional[str] = None,
-          log: Optional[Callable[[str], None]] = print) -> Dict:
+          log: Optional[Callable[[str], None]] = print,
+          data_dir: Optional[str] = None,
+          group: Optional[mesh.DataGroup] = None) -> Dict:
     """Train one roadmap family end to end -> the result dict (the JSON
-    line).  Raises ``PreemptionError`` after an emergency checkpoint."""
+    line).  Raises ``PreemptionError`` after an emergency checkpoint.
+    ``group``: this process is one rank of a data-parallel run (module
+    docstring), on the group's device; only rank 0 logs."""
     _check_family(family)
     if not 0.0 <= ema_decay < 1.0:
         raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay}")
-    log = log or (lambda s: None)
+    if log is None or (group is not None and group.rank != 0):
+        log = lambda s: None  # noqa: E731
     guard = PreemptionGuard(preempt_signals) if preempt_signals else None
     os.makedirs(res_path, exist_ok=True)
     if guard is not None:
@@ -218,7 +261,7 @@ def train(family: str, iterations: int, batch_size: int, res_path: str,
                            print_every, device, ema_decay, checkpoint_every,
                            checkpoint_keep, resume, steps_per_call_cap,
                            lr_decay_steps, ms_weight, fidelity_steps,
-                           async_checkpoint, guard, log)
+                           async_checkpoint, guard, log, data_dir, group)
     finally:
         if guard is not None:
             guard.uninstall()
@@ -227,14 +270,25 @@ def train(family: str, iterations: int, batch_size: int, res_path: str,
 def _train_impl(family, iterations, batch_size, res_path, n_train,
                 print_every, device, ema_decay, checkpoint_every,
                 checkpoint_keep, resume, cap, lr_decay_steps, ms_weight,
-                fidelity_steps, async_checkpoint, guard, log) -> Dict:
-    dev = backend.resolve_device(device)
+                fidelity_steps, async_checkpoint, guard, log, data_dir,
+                group) -> Dict:
+    dev = (group.device if group is not None
+           else backend.resolve_device(device))
+    world = group.world if group is not None else 1
+    rank0 = group is None or group.rank == 0
+
+    def barrier() -> None:
+        if group is not None:
+            mesh.barrier(group)
+
     host: Dict = {}
     t0 = time.perf_counter()
-    x, y = _data(family, n_train, prng.NUMBER_OF_THE_BEAST)
+    x, y = _data(family, n_train, prng.NUMBER_OF_THE_BEAST, data_dir)
     host["data_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pair, cfg, sample_shape = _build(family, dev, lr_decay_steps, ms_weight)
+    pair, cfg, sample_shape = _build(
+        family, dev, lr_decay_steps, ms_weight, group,
+        None if y is None else y.shape[1])
     host["build_s"] = time.perf_counter() - t0
     n_critic = getattr(cfg, "n_critic", 1)
     real_label = getattr(cfg, "real_label", 1.0) if pair.mode == "gan" else 1.0
@@ -251,17 +305,20 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
 
     ckpt = None
     start_it = 0
-    spec = mesh_spec_dict(1)
+    spec = mesh_spec_dict(world)
     if checkpoint_every or resume or guard is not None:
+        # rank 0 writes; the other ranks' handles only read (rank 0's
+        # in-flight temporary directory is no debris of theirs)
         ckpt = TrainCheckpointer(os.path.join(res_path, f"{family}_ckpt"),
-                                 keep=checkpoint_keep)
-        if async_checkpoint:
+                                 keep=checkpoint_keep, sweep_debris=rank0)
+        if async_checkpoint and rank0:
             ckpt = AsyncCheckpointer(ckpt)
     if resume and ckpt is not None:
         marker = os.path.join(res_path, MARKER_NAME)
-        if os.path.exists(marker):
+        if rank0 and os.path.exists(marker):
             log(f"[{family}] resuming a preempted run (consuming {marker})")
             os.remove(marker)
+        barrier()  # rank 0 has swept the directory
         t0 = time.perf_counter()
         try:
             start_it, extra = ckpt.restore({"gen": pair.gen, "dis": pair.dis},
@@ -297,7 +354,7 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     host["upload_s"] = time.perf_counter() - t0
-    graphed = dev.type == "cuda"
+    graphed = dev.type == "cuda" and pair.sync is None
     # the port kernels' launches on this run's path: the capture's warm-up
     # iteration and every iteration after it
     launches0 = kernels.launch_counts()
@@ -307,8 +364,9 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
         n_critic=n_critic, real_label=real_label, z_size=cfg.z_size, z_gen=z_gen,
         ema_decay=ema_decay, start_step=start_it, graphed=graphed)
     host["capture_s"] = time.perf_counter() - t0
-    metrics = MetricsLogger(os.path.join(res_path, f"{family}_metrics.jsonl"),
-                            append=start_it > 0)
+    metrics = MetricsLogger(
+        os.path.join(res_path, f"{family}_metrics.jsonl") if rank0 else None,
+        append=start_it > 0)
 
     def snapshot() -> None:
         """Point the graphs at the current state: clones of a graph's
@@ -356,29 +414,44 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
             if it % 100 == 0:
                 log(f"[{family}] iteration {it}: d={d_loss:.4f} "
                     f"g={g_loss:.4f}")
-            if it % print_every == 0 or it >= iterations:
+            if rank0 and (it % print_every == 0 or it >= iterations):
                 snapshot()
                 dump_samples(it)
             if ckpt is not None and checkpoint_every \
                     and it % checkpoint_every == 0:
-                snapshot()
-                dumper.flush()  # pending artifacts land first
-                save_ckpt(it)
-            if guard is not None and guard.triggered:
-                if saved["step"] != it:
+                if rank0:
                     snapshot()
-                    dumper.flush()
+                    dumper.flush()  # pending artifacts land first
                     save_ckpt(it)
-                wait = getattr(ckpt, "wait", None)
-                if wait is not None:
-                    wait()  # emergency saves must be durable
-                metrics.close()
-                preempt_exit(res_path, guard, local_step=it,
-                             fleet_min_step=it, checkpoint=saved["path"])
+                barrier()
+            if guard is not None:
+                # every rank enters the consensus at every boundary, so a
+                # signal that reaches one rank stops all at this step
+                triggered, agreed = (
+                    mesh.agree_preemption(guard.triggered, it, group)
+                    if group is not None else (guard.triggered, it))
+                if triggered:
+                    if rank0:
+                        if saved["step"] != it:
+                            snapshot()
+                            dumper.flush()
+                            save_ckpt(it)
+                        wait = getattr(ckpt, "wait", None)
+                        if wait is not None:
+                            wait()  # emergency saves must be durable
+                    metrics.close()
+                    barrier()
+                    if rank0:
+                        preempt_exit(res_path, guard, local_step=it,
+                                     fleet_min_step=agreed,
+                                     checkpoint=saved["path"])
+                    raise PreemptionError(
+                        f"preempted at iteration {it} (rank {group.rank}); "
+                        "rank 0 holds the emergency checkpoint", step=it)
         t_end = time.perf_counter()
         launches = {k: n - launches0[k]
                     for k, n in kernels.launch_counts().items()}
-        if getattr(pair.gen, "ema_params", None) is not None:
+        if rank0 and getattr(pair.gen, "ema_params", None) is not None:
             # the final grid from the trajectory-averaged weights too
             live = pair.gen.params
             pair.gen.params = pair.gen.ema_params
@@ -392,10 +465,10 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
         if wait is not None:
             wait()  # queued async saves are durable before success
     t0 = time.perf_counter()
-    for name, graph in (("gen", pair.gen), ("dis", pair.dis)):
+    for name, graph in (("gen", pair.gen), ("dis", pair.dis)) if rank0 else ():
         serialization.write_model(
             graph, os.path.join(res_path, f"{family}_{name}_model.zip"))
-    if getattr(pair.gen, "ema_params", None) is not None:
+    if rank0 and getattr(pair.gen, "ema_params", None) is not None:
         live = pair.gen.params
         pair.gen.params = pair.gen.ema_params
         try:
@@ -413,13 +486,14 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
                              if steps_timed > 0 else 0.0),
         "host_seconds": host, "graphed": graphed, "steps_per_call": K,
         "device": str(dev), "precision": dataclasses.asdict(backend.config()),
-        "port_launches": launches,
+        "port_launches": launches, "world": world,
     }
-    if y is not None and fidelity_steps > 0:
+    if rank0 and y is not None and fidelity_steps > 0:
         t0 = time.perf_counter()
         result.update(_conditional_metrics(pair, cfg, x, y, sample_shape,
                                            fidelity_steps, log, family))
         host["conditional_eval_s"] = time.perf_counter() - t0
+    barrier()  # the ranks end together, after rank 0's files
     return result
 
 
@@ -479,8 +553,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--res-path", default=None)
     p.add_argument("--n-train", type=int, default=10000)
     p.add_argument("--print-every", type=int, default=500)
-    p.add_argument("--n-devices", type=int, default=None)
-    p.add_argument("--data-dir", default=None)
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="data-parallel ranks, one process each (none or 1: "
+                        "one device)")
+    p.add_argument("--data-dir", default=None,
+                   help="read the training images from this directory "
+                        "(needs PIL; cgan-cifar10: one subdirectory per "
+                        "class) instead of the synthetic set")
     p.add_argument("--steps-per-call", type=int, default=None,
                    help="cap on iterations per call (None = auto, up to 100)")
     p.add_argument("--checkpoint-every", type=int, default=0,
@@ -512,10 +591,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "torch versions of the kernels)")
     args = p.parse_args(argv)
-    if args.n_devices and args.n_devices > 1:
-        raise _not_ported("--n-devices > 1 (GANPair data parallelism)", "8")
-    if args.data_dir:
-        raise _not_ported("--data-dir (data/images.py)", "8")
+    if args.n_devices is not None and args.n_devices < 1:
+        p.error(f"--n-devices must be at least 1, got {args.n_devices}")
     if args.profile:
         raise _not_ported("--profile (train/profile_step.py profiles the "
                           "iteration)", "6.5")
@@ -524,25 +601,55 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def main(argv=None) -> Dict:
-    args = parse_args(argv)
+def _run(args: argparse.Namespace,
+         group: Optional[mesh.DataGroup] = None) -> Dict:
+    """The program for parsed ``args`` in this process (one rank of
+    ``group``, or the whole run) -> the result, ``{"preempted": True,
+    ...}`` after a preemption.  The precision policy is the caller's."""
     res = args.res_path or os.path.join("outputs", args.family)
     try:
-        with backend.configured(**backend.flag_policy(args)):
-            result = train(
-                args.family, args.iterations, args.batch_size, res,
-                args.n_train, args.print_every, device=args.device,
-                ema_decay=args.ema_decay,
-                checkpoint_every=args.checkpoint_every, resume=args.resume,
-                steps_per_call_cap=args.steps_per_call,
-                lr_decay_steps=args.lr_decay_steps, ms_weight=args.ms_weight,
-                fidelity_steps=args.fidelity_steps,
-                async_checkpoint=args.async_checkpoint,
-                preempt_signals=(",".join(args.preempt_signal)
-                                 if args.preempt_signal else None))
+        return train(
+            args.family, args.iterations, args.batch_size, res,
+            args.n_train, args.print_every, device=args.device,
+            ema_decay=args.ema_decay,
+            checkpoint_every=args.checkpoint_every, resume=args.resume,
+            steps_per_call_cap=args.steps_per_call,
+            lr_decay_steps=args.lr_decay_steps, ms_weight=args.ms_weight,
+            fidelity_steps=args.fidelity_steps,
+            async_checkpoint=args.async_checkpoint,
+            preempt_signals=(",".join(args.preempt_signal)
+                             if args.preempt_signal else None),
+            data_dir=args.data_dir, group=group)
     except PreemptionError as e:
-        result = {"family": args.family, "preempted": True, "step": e.step,
-                  "checkpoint": e.checkpoint, "res_path": res}
+        return {"family": args.family, "preempted": True, "step": e.step,
+                "checkpoint": e.checkpoint, "res_path": res}
+
+
+def _rank(group: mesh.DataGroup, args: argparse.Namespace) -> Dict:
+    # a spawned rank starts from the default policy: the flags set it
+    with backend.configured(**backend.flag_policy(args)):
+        return _run(args, group)
+
+
+def run(args: argparse.Namespace, timeout: float = 3600.0) -> Dict:
+    """The program for parsed ``args`` -> rank 0's result.  With
+    ``--n-devices`` N > 1, N spawned ranks (``timeout``: seconds from the
+    moment all joined) on ``--device``'s kind, this process forwarding
+    ``--preempt-signal``'s signals to them."""
+    world = args.n_devices or 1
+    if world == 1:
+        with backend.configured(**backend.flag_policy(args)):
+            return _run(args)
+    split_batch(args.batch_size, world)  # before any rank starts
+    dev = backend.resolve_device(args.device)
+    signals = (parse_signals(",".join(args.preempt_signal))
+               if args.preempt_signal else ())
+    return mesh.spawn(_rank, world, (args,), device=dev.type,
+                      timeout=timeout, forward_signals=signals)[0]
+
+
+def main(argv=None) -> Dict:
+    result = run(parse_args(argv))
     # one JSON line (numpy scalars coerced)
     print(json.dumps(result, default=float), flush=True)
     return result

@@ -31,6 +31,7 @@ from gan_deeplearning4j_tpu_torch import interop
 from gan_deeplearning4j_tpu_torch.models import dcgan_celeba as CT
 from gan_deeplearning4j_tpu_torch.models import wgan_gp as WT
 from gan_deeplearning4j_tpu_torch.ops import losses as LossT
+from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.train import fused_step as FT
 from gan_deeplearning4j_tpu_torch.train.gan_pair import Draws, GANPair
 from test_torch_roadmap import (
@@ -108,9 +109,14 @@ def test_gan_pair_refuses_what_it_does_not_run():
     with pytest.raises(ValueError, match="couple examples"):
         GANPair(CT.build_generator(CELEBA_T, "cpu"),
                 CT.build_discriminator(CELEBA_T, "cpu"), mode="wgan-gp")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        GANPair(WT.build_generator(WGAN_T, "cpu"),
-                WT.build_critic(WGAN_T, "cpu"), group=object())
+    # a group (refused before data parallelism was ported) is taken: rank
+    # 1 of 2 steps on the second half of each batch, which must split
+    pair = GANPair(WT.build_generator(WGAN_T, "cpu"),
+                   WT.build_critic(WGAN_T, "cpu"),
+                   group=mesh.DataGroup(1, 2, torch.device("cpu"), "gloo"))
+    assert (pair.world, pair.rank, pair.local_batch(B)) == (2, 1, B // 2)
+    with pytest.raises(ValueError, match="must divide over 2 devices"):
+        pair.local_batch(B + 1)
     with pytest.raises(ValueError, match="ms_weight"):
         GANPair(WT.build_generator(WGAN_T, "cpu"),
                 WT.build_critic(WGAN_T, "cpu"), ms_weight=-1.0)

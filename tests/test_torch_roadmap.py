@@ -510,9 +510,6 @@ def test_roadmap_main_preempt_and_resume_equal_a_straight_run(tmp_path,
 
 
 @pytest.mark.parametrize("argv", [
-    ["--family", "cgan-cifar10", "--n-devices", "2"],
-    ["--family", "celeba", "--n-devices", "2"],
-    ["--family", "celeba", "--data-dir", "x"],
     ["--family", "celeba", "--profile", "x"],
     ["--family", "celeba", "--metrics-port", "0"]])
 def test_roadmap_main_unported_options_raise(tmp_path, argv):
