@@ -224,14 +224,42 @@ exits non-zero:
                 shedding) / 408 (a slow body) / 503 (wedged), /admin/
                 hotswap, ``run_socket_load`` at 80% of the in-process
                 saturation, SIGTERM -> exit 0.
- 15. the ``kernels`` line (each kernel's insurance numbers beside the
+ 15. supervision — supervision's numerics and hang half, each check
+                required: the CV protocol step at batch 200 with its
+                telemetry block (``--telemetry``), captured, 2 calls of
+                MAIN_K: losses and state bitwise the same run without the
+                block, every column and the state bitwise the eager step
+                from the graph's start, the launch counters around the
+                graphed calls (3 / 3 / 2 a step), the first step's block
+                within SV_TOL of the CPU's from the same start and draws,
+                and the graphed step's ms with and without the block in
+                turns (on, off, off, on); at world 2 (the dp phase's ranks)
+                SV_DP_STEPS eager steps with the block, its launches per
+                rank exact and the ranks' blocks equal; then
+                ``insurance_main`` streamed on the card three times (400
+                steps, K = 10, checkpoints every 50): a NaN in the 131st
+                batch under ``--telemetry --nan-alarm rollback`` (the alarm,
+                the rollback to the checkpoint before step 131, the
+                poisoned checkpoint pruned, the fresh incarnation's capture
+                seconds, 400 steps finished), the 16th readback hung under
+                ``--watchdog --watchdog-deadline 2 --max-restarts 1``
+                (``WatchdogTimeout`` on the training thread, the seconds
+                from the hang to the raise, the restart, 400 steps), rows
+                x 1e3 from the 151st batch under ``--divergence --nan-alarm
+                abort`` (the sentinel trips on the classifier's series, all
+                finite; ``DivergenceError``, not restarted); and
+                ``cv_main`` healthy at 200 steps, K = 100, with every alarm
+                and the auto-deadline watchdog armed: nothing fires, every
+                record's block finite, launches exact.
+ 16. the ``kernels`` line (each kernel's insurance numbers beside the
      CV step's, where the insurance path runs it, ``bn_act``'s roadmap
      numbers, each kernel's launches on the cgan-cifar10 path: 0, at
      world 2 per roadmap family (``pair_dp``, with the pair's numbers at
      its per-rank shapes), per workload and mode in the precision phase,
-     and on the serving path: 0), the seconds line (the script's total
-     beside its total before the precision phase was added and before the
-     serve phase in this run, the pair_dp phase's, and every phase
+     on the serving path: 0, and on the supervision phase's path, one card
+     and world 2), the seconds line (the script's total beside its total
+     before the precision phase was added and before the serve phase in
+     this run, the pair_dp and supervision phases', and every phase
      line's seconds), the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
@@ -1106,6 +1134,7 @@ def dp_rank(group, host, ins):
         pa.dis, pa.gen, pa.gan, pa.classifier, start_step=pa.steps))
     del pa, trainer
     out["insurance"] = insurance_dp(group, ins)
+    out["supervision"] = sv_world2(group)
     return out
 
 
@@ -3799,6 +3828,480 @@ def _serve(torch, root: str, serve_src: str) -> dict:
     return out
 
 
+# -- the supervision phase ----------------------------------------------------
+
+# the card's first telemetry block against the CPU's from the same start and
+# draws: each norm and ratio within SV_TOL of the CPU's value (relative);
+# the NaN/Inf count exactly (the card's f32 sums run in other orders, and a
+# step's params differ by up to STEP_TOL's 4e-3)
+SV_TOL = 1e-3
+SV_TURN_CALLS = 5  # calls of MAIN_K steps in one timed turn
+# the insurance program streamed on the card: 400 steps, K = 10,
+# checkpoints every 50, dumps every 100; its first training iterator is
+# wrapped by a fault source (the NaN run, the scaled-rows run) or its
+# readbacks hang once (the hang run)
+SV_INS = ["--iterations", "400", "--steps-per-call", "10",
+          "--checkpoint-every", "50", "--print-every", "100",
+          "--save-every", "100"]
+SV_INS_STEPS = 400
+SV_NAN_AT = 130  # the 131st batch carries a NaN: step 131 goes bad
+SV_HANG_AT = 15  # the 16th readback (steps 151-160) hangs
+SV_HANG_DEADLINE_S = 2.0
+SV_SCALE_AT, SV_SCALE = 150, 1e3  # rows x 1e3 from the 151st batch
+# the healthy CV program: the cv_main phase's run with every alarm and the
+# watchdog armed, no FID
+SV_CV_ARGS = CV_ARGS[:-1] + ["0", "--steps-per-call", str(CV_K),
+                             "--telemetry", "--nan-alarm", "abort",
+                             "--divergence", "--watchdog"]
+SV_DP_STEPS = 4  # the dp phase's telemetry steps per rank
+
+
+def sv_config(**kw):
+    """The bare loop's config (``GANTrainer(cfg, batch_size=...)``) at the
+    main phase's batch and K, with ``kw`` on top."""
+    from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+    from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainerConfig
+
+    cfg = M.CVConfig()
+    fields = dict(
+        dataset_name="mnist", num_features=cfg.num_features,
+        label_index=cfg.num_features, num_classes=cfg.num_classes,
+        batch_size=BATCH, batch_size_pred=500, num_iterations=0,
+        num_gen_samples=10, z_size=cfg.z_size, print_every=0, save_every=0,
+        seed=cfg.seed, res_path=None, steps_per_call=MAIN_K, metrics=False)
+    fields.update(kw)
+    return GANTrainerConfig(**fields)
+
+
+def state_to(state, dev):
+    """A step state's tensors on ``dev`` (trees of any depth)."""
+    def move(v):
+        if isinstance(v, dict):
+            return {k: move(x) for k, x in v.items()}
+        return v.to(dev) if hasattr(v, "to") else v
+
+    return type(state)(*(move(v) for v in state))
+
+
+def sv_world2(group) -> dict:
+    """The dp phase's telemetry run on one rank: SV_DP_STEPS steps of the
+    CV trainer with ``telemetry`` on the group (eager), the counters zeroed
+    just before and read just after; the block's records and a digest of
+    them (the ranks must agree: the block is computed from the reduced
+    gradients)."""
+    import torch
+
+    from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.train.fused_step import TELEMETRY_KEYS
+    from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
+
+    trainer = GANTrainer(M.CVConfig(), n_train=N_TRAIN, group=group,
+                         config=sv_config(telemetry=True, steps_per_call=1))
+    kernels.reset_launch_counts()
+    result = trainer.train(SV_DP_STEPS, log=None)
+    torch.cuda.synchronize(group.device)
+    launches = kernels.launch_counts()
+    blocks = [[r[k] for k in TELEMETRY_KEYS] for r in trainer.metrics.records()]
+    return {"launches": launches, "steps": result["steps"],
+            "blocks": blocks,
+            "digest": hashlib.sha256(json.dumps(blocks).encode()).hexdigest()}
+
+
+def sv_telemetry(torch) -> dict:
+    """The CV protocol step at batch 200 with its telemetry block, captured
+    (module docstring, phase 15): 2 graphed calls of MAIN_K steps against
+    the same run without the block (losses and state bitwise) and against
+    the eager step from the graph's start (every column and the state
+    bitwise), the counters around the graphed calls, the first step's block
+    against the CPU's from the same start and draws, and the graphed step's
+    ms with and without the block in turns (on, off, off, on)."""
+    from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.train import fused_step
+    from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
+
+    cfg = M.CVConfig()
+    on = GANTrainer(cfg, n_train=N_TRAIN, device="cuda",
+                    config=sv_config(telemetry=True))
+    off = GANTrainer(cfg, n_train=N_TRAIN, device="cuda", config=sv_config())
+    g_on, g_off = on.graphed, off.graphed
+    # the eager run and the CPU step from the graph's start: a copy of the
+    # static state, a generator at the graph generator's state
+    start = fused_step.clone_state(g_on.state)
+    z_gen = torch.Generator(device="cuda")
+    z_gen.set_state(on.z_gen.get_state())
+    z_first = torch.Generator(device="cuda")
+    z_first.set_state(on.z_gen.get_state())
+    z1 = torch.rand((BATCH, cfg.z_size), generator=z_first,
+                    device="cuda") * 2 - 1
+    z2 = torch.rand((BATCH, cfg.z_size), generator=z_first,
+                    device="cuda") * 2 - 1
+    inputs = (on.features, on.labels, on.y_real, on.y_fake, on.ones)
+    box = {"state": fused_step.clone_state(start)}
+    eager_step = on.step_fn(MAIN_K)
+
+    def eager():
+        box["state"], out = eager_step(box["state"], *inputs, z_gen=z_gen)
+        return fused_step.pack_outputs(out).reshape(MAIN_K, -1).cpu()
+
+    calls = GRAPH_STEPS // MAIN_K
+    le = torch.cat([eager() for _ in range(calls)])
+    kernels.reset_launch_counts()
+    lg = torch.cat([g_on(MAIN_K) for _ in range(calls)])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    lo = torch.cat([g_off(MAIN_K) for _ in range(calls)])
+    # the states after the same GRAPH_STEPS steps (the timed turns below
+    # advance the graphs further)
+    digests = {"on": state_digest(g_on.state), "off": state_digest(g_off.state),
+               "eager": state_digest(box["state"])}
+    n_cols = 3 + len(fused_step.TELEMETRY_KEYS)
+    expected = {"fused_update": 3 * GRAPH_STEPS, "bn_act": 3 * GRAPH_STEPS,
+                "upsample_bwd": 2 * GRAPH_STEPS, "bn_moments": 0,
+                "bn_apply": 0, "bn_act_4d": 0}
+    _, tel = fused_step.unpack_rows(lg)
+    # the CPU's first step from the same start, draws and targets
+    d = M.build_discriminator(cfg, "cpu")
+    cpu_graphs = (d, M.build_generator(cfg, "cpu"), M.build_gan(cfg, "cpu"),
+                  M.build_classifier(d, cfg))
+    cpu_step = fused_step.make_protocol_step(
+        *cpu_graphs, M.DIS_TO_GAN, M.GAN_TO_GEN, M.DIS_TO_CLASSIFIER,
+        z_size=cfg.z_size, num_features=cfg.num_features, telemetry=True)
+    _, (_, cpu_tel) = cpu_step(state_to(start, "cpu"),
+                               *(t.cpu() for t in inputs), z1=z1.cpu(),
+                               z2=z2.cpu())
+    card_vs_cpu = {k: abs(tel[k][0] - float(cpu_tel[k]))
+                   / max(abs(float(cpu_tel[k])), 1e-30)
+                   for k in fused_step.TELEMETRY_KEYS if k != "nonfinite"}
+
+    def turn(graphed):
+        times = []
+        for _ in range(SV_TURN_CALLS):
+            t0 = time.perf_counter()
+            graphed(MAIN_K)
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) / MAIN_K * 1e3
+
+    turns = [turn(g_on), turn(g_off), turn(g_off), turn(g_on)]
+    res = dict(
+        steps=GRAPH_STEPS, steps_per_call=MAIN_K, columns=n_cols,
+        ring_shape=list(g_on.losses.shape),
+        losses_bitwise_off=torch.equal(lg[:, :3], lo),
+        digest_on=digests["on"], digest_off=digests["off"],
+        block_bitwise_eager=torch.equal(le, lg),
+        digest_eager=digests["eager"],
+        launches=launches, expected_launches=expected,
+        launches_per_replay=g_on.launches,
+        block_first=[float(v) for v in lg[0, 3:]],
+        block_last=[float(v) for v in lg[-1, 3:]],
+        nonfinite=max(tel["nonfinite"]),
+        cpu_block=[float(cpu_tel[k]) for k in fused_step.TELEMETRY_KEYS],
+        card_vs_cpu_rel=card_vs_cpu, tolerance=SV_TOL, turns_ms=turns,
+        on_ms=(turns[0] + turns[3]) / 2, off_ms=(turns[1] + turns[2]) / 2,
+        setup_on=g_on.setup, setup_off=g_off.setup)
+    res["cost_ms"] = res["on_ms"] - res["off_ms"]
+    require(tuple(g_on.losses.shape) == (MAIN_K, n_cols)
+            and tuple(lg.shape) == (GRAPH_STEPS, n_cols),
+            f"supervision: the ring is {tuple(g_on.losses.shape)}")
+    require(res["losses_bitwise_off"]
+            and res["digest_on"] == res["digest_off"],
+            "supervision: the step with its telemetry block differs from the "
+            "step without it (the block must only read)")
+    require(res["block_bitwise_eager"]
+            and res["digest_eager"] == res["digest_on"],
+            "supervision: the graphed block differs from the eager step's "
+            f"(max |d| {max_err(le, lg)})")
+    require(launches == expected, f"supervision: launch counts {launches} "
+            f"!= expected {expected}")
+    require(bool(torch.isfinite(lg).all()) and res["nonfinite"] == 0.0,
+            "supervision: a non-finite block on a healthy run")
+    require(float(cpu_tel["nonfinite"]) == 0.0
+            and all(v <= SV_TOL for v in card_vs_cpu.values()),
+            f"supervision: card vs CPU block {card_vs_cpu} > {SV_TOL}")
+    del on, off, g_on, g_off, box
+    torch.cuda.empty_cache()
+    return res
+
+
+class SvScaled:
+    """Rows (features and label) scaled by ``factor`` from the ``at``-th
+    batch on: the discriminator's input BN normalizes the features back,
+    the classifier's label blows its loss up."""
+
+    def __init__(self, source, at, factor):
+        self.source, self.at, self.factor, self.n = source, at, factor, 0
+
+    def has_next(self):
+        return self.source.has_next()
+
+    def reset(self):
+        return self.source.reset()
+
+    def next(self):
+        import numpy as np
+
+        ds = self.source.next()
+        if self.n >= self.at:
+            ds.features = np.asarray(ds.features) * self.factor
+            ds.labels = np.asarray(ds.labels) * self.factor
+        self.n += 1
+        return ds
+
+    def __getattr__(self, name):
+        return getattr(self.source, name)
+
+
+def sv_insurance(root: str, name: str, flags, wrap=None) -> dict:
+    """``insurance_main`` on the card, streamed (``data_on_device=False``:
+    the source is read while the run trains), at SV_INS plus ``flags``,
+    its first training iterator wrapped by ``wrap``; prunes of the
+    checkpoint directory are recorded.  -> {dir, trainer, result (or the
+    exception it raised), events, pruned, seconds}."""
+    from gan_deeplearning4j_tpu_torch.checkpoint import TrainCheckpointer
+    from gan_deeplearning4j_tpu_torch.telemetry.events import read_events
+    from gan_deeplearning4j_tpu_torch.train import gan_trainer, insurance_main
+
+    d = f"{root}/{name}"
+    orig_iter = gan_trainer.RecordReaderDataSetIterator
+    orig_prune = TrainCheckpointer.prune_above
+    built, pruned = [], []
+
+    def first_wrapped(*a, **kw):
+        it = orig_iter(*a, **kw)
+        built.append(it)
+        return wrap(it) if wrap is not None and len(built) == 1 else it
+
+    def prune_above(self, step):
+        out = orig_prune(self, step)
+        pruned.append((step, out))
+        return out
+
+    gan_trainer.RecordReaderDataSetIterator = first_wrapped
+    TrainCheckpointer.prune_above = prune_above
+    out = {"dir": d, "trainer": None}
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            try:
+                out["trainer"], out["result"] = insurance_main.run(
+                    insurance_main.parse_args(
+                        SV_INS + list(flags) + ["--res-path", d]),
+                    data_on_device=False)
+            except Exception as e:  # the caller requires the class it expects
+                out["error"] = e
+    finally:
+        gan_trainer.RecordReaderDataSetIterator = orig_iter
+        TrainCheckpointer.prune_above = orig_prune
+    out["seconds"] = time.perf_counter() - t0
+    out["events"] = read_events(f"{d}/events.jsonl")
+    out["pruned"] = pruned
+    return out
+
+
+def _named(evs, name):
+    return [e for e in evs if e["name"] == name]
+
+
+def sv_nan(root: str) -> dict:
+    """The NaN run: one NaN in the 131st batch; the alarm trips at the next
+    flush, the run rolls back to the newest checkpoint before step 131
+    (100), prunes the poisoned one after it (150), re-captures its step,
+    and finishes its 400 steps."""
+    import math
+
+    from gan_deeplearning4j_tpu_torch.testing import NanSource
+
+    run = sv_insurance(root, "nan", ["--telemetry", "--nan-alarm",
+                                     "rollback"],
+                       lambda it: NanSource(it, nan_at=SV_NAN_AT))
+    require("error" not in run, f"supervision nan: {run.get('error')!r}")
+    res, evs, trainer = run["result"], run["events"], run["trainer"]
+    alarm, request = _named(evs, "alarm.nan"), _named(evs, "rollback.request")
+    restore = _named(evs, "rollback.restore")
+    out = dict(
+        steps=res["steps"], seconds=run["seconds"],
+        alarm=[{k: e.get(k) for k in ("step", "action")} for e in alarm],
+        request=[{k: e.get(k) for k in ("step", "bad_step", "rollbacks",
+                                         "lr_scale")} for e in request],
+        restore=[{k: e.get(k) for k in ("step", "bad_step", "lr_scale")}
+                 for e in restore],
+        pruned=run["pruned"], starts=len(_named(evs, "train.start")),
+        recapture_s=trainer.timings.get("capture_s"),
+        graphed=res["graphed"], steps_per_call=res["steps_per_call"],
+        resident=res["resident"], losses=[res["d_loss"], res["g_loss"]],
+        flight_record=os.path.exists(
+            f"{run['dir']}/flight_record_rollback.json"))
+    bad = SV_NAN_AT + 1
+    require(res["steps"] == SV_INS_STEPS and res["graphed"]
+            and not res["resident"]
+            and all(math.isfinite(v) for v in out["losses"]),
+            f"supervision nan: {out}")
+    require(len(alarm) == len(request) == len(restore) == 1
+            and alarm[0]["step"] == request[0]["bad_step"] == bad
+            and restore[0]["bad_step"] == bad
+            and restore[0]["step"] < bad and restore[0]["lr_scale"] == 0.5
+            and out["starts"] == 2 and out["flight_record"],
+            f"supervision nan: the rollback's timeline {out}")
+    require(out["pruned"] and out["pruned"][0][0] == restore[0]["step"]
+            and out["pruned"][0][1],
+            f"supervision nan: no poisoned checkpoint pruned {out['pruned']}")
+    require(isinstance(out["recapture_s"], float) and out["recapture_s"] > 0,
+            "supervision nan: the fresh incarnation did not capture")
+    return out
+
+
+def sv_hang(root: str) -> dict:
+    """The hang run: the 16th readback never completes; the watchdog (fixed
+    deadline) raises ``WatchdogTimeout`` on the training thread, the
+    recovery wrapper restarts from the checkpoint at 150, and the run
+    finishes.  Reports the seconds from the hang to the raise."""
+    from gan_deeplearning4j_tpu_torch.testing import ReadbackHang
+
+    with ReadbackHang(SV_HANG_AT) as hang:
+        run = sv_insurance(root, "hang", [
+            "--watchdog", "--watchdog-deadline", str(SV_HANG_DEADLINE_S),
+            "--max-restarts", "1"])
+    require("error" not in run, f"supervision hang: {run.get('error')!r}")
+    evs = run["events"]
+    timeout = _named(evs, "watchdog.timeout")
+    out = dict(
+        steps=run["result"]["steps"], seconds=run["seconds"],
+        fired=hang.fired,
+        hang_to_raise_s=(None if hang.t_raised is None
+                         else hang.t_raised - hang.t_hung),
+        deadline_s=SV_HANG_DEADLINE_S,
+        timeout=[{k: e.get(k) for k in ("step", "region", "age_s",
+                                         "deadline_s")} for e in timeout],
+        restarts=len(_named(evs, "recovery.restart")),
+        starts=len(_named(evs, "train.start")),
+        flight_records=sorted(f for f in os.listdir(run["dir"])
+                              if f.startswith("flight_record_")))
+    require(out["steps"] == SV_INS_STEPS and hang.fired
+            and out["hang_to_raise_s"] is not None
+            and SV_HANG_DEADLINE_S <= out["hang_to_raise_s"]
+            <= SV_HANG_DEADLINE_S + 10,
+            f"supervision hang: {out}")
+    require(len(timeout) == 1 and timeout[0]["region"] == "readback"
+            and out["restarts"] == 1 and out["starts"] == 2
+            and "flight_record_watchdog_timeout.json" in out["flight_records"],
+            f"supervision hang: the timeline {out}")
+    return out
+
+
+def sv_divergence(root: str) -> dict:
+    """The scaled-rows run: rows x 1e3 from the 151st batch, ``--divergence
+    --nan-alarm abort``: the sentinel trips on the classifier's exploding
+    series with every value finite, and the abort is fatal (no restart)."""
+    from gan_deeplearning4j_tpu_torch.train.divergence import DivergenceError
+
+    run = sv_insurance(root, "divergence",
+                       ["--telemetry", "--divergence", "--nan-alarm", "abort",
+                        "--max-restarts", "2"],
+                       lambda it: SvScaled(it, SV_SCALE_AT, SV_SCALE))
+    err = run.get("error")
+    evs = run["events"]
+    trip = _named(evs, "alarm.divergence")
+    out = dict(error=repr(err), seconds=run["seconds"],
+               trip=[{k: e.get(k) for k in ("step", "key", "value",
+                                             "baseline", "action")}
+                     for e in trip],
+               starts=len(_named(evs, "train.start")),
+               nan_alarms=len(_named(evs, "alarm.nan")),
+               flight_record=os.path.exists(
+                   f"{run['dir']}/flight_record_divergence.json"))
+    require(isinstance(err, DivergenceError),
+            f"supervision divergence: the run ended with {err!r}")
+    require(len(trip) == 1 and trip[0]["step"] > SV_SCALE_AT
+            and trip[0]["key"] in ("classifier_loss", "clf_grad_norm")
+            and abs(trip[0]["value"]) > 20 * trip[0]["baseline"]
+            and out["starts"] == 1 and out["flight_record"],
+            f"supervision divergence: {out}")
+    return out
+
+
+def sv_healthy(torch, root: str) -> dict:
+    """The healthy CV program (SV_CV_ARGS: every alarm, the sentinel and
+    the auto-deadline watchdog armed, 200 steps at K = 100): no alarm, no
+    trip, no timeout; every record carries a finite block, count 0; the
+    launch counters around it exact."""
+    import math
+
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.telemetry.events import read_events
+    from gan_deeplearning4j_tpu_torch.train import cv_main
+    from gan_deeplearning4j_tpu_torch.train.fused_step import TELEMETRY_KEYS
+
+    d = f"{root}/healthy"
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, res = cv_main.run(cv_main.parse_args(SV_CV_ARGS + ["--res-path", d]))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    calls = CV_STEPS + 1  # the warm-up step, then a replay per step
+    expected = {"fused_update": 3 * calls, "bn_act": 3 * calls,
+                "upsample_bwd": 2 * calls, "bn_moments": 0, "bn_apply": 0,
+                "bn_act_4d": 0}
+    names = [e["name"] for e in read_events(f"{d}/events.jsonl")]
+    with open(f"{d}/mnist_metrics.jsonl") as f:
+        recs = [json.loads(ln) for ln in f]
+    out = dict(steps=res["steps"], steps_per_call=res["steps_per_call"],
+               graphed=res["graphed"], seconds=time.perf_counter() - t0,
+               events=sorted(set(names)), records=len(recs),
+               launches=launches, expected_launches=expected,
+               max_grad_norm={k: max(r[k] for r in recs) for k in (
+                   "d_grad_norm", "g_grad_norm", "clf_grad_norm")})
+    require(res["steps"] == CV_STEPS and res["graphed"]
+            and res["steps_per_call"] == CV_K, f"supervision healthy: {out}")
+    require(not any(n.startswith(("alarm.", "watchdog.", "rollback."))
+                    for n in names)
+            and {"train.start", "train.end"} <= set(names),
+            f"supervision healthy: events {sorted(set(names))}")
+    require(len(recs) == CV_STEPS and all(
+        r["nonfinite"] == 0.0 and all(math.isfinite(r[k])
+                                      for k in TELEMETRY_KEYS)
+        for r in recs), "supervision healthy: a bad telemetry record")
+    require(launches == expected, f"supervision healthy: launch counts "
+            f"{launches} != expected {expected}")
+    return out
+
+
+def supervision_phase(torch, smi: str, world2) -> dict:
+    """Supervision's numerics and hang half on the card (module docstring,
+    phase 15).  ``world2``: the dp phase's telemetry runs, one per rank."""
+    t0 = time.perf_counter()
+    out = {"nvidia_smi": smi, "telemetry": sv_telemetry(torch)}
+    root = tempfile.mkdtemp(prefix="gan4j_sv_")
+    try:
+        out["nan_rollback"] = sv_nan(root)
+        out["hang"] = sv_hang(root)
+        out["divergence"] = sv_divergence(root)
+        out["healthy"] = sv_healthy(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    sv_expected = {"fused_update": 3 * SV_DP_STEPS, "bn_act": 0,
+                   "upsample_bwd": 2 * SV_DP_STEPS,
+                   "bn_moments": 3 * SV_DP_STEPS,
+                   "bn_apply": 3 * SV_DP_STEPS, "bn_act_4d": 0}
+    out["world2"] = dict(
+        steps=[r["steps"] for r in world2],
+        launches=[r["launches"] for r in world2],
+        expected_launches=sv_expected, block_last=world2[0]["blocks"][-1],
+        digests=[r["digest"] for r in world2])
+    for rank, r in enumerate(world2):
+        require(r["steps"] == SV_DP_STEPS and r["launches"] == sv_expected,
+                f"supervision world 2 rank {rank}: {r['launches']} != "
+                f"{sv_expected}")
+        require(all(b[-1] == 0.0 and all(math.isfinite(v) for v in b)
+                    for b in r["blocks"]),
+                f"supervision world 2 rank {rank}: a bad block")
+    require(len({r["digest"] for r in world2}) == 1,
+            "supervision world 2: the ranks' blocks differ")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -4434,7 +4937,11 @@ def main() -> int:
         shutil.rmtree(serve_src, ignore_errors=True)
     emit("serve", **serve)
 
-    # -- 15. the kernels line and the result ---------------------------------
+    # -- 15. supervision's numerics and hangs ---------------------------------
+    sv = supervision_phase(torch, smi, [r["supervision"] for r in ranks])
+    emit("supervision", **sv)
+
+    # -- 16. the kernels line and the result ---------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
     # pair, and the kernel phase's check for the 4-D BN, which no model
     # path runs (as in the JAX package)
@@ -4496,7 +5003,16 @@ def main() -> int:
          # the serving path's inference forward runs none of the six
          # (the JAX forward reaches no Pallas kernel): counted around the
          # serve phase's load stages
-         "serve": {"launches": serve["launches"][r["name"]]}}
+         "serve": {"launches": serve["launches"][r["name"]]},
+         # the supervision phase's path: the CV step with its telemetry
+         # block, captured (GRAPH_STEPS replays), and at world 2 per rank
+         # (SV_DP_STEPS eager steps)
+         "supervision": {
+             "launches": sv["telemetry"]["launches"][r["name"]],
+             "steps": GRAPH_STEPS,
+             "world2_launches_per_rank": sv["world2"]["launches"][0][
+                 r["name"]],
+             "world2_steps": SV_DP_STEPS}}
         for r in report]}), flush=True)
     print(json.dumps({"seconds": {
         "total": time.perf_counter() - T_START,
@@ -4504,7 +5020,8 @@ def main() -> int:
         "total_before_the_precision_phase": TOTAL_BEFORE_PRECISION_S,
         "serve": serve["seconds"],
         "total_before_the_serve_phase": before_serve_s,
-        "pair_dp": pdp["seconds"], "by_phase": PHASE_SECONDS}}),
+        "pair_dp": pdp["seconds"], "supervision": sv["seconds"],
+        "by_phase": PHASE_SECONDS}}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -55,6 +55,7 @@ import torch
 
 from gan_deeplearning4j_tpu_torch.graph import serialization
 from gan_deeplearning4j_tpu_torch.utils.async_dump import host_copy
+from gan_deeplearning4j_tpu_torch.utils.device import wait_event
 
 MANIFEST_NAME = "MANIFEST.json"
 
@@ -203,8 +204,9 @@ def snapshot_state(graphs: Dict[str, object], step: int,
 def _host_arrays(snap: Dict):
     """Wait for the snapshot's copies -> ({graph: (config, flat params,
     flat updater)}, {key: array}) of C-contiguous host arrays."""
-    if snap["event"] is not None:
-        snap["event"].synchronize()
+    # polled, so that the watchdog's raise reaches a waiting training
+    # thread (a synchronous save waits here)
+    wait_event(snap["event"])
     hosts = snap["hosts"]
     graphs = {name: (cfg, serialization._flatten(_tree_fill(p, hosts)),
                      serialization._flatten(_tree_fill(o, hosts)))

@@ -35,6 +35,7 @@ from gan_deeplearning4j_tpu_torch.optim.rmsprop import RmsProp
 from gan_deeplearning4j_tpu_torch.optim.updater import GraphUpdater
 from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
+from gan_deeplearning4j_tpu_torch.telemetry import ingraph
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -296,7 +297,8 @@ class ComputationGraph:
                     labels: Dict[str, torch.Tensor],
                     gen: Optional[torch.Generator] = None,
                     group: Optional[mesh.DataGroup] = None,
-                    reduce: Optional[Callable] = None):
+                    reduce: Optional[Callable] = None,
+                    telemetry: bool = False):
         """One optimization step -> (new_params, new_opt_state, loss).
 
         Every param leaf gets a gradient (zero where the loss does not
@@ -305,7 +307,11 @@ class ComputationGraph:
         the BN state updates then overwrite mean/var.  ``group`` runs the
         forward with sync-BN; ``reduce(loss, state_updates, grads)`` is
         applied after the gradients and before the updater (the
-        data-parallel layer's mean over ranks, ``mesh.reducer``)."""
+        data-parallel layer's mean over ranks, ``mesh.reducer``).
+        ``telemetry`` adds a fourth return: the in-graph numerics block
+        (``telemetry/ingraph.py`` ``graph_telemetry``) of the old params,
+        the new ones (BN statistics as the state updates overwrote them),
+        the reduced gradients and the loss."""
         leaves = {layer: {n: t.detach().requires_grad_(True) for n, t in lp.items()}
                   for layer, lp in params.items()}
         values, state_updates = self._forward(leaves, inputs, True, gen, group)
@@ -324,6 +330,9 @@ class ComputationGraph:
         new_params, new_opt_state = self.updater.apply(params, grads, opt_state)
         for lname, upd in state_updates.items():
             new_params[lname].update(upd)
+        if telemetry:
+            tel = ingraph.graph_telemetry(params, new_params, grads, loss)
+            return new_params, new_opt_state, loss, tel
         return new_params, new_opt_state, loss
 
     def fit(self, features, labels) -> torch.Tensor:

@@ -183,6 +183,17 @@ def agree_preemption(triggered: bool, step: int,
     return bool(flag), -int(neg_step)
 
 
+def agree_max(values: Sequence[int], group: DataGroup) -> List[int]:
+    """The ranks' element-wise maximum of small non-negative ints: one
+    all-reduce.  The trainer's alarm consensus sends rank 0's trips
+    (flags and steps) this way, the other ranks zeros; every rank must
+    enter it at every boundary while an alarm is armed."""
+    dev = group.device if group.backend == "nccl" else torch.device("cpu")
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return [int(v) for v in t.tolist()]
+
+
 def reducer(group: Optional[DataGroup]):
     """The ``reduce(loss, state_updates, grads)`` hook of
     ``ComputationGraph._train_step``: their mean over ranks (None without a

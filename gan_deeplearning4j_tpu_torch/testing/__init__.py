@@ -1,0 +1,11 @@
+"""Fault injection for tests and drills (torch twin of part of
+``gan_deeplearning4j_tpu/testing``); nothing on the training path imports
+this package."""
+
+from gan_deeplearning4j_tpu_torch.testing.chaos import (
+    HangingSource,
+    NanSource,
+    ReadbackHang,
+)
+
+__all__ = ["HangingSource", "NanSource", "ReadbackHang"]

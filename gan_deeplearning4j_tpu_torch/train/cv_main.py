@@ -35,7 +35,12 @@ restarts the whole world from the newest checkpoint),
 ``--async-checkpoint``,
 ``--preempt-signal SIG`` (an emergency checkpoint, ``PREEMPTED.json`` and
 exit code 75; with ``--n-devices`` this process forwards the signal to the
-ranks), ``--data-retries`` and ``--max-quarantine``.
+ranks), ``--data-retries`` and ``--max-quarantine``; training health, as in
+the JAX program: ``--telemetry``, ``--nan-alarm
+{warn,snapshot,abort,rollback}`` (rollback in one process only),
+``--divergence``, ``--max-rollbacks``, ``--rollback-lr-factor``,
+``--watchdog`` and ``--watchdog-deadline``; the run's timeline goes to
+``events.jsonl``.
 """
 
 from __future__ import annotations
@@ -62,9 +67,12 @@ from gan_deeplearning4j_tpu_torch.train.gan_trainer import (
     GANTrainer,
     GANTrainerConfig,
     Workload,
+    add_health_args,
     add_recovery_args,
     check_recovery_args,
+    health_config_kwargs,
     recovery_config_kwargs,
+    refuse_rollback_under_group,
     resolve_n_devices,
     run_with_recovery,
     spawn_with_recovery,
@@ -149,6 +157,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     backend.add_bf16_flag(p)
     backend.add_mp_flag(p)
     add_recovery_args(p)
+    add_health_args(p)
     args = p.parse_args(argv)
     check_recovery_args(p, args)
     return args
@@ -226,7 +235,8 @@ def _config(args: argparse.Namespace, overrides: Dict) -> GANTrainerConfig:
         save_every=args.save_every, dp_mode=args.dp_mode, averaging_frequency=args.averaging_frequency,
         steps_per_call=args.steps_per_call, async_dumps=not args.sync_dumps,
         ema_decay=args.ema_decay, seed=args.seed,
-        **recovery_config_kwargs(args), **overrides)
+        **recovery_config_kwargs(args), **health_config_kwargs(args),
+        **overrides)
 
 
 def _train_and_evaluate(args: argparse.Namespace, config: GANTrainerConfig,
@@ -235,16 +245,18 @@ def _train_and_evaluate(args: argparse.Namespace, config: GANTrainerConfig,
     cfg = M.CVConfig(seed=args.seed)
     rank0 = group is None or group.rank == 0
 
-    def make_trainer(resume: bool) -> GANTrainer:
+    def make_trainer(resume: bool, rollback_manager) -> GANTrainer:
         c = dataclasses.replace(config, resume=True) if resume else config
         return GANTrainer(
             cfg, device=args.device, group=group, config=c,
             workload=CVWorkload(cfg, n_train=args.n_train,
-                                n_test=args.n_test))
+                                n_test=args.n_test),
+            rollback_manager=rollback_manager)
 
     # a data-parallel world recovers as a whole, in the parent (``run``)
     trainer, result = run_with_recovery(
-        make_trainer, max_restarts=args.max_restarts if group is None else 0,
+        make_trainer, config,
+        max_restarts=args.max_restarts if group is None else 0,
         log=print if rank0 else None)
     if rank0:
         result.update(evaluate(trainer, fid_samples=args.fid_samples))
@@ -278,6 +290,7 @@ def run(args: argparse.Namespace, timeout: float = 3600.0, **overrides
     ``data_on_device``, ``stream_chunk_bytes``)."""
     config = _config(args, overrides)
     world = resolve_n_devices(args.n_devices, args.batch_size, args.device)
+    refuse_rollback_under_group(config, world)
     if world == 1:
         try:
             # --bf16 / --mp over the configured policy, before any graph

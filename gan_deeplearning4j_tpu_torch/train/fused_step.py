@@ -22,13 +22,18 @@ call and returns each loss stacked [K], as the JAX step's ``lax.scan``
 does; torch has no scan carry, so JAX's ``carry_dedup`` (a fix for XLA's
 carry copies) has no counterpart.  ``data_codec="u8x100"`` takes the
 table as uint8 codes (data/codec.py) and decodes each sliced batch through
-the 256-entry f32 table, bitwise the f32 table's step.  The JAX step's
-``chunk_indexed`` and ``telemetry`` are not ported yet (ROADMAP Queue 1
-items 3.1 and 6) and raise.
+the 256-entry f32 table, bitwise the f32 table's step.  ``telemetry`` adds the JAX step's
+in-graph numerics block (``telemetry/ingraph.py``): each trained graph's
+gradient norm, parameter norm and update ratio (``d_``/``g_``/``clf_``)
+and one total NaN/Inf count, [K] each under K steps a call.  The JAX
+step's ``chunk_indexed`` is not ported yet (ROADMAP Queue 1 item 3.1) and
+raises.
 
 On one card the trainer runs the step as a CUDA graph (``GraphedStep``):
 captured once, a call replays it K times, the graph's launches replacing
-the ~600 that eager PyTorch issues from Python a step.  The CPU and
+the ~600 that eager PyTorch issues from Python a step.  Each replay writes
+its losses, and the telemetry block when the step has one, to one row of
+a ring on the card, and a call reads the ring back once.  The CPU and
 data-parallel groups run the step eagerly (gloo cannot be captured; NCCL
 capture is ROADMAP Queue 1 item 7.2).
 
@@ -53,6 +58,7 @@ from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
 from gan_deeplearning4j_tpu_torch.optim import ema as ema_lib
 from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.runtime import backend
+from gan_deeplearning4j_tpu_torch.utils import device as device_lib
 
 # Cap on protocol steps per call (the JAX package's, fused_step.py:42): the
 # trainer's K is the largest divisor of the run at most this.
@@ -76,6 +82,12 @@ class ProtocolState(NamedTuple):
 
 # the state's {layer: {param: tensor}} trees, without the EMA
 TREES = ProtocolState._fields[:7]
+
+# the telemetry block's keys in the JAX step's order (fused_step.py: the
+# three graphs' norms and ratios, then the one NaN/Inf count)
+TELEMETRY_KEYS = tuple(
+    f"{pfx}_{k}" for pfx in ("d", "g", "clf")
+    for k in ("grad_norm", "param_norm", "update_ratio")) + ("nonfinite",)
 
 
 def state_trees(state) -> List[Tuple[str, Dict]]:
@@ -120,7 +132,9 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
                        chunk_indexed: bool = False, telemetry: bool = False):
     """Build the step:
     (state, real, labels, y_real, y_fake, ones, z_gen=None, z1=None, z2=None)
-    -> (state', (d_loss, g_loss, clf_loss)).
+    -> (state', (d_loss, g_loss, clf_loss)), or with ``telemetry``
+    (state', ((d_loss, g_loss, clf_loss), block)), ``block`` the flat
+    ``TELEMETRY_KEYS`` dict of the JAX step.
 
     ``real``/``labels`` are the resident training table; the step slices
     batch ``it % (rows // B)`` itself, with B the rows of ``ones`` (the
@@ -146,8 +160,6 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
         raise ValueError(f"unknown data_codec: {data_codec!r}")
     if chunk_indexed:
         raise _not_ported("chunk_indexed", "3.1 (the chunk dedup tier)")
-    if telemetry:
-        raise _not_ported("telemetry", "6 (telemetry/ingraph.py)")
     if int(steps_per_call) != steps_per_call or steps_per_call < 1:
         raise ValueError(f"steps_per_call must be a positive int, got "
                          f"{steps_per_call}")
@@ -165,8 +177,9 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
             0, codes.reshape(-1).long()).view(codes.shape)
 
     def train(graph, params, opt, inputs, targets):
-        return graph._train_step(params, opt, inputs, targets, group=group,
-                                 reduce=reduce)
+        out = graph._train_step(params, opt, inputs, targets, group=group,
+                                reduce=reduce, telemetry=telemetry)
+        return out if telemetry else (*out, None)
 
     def one(*args, **kwargs):
         with backend.configured(policy):
@@ -201,21 +214,21 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
         # the targets are concatenated per rank, so each rank's halves line
         # up with its own [real; fake]
         fake = gen.output(z1, params=state.gen_params)[0].reshape(Bl, num_features)
-        dis_params, dis_opt, d_loss = train(
+        dis_params, dis_opt, d_loss, d_tel = train(
             dis, state.dis_params, state.dis_opt,
             {dis.input_names[0]: torch.cat([real, fake])},
             {dis.output_names[0]: torch.cat([y_real, y_fake])})
         # (2) dis -> gan frozen tail
         gan_params = _apply_sync(state.gan_params, dis_params, dis_to_gan)
         # (3) G-step through the stacked graph
-        gan_params, gan_opt, g_loss = train(
+        gan_params, gan_opt, g_loss, g_tel = train(
             gan, gan_params, state.gan_opt, {gan.input_names[0]: z2},
             {gan.output_names[0]: ones})
         # (4) gan generator -> standalone gen
         gen_params = _apply_sync(state.gen_params, gan_params, gan_to_gen)
         # (5) classifier on the labeled real batch
         clf_params = _apply_sync(state.clf_params, dis_params, dis_to_classifier)
-        clf_params, clf_opt, c_loss = train(
+        clf_params, clf_opt, c_loss, c_tel = train(
             classifier, clf_params, state.clf_opt,
             {classifier.input_names[0]: real},
             {classifier.output_names[0]: labels})
@@ -226,7 +239,17 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
         new_state = ProtocolState(dis_params, dis_opt, gan_params, gan_opt,
                                   clf_params, clf_opt, gen_params,
                                   state.it + 1, ema_gen)
-        return new_state, (d_loss, g_loss, c_loss)
+        losses = (d_loss, g_loss, c_loss)
+        if not telemetry:
+            return new_state, losses
+        # one flat block: per-graph norms/ratios and a single total
+        # NaN/Inf count (the alarm only needs which step went bad)
+        tel = {f"{pfx}_{k}": v
+               for pfx, blk in (("d", d_tel), ("g", g_tel), ("clf", c_tel))
+               for k, v in blk.items() if k != "nonfinite"}
+        tel["nonfinite"] = (d_tel["nonfinite"] + g_tel["nonfinite"]
+                            + c_tel["nonfinite"])
+        return new_state, (losses, tel)
 
     if steps_per_call == 1:
         return one
@@ -237,11 +260,15 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
               z2: Optional[torch.Tensor] = None):
         steps = []
         for k in range(steps_per_call):
-            state, losses = one(state, real, labels, y_real, y_fake, ones,
-                                z_gen, None if z1 is None else z1[k],
-                                None if z2 is None else z2[k])
-            steps.append(losses)
-        return state, tuple(torch.stack(ls) for ls in zip(*steps))
+            state, out = one(state, real, labels, y_real, y_fake, ones,
+                             z_gen, None if z1 is None else z1[k],
+                             None if z2 is None else z2[k])
+            steps.append(out)
+        if not telemetry:
+            return state, tuple(torch.stack(ls) for ls in zip(*steps))
+        losses = tuple(torch.stack(ls) for ls in zip(*(o[0] for o in steps)))
+        return state, (losses, {k: torch.stack([o[1][k] for o in steps])
+                                for k in TELEMETRY_KEYS})
 
     return multi
 
@@ -324,16 +351,43 @@ def copy_state_(dst, src) -> None:
         torch._foreach_copy_([a for a, _ in group], [b for _, b in group])
 
 
+def pack_outputs(out) -> torch.Tensor:
+    """A step's outputs as columns: its losses (any number), then, for a
+    ``(losses, block)`` output, the telemetry block in ``TELEMETRY_KEYS``
+    order, cast to the losses' dtype (the NaN/Inf count is exact in f32)
+    -> [n] for one step, [K, n] for K."""
+    if len(out) == 2 and isinstance(out[1], dict):
+        losses, tel = out
+        cols = [*losses, *(tel[k].to(losses[0].dtype) for k in TELEMETRY_KEYS)]
+    else:
+        cols = list(out)
+    return torch.stack(cols, -1)
+
+
+def unpack_rows(rows) -> Tuple[List[List[float]], Dict[str, List[float]]]:
+    """Host rows [n, 3] or [n, 3 + len(TELEMETRY_KEYS)] of the protocol
+    step (``pack_outputs``) -> (per-step [d, g, clf] losses, the telemetry
+    columns by key, empty without telemetry)."""
+    rows = rows.tolist()
+    losses = [r[:3] for r in rows]
+    tel = {}
+    if rows and len(rows[0]) > 3:
+        tel = {k: [r[3 + i] for r in rows]
+               for i, k in enumerate(TELEMETRY_KEYS)}
+    return losses, tel
+
+
 def graph_body(step, inputs, z_gen: Optional[torch.Generator], ring: int,
                state, losses: torch.Tensor) -> None:
     """What the CUDA graph of ``GraphedStep`` records: one ``step`` from
     ``state`` (on the table and targets ``inputs``, random draws from
-    ``z_gen``), its losses written to row ``it % ring`` of ``losses`` [ring,
-    n_losses] through a device index, and the new state copied into
-    ``state``."""
+    ``z_gen``), its outputs (``pack_outputs``) written to row ``it % ring``
+    of ``losses`` [ring, n_losses] through a device index, and the new
+    state copied into ``state``.  Everything the step reads from the old
+    state, the telemetry block included, is computed before that copy."""
     slot = (state.it % ring).view(1)
     new, out = step(state, *inputs, z_gen=z_gen)
-    losses.index_copy_(0, slot, torch.stack(out).view(1, -1))
+    losses.index_copy_(0, slot, pack_outputs(out).view(1, -1))
     copy_state_(state, new)
 
 
@@ -348,7 +402,8 @@ def replay(graph, replays: int, per_replay: Dict[str, int]) -> None:
 class GraphedStep:
     """A single-card step as a CUDA graph: captured once, a call replays it
     K times back to back and reads the [K, n_losses] losses back once.  The
-    protocol step (3 losses) and ``GANPair``'s iteration (2) both run so.
+    protocol step (3 losses, 13 columns with its telemetry block) and
+    ``GANPair``'s iteration (2) both run so.
 
     The graph's inputs are static tensors: ``self.state`` (a copy of the
     start state, one buffer per leaf, that the step reads and, at its end,
@@ -403,9 +458,10 @@ class GraphedStep:
             "pool_allocated_bytes": torch.cuda.memory_allocated(dev) - mem[0],
             "pool_reserved_bytes": torch.cuda.memory_reserved(dev) - mem[1]}
 
-    def __call__(self, n: int) -> torch.Tensor:
-        """Run ``n`` steps (1 <= n <= ring) -> their losses, [n, n_losses]
-        on the host, in step order (one readback)."""
+    def launch(self, n: int) -> List[int]:
+        """Enqueue ``n`` steps (1 <= n <= ring) -> the rows of ``losses``
+        they fill, in step order.  Read them back before the next launch,
+        which overwrites the ring."""
         if not 1 <= n <= self.ring:
             raise ValueError(f"a call runs 1 to {self.ring} steps, not {n}")
         if backend.config() != self.policy:
@@ -414,4 +470,10 @@ class GraphedStep:
         replay(self.graph, n, self.launches)
         rows = [(self.steps + i) % self.ring for i in range(n)]
         self.steps += n
-        return self.losses.cpu()[rows]
+        return rows
+
+    def __call__(self, n: int) -> torch.Tensor:
+        """Run ``n`` steps -> their losses, [n, n_losses] on the host, in
+        step order (one polled readback, ``utils/device.py``)."""
+        rows = self.launch(n)
+        return torch.from_numpy(device_lib.readback(self.losses))[rows]

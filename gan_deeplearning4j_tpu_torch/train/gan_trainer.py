@@ -63,12 +63,34 @@ Supervision (the JAX trainer's, in its checkpoint format):
     retryable failure from the newest checkpoint; a data-parallel world
     restarts as a whole (``spawn_with_recovery``: one failed rank
     re-spawns every rank).
-The watchdog, the divergence sentinel, rollback and telemetry are not
-ported yet (ROADMAP Queue 1 item 6).
+Supervision's numerics and hang half (the JAX trainer's fields and
+actions):
+  - ``telemetry``: the step's in-graph numerics block (gradient and param
+    norms, update ratios, a NaN/Inf count; ``telemetry/ingraph.py``) rides
+    the step, the CUDA graph and its one readback, and lands in the
+    metrics records as extra columns;
+  - ``nan_alarm`` (warn / snapshot / abort / rollback) and ``divergence``
+    (the windowed sentinel, ``train/divergence.py``) watch the records the
+    metrics logger flushes and are polled at every call boundary, before
+    that boundary's dumps and checkpoint; ``rollback`` restores the newest
+    checkpoint before the bad step in a new incarnation, with a cut
+    learning rate and a reseeded latent stream (``train/rollback.py``;
+    ``run_with_recovery`` owns the one ``RollbackManager``);
+  - ``watchdog``: a heartbeat at every call boundary and around every
+    blocking region (the readback, chunk staging, dumps, checkpoints, all
+    polled waits), so a hang becomes a retryable ``WatchdogTimeout``;
+  - ``events``: the run's ``events.jsonl`` and flight recorder
+    (``telemetry/events.py``), installed with the guard and the watchdog by
+    ``train/shell.py`` around the loops.
+Under a group only rank 0 logs metrics, so only rank 0 observes; the
+alarms' outcome is agreed at every boundary so that every rank acts at
+the same step (rollback under a group is refused: ROADMAP Queue 1 item
+6.3b).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -111,7 +133,13 @@ from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
 from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.parallel.data_parallel import DataParallelGraph
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
+from gan_deeplearning4j_tpu_torch.telemetry import events
+from gan_deeplearning4j_tpu_torch.telemetry.ingraph import NanAlarm, NanAlarmError
 from gan_deeplearning4j_tpu_torch.train import fused_step
+from gan_deeplearning4j_tpu_torch.train.divergence import (
+    DivergenceError,
+    DivergenceSentinel,
+)
 from gan_deeplearning4j_tpu_torch.train.preemption import (
     MARKER_NAME,
     PreemptionError,
@@ -119,6 +147,15 @@ from gan_deeplearning4j_tpu_torch.train.preemption import (
     parse_signals,
     preempt_exit,
 )
+from gan_deeplearning4j_tpu_torch.train.rollback import (
+    RollbackError,
+    RollbackManager,
+    RollbackRequested,
+    perturb_z_gen,
+)
+from gan_deeplearning4j_tpu_torch.train.shell import SupervisionShell
+from gan_deeplearning4j_tpu_torch.train.watchdog import HeartbeatWatchdog
+from gan_deeplearning4j_tpu_torch.utils import device as device_lib
 from gan_deeplearning4j_tpu_torch.utils.async_dump import (
     AsyncArtifactWriter,
     host_copy,
@@ -128,6 +165,7 @@ from gan_deeplearning4j_tpu_torch.utils.metrics import MetricsLogger
 log_ = logging.getLogger(__name__)
 
 DP_MODES = ("gradient_sync", "param_averaging")
+NAN_ALARM_ACTIONS = (None, "warn", "snapshot", "abort", "rollback")
 
 
 @dataclasses.dataclass
@@ -177,6 +215,33 @@ class GANTrainerConfig:
     data_retry_backoff_s: float = 0.1
     # corrupt-record budget (0 = strict: the first bad record raises)
     max_quarantine: int = 0
+    # -- numerics and hangs (the JAX trainer's fields, names and defaults) --
+    # the in-graph numerics block as metrics columns (fused step only)
+    telemetry: bool = False
+    # the first non-finite step's action (needs telemetry): None, "warn",
+    # "snapshot" (a forensic checkpoint in res_path/nan_snapshot), "abort"
+    # (NanAlarmError, fatal for the recovery wrapper) or "rollback"
+    # (restore before the bad step, cut the LR, reseed the latents; needs a
+    # RollbackManager shared across incarnations)
+    nan_alarm: Optional[str] = None
+    # the windowed divergence sentinel (needs telemetry); its action is
+    # nan_alarm's (warn when None)
+    divergence: bool = False
+    divergence_window: int = 64       # rolling median window (records)
+    divergence_factor: float = 20.0   # |value| > factor * median = outlier
+    divergence_patience: int = 3      # consecutive outliers to trip
+    max_rollbacks: int = 3            # progress-aware budget, then fatal
+    rollback_lr_factor: float = 0.5   # LR multiplier per rollback
+    # the hang watchdog: a missed heartbeat raises WatchdogTimeout on the
+    # training thread (retryable); None = the deadline scales with the
+    # measured interval between beats (warm-up allowance first)
+    watchdog: bool = False
+    watchdog_deadline_s: Optional[float] = None
+    watchdog_warmup_s: float = 300.0
+    watchdog_scale: float = 20.0
+    watchdog_min_deadline_s: float = 5.0
+    # res_path/events.jsonl and the flight recorder (False: neither)
+    events: bool = True
 
 
 class Workload:
@@ -298,21 +363,27 @@ def advance_latents(z_gen: torch.Generator, steps: int, batch_size: int,
 
 # the failures a restart would only replay (configuration and checkpoint
 # structure mismatches, a corrupt explicit checkpoint, the quarantine
-# budget): re-raised at once
+# budget, a NaN or divergence abort, an exhausted rollback budget):
+# re-raised at once
 FATAL_CLASSES = (ValueError, TypeError, CheckpointCorruptError,
-                 DataQuarantineError)
+                 DataQuarantineError, NanAlarmError, DivergenceError,
+                 RollbackError)
 
 
 def _recover(run_once: Callable[[bool], Dict], failure_step: Callable,
              is_fatal: Callable[[BaseException], bool], cleanup: Callable,
              max_restarts: int, log: Optional[Callable[[str], None]],
-             backoff_base_s: float, backoff_max_s: float) -> Dict:
+             backoff_base_s: float, backoff_max_s: float,
+             on_restart: Optional[Callable] = None) -> Dict:
     """The restart loop both recovery wrappers share: ``run_once(resume)``
     until it returns; ``PreemptionError`` and the fatal class re-raise;
-    anything else is retried after ``cleanup(e)``, with resume, backoff
-    ``backoff_base_s * 2^n`` (capped) and jitter x[0.5, 1.5), while the
-    progress-aware budget lasts: a failure at a later ``failure_step(e)``
-    than the previous one resets it."""
+    ``RollbackRequested`` resumes at once, without charging the restart
+    budget or backing off (the rollback budget is the manager's own, charged
+    before the raise); anything else is retried after ``cleanup(e)``, with
+    resume, backoff ``backoff_base_s * 2^n`` (capped) and jitter x[0.5,
+    1.5), while the progress-aware budget lasts: a failure at a later
+    ``failure_step(e)`` than the previous one resets it.  ``on_restart(e,
+    step, attempt, delay)`` runs before each retry's backoff."""
     attempt = 0
     resume_next = False
     last_failure_step: Optional[int] = None
@@ -325,12 +396,19 @@ def _recover(run_once: Callable[[bool], Dict], failure_step: Callable,
             if is_fatal(e):
                 raise  # a restart replays the same failure
             cleanup(e)
+            resume_next = True
+            if isinstance(e, RollbackRequested):
+                if log is not None:
+                    log(f"rolling back at step {e.step} (rollback "
+                        f"#{e.rollbacks}): {e} — restoring the last verified "
+                        "pre-failure checkpoint with a cut LR and a "
+                        "perturbed noise stream")
+                continue
             step = int(failure_step(e) or 0)
             if last_failure_step is not None and step > last_failure_step:
                 attempt = 0  # progress since the last failure
             last_failure_step = step
             attempt += 1
-            resume_next = True
             if attempt > max_restarts:
                 raise
             delay = 0.0
@@ -342,6 +420,8 @@ def _recover(run_once: Callable[[bool], Dict], failure_step: Callable,
                 log(f"training failed ({e!r}) at step {step}; restart "
                     f"{attempt}/{max_restarts} from the latest checkpoint"
                     + (f" after {delay:.1f}s backoff" if delay else ""))
+            if on_restart is not None:
+                on_restart(e, step, attempt, delay)
             if delay:
                 time.sleep(delay)
 
@@ -356,19 +436,26 @@ def train_with_recovery(make_trainer: Callable[[bool], "GANTrainer"],
     package's classification):
 
     * fatal, re-raised at once: ``FATAL_CLASSES`` (a restart replays the
-      same failure);
+      same failure: a deterministic replay marches into the same NaN or
+      divergence, and an exhausted rollback budget has already failed);
     * ``PreemptionError`` is re-raised: the emergency checkpoint is on disk
       and the scheduler restarts the job (the mains exit 75);
-    * everything else is retried, with backoff ``backoff_base_s * 2^n``
-      (capped) and jitter x[0.5, 1.5).  The budget is progress-aware: a
-      failure at a later step than the previous one resets it.
+    * ``RollbackRequested`` (``nan_alarm="rollback"``) builds the next
+      incarnation at once, resuming before the bad step, without charging
+      the restart budget or backing off;
+    * everything else (a ``WatchdogTimeout`` among them) is retried, with
+      backoff ``backoff_base_s * 2^n`` (capped) and jitter x[0.5, 1.5).  The
+      budget is progress-aware: a failure at a later step than the
+      previous one resets it.
 
     The failed incarnation's checkpointer is quiesced (an async save in
     flight becomes durable, its worker is reaped) before the next trainer
-    is built.  The JAX wrapper's further classes (watchdog timeouts,
-    rollback requests, NaN alarms, divergence) come with the next slice
-    and are not caught here.  A data-parallel world recovers as a whole
-    (``spawn_with_recovery``): its ranks run without this wrapper."""
+    is built.  A retryable failure first dumps the failed incarnation's
+    flight record (``flight_record_training_failure.json``), then appends
+    a ``recovery.restart`` instant to the run's ``events.jsonl`` through a
+    transient recorder (the next incarnation appends after it).  A
+    data-parallel world recovers as a whole (``spawn_with_recovery``): its
+    ranks run without this wrapper."""
     box: Dict = {}
 
     def run_once(resume: bool) -> Dict:
@@ -376,8 +463,9 @@ def train_with_recovery(make_trainer: Callable[[bool], "GANTrainer"],
         box["trainer"] = make_trainer(resume)
         return box["trainer"].train(log=log)
 
-    def quiesce_checkpointer(e) -> None:
-        ck_close = getattr(getattr(box["trainer"], "checkpointer", None),
+    def cleanup(e) -> None:
+        trainer = box["trainer"]
+        ck_close = getattr(getattr(trainer, "checkpointer", None),
                            "close", None)
         if ck_close is not None:
             try:
@@ -387,12 +475,39 @@ def train_with_recovery(make_trainer: Callable[[bool], "GANTrainer"],
                     log(f"checkpoint writer failed during restart quiesce "
                         f"({ce!r}); the restart falls back to the previous "
                         "verified checkpoint")
+        # the flight record, while the failed incarnation's ring still
+        # holds the events that led here (even the last, budget-exhausted
+        # failure leaves its timeline behind)
+        recorder = getattr(trainer, "_events", None)
+        res_path = getattr(getattr(trainer, "c", None), "res_path", None)
+        if (recorder is not None and res_path
+                and not isinstance(e, RollbackRequested)):
+            recorder.dump_flight_record(
+                res_path, "training_failure",
+                extra={"step": getattr(trainer, "steps", 0),
+                       "error": repr(e)})
+
+    def on_restart(e, step, attempt, delay) -> None:
+        # the failed incarnation's recorder is closed and the next one not
+        # open yet: append through a transient recorder, so the timeline
+        # stays one contiguous file
+        c = getattr(box["trainer"], "c", None)
+        if not (getattr(c, "events", False) and getattr(c, "res_path", None)):
+            return
+        try:
+            with events.EventRecorder(
+                    path=os.path.join(c.res_path, events.EVENTS_NAME),
+                    append=True, flush_every=1) as rec:
+                rec.instant("recovery.restart", step=step, attempt=attempt,
+                            backoff_s=round(delay, 3), error=repr(e))
+        except Exception:  # diagnostics must never eat the restart
+            pass
 
     return _recover(run_once,
                     lambda e: getattr(box["trainer"], "steps", 0),
                     lambda e: isinstance(e, FATAL_CLASSES),
-                    quiesce_checkpointer, max_restarts, log,
-                    backoff_base_s, backoff_max_s)
+                    cleanup, max_restarts, log,
+                    backoff_base_s, backoff_max_s, on_restart)
 
 
 def spawn_with_recovery(launch: Callable[[bool], Dict], checkpoint_dir: str,
@@ -482,28 +597,119 @@ def recovery_config_kwargs(args) -> Dict:
         data_retries=args.data_retries, max_quarantine=args.max_quarantine)
 
 
+def add_health_args(parser) -> None:
+    """The mains' training-health flags, with the JAX mains' names, help and
+    defaults (less ``--sanitize``, and less the files the port does not
+    write yet): ``--telemetry`` and ``--nan-alarm`` (each JAX main's own),
+    then the JAX ``add_health_args``': the divergence sentinel, rollback
+    and the watchdog."""
+    parser.add_argument(
+        "--telemetry", action="store_true",
+        help="in-graph numerics telemetry: per-step grad/param norms, "
+             "update ratios and NaN/Inf counters computed inside the "
+             "fused step and logged as metrics columns (they ride the "
+             "step's one readback)")
+    parser.add_argument(
+        "--nan-alarm", default=None,
+        choices=["warn", "snapshot", "abort", "rollback"],
+        help="action on the first non-finite step (needs --telemetry): "
+             "warn = log and continue; snapshot = save a forensic "
+             "checkpoint to res-path/nan_snapshot (through the emergency-"
+             "checkpoint path) and continue; abort = raise; the recovery "
+             "wrapper classifies the abort as FATAL — a deterministic "
+             "replay would hit the same NaN, so --max-restarts is not "
+             "burned on it; rollback = heal in-process: restore the last "
+             "verified pre-NaN checkpoint, cut the LR by "
+             "--rollback-lr-factor and perturb the noise stream so the "
+             "replay differs (needs --checkpoint-every)")
+    parser.add_argument(
+        "--divergence", action="store_true",
+        help="arm the windowed divergence sentinel (needs --telemetry): "
+             "trip on loss explosion / grad-norm blowup BEFORE NaNs "
+             "appear; the action on a trip is --nan-alarm's (warn when "
+             "unset) — pair with '--nan-alarm rollback' to heal")
+    parser.add_argument(
+        "--max-rollbacks", type=int, default=3, metavar="N",
+        help="rollback budget for '--nan-alarm rollback' (progress-"
+             "aware like --max-restarts: a rollback at a later step "
+             "than the previous one resets the counter); exhausted = "
+             "fatal escalation")
+    parser.add_argument(
+        "--rollback-lr-factor", type=float, default=0.5, metavar="F",
+        help="learning-rate multiplier applied per rollback "
+             "(compounding) — the healing half of rollback-with-"
+             "perturbation")
+    parser.add_argument(
+        "--watchdog", action="store_true",
+        help="arm the hang watchdog: heartbeat at every call boundary and "
+             "around every blocking region; a silent hang (dead data "
+             "source, wedged readback/collective) dumps a flight record, "
+             "takes a best-effort emergency checkpoint and becomes a "
+             "retryable WatchdogTimeout for --max-restarts instead of a "
+             "run stuck forever")
+    parser.add_argument(
+        "--watchdog-deadline", type=float, default=None, metavar="SEC",
+        help="fixed watchdog deadline in seconds (default: auto-scale "
+             "from the measured steady-state step time)")
+
+
+def health_config_kwargs(args) -> Dict:
+    """The add_health_args flags as ``GANTrainerConfig`` overrides."""
+    return dict(telemetry=args.telemetry, nan_alarm=args.nan_alarm,
+                divergence=args.divergence, max_rollbacks=args.max_rollbacks,
+                rollback_lr_factor=args.rollback_lr_factor,
+                watchdog=args.watchdog,
+                watchdog_deadline_s=args.watchdog_deadline)
+
+
 def check_recovery_args(parser, args) -> None:
-    """The mains' validation of the recovery flags."""
+    """The mains' validation of the recovery and health flags."""
     if args.max_restarts > 0 and args.checkpoint_every <= 0:
         parser.error("--max-restarts needs --checkpoint-every (without "
                      "checkpoints every restart replays from step 0)")
+    if getattr(args, "nan_alarm", None) == "rollback" \
+            and args.checkpoint_every <= 0:
+        parser.error("--nan-alarm rollback needs --checkpoint-every "
+                     "(rollback restores the last verified checkpoint "
+                     "from before the bad step; without checkpoints it "
+                     "can only replay from step 0)")
 
 
-def run_with_recovery(make_trainer: Callable[[bool], "GANTrainer"],
-                      max_restarts: int = 0,
+def refuse_rollback_under_group(config: GANTrainerConfig, world: int) -> None:
+    """``nan_alarm="rollback"`` runs in one process only."""
+    if config.nan_alarm == "rollback" and world > 1:
+        raise ValueError(
+            "nan_alarm='rollback' under a data-parallel group is not "
+            "ported yet (ROADMAP Queue 1 item 6.3b: the RollbackManager "
+            "would have to outlive a re-spawn of the world); use it with "
+            "one rank, or 'abort' / 'snapshot' / 'warn'")
+
+
+def run_with_recovery(make_trainer: Callable[[bool, Optional[RollbackManager]],
+                                             "GANTrainer"],
+                      config: GANTrainerConfig, max_restarts: int = 0,
                       log: Optional[Callable[[str], None]] = print
                       ) -> Tuple["GANTrainer", Dict]:
-    """The mains' wiring: ``make_trainer(resume)`` builds a trainer (with
-    ``resume`` forced on for a restart) and it trains, under
-    ``train_with_recovery`` when ``max_restarts`` > 0 -> (the last trainer,
-    its result)."""
+    """The mains' wiring: ``make_trainer(resume, rollback_manager)`` builds
+    a trainer (with ``resume`` forced on for a restart) and it trains,
+    under ``train_with_recovery`` when ``max_restarts`` > 0 -> (the last
+    trainer, its result).  With ``config.nan_alarm == "rollback"`` one
+    ``RollbackManager`` is made here and shared by every incarnation (the
+    LR scale, the epoch and the rollback budget must survive the rebuild),
+    and the run goes through ``train_with_recovery`` even at
+    ``max_restarts`` 0, so that the rollback path exists (other failures
+    still re-raise at once)."""
     holder = {}
+    manager = None
+    if config.nan_alarm == "rollback":
+        manager = RollbackManager(max_rollbacks=config.max_rollbacks,
+                                  lr_factor=config.rollback_lr_factor)
 
     def make(resume: bool) -> "GANTrainer":
-        holder["trainer"] = make_trainer(resume)
+        holder["trainer"] = make_trainer(resume, manager)
         return holder["trainer"]
 
-    if max_restarts > 0:
+    if max_restarts > 0 or manager is not None:
         result = train_with_recovery(make, max_restarts=max_restarts,
                                      log=log)
     else:
@@ -528,7 +734,8 @@ class GANTrainer:
     ``GANTrainerConfig``, which then supplies batch_size, steps_per_call,
     ema_decay, fused, dp_mode and averaging_frequency: leave those at their
     defaults) and ``workload`` (its graphs, sync maps, CSV files and grid
-    extras)."""
+    extras).  ``rollback_manager``: the run's ``RollbackManager``, shared
+    by every incarnation (``nan_alarm="rollback"`` needs one)."""
 
     def __init__(self, cfg: M.CVConfig = M.CVConfig(), batch_size: int = 200,
                  n_train: int = 60000, device=None,
@@ -537,7 +744,8 @@ class GANTrainer:
                  fused: bool = True, dp_mode: str = "gradient_sync",
                  averaging_frequency: int = 1, *,
                  config: Optional[GANTrainerConfig] = None,
-                 workload: Optional[Workload] = None):
+                 workload: Optional[Workload] = None,
+                 rollback_manager: Optional[RollbackManager] = None):
         if config is None:
             config = GANTrainerConfig(
                 dataset_name="mnist", num_features=cfg.num_features,
@@ -585,11 +793,34 @@ class GANTrainer:
             raise ValueError("checkpoint_every, resume and preempt_signals "
                              "need a res_path (checkpoints go to "
                              "res_path/checkpoints)")
+        self._check_health_config(group, rollback_manager)
+        self._rollback_mgr = rollback_manager
         if group is not None:
             device = group.device
         self.device = dev = backend.resolve_device(device)
         self.group = group
         self.rank0 = group is None or group.rank == 0
+        # the alarms: rank 0 observes its flushed metrics records, and the
+        # ranks agree on the outcome at every boundary (``_agree_alarms``)
+        self._nan_alarm = NanAlarm() if c.nan_alarm else None
+        self._nan_handled = False
+        self._divergence = (DivergenceSentinel(
+            window=c.divergence_window, factor=c.divergence_factor,
+            patience=c.divergence_patience) if c.divergence else None)
+        self._div_handled = False
+        # a pending (reason, bad_step), set by the alarm polls and taken
+        # by _maybe_rollback at the same boundary
+        self._rollback_pending: Optional[Tuple[str, int]] = None
+        # a rollback's resume is bounded: strictly before the bad step
+        self._resume_max_step = (rollback_manager.resume_max_step
+                                 if rollback_manager is not None else None)
+        self._rolled_back = False
+        # events met before train() installs the run's recorder (the
+        # rollback restore runs here), emitted once it is
+        self._deferred_events: List[Tuple[str, Dict]] = []
+        self._events: Optional[events.EventRecorder] = None
+        self._watchdog: Optional[HeartbeatWatchdog] = None
+        self._in_flight = False
         self.batch_size = c.batch_size
         self.steps_per_call, self.ema_decay = c.steps_per_call, c.ema_decay
         self.dp_mode = c.dp_mode
@@ -670,6 +901,14 @@ class GANTrainer:
                 ck = AsyncCheckpointer(ck)
             self.checkpointer = ck
         self._maybe_resume()
+        if rollback_manager is not None:
+            # the LR cut (every incarnation) and, after a rollback restore,
+            # the latent stream's new lineage: both after the restore (it
+            # sets z_gen) and before the step is built and captured (the
+            # captured launches carry their rates)
+            rollback_manager.apply(self)
+            if self._rolled_back:
+                perturb_z_gen(self.z_gen, c.seed, rollback_manager.total)
         self.ones = torch.ones((B, 1), device=dev)
         self.y_real = self.ones + self.soften_real
         self.y_fake = self.soften_fake
@@ -702,7 +941,7 @@ class GANTrainer:
                 dtype=torch.uint8 if codec else torch.float32)
             self.labels = torch.zeros((rows, c.num_classes), device=dev)
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            device_lib.stream_fence(torch.cuda.current_stream(dev))
         self.timings["upload_s"] = time.perf_counter() - t0
 
         self.z_grid = torch.from_numpy(
@@ -722,7 +961,9 @@ class GANTrainer:
                 self.graphed = fused_step.GraphedStep(
                     self.step_fn(1), self.state, self.features, self.labels,
                     self.y_real, self.y_fake, self.ones, z_gen=self.z_gen,
-                    ring=c.steps_per_call or fused_step.MAX_STEPS_PER_CALL)
+                    ring=c.steps_per_call or fused_step.MAX_STEPS_PER_CALL,
+                    n_losses=3 + (len(fused_step.TELEMETRY_KEYS)
+                                  if c.telemetry else 0))
                 self.state = self.graphed.state
                 self.timings["capture_s"] = (self.graphed.setup["warmup_s"]
                                              + self.graphed.setup["capture_s"])
@@ -738,13 +979,57 @@ class GANTrainer:
                         if c.metrics and c.res_path and self.rank0 else None)
         # a resumed run appends to its own history (one timeline; a reader
         # de-duplicates by step, the last record winning)
-        self.metrics = MetricsLogger(metrics_path, append=c.resume)
+        self.metrics = MetricsLogger(
+            metrics_path, append=c.resume,
+            on_record=self._observe_record if self.rank0 else None)
         self._preempt_guard: Optional[PreemptionGuard] = None
         # inline until train() swaps in the background writer, so the dump
         # methods also work when called directly
         self._dumper = AsyncArtifactWriter(synchronous=True)
 
     # -- configuration ---------------------------------------------------------
+
+    def _check_health_config(self, group, rollback_manager) -> None:
+        """The numerics and hang options, before any side effect (the JAX
+        trainer's checks and messages)."""
+        c = self.c
+        if c.nan_alarm not in NAN_ALARM_ACTIONS:
+            raise ValueError(
+                f"nan_alarm must be None/'warn'/'snapshot'/'abort'/"
+                f"'rollback', got {c.nan_alarm!r}")
+        if c.nan_alarm and not c.telemetry:
+            raise ValueError(
+                "nan_alarm needs telemetry=True — without the in-graph "
+                "NaN/Inf counters there is nothing to trip on")
+        if c.divergence and not c.telemetry:
+            raise ValueError(
+                "divergence=True needs telemetry=True — the sentinel "
+                "watches the in-graph grad-norm/loss records")
+        if c.telemetry and not self.fused:
+            raise ValueError(
+                "telemetry=True requires the fused step (fused=True, "
+                "dp_mode='gradient_sync') — only the fused step computes "
+                "the in-graph numerics block")
+        if c.nan_alarm in ("snapshot", "rollback") and not c.res_path:
+            raise ValueError(f"nan_alarm={c.nan_alarm!r} needs a res_path "
+                             "(its checkpoints go there)")
+        refuse_rollback_under_group(c, group.world if group else 1)
+        if c.nan_alarm == "rollback" and rollback_manager is None:
+            raise ValueError(
+                "nan_alarm='rollback' needs a RollbackManager shared "
+                "across trainer incarnations (run_with_recovery wires "
+                "one; pass rollback_manager= when driving GANTrainer "
+                "directly) — a per-incarnation manager would reset the "
+                "LR cut, the latent stream's epoch and the budget on "
+                "every rollback")
+
+    def _observe_record(self, rec: Dict) -> None:
+        """MetricsLogger ``on_record`` hook (rank 0): every flushed record
+        feeds the NaN alarm and the divergence sentinel."""
+        if self._nan_alarm is not None:
+            self._nan_alarm.observe(rec)
+        if self._divergence is not None:
+            self._divergence.observe(rec)
 
     def _resident_data_ok(self, iter_train, codec=None) -> bool:
         """The device-resident data path: the config's override, else the
@@ -780,7 +1065,8 @@ class GANTrainer:
                 self.dis, self.gen, self.gan, self.classifier, *self.maps,
                 z_size=self.c.z_size, num_features=self.c.num_features,
                 group=self.group, steps_per_call=k,
-                ema_decay=self.c.ema_decay, data_codec=self.data_codec)
+                ema_decay=self.c.ema_decay, data_codec=self.data_codec,
+                telemetry=self.c.telemetry)
         return self._step_fns[k]
 
     # -- the steps -------------------------------------------------------------
@@ -818,18 +1104,32 @@ class GANTrainer:
         return d_loss, g_loss, c_loss
 
     def _call(self, k: int) -> torch.Tensor:
-        """Run k steps -> their losses, [k, 3] on the host (one readback)."""
-        if not self.fused:
-            return torch.stack(self.unfused_step()).reshape(1, 3).cpu()
-        if self.graphed is not None:
-            out = self.graphed(k)
-        else:
-            self.state, losses = self.step_fn(k)(
-                self.state, self.features, self.labels, self.y_real,
-                self.y_fake, self.ones, z_gen=self.z_gen)
-            out = torch.stack(losses, -1).reshape(k, 3).cpu()
-        self.steps += k
-        return out
+        """Run k steps -> their losses, [k, 3] on the host, and with
+        telemetry the block's columns after them (``fused_step.
+        pack_outputs``): one polled readback, inside the watchdog's
+        ``readback`` region.  ``_in_flight`` marks a call whose state has
+        moved past ``steps``."""
+        self._in_flight = True
+        rows = None
+        with self._wd_region("dispatch"):
+            if not self.fused:
+                out = torch.stack(self.unfused_step()).reshape(1, 3)
+            elif self.graphed is not None:
+                rows = self.graphed.launch(k)
+                out = self.graphed.losses
+            else:
+                self.state, o = self.step_fn(k)(
+                    self.state, self.features, self.labels, self.y_real,
+                    self.y_fake, self.ones, z_gen=self.z_gen)
+                out = fused_step.pack_outputs(o).reshape(k, -1)
+        with self._wd_region("readback"):
+            host = torch.from_numpy(device_lib.readback(out))
+        if rows is not None:
+            host = host[rows]
+        if self.fused:
+            self.steps += k
+        self._in_flight = False
+        return host
 
     def _sync_graphs(self) -> None:
         """Point the four graphs at the current state: clones of a graph's
@@ -849,7 +1149,40 @@ class GANTrainer:
         call (the unfused loop: one), with the cadences' dumps, the metrics
         and, with a ``res_path``, the four model zips at the end.  Each call
         ends in one readback of its losses, so a step's time is the call's
-        host clock over finished device work, over K."""
+        host clock over finished device work, over K.  The loops run behind
+        the supervision shell (``train/shell.py``): the preemption guard,
+        the run's event recorder (rank 0 writes ``events.jsonl``) and the
+        watchdog, torn down in reverse on every way out."""
+        c = self.c
+        shell = SupervisionShell(
+            res_path=c.res_path if self.rank0 else None,
+            events_enabled=c.events, events_append=c.resume,
+            watchdog=c.watchdog, watchdog_deadline_s=c.watchdog_deadline_s,
+            watchdog_warmup_s=c.watchdog_warmup_s,
+            watchdog_scale=c.watchdog_scale,
+            watchdog_min_deadline_s=c.watchdog_min_deadline_s,
+            watchdog_on_timeout=self._watchdog_emergency,
+            preempt_signal_nums=self._preempt_signal_nums)
+
+        def payload() -> Dict:
+            self._watchdog, self._preempt_guard = shell.watchdog, shell.guard
+            for name, attrs in self._deferred_events:
+                events.instant(name, **attrs)
+            self._deferred_events = []
+            return self._train_impl(iterations, log)
+
+        def expose_recorder(recorder) -> None:
+            # readable as soon as it is installed, so a failure in a later
+            # set-up stage still has its flight record
+            self._events = recorder
+
+        try:
+            return shell.run(payload, on_recorder=expose_recorder)
+        finally:
+            self._watchdog = self._preempt_guard = None
+
+    def _train_impl(self, iterations: Optional[int],
+                    log: Optional[Callable[[str], None]]) -> Dict:
         c = self.c
         if iterations is not None and iterations != c.num_iterations:
             if not self.resident:
@@ -864,11 +1197,9 @@ class GANTrainer:
         self._last = (float("nan"),) * 3
         self._steady = None
         self._dumper = AsyncArtifactWriter(synchronous=not c.async_dumps)
-        # the preemption guard brackets the loops (main thread only); its
-        # handlers are restored on every way out
-        if self._preempt_signal_nums:
-            self._preempt_guard = PreemptionGuard(
-                self._preempt_signal_nums).install()
+        events.instant("train.start", step=self.steps,
+                       workload=self.workload.name if self.workload
+                       else "mnist")
         try:
             with self._dumper:
                 if self.resident:
@@ -889,21 +1220,23 @@ class GANTrainer:
             # run reports success
             ck_wait = getattr(self.checkpointer, "wait", None)
             if ck_wait is not None:
-                ck_wait()
+                with self._wd_region("checkpoint"):
+                    ck_wait()
         except BaseException:
             self.metrics.close()  # what the run logged stays on disk
             raise
-        finally:
-            if self._preempt_guard is not None:
-                self._preempt_guard.uninstall()
-                self._preempt_guard = None
         t_end = time.perf_counter()  # every dump written
         self._sync_graphs()
         if c.res_path and self.rank0:
             t0 = time.perf_counter()
-            self.save_models()
+            with self._wd_region("checkpoint"):
+                self.save_models()
             self.timings["save_s"] = time.perf_counter() - t0
         self.metrics.close()
+        # trips that only the final flush showed still get their action,
+        # a rollback of the run's last window included
+        self._health_polls()
+        events.instant("train.end", step=self.steps)
         times = self._times
         step_s = statistics.median(times) / k if times else float("nan")
         if len(times) > 1:
@@ -966,7 +1299,8 @@ class GANTrainer:
         stream) and one call of K steps; chunk k+1 is staged meanwhile."""
         while self.steps < self.c.num_iterations:
             run = self._next_chunk()
-            chunks.next_into(self.features, self.labels)
+            with self._wd_region("data_wait"):
+                chunks.next_into(self.features, self.labels)
             rows = self._timed_call(run)
             # the position after the chunk just trained, aligned with the
             # step count: what a checkpoint at this boundary records
@@ -974,12 +1308,15 @@ class GANTrainer:
             self._bookkeeping(rows)
 
     def _bookkeeping(self, rows: torch.Tensor) -> None:
-        """One call's log lines and metrics (the JAX trainer's per-step
-        record with examples/sec at K 1, one chunk record otherwise), then
+        """One call's heartbeat, log lines and metrics (the JAX trainer's
+        per-step record with examples/sec at K 1, one chunk record
+        otherwise; the telemetry block's columns in the same records), then
         the cadence triggers at the new step count."""
+        if self._watchdog is not None:
+            self._watchdog.beat(step=self.steps)
         n = rows.shape[0]
         start = self.steps - n
-        losses = rows.tolist()
+        losses, tel = fused_step.unpack_rows(rows)
         self._last = tuple(losses[-1])
         log = self._log
         if log is not None:
@@ -992,27 +1329,42 @@ class GANTrainer:
         if n == 1:
             d, g, cl = losses[0]
             self.metrics.log_step(self.steps, examples=self.batch_size,
-                                  d_loss=d, g_loss=g, classifier_loss=cl)
+                                  d_loss=d, g_loss=g, classifier_loss=cl,
+                                  **{k: v[0] for k, v in tel.items()})
         else:
             d, g, cl = zip(*losses)
             self.metrics.log_chunk(start + 1, n, 0, {
-                "d_loss": d, "g_loss": g, "classifier_loss": cl})
+                "d_loss": d, "g_loss": g, "classifier_loss": cl, **tel})
         self._boundary_bookkeeping()
 
     def _boundary_bookkeeping(self) -> None:
-        """The dumps (rank 0), then the checkpoint, then the preemption
-        poll, in the JAX trainer's order."""
+        """The health polls, then the dumps (rank 0), then the checkpoint,
+        then the preemption poll, in the JAX trainer's order: a tripped
+        alarm whose action is abort or rollback unwinds BEFORE this
+        boundary checkpoints the state it just found bad."""
         c = self.c
+        self._health_polls()
         grid = bool(c.print_every) and self.steps % c.print_every == 0
         preds = bool(c.save_every) and self.steps % c.save_every == 0
         if self.rank0 and (grid or preds):
-            self._sync_graphs()
-            if grid:
-                self._dump_grid()
-            if preds:
-                self._dump_predictions()
-        self._maybe_checkpoint()
+            with self._wd_region("eval"):
+                self._sync_graphs()
+                if grid:
+                    with events.span("eval.grid", step=self.steps):
+                        self._dump_grid()
+                if preds:
+                    with events.span("eval.predictions", step=self.steps):
+                        self._dump_predictions()
+        with self._wd_region("checkpoint"):
+            self._maybe_checkpoint()
         self._maybe_preempt()
+
+    def _wd_region(self, name: str):
+        """The watchdog's region around a blocking wait (a no-op without
+        the watchdog)."""
+        if self._watchdog is not None:
+            return self._watchdog.region(name)
+        return contextlib.nullcontext()
 
     def _wrap_stream(self, source):
         """The streamed tier's source behind the resilience wrappers:
@@ -1069,20 +1421,22 @@ class GANTrainer:
         extra["z_gen_state"] = self.z_gen.get_state()
         return extra
 
-    def _save(self) -> str:
-        """Rank 0's save of the state at this boundary: the graphs are
-        pointed at the state's tensors (the graph's static buffers, read
-        by the snapshot's copies ahead of the next replay)."""
+    def _save(self, ck=None) -> str:
+        """Rank 0's save of the state at this boundary into ``ck`` (default:
+        the run's checkpointer): the graphs are pointed at the state's
+        tensors (the graph's static buffers, read by the snapshot's copies
+        ahead of the next replay)."""
         if self.fused:
             fused_step.state_to_graphs(self.state, self.dis, self.gen,
                                        self.gan, self.classifier)
         t0 = time.perf_counter()
-        path = self.checkpointer.save(self.steps, self._graphs(),
-                                      extra=self._checkpoint_extra(),
-                                      mesh_spec=self._mesh_spec())
+        path = (ck or self.checkpointer).save(
+            self.steps, self._graphs(), extra=self._checkpoint_extra(),
+            mesh_spec=self._mesh_spec())
         self.timings.setdefault("checkpoint_s", []).append(
             time.perf_counter() - t0)
-        self._saved_step = self.steps
+        if ck is None:
+            self._saved_step = self.steps
         return path
 
     def _maybe_checkpoint(self) -> None:
@@ -1107,25 +1461,40 @@ class GANTrainer:
         if self.group is not None:
             mesh.barrier(self.group)
 
-    def _emergency_checkpoint(self) -> Optional[str]:
-        """The state to disk now (rank 0), durable before this returns:
-        the async writer is waited for.  When this boundary's cadence save
-        already holds the step, that checkpoint is the emergency one (the
-        JAX trainer writes the same bytes a second time).  Every rank then
+    def _emergency_checkpoint(self, directory: Optional[str] = None,
+                              keep: int = 1) -> Optional[str]:
+        """The ONE "state to disk now" path (preemption, the watchdog, the
+        alarms' forensic snapshots), durable before this returns: the
+        async writer is waited for.  ``directory``: a checkpoint directory
+        of its own (``res_path/nan_snapshot``, keeping ``keep``) instead of
+        the run's.  When this boundary's cadence save already holds the
+        step, that checkpoint is the emergency one (the JAX trainer writes
+        the same bytes a second time).  Rank 0 writes; every rank then
         waits until it is committed."""
         path = None
-        if self.rank0:
-            ck = self.checkpointer
-            if self._saved_step == self.steps:
-                path = os.path.join(ck.directory, f"ckpt_{self.steps}")
-            else:
-                self._dumper.flush()
-                path = self._save()
-            wait = getattr(ck, "wait", None)
-            if wait is not None:
-                wait()
-        if self.group is not None:
-            mesh.barrier(self.group)
+        with events.span("checkpoint.emergency", step=self.steps,
+                         directory=directory or "checkpoints"):
+            if self.rank0:
+                if directory is not None:
+                    ck = TrainCheckpointer(directory, keep=keep)
+                    path = self._save(ck)
+                else:
+                    ck = self.checkpointer
+                    if ck is None:  # no cadence: land in the usual spot
+                        ck = self.checkpointer = TrainCheckpointer(
+                            os.path.join(self.c.res_path, "checkpoints"),
+                            keep=self.c.checkpoint_keep)
+                    if self._saved_step == self.steps:
+                        path = os.path.join(ck.directory,
+                                            f"ckpt_{self.steps}")
+                    else:
+                        self._dumper.flush()
+                        path = self._save()
+                wait = getattr(ck, "wait", None)
+                if wait is not None:
+                    wait()
+            if self.group is not None:
+                mesh.barrier(self.group)
         return path
 
     def _maybe_preempt(self) -> None:
@@ -1146,7 +1515,8 @@ class GANTrainer:
             log_.warning("preemption: agreed step %d != local step %d",
                          agreed, self.steps)
         self.metrics.flush()
-        path = self._emergency_checkpoint()
+        with self._wd_region("checkpoint"):
+            path = self._emergency_checkpoint()
         if self.rank0:
             preempt_exit(self.c.res_path, guard, local_step=self.steps,
                          fleet_min_step=agreed, checkpoint=path)
@@ -1159,7 +1529,11 @@ class GANTrainer:
         graphs (every rank reads rank 0's), then the step count, the
         softening, the EMA, the latent generator and the data position.  A
         ``PREEMPTED.json`` marker is consumed; with no checkpoint that
-        verifies the run starts from step 0."""
+        verifies the run starts from step 0.  A rollback's restore is
+        bounded (``_resume_max_step``, strictly before the bad step), and
+        the checkpoints above the step it restores are pruned.  The
+        constructor resumes, before the shell arms the watchdog, so no
+        watchdog region encloses the restore."""
         c = self.c
         if not (c.resume and self.checkpointer is not None):
             return
@@ -1170,12 +1544,24 @@ class GANTrainer:
         if self.group is not None:
             mesh.barrier(self.group)  # rank 0 has swept the directory
         t0 = time.perf_counter()
+        max_step = self._resume_max_step
         try:
             step, extra = self.checkpointer.restore(
-                self._graphs(), mesh_spec=self._mesh_spec())
+                self._graphs(), max_step=max_step,
+                mesh_spec=self._mesh_spec())
         except NoVerifiedCheckpointError as e:
             log_.warning("resume requested but %s; starting from step 0", e)
+            if max_step is not None:
+                # still a rollback: the checkpoints above the bound are
+                # poisoned and must not be resumable later
+                self.checkpointer.prune_above(max_step)
+                self._consume_rollback_restore(0, max_step)
             return
+        if max_step is not None:
+            # the restore point is committed: drop the poisoned suffix (a
+            # later plain restart must never resume into it)
+            self.checkpointer.prune_above(step)
+            self._consume_rollback_restore(step, max_step)
         dev = self.device
         self.steps = step
         self.soften_real = torch.from_numpy(
@@ -1206,6 +1592,174 @@ class GANTrainer:
                                       else self.train_iter.state_for_step(step))
         self.timings["restore_s"] = time.perf_counter() - t0
 
+    def _consume_rollback_restore(self, restored_step: int,
+                                  max_step: int) -> None:
+        """One rollback restore happened: the ``rollback.restore`` marker
+        (emitted once ``train()`` installs the run's recorder), the mark
+        that has the constructor reseed the latent stream once the restore
+        has set it, and the bound cleared — it applied to THIS restore
+        only."""
+        mgr = self._rollback_mgr
+        self._deferred_events.append(("rollback.restore", dict(
+            step=restored_step, bad_step=max_step + 1,
+            rollbacks=getattr(mgr, "total", None),
+            lr_scale=getattr(mgr, "lr_scale", None))))
+        self._rolled_back = True
+        self._resume_max_step = None
+        if mgr is not None:
+            mgr.restore_before = None
+
+    # -- numerics alarms, rollback, the watchdog's emergency save --------------
+
+    def _health_polls(self) -> None:
+        """At a boundary: the ranks' agreement, then the alarms' actions
+        and a pending rollback (JAX ``_boundary_bookkeeping``'s order)."""
+        self._agree_alarms()
+        self._poll_nan_alarm()
+        self._poll_divergence()
+        self._maybe_rollback()
+
+    def _agree_alarms(self) -> None:
+        """Under a group, while an alarm is armed: every rank enters one
+        all-reduce at every boundary (as ``_maybe_preempt`` does), which
+        hands rank 0's trips (the only observer) to the others, so that
+        every rank takes the same action at the same step."""
+        nan, div = self._nan_alarm, self._divergence
+        if self.group is None or (nan is None and div is None):
+            return
+        flags = mesh.agree_max(
+            [int(bool(nan and nan.tripped)), int((nan and nan.step) or 0),
+             int(bool(div and div.tripped)), int((div and div.step) or 0)],
+            self.group)
+        if nan is not None and flags[0] and not nan.tripped:
+            nan.step, nan.record, nan.tripped = flags[1], {}, True
+        if div is not None and flags[2] and not div.tripped:
+            div.step, div.record, div.tripped = flags[3], {}, True
+
+    def _flight_record(self, directory: Optional[str], reason: str,
+                       extra: Dict) -> None:
+        """The flight record of ``reason`` into ``directory`` (rank 0, when
+        there is a directory)."""
+        if directory and self.rank0:
+            events.dump_flight_record(directory, reason, extra=extra)
+
+    def _poll_nan_alarm(self) -> None:
+        """Apply the configured ``nan_alarm`` action once the alarm has
+        seen a bad record.  Detection granularity is the metrics flush
+        cadence; no flush is forced here."""
+        alarm = self._nan_alarm
+        if alarm is None or self._nan_handled or not alarm.tripped:
+            return
+        self._nan_handled = True
+        c = self.c
+        msg = f"NaN alarm: first non-finite telemetry at step {alarm.step}"
+        events.instant("alarm.nan", step=alarm.step, action=c.nan_alarm)
+        if c.nan_alarm == "abort":
+            # fatal in the recovery wrapper: this dump is the timeline the
+            # post-mortem gets
+            self._flight_record(c.res_path, "nan_alarm", {"step": alarm.step})
+            raise NanAlarmError(msg)
+        log_.warning("%s", msg)
+        if c.nan_alarm == "snapshot":
+            # a forensic checkpoint of the state as of the last call,
+            # through the one emergency path, in a directory of its own
+            snap = os.path.join(c.res_path, "nan_snapshot")
+            with self._wd_region("checkpoint"):
+                self._emergency_checkpoint(directory=snap, keep=1)
+            self._flight_record(snap, "nan_alarm", {"step": alarm.step})
+        elif c.nan_alarm == "rollback":
+            # the params went non-finite AT alarm.step: restore before it
+            self._request_rollback(msg, alarm.step)
+
+    def _request_rollback(self, reason: str, bad_step) -> None:
+        """Record a rollback request for ``_maybe_rollback``.  When both
+        alarms trip in one detection window the EARLIER bad step wins:
+        restoring inside the later alarm's window could land on a
+        checkpoint the earlier alarm already condemned."""
+        if bad_step is None:
+            bad_step = self.steps
+        pending = self._rollback_pending
+        if pending is not None and pending[1] <= bad_step:
+            return  # the existing request already bounds tighter
+        self._rollback_pending = (reason, bad_step)
+
+    def _poll_divergence(self) -> None:
+        """Apply the configured action once the divergence sentinel has
+        tripped (``nan_alarm``'s vocabulary, warn when it is None): abort
+        raises ``DivergenceError``, fatal in the recovery wrapper; rollback
+        heals."""
+        sentinel = self._divergence
+        if sentinel is None or self._div_handled or not sentinel.tripped:
+            return
+        self._div_handled = True
+        c = self.c
+        action = c.nan_alarm or "warn"
+        msg = (sentinel.describe() if sentinel.key is not None
+               else f"divergence: rank 0's sentinel tripped at step "
+                    f"{sentinel.step}")
+        events.instant("alarm.divergence", step=sentinel.step,
+                       key=sentinel.key, value=sentinel.value,
+                       baseline=sentinel.baseline, action=action)
+        if action == "abort":
+            self._flight_record(c.res_path, "divergence",
+                                {"step": sentinel.step, "key": sentinel.key})
+            raise DivergenceError(msg)
+        log_.warning("%s", msg)
+        if action == "snapshot":
+            snap = os.path.join(c.res_path, "divergence_snapshot")
+            with self._wd_region("checkpoint"):
+                self._emergency_checkpoint(directory=snap, keep=1)
+            self._flight_record(snap, "divergence",
+                                {"step": sentinel.step, "key": sentinel.key})
+        elif action == "rollback":
+            self._request_rollback(msg, sentinel.step)
+
+    def _maybe_rollback(self) -> None:
+        """Take a pending rollback request: charge the manager's
+        (progress-aware) budget, leave the timeline behind, and unwind
+        through ``RollbackRequested`` — or ``RollbackError`` once the
+        budget is exhausted (fatal in the recovery wrapper).  Rollback
+        runs in one process (``refuse_rollback_under_group``)."""
+        mgr, pending = self._rollback_mgr, self._rollback_pending
+        if mgr is None or pending is None:
+            return
+        reason, bad_step = pending
+        self._rollback_pending = None
+        ok = mgr.request(self.steps, reason, bad_step=bad_step)
+        events.instant("rollback.request", step=self.steps,
+                       bad_step=bad_step, rollbacks=mgr.total,
+                       attempts=mgr.attempts, lr_scale=mgr.lr_scale,
+                       reason=reason)
+        self._flight_record(self.c.res_path, "rollback", {
+            "step": self.steps, "bad_step": bad_step, "rollbacks": mgr.total,
+            "reason": reason})
+        if not ok:
+            raise RollbackError(
+                f"rollback budget exhausted ({mgr.attempts - 1}/"
+                f"{mgr.max_rollbacks} at step {self.steps} without "
+                f"progress): {reason}")
+        raise RollbackRequested(
+            f"rollback #{mgr.total} at step {self.steps}: {reason}",
+            step=self.steps, rollbacks=mgr.total)
+
+    def _watchdog_emergency(self) -> None:
+        """The watchdog's ``on_timeout`` (its sacrificial thread, bounded
+        join): a best-effort emergency checkpoint at the last boundary.
+        On a data hang the device is idle and this commits a resume point
+        at the stall step; on a device hang it blocks on the same hang and
+        is abandoned.  Skipped mid-call (the state is past ``steps``: the
+        restart falls back to the last periodic checkpoint), without a
+        ``res_path``, and under a group (a barrier from this thread could
+        meet no other rank)."""
+        if self._in_flight or not self.c.res_path or self.group is not None:
+            log_.warning("watchdog: no emergency checkpoint (%s); the "
+                         "restart resumes from the last periodic one",
+                         "a call is in flight" if self._in_flight else
+                         "no res_path" if not self.c.res_path else
+                         "a data-parallel rank")
+            return
+        self._emergency_checkpoint()
+
     # -- artifact dumps --------------------------------------------------------
 
     def _submit_dump(self, kind: str, files: List, t0: float) -> None:
@@ -1220,8 +1774,7 @@ class GANTrainer:
 
         def write():
             t1 = time.perf_counter()
-            if event is not None:
-                event.synchronize()
+            device_lib.wait_event(event)
             t2 = time.perf_counter()
             for (path, _), host in zip(files, hosts):
                 write_csv_matrix(path, host.numpy())

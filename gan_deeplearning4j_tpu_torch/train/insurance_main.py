@@ -35,8 +35,13 @@ loop.  Supervision, as in the JAX program: ``--checkpoint-every N``
 restarts the whole world from the newest checkpoint),
 ``--async-checkpoint``,
 ``--preempt-signal SIG`` (an emergency checkpoint, ``PREEMPTED.json`` and
-exit code 75), ``--data-retries`` and ``--max-quarantine``.  The JAX
-program's lattice PNGs and telemetry are not ported.
+exit code 75), ``--data-retries`` and ``--max-quarantine``; training
+health, as in the JAX program: ``--telemetry`` (the in-graph numerics
+block as metrics columns), ``--nan-alarm {warn,snapshot,abort,rollback}``,
+``--divergence``, ``--max-rollbacks``, ``--rollback-lr-factor``,
+``--watchdog`` and ``--watchdog-deadline``; the run's timeline goes to
+``events.jsonl``.  The JAX program's lattice PNGs, run manifest and
+goodput are not ported.
 """
 
 from __future__ import annotations
@@ -59,9 +64,12 @@ from gan_deeplearning4j_tpu_torch.train.gan_trainer import (
     GANTrainer,
     GANTrainerConfig,
     Workload,
+    add_health_args,
     add_recovery_args,
     check_recovery_args,
+    health_config_kwargs,
     recovery_config_kwargs,
+    refuse_rollback_under_group,
     resolve_n_devices,
     run_with_recovery,
     spawn_with_recovery,
@@ -146,6 +154,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     backend.add_bf16_flag(p)
     backend.add_mp_flag(p)
     add_recovery_args(p)
+    add_health_args(p)
     args = p.parse_args(argv)
     check_recovery_args(p, args)
     return args
@@ -179,7 +188,8 @@ def _config(args: argparse.Namespace, overrides: Dict) -> GANTrainerConfig:
         averaging_frequency=args.averaging_frequency,
         steps_per_call=args.steps_per_call, async_dumps=not args.sync_dumps,
         ema_decay=args.ema_decay, seed=args.seed,
-        **recovery_config_kwargs(args), **overrides)
+        **recovery_config_kwargs(args), **health_config_kwargs(args),
+        **overrides)
 
 
 def _train_and_evaluate(args: argparse.Namespace, config: GANTrainerConfig,
@@ -187,15 +197,17 @@ def _train_and_evaluate(args: argparse.Namespace, config: GANTrainerConfig,
                         ) -> Tuple[GANTrainer, Dict]:
     rank0 = group is None or group.rank == 0
 
-    def make_trainer(resume: bool) -> GANTrainer:
+    def make_trainer(resume: bool, rollback_manager) -> GANTrainer:
         c = dataclasses.replace(config, resume=True) if resume else config
         return GANTrainer(
             device=args.device, group=group, config=c,
-            workload=InsuranceWorkload(M.InsuranceConfig(seed=args.seed)))
+            workload=InsuranceWorkload(M.InsuranceConfig(seed=args.seed)),
+            rollback_manager=rollback_manager)
 
     # a data-parallel world recovers as a whole, in the parent (``run``)
     trainer, result = run_with_recovery(
-        make_trainer, max_restarts=args.max_restarts if group is None else 0,
+        make_trainer, config,
+        max_restarts=args.max_restarts if group is None else 0,
         log=print if rank0 else None)
     if rank0:
         result.update(evaluate(trainer))
@@ -228,6 +240,7 @@ def run(args: argparse.Namespace, timeout: float = 3600.0, **overrides
     ``overrides`` set further ``GANTrainerConfig`` fields."""
     config = _config(args, overrides)
     world = resolve_n_devices(args.n_devices, args.batch_size, args.device)
+    refuse_rollback_under_group(config, world)
     if world == 1:
         try:
             # --bf16 / --mp over the configured policy, before any graph

@@ -12,8 +12,8 @@ the flag.  Data-parallel ranks agree at every boundary while the guard is
 armed (``parallel/mesh.agree_preemption``), so a signal that reaches one
 rank stops them all at the same step.
 
-The JAX module's preemption events and flight record wait for the
-telemetry slice.
+The JAX module's ``preempt.signal`` / ``preempt.exit`` events and its
+flight record are not wired yet (the rest of ROADMAP Queue 1 item 6.5).
 """
 
 from __future__ import annotations

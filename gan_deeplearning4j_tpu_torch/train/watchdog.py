@@ -1,8 +1,5 @@
 """Hang watchdog — turn a silent stall into a retryable failure (torch
-twin of ``gan_deeplearning4j_tpu/train/watchdog.py``, copied as is less
-the flight recorder: the ``events`` timeline, its ``watchdog.timeout``
-instant and the flight-record dump wait for the telemetry slice, and so
-does ``res_path``, where that dump lands).
+twin of ``gan_deeplearning4j_tpu/train/watchdog.py``).
 
 An exception-driven recovery loop only fires on EXCEPTIONS.  A wedged
 collective, a data source that never returns from ``next()``, or a
@@ -23,7 +20,10 @@ gap:
   ``warmup_s`` deadline applies.  An explicit ``deadline_s`` overrides
   auto-scaling.
 
-On expiry the watchdog, in order: runs the ``on_timeout`` callback on a
+On expiry the watchdog, in order: records a ``watchdog.timeout``
+instant and dumps the flight-recorder ring (``telemetry/events.py``)
+while the stalled state is still in it; runs the ``on_timeout`` callback
+(the trainer passes its best-effort emergency checkpoint) on a
 SACRIFICIAL thread with a bounded join — if the device is the thing that
 hung, the callback hangs with it and is abandoned, never the watchdog;
 then raises ``WatchdogTimeout`` **on the monitored thread** via
@@ -38,9 +38,10 @@ which converts "blocked in C forever" into "interruptible within a poll
 tick".  The raise is re-attempted a few times (``max_raises``) in case
 the first lands while the thread is briefly inside such a call.
 
-The serving engine (``serve/engine.py``) supervises its dispatch thread
-with it; wiring it into the trainers (``--watchdog``, and the retry of
-``WatchdogTimeout`` in ``train_with_recovery``) is still to come.
+The trainer (``--watchdog``, armed by ``train/shell.py``) beats at every
+call boundary and around every blocking region, and
+``train_with_recovery`` retries a ``WatchdogTimeout``; the serving engine
+(``serve/engine.py``) supervises its dispatch thread with it.
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ import threading
 import time
 from typing import Callable, Dict, Optional
 
+from gan_deeplearning4j_tpu_torch.telemetry import events
+
 _log = logging.getLogger(__name__)
 
 
@@ -60,8 +63,9 @@ class WatchdogTimeout(RuntimeError):
     training thread by the watchdog; ``train_with_recovery`` classifies
     it RETRYABLE — a hang becomes a restart-from-checkpoint, not a
     forever-wedged process.  Diagnostics (region in flight, beat age,
-    deadline) go to the log, not on this exception: async-raise
-    delivers a bare exception CLASS."""
+    deadline) are in the ``watchdog.timeout`` event and the
+    ``flight_record_watchdog_timeout.json`` dump, not on this
+    exception: async-raise delivers a bare exception CLASS."""
 
 
 def _async_raise(thread_ident: int, exc_type) -> bool:
@@ -83,9 +87,10 @@ class HeartbeatWatchdog:
     ``deadline_s``: explicit fixed deadline; None = auto-scale
     (``scale`` x EWMA of inter-beat intervals, floored at
     ``min_deadline_s``; ``warmup_s`` until ``min_intervals`` beats have
-    been measured — the allowance for first-use builds and captures).  ``on_timeout``: called
-    once on expiry (bounded by ``emergency_timeout_s`` on a sacrificial
-    thread).
+    been measured — the allowance for first-use builds and captures).
+    ``on_timeout``: called once on expiry (bounded by
+    ``emergency_timeout_s`` on a sacrificial thread).  ``res_path``: where
+    the flight record lands.
 
     Thread-discipline: only beats from the MONITORED thread count (a
     checkpoint worker or the emergency-save thread reporting progress
@@ -109,7 +114,8 @@ class HeartbeatWatchdog:
                  on_timeout: Optional[Callable[[], None]] = None,
                  emergency_timeout_s: float = 30.0,
                  max_raises: int = 3,
-                 region_floors: Optional[Dict[str, float]] = None):
+                 region_floors: Optional[Dict[str, float]] = None,
+                 res_path: Optional[str] = None):
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError("watchdog deadline_s must be > 0")
         self.deadline_s = deadline_s
@@ -119,6 +125,7 @@ class HeartbeatWatchdog:
         self.poll_s = float(poll_s)
         self.min_intervals = int(min_intervals)
         self.on_timeout = on_timeout
+        self.res_path = res_path
         self.emergency_timeout_s = float(emergency_timeout_s)
         self.max_raises = int(max_raises)
         self.region_floors = (dict(self.DEFAULT_REGION_FLOORS)
@@ -290,9 +297,21 @@ class HeartbeatWatchdog:
             self.timeouts += 1
         _log.error(
             "watchdog: no heartbeat for %.1fs (deadline %.1fs, region "
-            "%s, step %s) — raising WatchdogTimeout on the monitored "
-            "thread",
+            "%s, step %s) — dumping flight record and raising "
+            "WatchdogTimeout on the monitored thread",
             age, deadline, region or "?", step)
+        try:
+            events.instant("watchdog.timeout", step=step, region=region,
+                           age_s=round(age, 3),
+                           deadline_s=round(deadline, 3))
+            if self.res_path:
+                events.dump_flight_record(
+                    self.res_path, "watchdog_timeout",
+                    extra={"step": step, "region": region,
+                           "age_s": round(age, 3),
+                           "deadline_s": round(deadline, 3)})
+        except Exception:  # diagnostics must never block the raise
+            pass
         if self.on_timeout is not None:
             # sacrificial thread: if the DEVICE is what hung, the
             # emergency save hangs on it too — bound it and move on

@@ -6,7 +6,8 @@ non-blocking into pinned memory behind one CUDA event, then waits for that
 event and reads: one wait for the whole tree, not one per tensor
 (``start_host_copy`` and ``read_host_copy`` are its two halves, for a
 caller with other work to enqueue between them).  ``device_fence`` waits
-for the work already enqueued on a stream.  A pinned buffer is never
+for the work already enqueued on a stream; ``readback`` is a fence and a
+copy in one (the trainer's per-call readback of its losses).  A pinned buffer is never
 written twice: each copy takes a fresh one from torch's caching host
 allocator, which does not hand a block out again before the copy that
 used it has completed.
@@ -28,9 +29,9 @@ import torch
 
 from gan_deeplearning4j_tpu_torch.utils.async_dump import host_copy
 
-# fault-injection seam: called at the top of device_fence so a chaos test
-# can simulate a device readback that never completes — the hang class
-# the watchdog exists to catch.  None in production.
+# fault-injection seam: called at the top of device_fence and readback so
+# a chaos test can simulate a device readback that never completes — the
+# hang class the watchdog exists to catch.  None in production.
 _chaos_readback_hook: Optional[Callable[[], None]] = None
 
 # the poll's sleep: the readback of a serving batch waits ~0.1-1 ms, so a
@@ -96,6 +97,13 @@ def overlap_device_get(tree: Any) -> Any:
     return read_host_copy(start_host_copy(tree))
 
 
+def stream_fence(stream: torch.cuda.Stream) -> None:
+    """Wait (polled) for the work already enqueued on ``stream``."""
+    event = torch.cuda.Event()
+    event.record(stream)
+    wait_event(event)
+
+
 def device_fence(tree: Any, stream: Optional[torch.cuda.Stream] = None
                  ) -> None:
     """Wait for the work that produces the tensor leaves of ``tree``: an
@@ -108,6 +116,14 @@ def device_fence(tree: Any, stream: Optional[torch.cuda.Stream] = None
         for d in {t.device for t in _leaves(tree, [])
                   if t.device.type == "cuda"}]
     for s in streams:
-        event = torch.cuda.Event()
-        event.record(s)
-        wait_event(event)
+        stream_fence(s)
+
+
+def readback(tree: Any) -> Any:
+    """Every tensor leaf of ``tree`` as a numpy array once the work that
+    produces it is done: ``overlap_device_get`` behind the fault-injection
+    hook, as ``device_fence`` runs it.  A leaf on the host comes back as a
+    view of the tensor itself."""
+    if _chaos_readback_hook is not None:
+        _chaos_readback_hook()
+    return overlap_device_get(tree)

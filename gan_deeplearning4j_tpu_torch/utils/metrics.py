@@ -10,6 +10,11 @@ nothing to do here.  A record's keys come in the JAX file's order:
 ``step``, ``wall_s``, ``step_s``, then the metrics sorted by name (the
 JAX logger's records pass through a pytree, which sorts dict keys); a
 per-step record has all its keys sorted.
+
+``on_record`` (the JAX logger's hook) observes every record as it is
+flushed: the NaN alarm and the divergence sentinel ride it
+(``telemetry/ingraph.py``, ``train/divergence.py``), so they see a step
+at the flush cadence and force no flush of their own.
 """
 
 from __future__ import annotations
@@ -18,21 +23,24 @@ import json
 import os
 import time
 from collections import deque
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 
 class MetricsLogger:
     def __init__(self, path: Optional[str] = None, flush_every: int = 100,
-                 ring_size: int = 10000, append: bool = False):
+                 ring_size: int = 10000, append: bool = False,
+                 on_record: Optional[Callable[[Dict], None]] = None):
         """``append``: a resumed run adds to the file it finds (one
         timeline; a reader de-duplicates by step, the last record
-        winning); otherwise the file starts empty."""
+        winning); otherwise the file starts empty.  ``on_record``: called
+        with each record when it is flushed, after it is written."""
         self.path = path
         self.flush_every = flush_every
         self._pending: List[Dict] = []
         self._records: "deque" = deque(maxlen=ring_size)
         self._t0 = time.perf_counter()
         self._last_step_t = self._t0
+        self._on_record = on_record
         if path:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             if not append:
@@ -72,7 +80,8 @@ class MetricsLogger:
             self.flush()
 
     def flush(self) -> None:
-        """Write the pending records to the file and the ring."""
+        """Write the pending records to the file and the ring, then hand
+        each to ``on_record``."""
         batch, self._pending = self._pending, []
         if not batch:
             return
@@ -81,6 +90,9 @@ class MetricsLogger:
                 for rec in batch:
                     f.write(json.dumps(rec) + "\n")
         self._records.extend(batch)
+        if self._on_record is not None:
+            for rec in batch:
+                self._on_record(rec)
 
     def close(self) -> None:
         self.flush()

@@ -83,12 +83,12 @@ ARTIFACTS = {"insurance_train.csv", "insurance_test.csv",
              "insurance_test_predictions_4.csv", "insurance_metrics.jsonl",
              "evaluation_stats.txt", "insurance_dis_model.zip",
              "insurance_gan_model.zip", "insurance_gen_model.zip",
-             "insurance_insurance_model.zip"}
+             "insurance_insurance_model.zip", "events.jsonl"}
 # ... and what only the JAX program writes: the PNGs (matplotlib) and the
-# telemetry files, not ported
+# run manifest, not ported
 JAX_ONLY = {"DCGAN_Generated_Lattices.png", "DCGAN_Generated_Lattice_Example.png",
             "DCGAN_Generated_Lattice_Example_Plotted.png",
-            "insurance_metrics_losses.png", "events.jsonl", "run_manifest.json"}
+            "insurance_metrics_losses.png", "run_manifest.json"}
 # keys of the JAX program's JSON line that come from its telemetry
 JAX_TELEMETRY_KEYS = {"run_id", "goodput"}
 DUMPS = ["insurance_out_2.csv", "insurance_out_4.csv",

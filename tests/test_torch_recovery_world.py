@@ -60,6 +60,41 @@ def faulty_insurance_rank(group, args, config):
     return IT._rank(group, args, config)
 
 
+def alarmed_insurance_rank(group, args, config):
+    """insurance_main's rank job under ``--telemetry --nan-alarm abort``,
+    metrics flushed every step, with rank 0's alarm (the only observer)
+    handed a non-finite record at step ``args.alarm_at``; each rank writes
+    the step it stops at (``alarm_<rank>``) when its poll raises."""
+    import functools
+
+    from gan_deeplearning4j_tpu_torch.utils.metrics import MetricsLogger
+
+    gan_trainer.MetricsLogger = functools.partial(MetricsLogger,
+                                                  flush_every=1)
+    if group.rank == 0:
+        observe = GANTrainer._observe_record
+
+        def bad_record(self, rec):
+            if rec.get("step") == args.alarm_at:
+                rec = {**rec, "nonfinite": 1.0}
+            observe(self, rec)
+
+        GANTrainer._observe_record = bad_record
+    poll = GANTrainer._poll_nan_alarm
+
+    def recorded_poll(self):
+        try:
+            poll(self)
+        except Exception:
+            with open(os.path.join(args.res_path, f"alarm_{group.rank}"),
+                      "w") as f:
+                f.write(str(self.steps))
+            raise
+
+    GANTrainer._poll_nan_alarm = recorded_poll
+    return IT._rank(group, args, config)
+
+
 # -- tests -------------------------------------------------------------------
 
 def test_spawn_fails_fast_when_one_rank_fails_alone():
@@ -159,3 +194,24 @@ def test_world_recovery_budget_is_progress_aware(tmp_path):
                                         max_restarts=2, log=None,
                                         backoff_base_s=0)
     assert calls == [False]
+
+
+def test_ranks_agree_on_rank_0s_alarm(tmp_path, monkeypatch):
+    """Only rank 0 observes its metrics records; the ranks agree on its
+    trip at every boundary, so both abort at the alarm's own step with
+    ``NanAlarmError``, which the world's recovery does not retry."""
+    monkeypatch.setattr(IT, "_rank", alarmed_insurance_rank)
+    res = str(tmp_path / "alarm")
+    os.makedirs(res)
+    args = IT.parse_args(BASE + ["--telemetry", "--nan-alarm", "abort",
+                                 "--max-restarts", "2", "--res-path", res])
+    args.alarm_at = 3
+    t0 = time.monotonic()
+    with pytest.raises(mesh.RankFailedError) as e:
+        IT.run(args, timeout=TIMEOUT_S)
+    assert time.monotonic() - t0 < 60
+    assert e.value.has_class("NanAlarmError")
+    for rank in (0, 1):
+        with open(os.path.join(res, f"alarm_{rank}")) as f:
+            assert f.read() == "3", rank
+    assert "first non-finite telemetry at step 3" in str(e.value)

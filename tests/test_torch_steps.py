@@ -322,8 +322,7 @@ def test_trainer_refuses_bad_options(kwargs, match):
         GANTrainer(batch_size=4, n_train=8, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [{"chunk_indexed": True},
-                                    {"telemetry": True}])
+@pytest.mark.parametrize("kwargs", [{"chunk_indexed": True}])
 def test_step_refuses_what_is_not_ported(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         FT.make_protocol_step(None, None, None, None, [], [], [], 2, 784,
