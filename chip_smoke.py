@@ -116,18 +116,21 @@ exits non-zero:
  10. resume   — checkpoints, preemption and resume, each check required:
                 the insurance program at its defaults in child processes,
                 one sent SIGTERM after step 2,000 (exit 75, PREEMPTED.json,
-                a verified checkpoint at its step) and one resuming it to
+                a verified checkpoint at its step, ``preempt.signal``,
+                ``preempt.exit`` and the saves' ``checkpoint.*`` stages
+                in its ``events.jsonl`` and the flight record beside it)
+                and one resuming it to
                 5,000, bitwise the insurance phase's uninterrupted run (the
                 four zips' params and updater state, every metrics record,
-                test_auroc); the CV program at full width, 400 steps at
-                batch 200 with checkpoints every 100, preempted at 200 and
+                test_auroc); the CV program at full width, 200 steps at
+                batch 200 with checkpoints every 100, preempted at 100 and
                 resumed in this process (bitwise the uninterrupted run,
                 with the resumed path's launch counts), and in a child
                 process from a copy of that checkpoint (the largest param
                 difference and the bound it meets, reported: cuDNN times
                 its choices per process); then, under cuDNN's untimed
                 deterministic choice in two fresh child processes, a run
-                with checkpoints and a resume of its step-200 checkpoint,
+                with checkpoints and a resume of its step-100 checkpoint,
                 bitwise; the latent generator's state after graph replays
                 against eager draws; the insurance step at world 2 over
                 gloo on one card, checkpointed at 4 and resumed to 8
@@ -251,16 +254,44 @@ exits non-zero:
                 ``cv_main`` healthy at 200 steps, K = 100, with every alarm
                 and the auto-deadline watchdog armed: nothing fires, every
                 record's block finite, launches exact.
- 16. the ``kernels`` line (each kernel's insurance numbers beside the
+ 16. observability — the training run's observability, each check
+                required, its seconds beside OBS_BUDGET_S: ``cv_main``
+                at full width (200 steps at batch 200) as a child with
+                ``--telemetry --profile DIR --metrics-port 0 --live-ui
+                PORT``, its
+                ``/metrics`` (``gan4j_steps_total`` > 0, the
+                ``gan4j_goodput_seconds{phase}`` series), ``/healthz`` and
+                the live UI's page and records scraped while it trains and
+                closed after; the last metrics record's phases summing to
+                its ``wall_s``; ``run_manifest.json`` naming the card; the
+                printed summary counting the three port kernels (603 /
+                603 / 402: the replays' kernels are traced one by one);
+                the Chrome trace merged from ``events.jsonl`` and the
+                capture holding the host spans and the kernels inside
+                them; beside it, as a second child, ``roadmap_main
+                --family celeba`` (2,000 rows, 100 iterations) with
+                ``--profile --metrics-port 0`` (one ``bn_act`` an
+                iteration in its summary and its ``port_launches``, its
+                manifest and goodput); then ``cv_main`` in this process
+                in turns (plain, --profile, exporter + live UI, plain),
+                each run's ``examples_per_sec`` recorded, the per-step
+                losses bitwise across the flags, the launch counters
+                around the profiled run; and ``profile_step
+                --telemetry``'s split of the telemetry block's cost.  (The
+                resume phase's preemption drill must leave
+                ``preempt.signal``, ``preempt.exit``, the save's
+                ``checkpoint.*`` stages and the flight record.)
+ 17. the ``kernels`` line (each kernel's insurance numbers beside the
      CV step's, where the insurance path runs it, ``bn_act``'s roadmap
      numbers, each kernel's launches on the cgan-cifar10 path: 0, at
      world 2 per roadmap family (``pair_dp``, with the pair's numbers at
      its per-rank shapes), per workload and mode in the precision phase,
-     on the serving path: 0, and on the supervision phase's path, one card
-     and world 2), the seconds line (the script's total beside its total
-     before the precision phase was added and before the serve phase in
-     this run, the pair_dp and supervision phases', and every phase
-     line's seconds), the nvidia-smi line, and last
+     on the serving path: 0, on the supervision phase's path, one card
+     and world 2, and on the observability phase's), the seconds line
+     (the script's total beside its total before the precision phase was
+     added and before the serve phase in this run, the pair_dp,
+     supervision and observability phases', and every phase line's
+     seconds), the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is available.
@@ -868,7 +899,7 @@ def insurance_phase(torch, smi: str, keep: str) -> dict:
             a = read_csv(f"{d}/{f}")
             require(a.shape == shape and bool(np.isfinite(a).all()),
                     f"insurance: {f} is {a.shape}, not {shape}, or not finite")
-        recs = [json.loads(ln) for ln in open(f"{d}/insurance_metrics.jsonl")]
+        recs = step_records(f"{d}/insurance_metrics.jsonl")
         require([r["step"] for r in recs] == list(range(1, INS_STEPS + 1)),
                 "insurance: the metrics JSONL does not hold one record a step")
         require(os.path.getsize(f"{d}/evaluation_stats.txt") > 0,
@@ -1243,7 +1274,7 @@ def cv_main_phase(torch, smi: str) -> dict:
             require(a.shape == (2000, 10)
                     and float(np.abs(a.sum(axis=1) - 1).max()) <= 1e-4,
                     f"cv_main: {f} is {a.shape} or its rows do not sum to 1")
-        recs = [json.loads(ln) for ln in open(f"{d}/mnist_metrics.jsonl")]
+        recs = step_records(f"{d}/mnist_metrics.jsonl")
         require([r["step"] for r in recs] == list(range(1, CV_STEPS + 1)),
                 "cv_main: the metrics JSONL does not hold one record a step")
         require(os.path.getsize(f"{d}/evaluation_stats.txt") > 0,
@@ -1284,8 +1315,7 @@ def cv_main_phase(torch, smi: str) -> dict:
                                                dirs["stream"]]),
             data_on_device=False,
             stream_chunk_bytes=CV_K * 200 * (5 * 784 + 4 * 10))
-        recs_s = [json.loads(ln)
-                  for ln in open(f"{dirs['stream']}/mnist_metrics.jsonl")]
+        recs_s = step_records(f"{dirs['stream']}/mnist_metrics.jsonl")
         keys = ("d_loss", "g_loss", "classifier_loss")
         require(not res_stream["resident"]
                 and res_stream["steps_per_call"] == CV_K
@@ -1317,14 +1347,16 @@ def cv_main_phase(torch, smi: str) -> dict:
 
 RES_INS_EVERY = 500  # the insurance children's --checkpoint-every
 RES_INS_SIGNAL_AFTER = 2000  # SIGTERM after this step's "Completed Batch"
-# the CV runs: full width, batch 200, 400 steps in calls of K = 100, the
-# CSV pair cut as in the cv_main phase, no FID
+# the CV runs: full width, batch 200, RES_CV_STEPS steps in calls of K =
+# 100, the CSV pair cut as in the cv_main phase, no FID
 RES_CV_BASE = ["--n-train", "10000", "--n-test", "2000", "--iterations",
-               "400", "--print-every", "100", "--save-every", "100",
+               "200", "--print-every", "100", "--save-every", "100",
                "--fid-samples", "0"]
 RES_CV_CKPT = ["--checkpoint-every", "100"]
-RES_CV_STEPS = 400
-RES_CV_STOP = 200
+# 200 steps, preempted at 100 (400 and 200 up to PR 15: a save's DEFLATE
+# is seconds of host time, and the script must stay inside its limit)
+RES_CV_STEPS = 200
+RES_CV_STOP = 100
 RES_DP_STEPS = (4, 8)  # the world-2 run: a checkpoint at 4, resumed to 8
 RES_CHILD_TIMEOUT_S = 300
 # the cross-process CV resume under the default policy against the
@@ -1381,11 +1413,13 @@ def child_command(module: str, args, untimed: bool = False):
     return [sys.executable, *head, *args], root, env
 
 
-def run_child(module: str, args, stop_after=None, untimed: bool = False):
+def run_child(module: str, args, stop_after=None, untimed: bool = False,
+              profile_lines=None):
     """``python -m module args`` in a child process from this checkout ->
     (exit code, its last JSON line or None, seconds, stderr tail); with
     ``stop_after``, SIGTERM once it printed ``Completed Batch
-    {stop_after}!``; ``untimed``: under cuDNN's untimed choice.  The child
+    {stop_after}!``; ``untimed``: under cuDNN's untimed choice;
+    ``profile_lines``: a list that gets its ``[profile]`` lines.  The child
     is killed at RES_CHILD_TIMEOUT_S."""
     import signal
     import threading
@@ -1407,6 +1441,9 @@ def run_child(module: str, args, stop_after=None, untimed: bool = False):
                     sent = True
                 if line.startswith("{"):
                     last = line
+                elif profile_lines is not None and line.startswith(
+                        "[profile]"):
+                    profile_lines.append(line.rstrip())
             rc = proc.wait()
         finally:
             killer.cancel()
@@ -1452,6 +1489,16 @@ def zips_diff(ref_dir: str, got_dir: str, prefix: str, names) -> tuple:
                 first = (f"{g}:{k}", d)
             worst = max(worst, d)
     return worst, first
+
+
+def step_records(path: str) -> list:
+    """A metrics JSONL's step records, in order; each run ends its file
+    with one run-level ``{"goodput", "run_id"}`` record, left out here,
+    which must be there."""
+    recs = [json.loads(ln) for ln in open(path)]
+    require(recs and set(recs[-1]) == {"goodput", "run_id"},
+            f"{path} does not end in the run's goodput record")
+    return [r for r in recs if "step" in r]
 
 
 def metrics_by_step(path: str) -> dict:
@@ -1540,11 +1587,13 @@ def resume_insurance(ref: str, ref_auroc: float, root: str) -> dict:
     """The insurance program at its defaults in child processes: child A
     with ``--checkpoint-every RES_INS_EVERY --preempt-signal SIGTERM``,
     sent SIGTERM after step RES_INS_SIGNAL_AFTER, must exit 75 and leave
-    PREEMPTED.json and a verified checkpoint at its step; child B resumes
+    PREEMPTED.json, a verified checkpoint at its step, and the signal, the
+    exit and the saves' stages in its timeline; child B resumes
     it to INS_STEPS.  The four zips (params and updater state), every
     metrics record's losses and test_auroc must be bitwise those of the
     insurance phase's uninterrupted run (``ref``)."""
     from gan_deeplearning4j_tpu_torch.checkpoint import TrainCheckpointer
+    from gan_deeplearning4j_tpu_torch.telemetry.events import read_events
 
     module = "gan_deeplearning4j_tpu_torch.train.insurance_main"
     d = f"{root}/ins"
@@ -1564,6 +1613,12 @@ def resume_insurance(ref: str, ref_auroc: float, root: str) -> dict:
             and marker["signal"] == "SIGTERM"
             and ck.latest_verified_step() == stop == res_a["step"],
             f"insurance child A: marker {marker}, checkpoints {ck.steps()}")
+    # the drill's timeline: the signal, the exit and the saves' stages
+    names_a = sorted({e["name"] for e in read_events(f"{d}/events.jsonl")})
+    require({"preempt.signal", "preempt.exit", "checkpoint.serialize",
+             "checkpoint.commit"} <= set(names_a)
+            and os.path.exists(f"{d}/flight_record_preemption.json"),
+            f"insurance child A: events {names_a}")
     ckpt_bytes = manifest_bytes(f"{d}/checkpoints/ckpt_{stop}")
     rc_b, res_b, sec_b, err = run_child(module, args + ["--resume"])
     require(rc_b == 0 and res_b is not None
@@ -1585,6 +1640,7 @@ def resume_insurance(ref: str, ref_auroc: float, root: str) -> dict:
             f"{res_b['test_auroc']} vs {ref_auroc}")
     hs = res_b["host_seconds"]
     return {"stopped_at": stop, "exit_a": rc_a, "marker": marker,
+            "events_a": names_a,
             "checkpoint_bytes": ckpt_bytes, "seconds_a": sec_a,
             "seconds_b": sec_b, "bitwise": True, "largest_param_diff": worst,
             "metrics_steps_equal": INS_STEPS, "test_auroc": ref_auroc,
@@ -2169,10 +2225,11 @@ def roadmap_children(root: str) -> dict:
         want = sorted([f"{family}_samples_{s}.png"
                        for s in range(every, iters + 1, every)]
                       + [f"{family}_metrics.jsonl", f"{family}_gen_model.zip",
-                         f"{family}_dis_model.zip"])
+                         f"{family}_dis_model.zip", "events.jsonl",
+                         "run_manifest.json"])
         files = sorted(os.listdir(res))
-        with open(f"{res}/{family}_metrics.jsonl") as f:
-            steps = [json.loads(line)["step"] for line in f]
+        steps = [r["step"] for r in step_records(
+            f"{res}/{family}_metrics.jsonl")]
         require(files == want and steps == list(range(1, iters + 1)),
                 f"roadmap_main {family}: files {files}, metrics steps "
                 f"{steps[:3]}..{steps[-3:]}")
@@ -2649,12 +2706,15 @@ def pd_program(torch, root: str) -> dict:
                           launches=r["port_launches"],
                           host_seconds=r["host_seconds"])
     ck = TrainCheckpointer(f"{res}/celeba_ckpt", sweep_debris=False)
-    with open(f"{res}/celeba_metrics.jsonl") as f:
-        steps = sorted({json.loads(line)["step"] for line in f})
+    # the two runs' step records, each run's goodput record after them
+    steps = sorted({json.loads(line)["step"]
+                    for line in open(f"{res}/celeba_metrics.jsonl")
+                    if '"step"' in line})
     want = sorted([f"celeba_samples_{s}.png"
                    for s in range(PD_MAIN_K, total + 1, PD_MAIN_K)]
                   + ["celeba_metrics.jsonl", "celeba_gen_model.zip",
-                     "celeba_dis_model.zip", "celeba_ckpt"])
+                     "celeba_dis_model.zip", "celeba_ckpt", "events.jsonl",
+                     "run_manifest.json"])
     files = sorted(os.listdir(res))
     require(ck.steps() == [stop, total] and files == want
             and all(ck.mesh_spec(s) == mesh_spec_dict(DP_WORLD)
@@ -3902,7 +3962,8 @@ def sv_world2(group) -> dict:
     result = trainer.train(SV_DP_STEPS, log=None)
     torch.cuda.synchronize(group.device)
     launches = kernels.launch_counts()
-    blocks = [[r[k] for k in TELEMETRY_KEYS] for r in trainer.metrics.records()]
+    blocks = [[r[k] for k in TELEMETRY_KEYS]
+              for r in trainer.metrics.records() if "step" in r]
     return {"launches": launches, "steps": result["steps"],
             "blocks": blocks,
             "digest": hashlib.sha256(json.dumps(blocks).encode()).hexdigest()}
@@ -4244,8 +4305,7 @@ def sv_healthy(torch, root: str) -> dict:
                 "upsample_bwd": 2 * calls, "bn_moments": 0, "bn_apply": 0,
                 "bn_act_4d": 0}
     names = [e["name"] for e in read_events(f"{d}/events.jsonl")]
-    with open(f"{d}/mnist_metrics.jsonl") as f:
-        recs = [json.loads(ln) for ln in f]
+    recs = step_records(f"{d}/mnist_metrics.jsonl")
     out = dict(steps=res["steps"], steps_per_call=res["steps_per_call"],
                graphed=res["graphed"], seconds=time.perf_counter() - t0,
                events=sorted(set(names)), records=len(recs),
@@ -4298,6 +4358,378 @@ def supervision_phase(torch, smi: str, world2) -> dict:
                 f"supervision world 2 rank {rank}: a bad block")
     require(len({r["digest"] for r in world2}) == 1,
             "supervision world 2: the ranks' blocks differ")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# -- the observability phase --------------------------------------------------
+
+# the cv_main phase's run without its FID (the phase times the flags, not
+# the evaluation)
+OBS_CV_ARGS = CV_ARGS[:-1] + ["0"]
+# the port kernels on the CV program's path, as its summary lists them
+OBS_KERNELS = ("fused_update", "bn_act", "upsample_bwd")
+# the celeba run: the roadmap phase's cut (rows, iterations, print-every)
+OBS_RM = ("celeba", 2000, 100, 50)
+OBS_SCRAPE_TIMEOUT_S = 0.5
+OBS_BUDGET_S = 120.0
+OBS_PHASES = ("data_wait", "dispatch", "readback", "checkpoint", "eval",
+              "other")
+
+
+def summary_counts(lines) -> dict:
+    """The port kernels' (ms, count) from a ``--profile`` run's printed
+    summary (``print_trace_summary``'s "the port's kernels" lines)."""
+    out, on = {}, False
+    for ln in lines:
+        if ln.startswith("[profile] the port's kernels:"):
+            on = True
+        elif on:
+            ms, _, n, kernel = ln.split()[1:5]
+            out[kernel] = (float(ms), int(n.rstrip("x")))
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http_get(url: str):
+    """(status, body bytes) of a GET, None when nothing answers."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=OBS_SCRAPE_TIMEOUT_S) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+    except OSError:
+        return None
+
+
+def prom_value(text: str, series: str):
+    """A series' value in Prometheus text (None: absent)."""
+    for ln in text.splitlines():
+        if ln.startswith(series + " "):
+            return float(ln.split()[-1])
+    return None
+
+
+class ObsScraper:
+    """Polls a training child's ``/metrics``, ``/healthz`` and live UI
+    (``/data`` and the page) on a thread from the moment their ports are
+    known until each has answered with the run going: the first scrape
+    whose ``gan4j_steps_total`` is positive, and the first non-empty
+    ``/data``."""
+
+    def __init__(self):
+        import threading
+
+        self.metrics_port = self.ui_port = None
+        self.got: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            if self.metrics_port and "metrics" not in self.got:
+                base = f"http://127.0.0.1:{self.metrics_port}"
+                r = http_get(base + "/metrics")
+                if r is not None and r[0] == 200:
+                    text = r[1].decode()
+                    if (prom_value(text, "gan4j_steps_total") or 0) > 0:
+                        self.got["metrics"] = text
+                        h = http_get(base + "/healthz")
+                        self.got["healthz"] = (
+                            (h[0], json.loads(h[1])) if h else None)
+            if self.ui_port and "ui_data" not in self.got:
+                base = f"http://127.0.0.1:{self.ui_port}"
+                r = http_get(base + "/data")
+                if r is not None and r[0] == 200 and json.loads(r[1]):
+                    self.got["ui_data"] = json.loads(r[1])
+                    page = http_get(base + "/")
+                    self.got["ui_page"] = page[1].decode() if page else None
+            self._stop.wait(0.02)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(10)
+
+
+def obs_full_run(torch, root: str, csv_dir: str) -> dict:
+    """``cv_main`` at full width as a child with ``--telemetry --profile
+    DIR --metrics-port 0 --live-ui PORT``, scraped while it trains
+    (ObsScraper); then its files: the last metrics record's phases sum to
+    ``wall_s``, the manifest names the card, the capture's summary lists
+    the three port kernels with their counts, and the Chrome trace merged
+    from ``events.jsonl`` and the capture holds host and device lanes."""
+    import signal
+    import threading
+
+    from gan_deeplearning4j_tpu_torch.telemetry.events import (
+        export_chrome_trace,
+    )
+
+    d, prof = f"{root}/full", f"{root}/full/prof"
+    os.makedirs(d)
+    for f in ("mnist_train.csv", "mnist_test.csv"):
+        shutil.copy(f"{csv_dir}/{f}", f"{d}/{f}")
+    ui_port = free_port()
+    argv, cwd, env = child_command(
+        "gan_deeplearning4j_tpu_torch.train.cv_main",
+        OBS_CV_ARGS + ["--telemetry", "--profile", prof, "--metrics-port",
+                       "0", "--live-ui", str(ui_port), "--res-path", d])
+    env["PYTHONUNBUFFERED"] = "1"  # the ports' lines as they are printed
+    scraper = ObsScraper()
+    t0 = time.perf_counter()
+    lines, last = [], None
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(argv, cwd=cwd, env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=err)
+        killer = threading.Timer(RES_CHILD_TIMEOUT_S, proc.kill)
+        killer.start()
+        try:
+            for line in proc.stdout:
+                if line.startswith("[metrics] serving"):
+                    scraper.metrics_port = int(line.rsplit(":", 1)[1])
+                elif line.startswith("[live-ui]"):
+                    scraper.ui_port = int(line.rsplit(":", 1)[1].strip("/\n"))
+                elif line.startswith("[profile]"):
+                    lines.append(line.rstrip())
+                elif line.startswith("{"):
+                    last = line
+            rc = proc.wait()
+        finally:
+            killer.cancel()
+            scraper.close()
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGKILL)
+                proc.wait()
+        err.seek(0)
+        tail = err.read()[-3000:]
+    secs = time.perf_counter() - t0
+    require(rc == 0 and last is not None,
+            f"observability: cv_main exit {rc}; stderr {tail}")
+    res = json.loads(last)
+    got = scraper.got
+    require(scraper.metrics_port and scraper.ui_port == ui_port,
+            f"observability: ports {scraper.metrics_port} / "
+            f"{scraper.ui_port} (asked {ui_port})")
+    text = got.get("metrics") or ""
+    steps_total = prom_value(text, "gan4j_steps_total")
+    goodput_series = sorted(
+        ln.split("{")[1].split("}")[0] for ln in text.splitlines()
+        if ln.startswith("gan4j_goodput_seconds{"))
+    health = got.get("healthz")
+    require(steps_total and steps_total > 0 and goodput_series
+            and health is not None and health[0] == 200
+            and health[1]["run_id"] == res["run_id"],
+            f"observability: the live /metrics scrape {steps_total}, "
+            f"goodput series {goodput_series}, /healthz {health}")
+    require(got.get("ui_data") and "gan4j live metrics" in (
+        got.get("ui_page") or ""),
+        "observability: the live UI served no records while the run went")
+    # the ports are closed once the program has printed its result
+    require(http_get(f"http://127.0.0.1:{scraper.metrics_port}/metrics")
+            is None and http_get(f"http://127.0.0.1:{ui_port}/") is None,
+            "observability: a server still answers after the run")
+    recs = [json.loads(ln) for ln in open(f"{d}/mnist_metrics.jsonl")]
+    final = recs[-1]
+    gp = final.get("goodput", {})
+    phase_sum = sum(gp.get(k, 0.0) for k in OBS_PHASES)
+    require(final.get("run_id") == res["run_id"]
+            and abs(phase_sum - gp.get("wall_s", -1.0)) <= 1e-5 * 7
+            and gp == res["goodput"],
+            f"observability: the final record {final} against the "
+            f"result's goodput {res.get('goodput')}")
+    manifest = json.load(open(f"{d}/run_manifest.json"))
+    name = torch.cuda.get_device_name(0)
+    require(manifest["run_id"] == res["run_id"]
+            and manifest.get("devices", {}).get("kind") == name
+            and manifest["devices"]["platform"] == "gpu",
+            f"observability: the manifest's devices {manifest.get('devices')}")
+    port = summary_counts(lines)
+    counts = {k: port.get(k, (0.0, 0))[1] for k in OBS_KERNELS}
+    kernel_ms = {k: port.get(k, (0.0, 0))[0] for k in OBS_KERNELS}
+    calls = CV_STEPS + 1  # the warm-up step, then a replay per step
+    want = {"fused_update": 3 * calls, "bn_act": 3 * calls,
+            "upsample_bwd": 2 * calls}
+    graph_kernels = counts == want
+    if not graph_kernels:
+        # the stated fallback: a trace that shows the graph launches only
+        # holds the warm-up step's kernels, and the summary says so
+        require(counts == {k: v // calls for k, v in want.items()},
+                f"observability: the trace counts {counts}, neither the "
+                f"replays' {want} nor the warm-up's alone")
+    merged = export_chrome_trace(f"{d}/events.jsonl", f"{root}/merged.json",
+                                 trace_dir=prof)
+    doc = json.load(open(merged))["traceEvents"]
+    host_lane = [e for e in doc if e.get("pid") == 1 and "cat" not in e
+                 and e.get("ph") in ("X", "i")]
+    device = [e for e in doc if e.get("cat") == "kernel"]
+    spans = {e["name"] for e in host_lane}
+    lo = min(e["ts"] for e in host_lane)
+    hi = max(e["ts"] + e.get("dur", 0) for e in host_lane)
+    aligned = sum(lo <= e["ts"] <= hi for e in device) / max(len(device), 1)
+    require(host_lane and device and aligned > 0.9
+            and {"eval.grid", "data.prepare"} <= spans,
+            f"observability: the merged trace has {len(host_lane)} host "
+            f"spans ({sorted(spans)}), {len(device)} kernels, {aligned:.3f} "
+            "of them inside the host events' span")
+    return dict(
+        seconds=secs, steps=res["steps"], run_id=res["run_id"],
+        examples_per_sec=res["examples_per_sec"], goodput=res["goodput"],
+        phase_sum_minus_wall=phase_sum - gp["wall_s"],
+        metrics_steps_total_mid_run=steps_total,
+        goodput_series=goodput_series, healthz=health[1],
+        ui_records_mid_run=len(got["ui_data"]), manifest_devices=manifest[
+            "devices"], manifest_versions=manifest["versions"],
+        trace_counts=counts, expected_counts=want,
+        graph_kernels_traced=graph_kernels, trace_kernel_ms=kernel_ms,
+        summary=lines, merged_trace=dict(
+            host_spans=len(host_lane), kernels=len(device),
+            kernels_inside_host_span=aligned),
+        trace_bytes=sum(os.path.getsize(os.path.join(prof, f))
+                        for f in os.listdir(prof)))
+
+
+def obs_turns(torch, root: str, csv_dir: str) -> dict:
+    """``cv_main`` in this process without and with the flags, in turns
+    (plain, --profile, exporter + live UI, plain): each run's
+    ``examples_per_sec`` (recorded, not gated); the
+    profiled runs' per-step losses bitwise the plain runs' (the capture
+    under an active profiler records the same step), and the port kernels'
+    launches around one profiled run.  The runs write no model zips: their
+    DEFLATE is seconds of host time after the timed window, and the
+    cv_main phase checks them."""
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.train import cv_main
+    from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
+
+    t0 = time.perf_counter()
+    d = f"{root}/turns"
+    os.makedirs(d)
+    for f in ("mnist_train.csv", "mnist_test.csv"):
+        shutil.copy(f"{csv_dir}/{f}", f"{d}/{f}")
+    flags = {"plain": [], "profile": ["--profile", f"{root}/turn_prof"],
+             "exporter_ui": ["--metrics-port", "0", "--live-ui",
+                             str(free_port())]}
+    eps = {k: [] for k in flags}
+    losses, launches = {}, None
+    for label in ("plain", "profile", "exporter_ui", "plain"):
+        if label == "profile" and launches is None:
+            kernels.reset_launch_counts()
+        save = GANTrainer.save_models
+        GANTrainer.save_models = lambda self: None
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, res = cv_main.run(cv_main.parse_args(
+                    OBS_CV_ARGS + flags[label] + ["--res-path", d]))
+        finally:
+            GANTrainer.save_models = save
+        if label == "profile" and launches is None:
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+        eps[label].append(res["examples_per_sec"])
+        losses.setdefault(label, [[r[k] for k in LOSS_KEYS]
+                                  for r in step_records(
+                                      f"{d}/mnist_metrics.jsonl")])
+    calls = CV_STEPS + 1
+    expected = {"fused_update": 3 * calls, "bn_act": 3 * calls,
+                "upsample_bwd": 2 * calls, "bn_moments": 0, "bn_apply": 0,
+                "bn_act_4d": 0}
+    require(launches == expected,
+            f"observability: a profiled run's launches {launches} != "
+            f"{expected}")
+    require(losses["profile"] == losses["plain"] == losses["exporter_ui"],
+            "observability: the per-step losses under --profile or the "
+            "exporter differ from the plain run's")
+    return dict(examples_per_sec=eps, launches=launches,
+                expected_launches=expected, losses_bitwise=True,
+                seconds=time.perf_counter() - t0)
+
+
+def obs_roadmap(torch, root: str, child) -> dict:
+    """``roadmap_main --family celeba`` (OBS_RM: the roadmap phase's cut)
+    with ``--profile`` and ``--metrics-port 0``, a child run beside the
+    full run (``child``: run_child's result): one ``bn_act`` an iteration
+    (and the warm-up's) in the capture's summary and in the result's
+    ``port_launches``, its manifest, and its goodput summing to its
+    ``wall_s``."""
+    family, rows, iters, every = OBS_RM
+    (rc, res, secs, tail), lines = child
+    require(rc == 0 and res is not None,
+            f"observability roadmap: exit {rc}; stderr {tail}")
+    port = summary_counts(lines)
+    counts = {k: port.get(k, (0.0, 0))[1] for k in OBS_KERNELS}
+    launches = res["port_launches"]
+    manifest = json.load(open(f"{root}/rm/run_manifest.json"))
+    gp = res["goodput"]
+    phase_sum = sum(gp[k] for k in OBS_PHASES)
+    want = iters + 1  # the capture's warm-up iteration, then the replays
+    require(counts["bn_act"] == launches["bn_act"] == want
+            and counts["fused_update"] == counts["upsample_bwd"] == 0
+            and manifest["run_id"] == res["run_id"]
+            and manifest["devices"]["kind"] == torch.cuda.get_device_name(0)
+            and abs(phase_sum - gp["wall_s"]) <= 1e-5 * 7,
+            f"observability roadmap: trace counts {counts}, launches "
+            f"{launches}, goodput {gp}")
+    return dict(family=family, rows=rows, iterations=iters,
+                trace_counts=counts, launches=launches, goodput=gp,
+                examples_per_sec=res["examples_per_sec"],
+                run_id=res["run_id"], seconds=secs)
+
+
+def observability_phase(torch, smi: str) -> dict:
+    """The training run's observability on the card (module docstring,
+    phase 16).  The preemption drill's events are the resume phase's
+    (``resume_insurance``: its SIGTERM'd child's ``events.jsonl``)."""
+    import threading
+
+    from gan_deeplearning4j_tpu_torch.data import datasets
+    from gan_deeplearning4j_tpu_torch.train import profile_step
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="gan4j_obs_")
+    try:
+        csv_dir = f"{root}/csv"
+        datasets.ensure_mnist_csv(csv_dir, 10000, 2000)
+        out = {"nvidia_smi": smi, "csv_s": time.perf_counter() - t0}
+        # the celeba child beside the full run (neither is timed: their
+        # checks are counts, files and scrapes)
+        family, rows, iters, every = OBS_RM
+        box, rm_lines = {}, []
+        rm = threading.Thread(target=lambda: box.update(child=(run_child(
+            "gan_deeplearning4j_tpu_torch.train.roadmap_main",
+            ["--family", family, "--n-train", str(rows), "--iterations",
+             str(iters), "--print-every", str(every), "--res-path",
+             f"{root}/rm", "--profile", f"{root}/rm_prof",
+             "--metrics-port", "0"], profile_lines=rm_lines), rm_lines)))
+        rm.start()
+        try:
+            out["full_run"] = obs_full_run(torch, root, csv_dir)
+        finally:
+            rm.join()
+        out["roadmap"] = obs_roadmap(torch, root, box["child"])
+        out["flag_cost"] = obs_turns(torch, root, csv_dir)
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            split = profile_step.main(["--telemetry"])
+        ts = dict(split["telemetry_split"], seconds=time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        require(ts["added_kernels_per_step"] > 0
+                and ts["added_device_ms"] > 0,
+                f"observability: the telemetry block added nothing: {ts}")
+        out["telemetry_split"] = ts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["cleanup_s"] = time.perf_counter() - t1
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -4941,7 +5373,14 @@ def main() -> int:
     sv = supervision_phase(torch, smi, [r["supervision"] for r in ranks])
     emit("supervision", **sv)
 
-    # -- 16. the kernels line and the result ---------------------------------
+    # -- 16. the training run's observability --------------------------------
+    obs = observability_phase(torch, smi)
+    # its time against its budget, recorded (the script's own limit is
+    # what a run must meet)
+    emit("observability", budget_s=OBS_BUDGET_S,
+         within_budget=obs["seconds"] <= OBS_BUDGET_S, **obs)
+
+    # -- 17. the kernels line and the result ---------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
     # pair, and the kernel phase's check for the 4-D BN, which no model
     # path runs (as in the JAX package)
@@ -5012,7 +5451,15 @@ def main() -> int:
              "steps": GRAPH_STEPS,
              "world2_launches_per_rank": sv["world2"]["launches"][0][
                  r["name"]],
-             "world2_steps": SV_DP_STEPS}}
+             "world2_steps": SV_DP_STEPS},
+         # the observability phase's path: a cv_main run under --profile
+         # in this process (counted), the child's capture under every flag
+         # (the trace's counts), the celeba run's capture and counters
+         "observability": {
+             "launches": obs["flag_cost"]["launches"][r["name"]],
+             "trace_counts": obs["full_run"]["trace_counts"].get(r["name"]),
+             "celeba_launches": obs["roadmap"]["launches"][r["name"]],
+             "steps": CV_STEPS}}
         for r in report]}), flush=True)
     print(json.dumps({"seconds": {
         "total": time.perf_counter() - T_START,
@@ -5021,7 +5468,7 @@ def main() -> int:
         "serve": serve["seconds"],
         "total_before_the_serve_phase": before_serve_s,
         "pair_dp": pdp["seconds"], "supervision": sv["seconds"],
-        "by_phase": PHASE_SECONDS}}),
+        "observability": obs["seconds"], "by_phase": PHASE_SECONDS}}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 thread pays only the snapshot.
 
   training thread:  ``snapshot_state``  the copies to pinned host memory,
-                    started behind one event, then the hand-off
+                    started behind one event, then the hand-off (the
+                    ``checkpoint.snapshot`` event span)
   worker thread:    ``write_snapshot``  waits for the event, serializes,
-                    fsyncs, renames, prunes
+                    fsyncs, renames, prunes (``checkpoint.write``)
 
 The bytes on disk are those of a synchronous save of the same state
 (deterministic serialization), manifest hashes included.
@@ -30,6 +31,7 @@ from gan_deeplearning4j_tpu_torch.checkpoint.checkpointer import (
     TrainCheckpointer,
     snapshot_state,
 )
+from gan_deeplearning4j_tpu_torch.telemetry import events
 
 _OPEN: "weakref.WeakSet" = weakref.WeakSet()
 _ATEXIT_REGISTERED = False
@@ -79,7 +81,11 @@ class AsyncCheckpointer:
             try:
                 if snap is None:
                     return
-                self.inner.write_snapshot(snap)
+                # the span (and write_snapshot's serialize/commit spans)
+                # land in the run's timeline from this thread
+                with events.span("checkpoint.write",
+                                 step=snap["scalars"]["step"]):
+                    self.inner.write_snapshot(snap)
             except BaseException as e:  # re-raised at the next barrier
                 if self._error is None:
                     self._error = e
@@ -100,7 +106,8 @@ class AsyncCheckpointer:
         the serialization -> the checkpoint's final path (durable once
         the worker commits it: ``wait()``)."""
         self.wait()
-        snap = snapshot_state(graphs, step, extra, mesh_spec=mesh_spec)
+        with events.span("checkpoint.snapshot", step=step):
+            snap = snapshot_state(graphs, step, extra, mesh_spec=mesh_spec)
         if self._closed:  # after close (atexit ordering): synchronous
             return self.inner.write_snapshot(snap)
         self._q.put(snap)

@@ -35,8 +35,7 @@ named write/rename point (tests/test_torch_checkpoint.py walks each one).
 Not ported: resharding a checkpoint onto another world (the JAX
 ``_load_elastic``).  A restore whose saved ``mesh_spec`` differs from the
 caller's raises ``CheckpointMeshMismatchError`` (ROADMAP Queue 1 item
-7.5).  The JAX package's checkpoint events (telemetry) wait for the
-telemetry slice.
+7.5).
 """
 
 from __future__ import annotations
@@ -54,6 +53,7 @@ import numpy as np
 import torch
 
 from gan_deeplearning4j_tpu_torch.graph import serialization
+from gan_deeplearning4j_tpu_torch.telemetry import events
 from gan_deeplearning4j_tpu_torch.utils.async_dump import host_copy
 from gan_deeplearning4j_tpu_torch.utils.device import wait_event
 
@@ -295,7 +295,9 @@ class TrainCheckpointer:
         """Serialize a ``snapshot_state`` result to ``ckpt_{step}``: file
         work only after the copies' event (background-thread safe).  Every
         file is fsynced; the manifest is written last; the final rename is
-        the commit point."""
+        the commit point.  The serialize/fsync and commit stages are the
+        ``checkpoint.serialize`` / ``checkpoint.commit`` event spans, so a
+        flight record names the stage a kill landed in."""
         step = snap["scalars"]["step"]
         graphs, arrays = _host_arrays(snap)
         final = os.path.join(self.directory, f"ckpt_{step}")
@@ -312,39 +314,42 @@ class TrainCheckpointer:
                                  "sha256": hashlib.sha256(data).hexdigest()}
                 _chaos(f"wrote:{name}")
 
-            for name, (cfg, flat_params, flat_updater) in sorted(
-                    graphs.items()):
-                put(f"{name}_model.zip", serialization.model_zip_bytes(
-                    cfg, flat_params, flat_updater))
-            put("state.json", json.dumps(snap["scalars"], indent=1).encode())
-            if arrays:
-                put("state.npz", serialization.npz_bytes(arrays))
-            mpath = os.path.join(tmp, MANIFEST_NAME)
-            manifest: Dict = {"step": step, "files": entries}
-            if snap.get("mesh_spec") is not None:
-                manifest["mesh_spec"] = snap["mesh_spec"]
-            with open(mpath, "w") as f:
-                json.dump(manifest, f, indent=1)
-            _fsync_file(mpath)
-            _fsync_dir(tmp)
-            _chaos("manifest")
-            if os.path.exists(final):
-                # swap, never rmtree-then-rename: a kill between the
-                # renames loses the step's entry, never both copies
-                trash = tempfile.mkdtemp(prefix=".ckpt_del_",
-                                         dir=self.directory)
-                os.rmdir(trash)
-                _chaos("pre_swap")
-                os.rename(final, trash)
-                _chaos("mid_swap")
-                os.rename(tmp, final)
-                _chaos("post_swap")
-                shutil.rmtree(trash, ignore_errors=True)
-            else:
-                _chaos("pre_swap")
-                os.rename(tmp, final)
-                _chaos("post_swap")
-            _fsync_dir(self.directory)
+            with events.span("checkpoint.serialize", step=step):
+                for name, (cfg, flat_params, flat_updater) in sorted(
+                        graphs.items()):
+                    put(f"{name}_model.zip", serialization.model_zip_bytes(
+                        cfg, flat_params, flat_updater))
+                put("state.json",
+                    json.dumps(snap["scalars"], indent=1).encode())
+                if arrays:
+                    put("state.npz", serialization.npz_bytes(arrays))
+                mpath = os.path.join(tmp, MANIFEST_NAME)
+                manifest: Dict = {"step": step, "files": entries}
+                if snap.get("mesh_spec") is not None:
+                    manifest["mesh_spec"] = snap["mesh_spec"]
+                with open(mpath, "w") as f:
+                    json.dump(manifest, f, indent=1)
+                _fsync_file(mpath)
+                _fsync_dir(tmp)
+                _chaos("manifest")
+            with events.span("checkpoint.commit", step=step):
+                if os.path.exists(final):
+                    # swap, never rmtree-then-rename: a kill between the
+                    # renames loses the step's entry, never both copies
+                    trash = tempfile.mkdtemp(prefix=".ckpt_del_",
+                                             dir=self.directory)
+                    os.rmdir(trash)
+                    _chaos("pre_swap")
+                    os.rename(final, trash)
+                    _chaos("mid_swap")
+                    os.rename(tmp, final)
+                    _chaos("post_swap")
+                    shutil.rmtree(trash, ignore_errors=True)
+                else:
+                    _chaos("pre_swap")
+                    os.rename(tmp, final)
+                    _chaos("post_swap")
+                _fsync_dir(self.directory)
         except BaseException as e:
             # a simulated hard kill leaves the directory as a real one
             # would, debris and all (purged at the next init)

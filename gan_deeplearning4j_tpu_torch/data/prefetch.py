@@ -27,10 +27,16 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+
+from gan_deeplearning4j_tpu_torch.telemetry import events
+
+# a consumer wait at least this long is a ``data.prefetch_stall`` event
+STALL_EVENT_S = 0.05
 
 
 class PrefetchIterator:
@@ -118,12 +124,22 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        while True:
-            try:
-                item = self._q.get(timeout=0.25)
-                break
-            except queue.Empty:
-                continue
+        try:  # fast path: the worker stayed ahead, no stall to record
+            item = self._q.get_nowait()
+        except queue.Empty:
+            t0 = time.perf_counter()
+            # a polled wait, never a bare blocking get: the watchdog's
+            # async raise lands only between bytecodes
+            while True:
+                try:
+                    item = self._q.get(timeout=0.25)
+                    break
+                except queue.Empty:
+                    continue
+            waited = time.perf_counter() - t0
+            if waited >= STALL_EVENT_S:
+                events.instant("data.prefetch_stall",
+                               seconds=round(waited, 6))
         if item is None:
             if self.error is not None:
                 err, self.error = self.error, None

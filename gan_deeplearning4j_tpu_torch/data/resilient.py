@@ -13,10 +13,12 @@ same ``quarantine.jsonl`` bytes, retry counts and error classes).
   ``quarantine.jsonl`` with file:line (or stream/row) provenance and
   charged against a ``--max-quarantine`` budget; exceeding it raises
   ``DataQuarantineError``, fatal in the recovery wrapper.
-* ``DataHealth``: thread-safe counters of both.
+* ``DataHealth``: thread-safe counters of both, the scrape registry's
+  ``observe_data`` feed (``telemetry/exporter.py``).
 
-The JAX module also emits ``data.retry`` / ``data.quarantine`` events and
-feeds a scrape registry; those wait for the telemetry slice.
+Each retry and each quarantined record is also a ``data.retry`` /
+``data.quarantine`` event in the run's timeline (``telemetry/events.py``),
+with the JAX module's attributes.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
+
+from gan_deeplearning4j_tpu_torch.telemetry import events
 
 # the transient-error class: I/O faults surface as OSError, a truncated read
 # of a framed format as EOFError.  A ValueError (a parse failure) replays
@@ -145,6 +149,8 @@ class RecordQuarantine:
                 f.write(json.dumps(entry) + "\n")
         except OSError:  # provenance is diagnostics; the charge is not
             pass
+        events.instant("data.quarantine", file=file, line=line, row=row,
+                       reason=reason, n=n, budget=self.budget)
         if self.health is not None:
             self.health.record_quarantine(
                 reason=f"quarantined {file}:{line or row}: {reason}")
@@ -177,7 +183,8 @@ def call_with_retries(fn: Callable, what: str, retries: int = 3,
                       sleep: Callable[[float], None] = time.sleep):
     """``fn()`` with bounded retries on ``TRANSIENT_ERRORS``: backoff
     ``backoff_s * 2^attempt`` (capped) with jitter x[0.5, 1.5).  Each
-    failed attempt feeds ``health``; exhaustion raises ``DataSourceError``
+    failed attempt emits ``data.retry`` and feeds ``health``; exhaustion
+    raises ``DataSourceError``
     chained on the last error."""
     rng = rng or random
     attempt = 0
@@ -188,6 +195,8 @@ def call_with_retries(fn: Callable, what: str, retries: int = 3,
             attempt += 1
             if health is not None:
                 health.record_retry(e)
+            events.instant("data.retry", what=what, attempt=attempt,
+                           retries=retries, error=repr(e))
             if attempt > retries:
                 raise DataSourceError(
                     f"{what} still failing after {retries} retries: "

@@ -36,12 +36,13 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from gan_deeplearning4j_tpu_torch.runtime import backend as backend_lib
+from gan_deeplearning4j_tpu_torch.telemetry import events
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,6 +182,37 @@ def agree_preemption(triggered: bool, step: int,
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     flag, neg_step = t.tolist()
     return bool(flag), -int(neg_step)
+
+
+def mesh_report(group: Optional[DataGroup]) -> Dict:
+    """The scrape registry's mesh feed (``MetricsRegistry.observe_mesh``,
+    the JAX trainer's ``_mesh_report``): the group's size; the port neither
+    reshards nor re-forms a group while it trains."""
+    return {"devices": group.world if group is not None else 1,
+            "reshard_total": 0, "reshard_seconds": 0.0, "forming": False,
+            "ok": True}
+
+
+def aggregate_goodput(report: Dict, group: Optional[DataGroup]) -> Dict:
+    """The ranks' goodput (the JAX package's
+    ``multihost.aggregate_goodput``): the MEAN of every numeric entry of a
+    ``GoodputTimer.report()`` over the ranks, one all-reduce; a straggler
+    shows as everyone else's readback and ``other``.  Without a group (or
+    at world 1) the report passes through.  Every rank must enter it."""
+    if group is None or group.world == 1:
+        return report
+    keys = sorted(k for k, v in report.items()
+                  if isinstance(v, (int, float)))
+    dev = group.device if group.backend == "nccl" else torch.device("cpu")
+    t = torch.tensor([float(report[k]) for k in keys], dtype=torch.float64,
+                     device=dev)
+    with events.span("collective.aggregate_goodput", processes=group.world):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    out = dict(report)
+    out.update({k: round(float(v) / group.world, 6)
+                for k, v in zip(keys, t.tolist())})
+    out["aggregated_processes"] = group.world
+    return out
 
 
 def agree_max(values: Sequence[int], group: DataGroup) -> List[int]:

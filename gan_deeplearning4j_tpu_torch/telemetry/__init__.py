@@ -1,22 +1,36 @@
-"""Numerics and event telemetry (torch twin of
-``gan_deeplearning4j_tpu/telemetry``, its first slice):
+"""Numerics, goodput and event telemetry (torch twin of
+``gan_deeplearning4j_tpu/telemetry``):
 
 * ``telemetry.ingraph``: model numerics computed INSIDE the training
   step (gradient/param norms, update ratios, NaN/Inf counters), riding
   the step's graph and its one readback as a few extra scalar outputs;
   the NaN alarm over the records they feed;
-* ``telemetry.events``: the structured event timeline (``events.jsonl``)
-  and the always-on flight recorder dumped beside every crash artifact.
+* ``telemetry.goodput``: host-side phase accounting that attributes every
+  wall-clock second of a run to data-wait / dispatch / readback /
+  checkpoint / eval / other, and the per-run ``run_manifest.json``;
+* ``telemetry.events``: the structured event timeline (``events.jsonl``),
+  the always-on flight recorder dumped beside every crash artifact, and
+  the Chrome-trace export that merges a ``torch.profiler`` capture;
+* ``telemetry.exporter``: the ``/metrics`` + ``/healthz`` scrape endpoint
+  behind ``--metrics-port``, fed by the above and by
+  ``telemetry.resources`` (host RSS, device bytes, fds, threads).
 
-The JAX package's goodput accounting, run manifest, resource sampling,
-tracing and ``/metrics`` exporter are not ported yet (ROADMAP Queue 1
-item 6.5).
+The JAX package's request tracing (``telemetry/tracing.py``) is not
+ported yet (ROADMAP Queue 1 item 10.7).
 """
 
 from gan_deeplearning4j_tpu_torch.telemetry import events
 from gan_deeplearning4j_tpu_torch.telemetry.events import (
     EventRecorder,
     export_chrome_trace,
+)
+from gan_deeplearning4j_tpu_torch.telemetry.exporter import (
+    MetricsRegistry,
+    serve_exporter,
+)
+from gan_deeplearning4j_tpu_torch.telemetry.goodput import (
+    GoodputTimer,
+    write_run_manifest,
 )
 from gan_deeplearning4j_tpu_torch.telemetry.ingraph import (
     NanAlarm,
@@ -26,5 +40,7 @@ from gan_deeplearning4j_tpu_torch.telemetry.ingraph import (
     tree_norm,
 )
 
-__all__ = ["NanAlarm", "NanAlarmError", "count_nonfinite", "graph_telemetry",
-           "tree_norm", "events", "EventRecorder", "export_chrome_trace"]
+__all__ = ["GoodputTimer", "write_run_manifest", "NanAlarm",
+           "NanAlarmError", "count_nonfinite", "graph_telemetry",
+           "tree_norm", "events", "EventRecorder", "export_chrome_trace",
+           "MetricsRegistry", "serve_exporter"]

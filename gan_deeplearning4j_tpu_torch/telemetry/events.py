@@ -19,9 +19,10 @@ Three consumers, one recorder:
   recovery restart each carry the timeline that led to them.  The ring
   costs a deque append per event, so it is ALWAYS on, even when no
   ``events.jsonl`` is configured.
-* ``export_chrome_trace``: Chrome-trace JSON of the same events.  Merging
-  it with a profiler capture is not ported yet (ROADMAP Queue 1 item 6.5)
-  and raises.
+* ``export_chrome_trace``: Chrome-trace JSON of the same events,
+  optionally merged with a ``torch.profiler`` capture
+  (``utils/profiling.maybe_trace``) so host events and the card's kernels
+  line up in one Perfetto view.
 
 Overhead: an event is two ``perf_counter`` reads, a dict, a deque append
 and (file-backed only) a buffered line; no device contact, no background
@@ -191,6 +192,17 @@ class EventRecorder:
         self._write(ev)
         return ev
 
+    def adopt(self, other: "EventRecorder") -> None:
+        """Record ``other``'s ring here, its monotonic times moved onto this
+        recorder's clock (events met before this recorder existed: a
+        trainer's set-up, recorded in a ring of its own)."""
+        shift = other._t0 - self._t0
+        for ev in other.recent():
+            ev["t"] = round(ev["t"] + shift, 6)
+            with self._lock:
+                self._ring.append(ev)
+            self._write(ev)
+
     def _write(self, ev: Dict) -> None:
         if self._file is None:
             return
@@ -352,12 +364,17 @@ def export_chrome_trace(source: Union[str, List[Dict], EventRecorder],
                         trace_dir: Optional[str] = None) -> str:
     """Write a Chrome-trace JSON of the recorded host events (wall-clock
     microseconds, one track per thread; spans as ``X``, instants as
-    ``i``).  ``trace_dir``, a profiler capture to merge, raises: the merge
-    comes with the port's tracing (ROADMAP Queue 1 item 6.5)."""
-    if trace_dir:
-        raise NotImplementedError(
-            "merging a profiler capture into the Chrome trace is not "
-            "ported yet (ROADMAP Queue 1 item 6.5)")
+    ``i``); with ``trace_dir``, MERGE the ``torch.profiler`` capture under
+    it (``utils/profiling.maybe_trace``), so host spans and the card's
+    kernels share one Perfetto view.
+
+    Alignment, in the JAX module's order: a capture already on the epoch
+    (a torch trace's ``ts`` plus its ``baseTimeNanoseconds``, which the
+    reader adds) is left unshifted; otherwise the ``host_anchor.json``
+    sidecar ``maybe_trace`` drops into the capture directory (the wall
+    clock at the capture's start), then a ``profiler.trace`` span in the
+    events, then the earliest host event anchor the capture's first
+    timestamp."""
     if isinstance(source, EventRecorder):
         events = source.recent()
     elif isinstance(source, str):
@@ -389,6 +406,41 @@ def export_chrome_trace(source: Union[str, List[Dict], EventRecorder],
             entry["ph"] = "i"
             entry["s"] = "t"
         trace.append(entry)
+
+    if trace_dir:
+        from gan_deeplearning4j_tpu_torch.utils.profiling import (
+            ANCHOR_NAME,
+            _trace_events,
+        )
+
+        dev_events = [e for e in _trace_events(trace_dir)
+                      if "ts" in e or e.get("ph") == "M"]
+        ts_values = [e["ts"] for e in dev_events if "ts" in e]
+        if ts_values:
+            if min(ts_values) > 1e14:
+                # already epoch-scale microseconds: one origin, no shift
+                shift = 0.0
+            else:
+                anchor = None
+                try:
+                    with open(os.path.join(trace_dir, ANCHOR_NAME)) as f:
+                        anchor = float(json.load(f)["wall_start"]) * 1e6
+                except (OSError, ValueError, KeyError, TypeError):
+                    pass  # falls back to the anchor span below
+                if anchor is None:
+                    for ev in events:
+                        if ev.get("name") == "profiler.trace":
+                            anchor = ev["wall"] * 1e6
+                            break
+                if anchor is None and events:
+                    anchor = min(e["wall"] for e in events) * 1e6
+                shift = ((anchor - min(ts_values))
+                         if anchor is not None else 0.0)
+            for e in dev_events:
+                e = dict(e)
+                if "ts" in e:
+                    e["ts"] = e["ts"] + shift
+                trace.append(e)
 
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     with open(out_path, "w") as f:

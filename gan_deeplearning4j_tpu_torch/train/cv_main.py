@@ -40,7 +40,13 @@ the JAX program: ``--telemetry``, ``--nan-alarm
 {warn,snapshot,abort,rollback}`` (rollback in one process only),
 ``--divergence``, ``--max-rollbacks``, ``--rollback-lr-factor``,
 ``--watchdog`` and ``--watchdog-deadline``; the run's timeline goes to
-``events.jsonl``.
+``events.jsonl``.  Observability, as in the JAX program: every run writes
+``run_manifest.json`` and its goodput breakdown (the last metrics record
+and the JSON line carry ``run_id`` and ``goodput``); ``--profile DIR`` (a
+``torch.profiler`` capture, its top time sinks printed after the run;
+each rank's under ``DIR/rank<r>`` with ``--n-devices``), ``--live-ui
+PORT`` (the dashboard; 0 = off) and ``--metrics-port PORT`` (``/metrics``
++ ``/healthz``; 0 = ephemeral), both served by rank 0's process.
 """
 
 from __future__ import annotations
@@ -68,9 +74,12 @@ from gan_deeplearning4j_tpu_torch.train.gan_trainer import (
     GANTrainerConfig,
     Workload,
     add_health_args,
+    add_observability_args,
     add_recovery_args,
     check_recovery_args,
     health_config_kwargs,
+    live_ui_for,
+    profiled,
     recovery_config_kwargs,
     refuse_rollback_under_group,
     resolve_n_devices,
@@ -81,6 +90,10 @@ from gan_deeplearning4j_tpu_torch.train.preemption import (
     EXIT_PREEMPTED,
     PreemptionError,
     parse_signals,
+)
+from gan_deeplearning4j_tpu_torch.utils.profiling import (
+    print_trace_summary,
+    rank_trace_dir,
 )
 
 
@@ -158,6 +171,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     backend.add_mp_flag(p)
     add_recovery_args(p)
     add_health_args(p)
+    add_observability_args(p)
     args = p.parse_args(argv)
     check_recovery_args(p, args)
     return args
@@ -235,6 +249,7 @@ def _config(args: argparse.Namespace, overrides: Dict) -> GANTrainerConfig:
         save_every=args.save_every, dp_mode=args.dp_mode, averaging_frequency=args.averaging_frequency,
         steps_per_call=args.steps_per_call, async_dumps=not args.sync_dumps,
         ema_decay=args.ema_decay, seed=args.seed,
+        metrics_port=args.metrics_port,
         **recovery_config_kwargs(args), **health_config_kwargs(args),
         **overrides)
 
@@ -253,14 +268,19 @@ def _train_and_evaluate(args: argparse.Namespace, config: GANTrainerConfig,
                                 n_test=args.n_test),
             rollback_manager=rollback_manager)
 
-    # a data-parallel world recovers as a whole, in the parent (``run``)
-    trainer, result = run_with_recovery(
-        make_trainer, config,
-        max_restarts=args.max_restarts if group is None else 0,
-        log=print if rank0 else None)
-    if rank0:
-        result.update(evaluate(trainer, fid_samples=args.fid_samples))
-        result["host_seconds"] = trainer.timings
+    with live_ui_for(args, config, rank0):
+        # a data-parallel world recovers as a whole, in the parent (``run``)
+        with profiled(args, group):
+            trainer, result = run_with_recovery(
+                make_trainer, config,
+                max_restarts=args.max_restarts if group is None else 0,
+                log=print if rank0 else None)
+        if rank0:
+            if args.profile:
+                # where the step time went, without leaving the terminal
+                print_trace_summary(rank_trace_dir(args.profile, group))
+            result.update(evaluate(trainer, fid_samples=args.fid_samples))
+            result["host_seconds"] = trainer.timings
     return trainer, result
 
 

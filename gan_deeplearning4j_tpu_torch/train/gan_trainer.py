@@ -86,6 +86,19 @@ Under a group only rank 0 logs metrics, so only rank 0 observes; the
 alarms' outcome is agreed at every boundary so that every rank acts at
 the same step (rollback under a group is refused: ROADMAP Queue 1 item
 6.3b).
+Observability (the JAX trainer's):
+  - goodput: a ``GoodputTimer`` (``telemetry/goodput.py``) from the start
+    of the constructor, whose data set-up, restore and capture are this
+    port's part of a run, attributes the wall time to ``data_wait`` /
+    ``dispatch`` / ``readback`` / ``checkpoint`` / ``eval`` (``_phase``,
+    which is also the watchdog's region); ``train()`` writes
+    ``run_manifest.json`` (rank 0), and its result and the last metrics
+    record carry ``run_id`` and ``goodput`` (under a group the ranks'
+    mean);
+  - ``metrics_port``: rank 0 serves ``/metrics`` + ``/healthz`` over the
+    trainer's ``MetricsRegistry`` (``telemetry/exporter.py``: every
+    flushed record, the goodput ledger, the watchdog, the data plane, the
+    group's size and a ``ResourceMonitor``) while ``train()`` runs.
 """
 
 from __future__ import annotations
@@ -134,7 +147,13 @@ from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.parallel.data_parallel import DataParallelGraph
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
 from gan_deeplearning4j_tpu_torch.telemetry import events
+from gan_deeplearning4j_tpu_torch.telemetry.exporter import MetricsRegistry
+from gan_deeplearning4j_tpu_torch.telemetry.goodput import (
+    GoodputTimer,
+    write_run_manifest,
+)
 from gan_deeplearning4j_tpu_torch.telemetry.ingraph import NanAlarm, NanAlarmError
+from gan_deeplearning4j_tpu_torch.telemetry.resources import ResourceMonitor
 from gan_deeplearning4j_tpu_torch.train import fused_step
 from gan_deeplearning4j_tpu_torch.train.divergence import (
     DivergenceError,
@@ -160,7 +179,12 @@ from gan_deeplearning4j_tpu_torch.utils.async_dump import (
     AsyncArtifactWriter,
     host_copy,
 )
+from gan_deeplearning4j_tpu_torch.utils.live_ui import serve_for_config
 from gan_deeplearning4j_tpu_torch.utils.metrics import MetricsLogger
+from gan_deeplearning4j_tpu_torch.utils.profiling import (
+    maybe_trace,
+    rank_trace_dir,
+)
 
 log_ = logging.getLogger(__name__)
 
@@ -242,6 +266,9 @@ class GANTrainerConfig:
     watchdog_min_deadline_s: float = 5.0
     # res_path/events.jsonl and the flight recorder (False: neither)
     events: bool = True
+    # serve /metrics + /healthz (telemetry/exporter.py) for the duration
+    # of train(); None = off, 0 = an ephemeral port (rank 0 serves)
+    metrics_port: Optional[int] = None
 
 
 class Workload:
@@ -653,6 +680,49 @@ def add_health_args(parser) -> None:
              "from the measured steady-state step time)")
 
 
+def add_observability_args(parser, live_ui: bool = True) -> None:
+    """The JAX mains' ``--profile`` and ``--metrics-port`` and, on the
+    protocol mains, ``--live-ui`` (their defaults and help)."""
+    parser.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="capture a torch.profiler trace of the run into DIR (with "
+             "--n-devices, each rank's into DIR/rank<r>)")
+    if live_ui:
+        parser.add_argument(
+            "--live-ui", type=int, default=0, metavar="PORT",
+            help="serve a live loss dashboard over the metrics JSONL on "
+                 "this port (the Spark-web-UI analog)")
+    parser.add_argument(
+        "--metrics-port", type=int, default=None, metavar="PORT",
+        help="serve /metrics (Prometheus text: step/loss/goodput/NaN "
+             "series) + /healthz on this port for the duration of "
+             "training (0 = ephemeral)")
+
+
+@contextlib.contextmanager
+def live_ui_for(args, config: "GANTrainerConfig", rank0: bool = True):
+    """``--live-ui``: rank 0's process serves the dashboard over the run's
+    metrics JSONL for the block (started before the run, stopped on every
+    way out, before the mains print their JSON line)."""
+    stop = (serve_for_config(config, args.live_ui)
+            if rank0 and getattr(args, "live_ui", 0) else None)
+    try:
+        yield stop
+    finally:
+        if stop is not None:
+            stop()
+
+
+def profiled(args, group: Optional[mesh.DataGroup] = None):
+    """``--profile DIR``: a ``torch.profiler`` capture of the block into
+    this rank's directory (``DIR``, or ``DIR/rank<r>`` under a group),
+    which must hold device activity when the rank runs on the card."""
+    device = (group.device if group is not None
+              else backend.resolve_device(args.device))
+    return maybe_trace(rank_trace_dir(args.profile, group),
+                       require_device=device.type == "cuda")
+
+
 def health_config_kwargs(args) -> Dict:
     """The add_health_args flags as ``GANTrainerConfig`` overrides."""
     return dict(telemetry=args.telemetry, nan_alarm=args.nan_alarm,
@@ -795,6 +865,32 @@ class GANTrainer:
                              "res_path/checkpoints)")
         self._check_health_config(group, rollback_manager)
         self._rollback_mgr = rollback_manager
+        # goodput covers the whole run from here: the data set-up, the
+        # restore and the capture happen in this constructor (a later
+        # train() of the same trainer starts a fresh timer)
+        self.goodput = GoodputTimer()
+        self._goodput_used = False
+        self.run_manifest: Optional[Dict] = None
+        # the scrape registry (telemetry/exporter.py): fed by every flushed
+        # metrics record and, at scrape time, by the goodput ledger, the
+        # data plane and the group's size; served by train() when
+        # metrics_port is set
+        self.registry = MetricsRegistry()
+        self.registry.observe_goodput(lambda: self.goodput.report())
+        self.metrics_port: Optional[int] = None
+        # the set-up's events (the data plane's, the restore's, a
+        # rollback's) go to a ring of their own until train() installs the
+        # run's recorder, which adopts them after ``train.start``
+        self._setup_events = events.EventRecorder()
+        with events.recording(self._setup_events):
+            self._build(cfg, n_train, device, group, workload,
+                        rollback_manager, wants_ckpt)
+
+    def _build(self, cfg, n_train: int, device, group, workload,
+               rollback_manager, wants_ckpt: bool) -> None:
+        """The constructor's set-up: the graphs, the training table, the
+        resume, the step and its capture."""
+        c = self.c
         if group is not None:
             device = group.device
         self.device = dev = backend.resolve_device(device)
@@ -815,9 +911,6 @@ class GANTrainer:
         self._resume_max_step = (rollback_manager.resume_max_step
                                  if rollback_manager is not None else None)
         self._rolled_back = False
-        # events met before train() installs the run's recorder (the
-        # rollback restore runs here), emitted once it is
-        self._deferred_events: List[Tuple[str, Dict]] = []
         self._events: Optional[events.EventRecorder] = None
         self._watchdog: Optional[HeartbeatWatchdog] = None
         self._in_flight = False
@@ -846,6 +939,8 @@ class GANTrainer:
         # the resilient data plane: the CSV decode retries transient I/O
         # errors and, with a budget, skips and charges corrupt records
         self.data_health = DataHealth()
+        self.registry.observe_data(self.data_health.report)
+        self.registry.observe_mesh(lambda: mesh.mesh_report(group))
         self._quarantine = None
         if c.max_quarantine:
             self._quarantine = RecordQuarantine(
@@ -858,21 +953,22 @@ class GANTrainer:
                                     backoff_s=c.data_retry_backoff_s,
                                     health=self.data_health, seed=c.seed)
         iter_kw = dict(reader=reader, quarantine=self._quarantine)
-        if workload is not None:
-            t0 = time.perf_counter()
-            train_csv, test_csv = workload.ensure_data(c.res_path)
-            self.timings["csv_ready_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            train_iter = RecordReaderDataSetIterator(
-                train_csv, B, c.label_index, c.num_classes, **iter_kw)
-            test_iter = RecordReaderDataSetIterator(
-                test_csv, c.batch_size_pred, c.label_index, c.num_classes,
-                **iter_kw)
-            self.timings["decode_s"] = time.perf_counter() - t0
-        else:
-            train_iter = RecordReaderDataSetIterator(
-                datasets.mnist_table(n_train), B, c.label_index,
-                c.num_classes, **iter_kw)
+        with self._phase("data_wait"), events.span("data.prepare"):
+            if workload is not None:
+                t0 = time.perf_counter()
+                train_csv, test_csv = workload.ensure_data(c.res_path)
+                self.timings["csv_ready_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                train_iter = RecordReaderDataSetIterator(
+                    train_csv, B, c.label_index, c.num_classes, **iter_kw)
+                test_iter = RecordReaderDataSetIterator(
+                    test_csv, c.batch_size_pred, c.label_index,
+                    c.num_classes, **iter_kw)
+                self.timings["decode_s"] = time.perf_counter() - t0
+            else:
+                train_iter = RecordReaderDataSetIterator(
+                    datasets.mnist_table(n_train), B, c.label_index,
+                    c.num_classes, **iter_kw)
         if train_iter.num_examples() < B:
             raise ValueError(f"the training table has {train_iter.num_examples()}"
                              f" rows, less than one batch of {B}")
@@ -900,7 +996,8 @@ class GANTrainer:
             if c.async_checkpoint and self.rank0:
                 ck = AsyncCheckpointer(ck)
             self.checkpointer = ck
-        self._maybe_resume()
+        with self._phase("checkpoint"), events.span("train.resume"):
+            self._maybe_resume()
         if rollback_manager is not None:
             # the LR cut (every incarnation) and, after a rollback restore,
             # the latent stream's new lineage: both after the restore (it
@@ -923,25 +1020,26 @@ class GANTrainer:
         self.resident = resident
         self.data_codec = codec
         t0 = time.perf_counter()
-        if resident:
-            feats = train_iter.features
-            if codec:
-                feats = codec_lib.u8x100_encode(feats)
-            self.features = torch.from_numpy(feats).to(dev)
-            self.labels = torch.from_numpy(train_iter.labels).to(dev)
-            self.stream_k = None
-        else:
-            # the static chunk buffers the step reads; each call's chunk is
-            # copied in (``_chunked_stream_loop``)
-            self.stream_k = self._resolve_steps_per_call(
-                byte_cap=c.stream_chunk_bytes, codec=codec)
-            rows = self.stream_k * B
-            self.features = torch.zeros(
-                (rows, c.num_features), device=dev,
-                dtype=torch.uint8 if codec else torch.float32)
-            self.labels = torch.zeros((rows, c.num_classes), device=dev)
-        if dev.type == "cuda":
-            device_lib.stream_fence(torch.cuda.current_stream(dev))
+        with self._phase("data_wait"):
+            if resident:
+                feats = train_iter.features
+                if codec:
+                    feats = codec_lib.u8x100_encode(feats)
+                self.features = torch.from_numpy(feats).to(dev)
+                self.labels = torch.from_numpy(train_iter.labels).to(dev)
+                self.stream_k = None
+            else:
+                # the static chunk buffers the step reads; each call's
+                # chunk is copied in (``_chunked_stream_loop``)
+                self.stream_k = self._resolve_steps_per_call(
+                    byte_cap=c.stream_chunk_bytes, codec=codec)
+                rows = self.stream_k * B
+                self.features = torch.zeros(
+                    (rows, c.num_features), device=dev,
+                    dtype=torch.uint8 if codec else torch.float32)
+                self.labels = torch.zeros((rows, c.num_classes), device=dev)
+            if dev.type == "cuda":
+                device_lib.stream_fence(torch.cuda.current_stream(dev))
         self.timings["upload_s"] = time.perf_counter() - t0
 
         self.z_grid = torch.from_numpy(
@@ -958,12 +1056,16 @@ class GANTrainer:
             # eager by configuration (gloo cannot be captured; capturing
             # NCCL is later work)
             if dev.type == "cuda" and group is None:
-                self.graphed = fused_step.GraphedStep(
-                    self.step_fn(1), self.state, self.features, self.labels,
-                    self.y_real, self.y_fake, self.ones, z_gen=self.z_gen,
-                    ring=c.steps_per_call or fused_step.MAX_STEPS_PER_CALL,
-                    n_losses=3 + (len(fused_step.TELEMETRY_KEYS)
-                                  if c.telemetry else 0))
+                # the warm-up and the capture: the JAX trainer's compile,
+                # which its first dispatch pays
+                with self._phase("dispatch"):
+                    self.graphed = fused_step.GraphedStep(
+                        self.step_fn(1), self.state, self.features,
+                        self.labels, self.y_real, self.y_fake, self.ones,
+                        z_gen=self.z_gen,
+                        ring=c.steps_per_call or fused_step.MAX_STEPS_PER_CALL,
+                        n_losses=3 + (len(fused_step.TELEMETRY_KEYS)
+                                      if c.telemetry else 0))
                 self.state = self.graphed.state
                 self.timings["capture_s"] = (self.graphed.setup["warmup_s"]
                                              + self.graphed.setup["capture_s"])
@@ -1025,11 +1127,13 @@ class GANTrainer:
 
     def _observe_record(self, rec: Dict) -> None:
         """MetricsLogger ``on_record`` hook (rank 0): every flushed record
-        feeds the NaN alarm and the divergence sentinel."""
+        feeds the NaN alarm, the divergence sentinel and the scrape
+        registry."""
         if self._nan_alarm is not None:
             self._nan_alarm.observe(rec)
         if self._divergence is not None:
             self._divergence.observe(rec)
+        self.registry.observe_record(rec)
 
     def _resident_data_ok(self, iter_train, codec=None) -> bool:
         """The device-resident data path: the config's override, else the
@@ -1111,7 +1215,7 @@ class GANTrainer:
         moved past ``steps``."""
         self._in_flight = True
         rows = None
-        with self._wd_region("dispatch"):
+        with self._phase("dispatch"):
             if not self.fused:
                 out = torch.stack(self.unfused_step()).reshape(1, 3)
             elif self.graphed is not None:
@@ -1122,7 +1226,7 @@ class GANTrainer:
                     self.state, self.features, self.labels, self.y_real,
                     self.y_fake, self.ones, z_gen=self.z_gen)
                 out = fused_step.pack_outputs(o).reshape(k, -1)
-        with self._wd_region("readback"):
+        with self._phase("readback"):
             host = torch.from_numpy(device_lib.readback(out))
         if rows is not None:
             host = host[rows]
@@ -1151,24 +1255,32 @@ class GANTrainer:
         ends in one readback of its losses, so a step's time is the call's
         host clock over finished device work, over K.  The loops run behind
         the supervision shell (``train/shell.py``): the preemption guard,
-        the run's event recorder (rank 0 writes ``events.jsonl``) and the
-        watchdog, torn down in reverse on every way out."""
+        the run's event recorder (rank 0 writes ``events.jsonl``), the
+        watchdog and, with ``metrics_port``, rank 0's exporter (and the
+        resource sampler it reports), torn down in reverse on every way
+        out."""
         c = self.c
+        # rank 0 serves the exporter; its resources block samples this
+        # process while the exporter runs
+        port = c.metrics_port if self.rank0 else None
+        monitor = None
+        if port is not None:
+            monitor = ResourceMonitor(interval_s=0.5)
+            self.registry.observe_resources(monitor.report)
         shell = SupervisionShell(
-            res_path=c.res_path if self.rank0 else None,
+            self.registry, c.res_path if self.rank0 else None,
             events_enabled=c.events, events_append=c.resume,
             watchdog=c.watchdog, watchdog_deadline_s=c.watchdog_deadline_s,
             watchdog_warmup_s=c.watchdog_warmup_s,
             watchdog_scale=c.watchdog_scale,
             watchdog_min_deadline_s=c.watchdog_min_deadline_s,
             watchdog_on_timeout=self._watchdog_emergency,
-            preempt_signal_nums=self._preempt_signal_nums)
+            metrics_port=port,
+            preempt_signal_nums=self._preempt_signal_nums, log=log)
 
         def payload() -> Dict:
             self._watchdog, self._preempt_guard = shell.watchdog, shell.guard
-            for name, attrs in self._deferred_events:
-                events.instant(name, **attrs)
-            self._deferred_events = []
+            self.metrics_port = shell.metrics_port
             return self._train_impl(iterations, log)
 
         def expose_recorder(recorder) -> None:
@@ -1177,9 +1289,14 @@ class GANTrainer:
             self._events = recorder
 
         try:
+            if monitor is not None:
+                monitor.start()
             return shell.run(payload, on_recorder=expose_recorder)
         finally:
+            if monitor is not None:
+                monitor.stop()
             self._watchdog = self._preempt_guard = None
+            self.metrics_port = None
 
     def _train_impl(self, iterations: Optional[int],
                     log: Optional[Callable[[str], None]]) -> Dict:
@@ -1197,9 +1314,26 @@ class GANTrainer:
         self._last = (float("nan"),) * 3
         self._steady = None
         self._dumper = AsyncArtifactWriter(synchronous=not c.async_dumps)
-        events.instant("train.start", step=self.steps,
-                       workload=self.workload.name if self.workload
-                       else "mnist")
+        if self._goodput_used:  # a second train(): a fresh ledger
+            self.goodput = GoodputTimer()
+        self._goodput_used = True
+        workload = self.workload.name if self.workload else "mnist"
+        if c.res_path and self.rank0:
+            # the run's id, config, versions and topology, which the
+            # metrics records and the events carry
+            self.run_manifest = write_run_manifest(
+                c.res_path, config=c, group=self.group, device=self.device,
+                mesh={"data": self.group.world} if self.group else None,
+                extra={"workload": workload})
+        run_id = (self.run_manifest or {}).get("run_id")
+        if self._events is not None:
+            self._events.run_id = run_id
+        self.registry.run_id = run_id
+        events.instant("train.start", step=self.steps, workload=workload)
+        # what the constructor met before this run's recorder existed (the
+        # JAX trainer meets its data set-up and restore in train())
+        events.current().adopt(self._setup_events)
+        self._setup_events = events.EventRecorder()
         try:
             with self._dumper:
                 if self.resident:
@@ -1220,7 +1354,7 @@ class GANTrainer:
             # run reports success
             ck_wait = getattr(self.checkpointer, "wait", None)
             if ck_wait is not None:
-                with self._wd_region("checkpoint"):
+                with self._phase("checkpoint"):
                     ck_wait()
         except BaseException:
             self.metrics.close()  # what the run logged stays on disk
@@ -1229,10 +1363,17 @@ class GANTrainer:
         self._sync_graphs()
         if c.res_path and self.rank0:
             t0 = time.perf_counter()
-            with self._wd_region("checkpoint"):
+            with self._phase("checkpoint"):
                 self.save_models()
             self.timings["save_s"] = time.perf_counter() - t0
-        self.metrics.close()
+        with self._phase("readback"):
+            self.metrics.close()
+        # the ranks' mean breakdown (rank 0 records it), then the
+        # run-level record, materialized at once by the closed logger
+        goodput = mesh.aggregate_goodput(self.goodput.report(), self.group)
+        if self.rank0:
+            self.metrics.log_record({"goodput": goodput, "run_id": run_id})
+            self.metrics.flush()
         # trips that only the final flush showed still get their action,
         # a rollback of the run's last window included
         self._health_polls()
@@ -1259,7 +1400,8 @@ class GANTrainer:
                 "device": str(self.device),
                 "precision": dataclasses.asdict(backend.config()),
                 "world": self.group.world if self.group else 1,
-                "backend": self.group.backend if self.group else None}
+                "backend": self.group.backend if self.group else None,
+                "run_id": run_id, "goodput": goodput}
 
     def _next_chunk(self) -> int:
         """Steps until the next artifact boundary or the end of the run,
@@ -1299,7 +1441,7 @@ class GANTrainer:
         stream) and one call of K steps; chunk k+1 is staged meanwhile."""
         while self.steps < self.c.num_iterations:
             run = self._next_chunk()
-            with self._wd_region("data_wait"):
+            with self._phase("data_wait"):
                 chunks.next_into(self.features, self.labels)
             rows = self._timed_call(run)
             # the position after the chunk just trained, aligned with the
@@ -1347,7 +1489,7 @@ class GANTrainer:
         grid = bool(c.print_every) and self.steps % c.print_every == 0
         preds = bool(c.save_every) and self.steps % c.save_every == 0
         if self.rank0 and (grid or preds):
-            with self._wd_region("eval"):
+            with self._phase("eval"):
                 self._sync_graphs()
                 if grid:
                     with events.span("eval.grid", step=self.steps):
@@ -1355,13 +1497,25 @@ class GANTrainer:
                 if preds:
                     with events.span("eval.predictions", step=self.steps):
                         self._dump_predictions()
-        with self._wd_region("checkpoint"):
+        with self._phase("checkpoint"):
             self._maybe_checkpoint()
         self._maybe_preempt()
 
+    def _phase(self, name: str):
+        """The goodput phase ``name`` (JAX ``_phase``), which is also the
+        watchdog's region of that name when the watchdog is armed: the
+        phases are exactly the trainer's blocking regions (data wait,
+        dispatch, readback, checkpoint, eval)."""
+        if self._watchdog is None:
+            return self.goodput.phase(name)
+        stack = contextlib.ExitStack()
+        stack.enter_context(self._watchdog.region(name))
+        stack.enter_context(self.goodput.phase(name))
+        return stack
+
     def _wd_region(self, name: str):
-        """The watchdog's region around a blocking wait (a no-op without
-        the watchdog)."""
+        """The watchdog's region around a blocking wait that is no goodput
+        phase (the ranks' collectives); a no-op without the watchdog."""
         if self._watchdog is not None:
             return self._watchdog.region(name)
         return contextlib.nullcontext()
@@ -1457,7 +1611,8 @@ class GANTrainer:
             # queued dumps first: a resume continues past this step and
             # would never write them again
             self._dumper.flush()
-            self._save()
+            with events.span("checkpoint.save", step=self.steps):
+                self._save()
         if self.group is not None:
             mesh.barrier(self.group)
 
@@ -1505,8 +1660,9 @@ class GANTrainer:
         if guard is None:
             return
         if self.group is not None:
-            any_trig, agreed = mesh.agree_preemption(guard.triggered,
-                                                     self.steps, self.group)
+            with self._wd_region("collective.agree_preemption"):
+                any_trig, agreed = mesh.agree_preemption(
+                    guard.triggered, self.steps, self.group)
         else:
             any_trig, agreed = guard.triggered, self.steps
         if not any_trig:
@@ -1515,7 +1671,7 @@ class GANTrainer:
             log_.warning("preemption: agreed step %d != local step %d",
                          agreed, self.steps)
         self.metrics.flush()
-        with self._wd_region("checkpoint"):
+        with self._phase("checkpoint"):
             path = self._emergency_checkpoint()
         if self.rank0:
             preempt_exit(self.c.res_path, guard, local_step=self.steps,
@@ -1595,15 +1751,15 @@ class GANTrainer:
     def _consume_rollback_restore(self, restored_step: int,
                                   max_step: int) -> None:
         """One rollback restore happened: the ``rollback.restore`` marker
-        (emitted once ``train()`` installs the run's recorder), the mark
+        (in the set-up's events, which the run's timeline adopts), the mark
         that has the constructor reseed the latent stream once the restore
         has set it, and the bound cleared — it applied to THIS restore
         only."""
         mgr = self._rollback_mgr
-        self._deferred_events.append(("rollback.restore", dict(
-            step=restored_step, bad_step=max_step + 1,
-            rollbacks=getattr(mgr, "total", None),
-            lr_scale=getattr(mgr, "lr_scale", None))))
+        events.instant("rollback.restore", step=restored_step,
+                       bad_step=max_step + 1,
+                       rollbacks=getattr(mgr, "total", None),
+                       lr_scale=getattr(mgr, "lr_scale", None))
         self._rolled_back = True
         self._resume_max_step = None
         if mgr is not None:
@@ -1652,7 +1808,9 @@ class GANTrainer:
             return
         self._nan_handled = True
         c = self.c
-        msg = f"NaN alarm: first non-finite telemetry at step {alarm.step}"
+        run_id = (self.run_manifest or {}).get("run_id", "?")
+        msg = (f"NaN alarm: first non-finite telemetry at step "
+               f"{alarm.step} (run {run_id})")
         events.instant("alarm.nan", step=alarm.step, action=c.nan_alarm)
         if c.nan_alarm == "abort":
             # fatal in the recovery wrapper: this dump is the timeline the
@@ -1664,7 +1822,7 @@ class GANTrainer:
             # a forensic checkpoint of the state as of the last call,
             # through the one emergency path, in a directory of its own
             snap = os.path.join(c.res_path, "nan_snapshot")
-            with self._wd_region("checkpoint"):
+            with self._phase("checkpoint"):
                 self._emergency_checkpoint(directory=snap, keep=1)
             self._flight_record(snap, "nan_alarm", {"step": alarm.step})
         elif c.nan_alarm == "rollback":
@@ -1694,9 +1852,10 @@ class GANTrainer:
         self._div_handled = True
         c = self.c
         action = c.nan_alarm or "warn"
+        run_id = (self.run_manifest or {}).get("run_id", "?")
         msg = (sentinel.describe() if sentinel.key is not None
                else f"divergence: rank 0's sentinel tripped at step "
-                    f"{sentinel.step}")
+                    f"{sentinel.step}") + f" (run {run_id})"
         events.instant("alarm.divergence", step=sentinel.step,
                        key=sentinel.key, value=sentinel.value,
                        baseline=sentinel.baseline, action=action)
@@ -1707,7 +1866,7 @@ class GANTrainer:
         log_.warning("%s", msg)
         if action == "snapshot":
             snap = os.path.join(c.res_path, "divergence_snapshot")
-            with self._wd_region("checkpoint"):
+            with self._phase("checkpoint"):
                 self._emergency_checkpoint(directory=snap, keep=1)
             self._flight_record(snap, "divergence",
                                 {"step": sentinel.step, "key": sentinel.key})

@@ -12,8 +12,9 @@ the flag.  Data-parallel ranks agree at every boundary while the guard is
 armed (``parallel/mesh.agree_preemption``), so a signal that reaches one
 rank stops them all at the same step.
 
-The JAX module's ``preempt.signal`` / ``preempt.exit`` events and its
-flight record are not wired yet (the rest of ROADMAP Queue 1 item 6.5).
+``preempt_exit`` also records ``preempt.signal`` and ``preempt.exit`` in
+the run's timeline and dumps ``flight_record_preemption.json`` beside the
+marker, as the JAX module does.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import signal
 import threading
 import time
 from typing import Dict, Iterable, Optional, Union
+
+from gan_deeplearning4j_tpu_torch.telemetry import events
 
 # the conventional "temporary failure, requeue me" exit status
 EXIT_PREEMPTED = 75
@@ -77,8 +80,9 @@ def parse_signals(spec: Union[str, Iterable[Union[int, str]]]) -> tuple:
 def preempt_exit(res_path: str, guard: "PreemptionGuard", *,
                  local_step: int, fleet_min_step: int,
                  checkpoint: Optional[str], run_id: Optional[str] = None):
-    """Write the resumable ``PREEMPTED.json`` marker (fsynced) and raise
-    ``PreemptionError``.  ``step`` is the step this process's emergency
+    """Write the resumable ``PREEMPTED.json`` marker (fsynced), record the
+    ``preempt.signal`` / ``preempt.exit`` events and the flight record, and
+    raise ``PreemptionError``.  ``step`` is the step this process's emergency
     checkpoint holds; ``fleet_min_step`` the ranks' agreed step."""
     marker = {
         "step": local_step,
@@ -93,6 +97,16 @@ def preempt_exit(res_path: str, guard: "PreemptionGuard", *,
         json.dump(marker, f, indent=1)
         f.flush()
         os.fsync(f.fileno())
+    # the timeline: the signal's arrival (the handler only latched a flag;
+    # recording here keeps it async-signal-safe), the exit itself, then the
+    # flight record beside PREEMPTED.json
+    events.instant("preempt.signal", signal=guard.signal_name(),
+                   received_at=guard.received_at)
+    events.instant("preempt.exit", step=local_step,
+                   fleet_min_step=fleet_min_step, checkpoint=checkpoint)
+    events.dump_flight_record(res_path, "preemption",
+                              extra={"step": local_step,
+                                     "signal": guard.signal_name()})
     raise PreemptionError(
         f"preempted by {guard.signal_name()} at step {local_step}; "
         f"emergency checkpoint at {checkpoint} (resume with --resume)",

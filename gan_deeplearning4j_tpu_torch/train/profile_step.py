@@ -26,6 +26,16 @@ time, each port kernel's own device time per step, and ``split``: the
 device time per step by kind of work (``KINDS``: cuDNN's convolutions by
 dgrad / wgrad / fprop, layout transposes, GEMMs, the port's kernels, the
 rest) with the convolutions' share of it.  Needs a CUDA device.
+
+``--telemetry`` (``cv`` / ``insurance``, graphed or eager) profiles the
+step with the in-graph telemetry block on and the same step without it,
+each from its own trainer, and adds ``telemetry_split``: the step ms of
+each (untraced medians, in turns), the block's cost, and the device work
+the block adds per step, split by kind (``TELEMETRY_KINDS``: the
+flattening copies, the reductions, the elementwise rest) with its extra
+kernel launches; the part of the cost that no added kernel's time
+explains is ``unattributed_ms`` (the graph's launch gaps, or the host's
+launches when eager).  The block itself is not changed.
 """
 
 from __future__ import annotations
@@ -52,13 +62,12 @@ from gan_deeplearning4j_tpu_torch.train import (
     insurance_main,
     roadmap_main,
 )
-from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
+from gan_deeplearning4j_tpu_torch.train.gan_trainer import (
+    GANTrainer,
+    GANTrainerConfig,
+)
+from gan_deeplearning4j_tpu_torch.utils.profiling import PORT_KERNELS
 
-# each port kernel's device function (csrc/*.cu), as the trace names it
-PORT_KERNELS = {"fused_update": "rmsprop_multi_kernel",
-                "bn_act": "bn_act_kernel", "upsample_bwd": "upsample_bwd_kernel",
-                "bn_moments": "bn_moments_kernel",
-                "bn_apply": "bn_apply_kernel", "bn_act_4d": "bn_act_4d_kernel"}
 REPEATS = 5
 # kinds of device work by kernel name, first match wins; "other" is the
 # rest (torch's elementwise ops and reductions, copies)
@@ -69,12 +78,19 @@ KINDS = (("conv_dgrad", ("dgrad",)), ("conv_wgrad", ("wgrad",)),
          ("port", tuple(PORT_KERNELS.values())), ("gemm", ("gemm",)))
 
 
-def kind_of(name: str) -> str:
+# the telemetry block's device work by kernel name, first match wins:
+# torch.cat's batched copies flatten the trees, cuBLAS's dot and torch's
+# reductions reduce them, the rest is elementwise (sub, sqrt, isfinite...)
+TELEMETRY_KINDS = (("copy", ("cat", "copy")),
+                   ("reduction", ("reduce", "dot", "gemv")))
+
+
+def kind_of(name: str, kinds=KINDS) -> str:
     low = name.lower()
-    for kind, keys in KINDS:
+    for kind, keys in kinds:
         if any(k.lower() in low for k in keys):
             return kind
-    return "other"
+    return "other" if kinds is KINDS else "elementwise"
 
 
 def main(argv=None) -> Dict:
@@ -90,36 +106,64 @@ def main(argv=None) -> Dict:
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--eager", action="store_true",
                    help="profile the eager step instead of the graphed one")
+    p.add_argument("--telemetry", action="store_true",
+                   help="profile the step with the in-graph telemetry "
+                        "block and without it, and split the block's "
+                        "cost (cv, insurance)")
     backend.add_bf16_flag(p)
     backend.add_mp_flag(p)
     args = p.parse_args(argv)
+    if args.telemetry and args.workload not in ("cv", "insurance"):
+        p.error("--telemetry profiles the protocol step (cv, insurance)")
     with backend.configured(**backend.flag_policy(args)):
         return _main(args)
 
 
 def _main(args) -> Dict:
-    n = args.steps
     if args.batch_size is None:
         args.batch_size = {"cv": 200, "insurance": 50}.get(
             args.workload, roadmap_main.DEFAULT_BATCH_SIZE)
     if args.workload in roadmap_main.FAMILIES:
         return _profile(args, *_pair_calls(args))
+    if args.telemetry:
+        return _telemetry_split(args)
+    return _profile(args, *_protocol_call(args, _trainer(args)))
+
+
+def _trainer(args, telemetry: bool = False) -> GANTrainer:
+    """The protocol trainer of ``--workload`` on the card (``telemetry``:
+    with the in-graph block), K = ``--steps`` steps a call."""
+    n = args.steps
     if args.workload == "cv":
-        trainer = GANTrainer(M.CVConfig(), batch_size=args.batch_size,
-                             n_train=args.n_train, device="cuda",
-                             steps_per_call=n)
-    else:
-        # the program's trainer; its CSV pair is decoded at construction
-        res = tempfile.mkdtemp(prefix="gan4j_profile_")
-        try:
-            trainer = GANTrainer(
-                device="cuda", workload=insurance_main.InsuranceWorkload(),
-                config=insurance_main.default_config(
-                    res_path=res, batch_size=args.batch_size,
-                    num_iterations=0, print_every=0, save_every=0,
-                    metrics=False, steps_per_call=n))
-        finally:
-            shutil.rmtree(res, ignore_errors=True)
+        if not telemetry:
+            return GANTrainer(M.CVConfig(), batch_size=args.batch_size,
+                              n_train=args.n_train, device="cuda",
+                              steps_per_call=n)
+        # the bare loop's configuration, with the block
+        config = GANTrainerConfig(
+            dataset_name="mnist", num_features=784, label_index=784,
+            num_classes=10, batch_size=args.batch_size, batch_size_pred=500,
+            num_iterations=0, num_gen_samples=10, print_every=0,
+            save_every=0, res_path=None, steps_per_call=n, metrics=False,
+            telemetry=True)
+        return GANTrainer(n_train=args.n_train, device="cuda", config=config)
+    # the program's trainer; its CSV pair is decoded at construction
+    res = tempfile.mkdtemp(prefix="gan4j_profile_")
+    try:
+        return GANTrainer(
+            device="cuda", workload=insurance_main.InsuranceWorkload(),
+            config=insurance_main.default_config(
+                res_path=res, batch_size=args.batch_size,
+                num_iterations=0, print_every=0, save_every=0,
+                metrics=False, steps_per_call=n, telemetry=telemetry))
+    finally:
+        shutil.rmtree(res, ignore_errors=True)
+
+
+def _protocol_call(args, trainer: GANTrainer):
+    """(call, capture set-up or None): K steps of ``trainer``, graphed or
+    (``--eager``) eager on a copy of its state."""
+    n = args.steps
     if args.eager:
         box = {"state": fused_step.clone_state(trainer.state)}
         step = trainer.step_fn(n)
@@ -134,7 +178,57 @@ def _main(args) -> Dict:
         def call():
             return trainer.graphed(n)
 
-    return _profile(args, call, None if args.eager else trainer.graphed.setup)
+    return call, None if args.eager else trainer.graphed.setup
+
+
+def _telemetry_split(args) -> Dict:
+    """``--telemetry``: the step with the block and without it (module
+    docstring) -> the block-on profile, with ``telemetry_split``."""
+    n = args.steps
+    calls = {on: _protocol_call(args, _trainer(args, telemetry=on))
+             for on in (True, False)}
+    for on in (True, False):
+        for _ in range(args.warmup):
+            calls[on][0]()
+    # the untraced step in turns (on, off, off, on, ...), medians
+    times: Dict[bool, list] = {True: [], False: []}
+    for r in range(REPEATS):
+        for on in ((True, False) if r % 2 == 0 else (False, True)):
+            t0 = time.perf_counter()
+            calls[on][0]()
+            times[on].append(time.perf_counter() - t0)
+    step = {on: statistics.median(t) / n * 1e3 for on, t in times.items()}
+    off = _profile(args, *calls[False], emit=False)
+    out = _profile(args, *calls[True], emit=False)
+    extra: Dict[str, list] = {}
+    for name, (ms, c) in out["_by_name"].items():
+        ms0, c0 = off["_by_name"].get(name, (0.0, 0))
+        if c > c0:  # a kernel the block adds (or launches more often)
+            extra[name] = [(ms - ms0) / n, (c - c0) / n]
+    by_kind: Dict[str, float] = {kind: 0.0 for kind, _ in TELEMETRY_KINDS}
+    by_kind["elementwise"] = 0.0
+    for name, (ms, _) in extra.items():
+        by_kind[kind_of(name, TELEMETRY_KINDS)] += ms
+    cost = step[True] - step[False]
+    added = sum(by_kind.values())
+    out["telemetry_split"] = {
+        "step_ms_on": step[True], "step_ms_off": step[False],
+        "cost_ms": cost,
+        "device_busy_ms_on": out["device_busy_ms_per_step"],
+        "device_busy_ms_off": off["device_busy_ms_per_step"],
+        "added_kernels_per_step": sum(c for _, c in extra.values()),
+        "added_device_ms_by_kind": by_kind,
+        "added_device_ms": added,
+        "unattributed_ms": cost - added,
+        "added_top": [{"name": k[:120], "ms_per_step": v[0],
+                       "calls_per_step": v[1]}
+                      for k, v in sorted(extra.items(),
+                                         key=lambda kv: -kv[1][0])[:args.top]],
+    }
+    for d in (out, off):
+        d.pop("_by_name")
+    print(json.dumps(out))
+    return out
 
 
 def _pair_calls(args):
@@ -159,7 +253,10 @@ def _pair_calls(args):
     return call, None if args.eager else step.graphed.setup
 
 
-def _profile(args, call, setup) -> Dict:
+def _profile(args, call, setup, emit: bool = True) -> Dict:
+    """Warm-up, REPEATS untraced calls, then one traced call -> the report
+    (printed as one JSON line when ``emit``; otherwise it keeps the device
+    work by name under ``_by_name``)."""
     n = args.steps
     for _ in range(args.warmup):
         call()
@@ -239,7 +336,10 @@ def _profile(args, call, setup) -> Dict:
         if total else None}
     if setup is not None:
         out["capture"] = setup
-    print(json.dumps(out))
+    if emit:
+        print(json.dumps(out))
+    else:
+        out["_by_name"] = by_name
     return out
 
 

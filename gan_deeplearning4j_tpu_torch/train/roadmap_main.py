@@ -62,10 +62,18 @@ agreed across the ranks at each call boundary, this process forwards
 world (``RankFailedError``).  The result line is rank 0's, with ``world``.
 
 ``--bf16`` and ``--mp`` set the precision policy (``runtime/backend.py``)
-for the whole run, the evaluation included.  Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP item): ``--profile`` and
-``--metrics-port``; the JAX run's ``events.jsonl``, ``run_manifest.json``
-and goodput record are left out.
+for the whole run, the evaluation included.
+
+Observability, as in the JAX main: the run writes ``events.jsonl`` (rank
+0; every call a ``train.chunk`` span, the dumps ``eval.samples``, the
+saves ``checkpoint.save`` with the checkpointer's stages inside) and
+``run_manifest.json``, and attributes its wall time to the goodput phases
+(``telemetry/goodput.py``): the last metrics record and the result line
+carry ``run_id`` and ``goodput`` (under ``--n-devices`` the mean over the
+ranks).  ``--profile DIR`` captures the run with ``torch.profiler`` (each
+rank's under ``DIR/rank<r>``) and prints its top time sinks;
+``--metrics-port PORT`` serves ``/metrics`` + ``/healthz`` from rank 0
+while it trains (0 = ephemeral).
 """
 
 from __future__ import annotations
@@ -93,6 +101,12 @@ from gan_deeplearning4j_tpu_torch.graph import serialization
 from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
 from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
+from gan_deeplearning4j_tpu_torch.telemetry import events
+from gan_deeplearning4j_tpu_torch.telemetry.exporter import MetricsRegistry
+from gan_deeplearning4j_tpu_torch.telemetry.goodput import (
+    GoodputTimer,
+    write_run_manifest,
+)
 from gan_deeplearning4j_tpu_torch.train import fused_step
 from gan_deeplearning4j_tpu_torch.train.gan_pair import GANPair, split_batch
 from gan_deeplearning4j_tpu_torch.train.preemption import (
@@ -103,11 +117,17 @@ from gan_deeplearning4j_tpu_torch.train.preemption import (
     parse_signals,
     preempt_exit,
 )
+from gan_deeplearning4j_tpu_torch.train.shell import SupervisionShell
 from gan_deeplearning4j_tpu_torch.utils.async_dump import (
     AsyncArtifactWriter,
     host_copy,
 )
 from gan_deeplearning4j_tpu_torch.utils.metrics import MetricsLogger
+from gan_deeplearning4j_tpu_torch.utils.profiling import (
+    maybe_trace,
+    print_trace_summary,
+    rank_trace_dir,
+)
 
 FAMILIES = ("cgan-cifar10", "wgan-gp", "celeba")
 DEFAULT_BATCH_SIZE = 128
@@ -120,11 +140,6 @@ SAMPLE_SHAPES = {
     "wgan-gp": (1, 28, 28),
     "celeba": (3, 64, 64),
 }
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item {item})")
 
 
 def _check_family(family: str) -> None:
@@ -242,11 +257,16 @@ def train(family: str, iterations: int, batch_size: int, res_path: str,
           preempt_signals: Optional[str] = None,
           log: Optional[Callable[[str], None]] = print,
           data_dir: Optional[str] = None,
-          group: Optional[mesh.DataGroup] = None) -> Dict:
+          group: Optional[mesh.DataGroup] = None,
+          metrics_port: Optional[int] = None) -> Dict:
     """Train one roadmap family end to end -> the result dict (the JSON
     line).  Raises ``PreemptionError`` after an emergency checkpoint.
     ``group``: this process is one rank of a data-parallel run (module
-    docstring), on the group's device; only rank 0 logs."""
+    docstring), on the group's device; only rank 0 logs.  The run records
+    its timeline to ``res_path/events.jsonl`` (rank 0) and, with
+    ``metrics_port`` (0 = ephemeral), rank 0 serves ``/metrics`` +
+    ``/healthz`` for its duration: the protocol trainer's contract, behind
+    the same shell (``train/shell.py``)."""
     _check_family(family)
     if not 0.0 <= ema_decay < 1.0:
         raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay}")
@@ -254,14 +274,21 @@ def train(family: str, iterations: int, batch_size: int, res_path: str,
         log = lambda s: None  # noqa: E731
     guard = PreemptionGuard(preempt_signals) if preempt_signals else None
     os.makedirs(res_path, exist_ok=True)
+    rank0 = group is None or group.rank == 0
+    registry = MetricsRegistry()
+    # the recorder and the exporter (the guard stays this function's: it
+    # must install on the main thread or raise)
+    shell = SupervisionShell(
+        registry, res_path if rank0 else None, events_append=resume,
+        metrics_port=metrics_port if rank0 else None, log=log)
     if guard is not None:
         guard.install()
     try:
-        return _train_impl(family, iterations, batch_size, res_path, n_train,
-                           print_every, device, ema_decay, checkpoint_every,
-                           checkpoint_keep, resume, steps_per_call_cap,
-                           lr_decay_steps, ms_weight, fidelity_steps,
-                           async_checkpoint, guard, log, data_dir, group)
+        return shell.run(lambda: _train_impl(
+            family, iterations, batch_size, res_path, n_train, print_every,
+            device, ema_decay, checkpoint_every, checkpoint_keep, resume,
+            steps_per_call_cap, lr_decay_steps, ms_weight, fidelity_steps,
+            async_checkpoint, guard, log, data_dir, group, registry))
     finally:
         if guard is not None:
             guard.uninstall()
@@ -271,7 +298,7 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
                 print_every, device, ema_decay, checkpoint_every,
                 checkpoint_keep, resume, cap, lr_decay_steps, ms_weight,
                 fidelity_steps, async_checkpoint, guard, log, data_dir,
-                group) -> Dict:
+                group, registry) -> Dict:
     dev = (group.device if group is not None
            else backend.resolve_device(device))
     world = group.world if group is not None else 1
@@ -281,9 +308,26 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
         if group is not None:
             mesh.barrier(group)
 
+    # goodput and the manifest: the protocol trainer's run attribution;
+    # the pair loop's wall seconds land in the same phases
+    goodput = GoodputTimer()
+    manifest = (write_run_manifest(
+        res_path, config={"family": family, "iterations": iterations,
+                          "batch_size": batch_size, "n_train": n_train,
+                          "ema_decay": ema_decay,
+                          "steps_per_call": cap},
+        mesh={"data": world} if group is not None else None, group=group,
+        device=dev, extra={"workload": family}) if rank0 else {})
+    run_id = manifest.get("run_id")
+    events.current().run_id = run_id
+    registry.run_id = run_id
+    registry.observe_goodput(goodput.report)
+    registry.observe_mesh(lambda: mesh.mesh_report(group))
+    events.instant("train.start", workload=family)
     host: Dict = {}
     t0 = time.perf_counter()
-    x, y = _data(family, n_train, prng.NUMBER_OF_THE_BEAST, data_dir)
+    with goodput.phase("data_wait"):
+        x, y = _data(family, n_train, prng.NUMBER_OF_THE_BEAST, data_dir)
     host["data_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     pair, cfg, sample_shape = _build(
@@ -313,60 +357,70 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
                                  keep=checkpoint_keep, sweep_debris=rank0)
         if async_checkpoint and rank0:
             ckpt = AsyncCheckpointer(ckpt)
-    if resume and ckpt is not None:
-        marker = os.path.join(res_path, MARKER_NAME)
-        if rank0 and os.path.exists(marker):
-            log(f"[{family}] resuming a preempted run (consuming {marker})")
-            os.remove(marker)
-        barrier()  # rank 0 has swept the directory
-        t0 = time.perf_counter()
-        try:
-            start_it, extra = ckpt.restore({"gen": pair.gen, "dis": pair.dis},
-                                           mesh_spec=spec)
-        except NoVerifiedCheckpointError:
-            start_it, extra = 0, {}
-            log(f"[{family}] resume requested but no verified checkpoint; "
-                "starting from iteration 0")
-        if "ema" in extra:
-            if not ema_decay:
-                raise ValueError(
-                    "checkpoint carries a generator EMA but --ema-decay is "
-                    "0: pass the original decay")
-            pair.gen.ema_params = {
-                layer: {n: torch.from_numpy(np.asarray(v)).to(dev)
-                        for n, v in extra["ema"].get(layer, {}).items()}
-                for layer in pair.gen.params}
-        if "z_gen_state" in extra:
-            z_gen.set_state(torch.from_numpy(
-                np.asarray(extra["z_gen_state"], np.uint8)))
-        elif start_it:
-            advance_draws(pair, z_gen, start_it, x.shape[0], batch_size,
-                          n_critic, cfg.z_size)
-        host["restore_s"] = time.perf_counter() - t0
-        if start_it:
-            log(f"[{family}] resumed from checkpoint at iteration {start_it}")
+    with goodput.phase("checkpoint"):
+        if resume and ckpt is not None:
+            marker = os.path.join(res_path, MARKER_NAME)
+            if rank0 and os.path.exists(marker):
+                log(f"[{family}] resuming a preempted run (consuming "
+                    f"{marker})")
+                os.remove(marker)
+            barrier()  # rank 0 has swept the directory
+            t0 = time.perf_counter()
+            try:
+                start_it, extra = ckpt.restore(
+                    {"gen": pair.gen, "dis": pair.dis}, mesh_spec=spec)
+            except NoVerifiedCheckpointError:
+                start_it, extra = 0, {}
+                log(f"[{family}] resume requested but no verified checkpoint; "
+                    "starting from iteration 0")
+            if "ema" in extra:
+                if not ema_decay:
+                    raise ValueError(
+                        "checkpoint carries a generator EMA but --ema-decay "
+                        "is 0: pass the original decay")
+                pair.gen.ema_params = {
+                    layer: {n: torch.from_numpy(np.asarray(v)).to(dev)
+                            for n, v in extra["ema"].get(layer, {}).items()}
+                    for layer in pair.gen.params}
+            if "z_gen_state" in extra:
+                z_gen.set_state(torch.from_numpy(
+                    np.asarray(extra["z_gen_state"], np.uint8)))
+            elif start_it:
+                advance_draws(pair, z_gen, start_it, x.shape[0], batch_size,
+                              n_critic, cfg.z_size)
+            host["restore_s"] = time.perf_counter() - t0
+            if start_it:
+                log(f"[{family}] resumed from checkpoint at iteration "
+                    f"{start_it}")
 
     K = steps_per_call(iterations, print_every, checkpoint_every, start_it,
                        cap)
     t0 = time.perf_counter()
-    table = torch.from_numpy(x).to(dev)
-    table_cond = None if y is None else torch.from_numpy(y).to(dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    with goodput.phase("data_wait"):
+        table = torch.from_numpy(x).to(dev)
+        table_cond = None if y is None else torch.from_numpy(y).to(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     host["upload_s"] = time.perf_counter() - t0
     graphed = dev.type == "cuda" and pair.sync is None
     # the port kernels' launches on this run's path: the capture's warm-up
     # iteration and every iteration after it
     launches0 = kernels.launch_counts()
     t0 = time.perf_counter()
-    step_fn, state = pair.make_multistep(
-        table, table_cond, batch_size=batch_size, steps_per_call=K,
-        n_critic=n_critic, real_label=real_label, z_size=cfg.z_size, z_gen=z_gen,
-        ema_decay=ema_decay, start_step=start_it, graphed=graphed)
+    # the warm-up and the capture: the JAX program's compile, which its
+    # first dispatch pays
+    with goodput.phase("dispatch"):
+        step_fn, state = pair.make_multistep(
+            table, table_cond, batch_size=batch_size, steps_per_call=K,
+            n_critic=n_critic, real_label=real_label, z_size=cfg.z_size,
+            z_gen=z_gen, ema_decay=ema_decay, start_step=start_it,
+            graphed=graphed)
     host["capture_s"] = time.perf_counter() - t0
+    # a resumed run appends; every flushed record feeds the registry
     metrics = MetricsLogger(
         os.path.join(res_path, f"{family}_metrics.jsonl") if rank0 else None,
-        append=start_it > 0)
+        append=start_it > 0,
+        on_record=registry.observe_record if rank0 else None)
 
     def snapshot() -> None:
         """Point the graphs at the current state: clones of a graph's
@@ -380,8 +434,9 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
         ema = getattr(pair.gen, "ema_params", None)
         if ema is not None:
             extra["ema"] = ema
-        saved["path"] = ckpt.save(it, {"gen": pair.gen, "dis": pair.dis},
-                                  extra=extra, mesh_spec=spec)
+        with events.span("checkpoint.save", step=it):
+            saved["path"] = ckpt.save(it, {"gen": pair.gen, "dis": pair.dis},
+                                      extra=extra, mesh_spec=spec)
         saved["step"] = it
         return saved["path"]
 
@@ -404,8 +459,11 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
         d_loss = g_loss = float("nan")
         it = start_it
         while it < iterations:
-            state, (dl, gl) = step_fn(state)
-            dl, gl = dl.tolist(), gl.tolist()  # the call's one readback
+            with goodput.phase("dispatch"), \
+                    events.span("train.chunk", step=it, n=K):
+                state, (dl, gl) = step_fn(state)
+            with goodput.phase("readback"):
+                dl, gl = dl.tolist(), gl.tolist()  # the call's one readback
             if steady_t0 is None:
                 steady_t0, steady_start = time.perf_counter(), it + K
             metrics.log_chunk(it + 1, K, 0, {"d_loss": dl, "g_loss": gl})
@@ -415,15 +473,18 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
                 log(f"[{family}] iteration {it}: d={d_loss:.4f} "
                     f"g={g_loss:.4f}")
             if rank0 and (it % print_every == 0 or it >= iterations):
-                snapshot()
-                dump_samples(it)
+                with goodput.phase("eval"), \
+                        events.span("eval.samples", step=it):
+                    snapshot()
+                    dump_samples(it)
             if ckpt is not None and checkpoint_every \
                     and it % checkpoint_every == 0:
-                if rank0:
-                    snapshot()
-                    dumper.flush()  # pending artifacts land first
-                    save_ckpt(it)
-                barrier()
+                with goodput.phase("checkpoint"):
+                    if rank0:
+                        snapshot()
+                        dumper.flush()  # pending artifacts land first
+                        save_ckpt(it)
+                    barrier()
             if guard is not None:
                 # every rank enters the consensus at every boundary, so a
                 # signal that reaches one rank stops all at this step
@@ -431,20 +492,22 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
                     mesh.agree_preemption(guard.triggered, it, group)
                     if group is not None else (guard.triggered, it))
                 if triggered:
-                    if rank0:
-                        if saved["step"] != it:
-                            snapshot()
-                            dumper.flush()
-                            save_ckpt(it)
-                        wait = getattr(ckpt, "wait", None)
-                        if wait is not None:
-                            wait()  # emergency saves must be durable
-                    metrics.close()
-                    barrier()
+                    with goodput.phase("checkpoint"):
+                        if rank0:
+                            if saved["step"] != it:
+                                snapshot()
+                                dumper.flush()
+                                save_ckpt(it)
+                            wait = getattr(ckpt, "wait", None)
+                            if wait is not None:
+                                wait()  # emergency saves must be durable
+                        metrics.close()
+                        barrier()
                     if rank0:
                         preempt_exit(res_path, guard, local_step=it,
                                      fleet_min_step=agreed,
-                                     checkpoint=saved["path"])
+                                     checkpoint=saved["path"],
+                                     run_id=run_id)
                     raise PreemptionError(
                         f"preempted at iteration {it} (rank {group.rank}); "
                         "rank 0 holds the emergency checkpoint", step=it)
@@ -459,11 +522,20 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
                 dump_samples("ema")
             finally:
                 pair.gen.params = live
-    metrics.close()
+    with goodput.phase("readback"):
+        metrics.close()
     if ckpt is not None:
         wait = getattr(ckpt, "wait", None)
         if wait is not None:
-            wait()  # queued async saves are durable before success
+            with goodput.phase("checkpoint"):
+                wait()  # queued async saves are durable before success
+    # the ranks' mean breakdown; rank 0 records it (the closed logger
+    # writes it at once)
+    gp = mesh.aggregate_goodput(goodput.report(), group)
+    if rank0:
+        metrics.log_record({"goodput": gp, "run_id": run_id})
+        metrics.flush()
+    events.instant("train.end", step=it)
     t0 = time.perf_counter()
     for name, graph in (("gen", pair.gen), ("dis", pair.dis)) if rank0 else ():
         serialization.write_model(
@@ -487,6 +559,7 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
         "host_seconds": host, "graphed": graphed, "steps_per_call": K,
         "device": str(dev), "precision": dataclasses.asdict(backend.config()),
         "port_launches": launches, "world": world,
+        "run_id": run_id, "goodput": gp,
     }
     if rank0 and y is not None and fidelity_steps > 0:
         t0 = time.perf_counter()
@@ -583,8 +656,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "fidelity evaluation (cgan-cifar10; 0 = skip it)")
     p.add_argument("--ema-decay", type=float, default=0.0,
                    help="generator weight EMA decay (e.g. 0.999)")
-    p.add_argument("--profile", default=None, metavar="DIR")
-    p.add_argument("--metrics-port", type=int, default=None, metavar="PORT")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the run into "
+                        "DIR and print its top time sinks at exit (same "
+                        "contract as the protocol mains; with "
+                        "--n-devices, each rank's into DIR/rank<r>)")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   metavar="PORT",
+                   help="serve /metrics (Prometheus text: step/loss/"
+                        "goodput series) + /healthz on this port for the "
+                        "duration of training (0 = ephemeral)")
     backend.add_bf16_flag(p)
     backend.add_mp_flag(p)
     p.add_argument("--device", default=None,
@@ -593,11 +674,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.n_devices is not None and args.n_devices < 1:
         p.error(f"--n-devices must be at least 1, got {args.n_devices}")
-    if args.profile:
-        raise _not_ported("--profile (train/profile_step.py profiles the "
-                          "iteration)", "6.5")
-    if args.metrics_port is not None:
-        raise _not_ported("--metrics-port (telemetry exporter)", "6.5")
     return args
 
 
@@ -607,19 +683,31 @@ def _run(args: argparse.Namespace,
     ``group``, or the whole run) -> the result, ``{"preempted": True,
     ...}`` after a preemption.  The precision policy is the caller's."""
     res = args.res_path or os.path.join("outputs", args.family)
+    dev = (group.device if group is not None
+           else backend.resolve_device(args.device))
+    trace_dir = rank_trace_dir(args.profile, group)
     try:
-        return train(
-            args.family, args.iterations, args.batch_size, res,
-            args.n_train, args.print_every, device=args.device,
-            ema_decay=args.ema_decay,
-            checkpoint_every=args.checkpoint_every, resume=args.resume,
-            steps_per_call_cap=args.steps_per_call,
-            lr_decay_steps=args.lr_decay_steps, ms_weight=args.ms_weight,
-            fidelity_steps=args.fidelity_steps,
-            async_checkpoint=args.async_checkpoint,
-            preempt_signals=(",".join(args.preempt_signal)
-                             if args.preempt_signal else None),
-            data_dir=args.data_dir, group=group)
+        # each rank takes its own capture, which must see the card's work
+        # when the rank runs there
+        with maybe_trace(trace_dir, require_device=dev.type == "cuda"):
+            result = train(
+                args.family, args.iterations, args.batch_size, res,
+                args.n_train, args.print_every, device=args.device,
+                ema_decay=args.ema_decay,
+                checkpoint_every=args.checkpoint_every, resume=args.resume,
+                steps_per_call_cap=args.steps_per_call,
+                lr_decay_steps=args.lr_decay_steps,
+                ms_weight=args.ms_weight,
+                fidelity_steps=args.fidelity_steps,
+                async_checkpoint=args.async_checkpoint,
+                preempt_signals=(",".join(args.preempt_signal)
+                                 if args.preempt_signal else None),
+                data_dir=args.data_dir, group=group,
+                metrics_port=args.metrics_port)
+        if trace_dir and (group is None or group.rank == 0):
+            # where the iteration time went, as the protocol mains say it
+            print_trace_summary(trace_dir)
+        return result
     except PreemptionError as e:
         return {"family": args.family, "preempted": True, "step": e.step,
                 "checkpoint": e.checkpoint, "res_path": res}

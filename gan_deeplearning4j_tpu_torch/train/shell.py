@@ -9,10 +9,10 @@ lives here once; a payload is any zero-arg callable, and the shell tears
 down fully on every exit path, including a failure of a later install
 stage.
 
-Of the JAX shell's five stages the port has three: the preemption guard,
-the recorder and the watchdog.  The ``/metrics`` exporter (``registry``,
-``metrics_port``) and the recompile sentinel (``sanitize``) raise when
-asked for (ROADMAP Queue 1 items 6.5 and 11.4).
+Of the JAX shell's five stages the port has four: the preemption guard,
+the recorder, the watchdog and the ``/metrics`` exporter.  The recompile
+sentinel (``sanitize``) raises when asked for (ROADMAP Queue 1 item
+11.4).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import os
 from typing import Callable, Optional, Sequence, TypeVar
 
 from gan_deeplearning4j_tpu_torch.telemetry import events
+from gan_deeplearning4j_tpu_torch.telemetry.exporter import serve_exporter
 from gan_deeplearning4j_tpu_torch.train.preemption import PreemptionGuard
 from gan_deeplearning4j_tpu_torch.train.watchdog import HeartbeatWatchdog
 
@@ -38,14 +39,19 @@ class SupervisionShell:
     2. event recorder → ``events.install`` (the process-wide current
        recorder for the run: ``res_path/events.jsonl`` when
        ``events_enabled`` and a ``res_path``, else the ring alone);
-    3. heartbeat watchdog over the calling thread.
+    3. heartbeat watchdog over the calling thread (and its ``/healthz``
+       feed in ``registry``);
+    4. the ``/metrics`` + ``/healthz`` exporter over ``registry``
+       (``telemetry/exporter.py``) when ``metrics_port`` is set (0 =
+       ephemeral; the resolved port on ``self.metrics_port`` while the
+       payload runs).
 
     After :meth:`run` installs everything it calls ``payload()`` and
     returns its result.  The live handles (``recorder``, ``watchdog``,
-    ``guard``) stay readable on the shell while the payload runs — and
-    ``recorder`` stays readable after exit too, so a recovery wrapper can
-    still dump the flight record of a failed run (only the file sink is
-    closed)."""
+    ``guard``, ``metrics_port``) stay readable on the shell while the
+    payload runs — and ``recorder`` stays readable after exit too, so a
+    recovery wrapper can still dump the flight record of a failed run (only
+    the file sink is closed)."""
 
     def __init__(
         self,
@@ -63,15 +69,14 @@ class SupervisionShell:
         sanitize: bool = False,
         metrics_port: Optional[int] = None,
         preempt_signal_nums: Sequence[int] = (),
+        log: Optional[Callable[[str], None]] = print,
     ):
-        if registry is not None or metrics_port is not None:
-            raise NotImplementedError(
-                "the /metrics exporter (registry, metrics_port) is not "
-                "ported yet (ROADMAP Queue 1 item 6.5)")
         if sanitize:
             raise NotImplementedError(
                 "the recompile sentinel (sanitize) is not ported yet "
                 "(ROADMAP Queue 1 item 11.4)")
+        if metrics_port is not None and registry is None:
+            raise ValueError("metrics_port needs the registry it serves")
         self._res_path = res_path
         self._events_enabled = events_enabled
         self._events_append = events_append
@@ -81,10 +86,14 @@ class SupervisionShell:
             min_deadline_s=watchdog_min_deadline_s,
             on_timeout=watchdog_on_timeout)
         self._preempt_signal_nums = tuple(preempt_signal_nums or ())
+        self._registry = registry
+        self._metrics_port_cfg = metrics_port
+        self._log = log
         # live handles, populated by run() for the payload's duration
         self.recorder: Optional[events.EventRecorder] = None
         self.watchdog: Optional[HeartbeatWatchdog] = None
         self.guard: Optional[PreemptionGuard] = None
+        self.metrics_port: Optional[int] = None
 
     def run(self, payload: Callable[[], T],
             on_recorder: Optional[Callable] = None) -> T:
@@ -108,6 +117,7 @@ class SupervisionShell:
                 guard = None
         self.guard = guard
         prev_recorder = None
+        stop_exporter = None
         try:
             # a resumed run APPENDS to its own event history (as its
             # metrics JSONL does): the pre-crash timeline stays one file
@@ -131,6 +141,15 @@ class SupervisionShell:
                     on_timeout=wd["on_timeout"],
                     res_path=self._res_path)
                 self.watchdog.start()
+                if self._registry is not None:
+                    self._registry.observe_watchdog(self.watchdog.report)
+            if self._metrics_port_cfg is not None:
+                stop_exporter = serve_exporter(self._registry,
+                                               self._metrics_port_cfg)
+                self.metrics_port = stop_exporter.port
+                if self._log is not None:
+                    self._log(f"[metrics] serving /metrics + /healthz on "
+                              f"http://127.0.0.1:{stop_exporter.port}")
             return payload()
         finally:
             if self.watchdog is not None:
@@ -138,6 +157,9 @@ class SupervisionShell:
                 # teardown below runs (stop() joins the poll thread)
                 self.watchdog.stop()
                 self.watchdog = None
+            if stop_exporter is not None:
+                stop_exporter()
+                self.metrics_port = None
             if prev_recorder is not None:
                 events.install(prev_recorder)
             if self.recorder is not None:

@@ -12,9 +12,11 @@ JAX logger's records pass through a pytree, which sorts dict keys); a
 per-step record has all its keys sorted.
 
 ``on_record`` (the JAX logger's hook) observes every record as it is
-flushed: the NaN alarm and the divergence sentinel ride it
-(``telemetry/ingraph.py``, ``train/divergence.py``), so they see a step
-at the flush cadence and force no flush of their own.
+flushed: the NaN alarm, the divergence sentinel and the scrape registry
+ride it (``telemetry/ingraph.py``, ``train/divergence.py``,
+``telemetry/exporter.py``), so they see a step at the flush cadence and
+force no flush of their own.  ``log_record`` appends a run-level record
+(the trainer's final ``{"goodput", "run_id"}``).
 """
 
 from __future__ import annotations
@@ -78,6 +80,16 @@ class MetricsLogger:
         self._last_step_t = now
         if len(self._pending) >= self.flush_every:
             self.flush()
+
+    def log_record(self, rec: Dict) -> None:
+        """Append one step-less, run-level record (the goodput breakdown
+        and the run id), its nested dicts' keys sorted as the JAX logger's
+        pytree writes them."""
+        def _sorted(v):
+            return ({k: _sorted(v[k]) for k in sorted(v)}
+                    if isinstance(v, dict) else v)
+
+        self._pending.append(_sorted(dict(rec)))
 
     def flush(self) -> None:
         """Write the pending records to the file and the ring, then hand

@@ -574,9 +574,9 @@ def test_roadmap_main_cgan_cpu_end_to_end(tmp_path, capsys):
     assert sorted(os.listdir(res)) == sorted(
         [f"{f}_samples_2.png", f"{f}_samples_4.png", f"{f}_samples_ema.png",
          f"{f}_metrics.jsonl", f"{f}_gen_model.zip", f"{f}_dis_model.zip",
-         f"{f}_gen_ema_model.zip"])
+         f"{f}_gen_ema_model.zip", "events.jsonl", "run_manifest.json"])
     recs = [json.loads(l) for l in open(res / f"{f}_metrics.jsonl")]
-    assert [r["step"] for r in recs] == [1, 2, 3, 4]
+    assert [r.get("step") for r in recs] == [1, 2, 3, 4, None]  # + goodput
     gen = SJ.read_model(str(res / f"{f}_gen_model.zip"))
     assert gen.input_names == ["z", "label"]
 

@@ -19,6 +19,7 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
+import torch
 
 from gan_deeplearning4j_tpu.data.csv import RecordReaderDataSetIterator as IterJ
 from gan_deeplearning4j_tpu.train import cv_main as cv_j
@@ -43,14 +44,25 @@ ARTIFACTS = {"mnist_train.csv", "mnist_test.csv", "mnist_out_2.csv",
              "mnist_test_predictions_2.csv", "mnist_metrics.jsonl",
              "evaluation_stats.txt", "mnist_dis_model.zip",
              "mnist_gan_model.zip", "mnist_gen_model.zip",
-             "mnist_CV_model.zip", "events.jsonl"}
-# ... and what only the JAX run writes: the PNGs (matplotlib) and the run
-# manifest, not ported yet
-JAX_ONLY = {"DCGAN_Generated_Images.png", "mnist_metrics_losses.png",
-            "run_manifest.json"}
+             "mnist_CV_model.zip", "events.jsonl", "run_manifest.json"}
+# ... and what only the JAX run writes: the PNGs (matplotlib)
+JAX_ONLY = {"DCGAN_Generated_Images.png", "mnist_metrics_losses.png"}
 SCORES = ("steps", "examples_per_sec", "d_loss", "g_loss", "test_accuracy",
           "test_f1", "fid", "fid_frozen", "fid_primary", "fid_primary_source")
 DUMP_ATOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """torch's CPU ops on one thread while this module runs (then the
+    process's setting again): the tier-1 lane runs six test processes at
+    once, and torch's OpenMP pool in each, as wide as the host, spins
+    against the others' (these three modules' test-seconds fell from 1,024
+    to 262 s at three processes on eight cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -95,6 +107,29 @@ def test_cv_main_writes_the_jax_artifact_set(runs):
     assert set(SCORES) <= set(rt) and set(SCORES) <= set(rj)
     assert rt["steps"] == 2 and rt["fid_primary_source"] == "fid_frozen"
     assert all(np.isfinite(rt[k]) for k in SCORES[1:-1])
+
+
+def test_cv_main_records_the_jax_run_level_goodput(runs):
+    """Both programs under ARGS: the result lines' goodput (the same keys
+    and phases entered) and run id, the last metrics record
+    ``{"goodput", "run_id"}``, the manifests' key sets equal (their
+    ``versions`` name each package's stack) and the port's run id in its
+    ``events.jsonl`` header."""
+    (dj, rj), (dt, rt) = runs["jax"], runs["torch"]
+    assert set(rt["goodput"]) == set(rj["goodput"])
+    assert set(rt["goodput"]["phase_n"]) == set(rj["goodput"]["phase_n"])
+    for d, r in ((dj, rj), (dt, rt)):
+        last = json.loads(Path(d, "mnist_metrics.jsonl").read_text()
+                          .splitlines()[-1])
+        assert list(last) == ["goodput", "run_id"]
+        assert last["run_id"] == r["run_id"] and len(r["run_id"]) == 12
+    mj, mt = (json.load(open(f"{d}/run_manifest.json")) for d in (dj, dt))
+    # the JAX program spreads its batch over the conftest's virtual CPU
+    # devices (a "mesh"); the port's CPU run is one process
+    assert set(mt) | {"mesh"} == set(mj) | {"mesh"}
+    assert mt["run_id"] == rt["run_id"]
+    head = json.loads(Path(dt, "events.jsonl").read_text().splitlines()[0])
+    assert head["run_id"] == rt["run_id"]
 
 
 def _trainer(d, **overrides):
@@ -190,30 +225,41 @@ def test_resolve_steps_per_call_matches_jax(case):
             byte_cap=byte_cap, codec=codec) == ref
 
 
+def _twelve_steps(d, resident: bool, use_data_codec: bool):
+    """12 steps over 4 full batches a pass, resident or streamed (K = 3:
+    chunks cross passes) -> (every step's losses, the final state)."""
+    fb = 5 if use_data_codec else 4
+    kw = dict(num_iterations=12, print_every=0, save_every=0, metrics=False,
+              use_data_codec=use_data_codec)
+    if not resident:
+        kw.update(data_on_device=False,
+                  stream_chunk_bytes=3 * 16 * (fb * 784 + 40))
+    t = _trainer(d, **kw)
+    t.c.res_path = None  # no model zips
+    r = t.train(log=None)
+    assert (r["resident"], r["steps_per_call"]) == (resident, 3 if not
+                                                    resident else 12)
+    assert r["data_codec"] == ("u8x100" if use_data_codec and not resident
+                               else None)
+    return ([[x[k] for k in ("d_loss", "g_loss", "classifier_loss")]
+             for x in t.metrics.records() if "step" in x], t.state)
+
+
+@pytest.fixture(scope="module")
+def resident_run(runs):
+    """The resident f32 run both streamed cases are held to (the table
+    fits, so the codec option changes nothing on it)."""
+    return _twelve_steps(runs["torch"][0], True, True)
+
+
 @pytest.mark.parametrize("use_data_codec", [True, False])
-def test_streamed_losses_are_bitwise_the_resident_run(runs, use_data_codec):
+def test_streamed_losses_are_bitwise_the_resident_run(runs, resident_run,
+                                                      use_data_codec):
     """12 steps over 4 full batches a pass (K = 3: chunks cross passes),
     streamed (u8 codes, or f32) against resident: every step's losses and
     the final state bit for bit."""
-    d = runs["torch"][0]
-    fb = 5 if use_data_codec else 4
-    out = []
-    for resident in (True, False):
-        kw = dict(num_iterations=12, print_every=0, save_every=0,
-                  metrics=False, use_data_codec=use_data_codec)
-        if not resident:
-            kw.update(data_on_device=False,
-                      stream_chunk_bytes=3 * 16 * (fb * 784 + 40))
-        t = _trainer(d, **kw)
-        t.c.res_path = None  # no model zips
-        r = t.train(log=None)
-        assert (r["resident"], r["steps_per_call"]) == (resident, 3 if not
-                                                        resident else 12)
-        assert r["data_codec"] == ("u8x100" if use_data_codec and not resident
-                                   else None)
-        out.append(([[x[k] for k in ("d_loss", "g_loss", "classifier_loss")]
-                     for x in t.metrics.records()], t.state))
-    (la, sa), (lb, sb) = out
+    la, sa = resident_run
+    lb, sb = _twelve_steps(runs["torch"][0], False, use_data_codec)
     assert la == lb and len(la) == 12
     for (f, ta), (_, tb) in zip(FT.state_trees(sa), FT.state_trees(sb)):
         for layer, lp in ta.items():
@@ -245,3 +291,4 @@ def test_cv_main_two_gloo_ranks(tmp_path):
     back = serialization.read_model(str(tmp_path / "mnist_gen_model.zip"),
                                     "cpu")
     assert set(back.params) == set(MT.build_generator(device="cpu").params)
+

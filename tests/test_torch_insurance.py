@@ -83,14 +83,12 @@ ARTIFACTS = {"insurance_train.csv", "insurance_test.csv",
              "insurance_test_predictions_4.csv", "insurance_metrics.jsonl",
              "evaluation_stats.txt", "insurance_dis_model.zip",
              "insurance_gan_model.zip", "insurance_gen_model.zip",
-             "insurance_insurance_model.zip", "events.jsonl"}
-# ... and what only the JAX program writes: the PNGs (matplotlib) and the
-# run manifest, not ported
+             "insurance_insurance_model.zip", "events.jsonl",
+             "run_manifest.json"}
+# ... and what only the JAX program writes: the PNGs (matplotlib)
 JAX_ONLY = {"DCGAN_Generated_Lattices.png", "DCGAN_Generated_Lattice_Example.png",
             "DCGAN_Generated_Lattice_Example_Plotted.png",
-            "insurance_metrics_losses.png", "run_manifest.json"}
-# keys of the JAX program's JSON line that come from its telemetry
-JAX_TELEMETRY_KEYS = {"run_id", "goodput"}
+            "insurance_metrics_losses.png"}
 DUMPS = ["insurance_out_2.csv", "insurance_out_4.csv",
          "insurance_out_pred_2.csv", "insurance_out_pred_4.csv",
          "insurance_test_predictions_2.csv", "insurance_test_predictions_4.csv"]
@@ -543,7 +541,7 @@ def test_insurance_main_writes_the_jax_artifact_set(jax_side, torch_prog):
     assert len(stats[0]) == len(stats[1]) == 9  # 5 lines, header, 2 rows
     assert [ln.split(":")[0] for ln in stats[0][:7]] == [
         ln.split(":")[0] for ln in stats[1][:7]]
-    keys = set(jax_side["prog_result"]) - JAX_TELEMETRY_KEYS
+    keys = set(jax_side["prog_result"])
     rt = torch_prog["result"]
     assert keys <= set(rt) and "host_seconds" in rt
     assert rt["steps"] == 4 and rt["steps_per_call"] == 2
@@ -650,3 +648,89 @@ def test_insurance_main_defaults_to_the_card(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     assert not any(tmp_path.glob("insurance_*_model.zip"))
+
+
+# -- the command line -----------------------------------------------------
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _parser(main, monkeypatch):
+    """The argparse parser a main builds (caught at its ``parse_args``)."""
+    import argparse
+
+    box = {}
+
+    def catch(self, args=None, namespace=None):
+        box["parser"] = self
+        raise _Parsed
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", catch)
+        with pytest.raises(_Parsed):
+            main([])
+    return box["parser"]
+
+
+def test_ema_decay_is_refused_as_by_the_jax_cli(capsys):
+    """ROADMAP Q3.4: the JAX insurance CLI has no ``--ema-decay``; the
+    port's refuses it the same way, with argparse's exit 2 (the trainer's
+    ``ema_decay`` field stays)."""
+    for parse in (ins_j.main, ins_t.parse_args):
+        with pytest.raises(SystemExit) as e:
+            parse(["--ema-decay", "0.9"])
+        assert e.value.code == 2
+        assert "unrecognized arguments: --ema-decay" in capsys.readouterr().err
+    assert ins_t.default_config(ema_decay=0.5).ema_decay == 0.5
+
+
+@pytest.mark.parametrize("name", ["insurance_main", "cv_main",
+                                  "roadmap_main"])
+def test_cli_surface_is_the_jax_mains(name, monkeypatch):
+    """Every flag of the JAX main, with its default, type, choices and
+    action, on the port's, and nothing else but ``--device``; the JAX
+    ``--sanitize`` waits for the recompile sentinel (ROADMAP Queue 1 item
+    11.4)."""
+    import importlib
+
+    mains = [importlib.import_module(f"{pkg}.train.{name}") for pkg in (
+        "gan_deeplearning4j_tpu", "gan_deeplearning4j_tpu_torch")]
+    parsers = [_parser(mains[0].main, monkeypatch),
+               _parser(mains[1].parse_args, monkeypatch)]
+    flags = [{o: a for a in p._actions for o in a.option_strings
+              if o not in ("-h", "--help")} for p in parsers]
+    jax_only = {"--sanitize"} if name != "roadmap_main" else set()
+    assert set(flags[0]) - set(flags[1]) == jax_only
+    assert set(flags[1]) - set(flags[0]) == {"--device"}
+    for flag in set(flags[0]) & set(flags[1]):
+        a, b = flags[0][flag], flags[1][flag]
+        assert (a.default, a.type, a.choices, a.nargs, type(a)) == (
+            b.default, b.type, b.choices, b.nargs, type(b)), flag
+
+
+def test_program_records_the_jax_run_level_goodput(jax_side, torch_prog):
+    """Both programs' result lines, last metrics records and
+    ``run_manifest.json`` under ARGS: the same goodput keys and phases
+    entered, a 12-hex run id in each, the manifests' key sets equal but
+    for the JAX run's mesh (the ``versions`` name each package's stack)."""
+    dj, dt = jax_side["prog_dir"], torch_prog["dir"]
+    rj, rt = jax_side["prog_result"], torch_prog["result"]
+    assert set(rt["goodput"]) == set(rj["goodput"])
+    assert set(rt["goodput"]["phase_n"]) == set(rj["goodput"]["phase_n"])
+    assert len(rt["run_id"]) == len(rj["run_id"]) == 12
+    for d, r in ((dj, rj), (dt, rt)):
+        last = json.loads(Path(d, "insurance_metrics.jsonl").read_text()
+                          .splitlines()[-1])
+        assert list(last) == ["goodput", "run_id"]
+        assert last["run_id"] == r["run_id"]
+        assert json.load(open(f"{d}/run_manifest.json"))["run_id"] \
+            == r["run_id"]
+    mj, mt = (json.load(open(f"{d}/run_manifest.json")) for d in (dj, dt))
+    # the JAX program spreads its batch over the conftest's virtual CPU
+    # devices (a "mesh"); the port's CPU run is one process
+    assert set(mt) | {"mesh"} == set(mj) | {"mesh"}
+    shared = (set(mt["config"]) & set(mj["config"])) - {"res_path"}
+    assert {k: mt["config"][k] for k in shared} == {
+        k: mj["config"][k] for k in shared}

@@ -12,7 +12,9 @@ for 4 iterations against a run checkpointed at 2 and resumed to 4 (the
 zips bit for bit); a world-1 checkpoint refused at world 2
 (``CheckpointMeshMismatchError`` through ``RankFailedError``); a batch
 that does not split over the ranks refused before any rank starts, and a
-share that would split a ``MinibatchStdDev`` group refused.
+share that would split a ``MinibatchStdDev`` group refused; ``--profile``
+and ``--metrics-port`` at world 2 (a capture per rank, the ranks' mean
+goodput).
 """
 
 import dataclasses
@@ -165,10 +167,11 @@ def test_roadmap_main_two_ranks_on_cpu(tmp_path, family):
     assert set(result["port_launches"].values()) == {0}
     assert sorted(os.listdir(tmp_path)) == sorted(
         [f"{family}_samples_2.png", f"{family}_metrics.jsonl",
-         f"{family}_gen_model.zip", f"{family}_dis_model.zip"])
-    steps = [json.loads(l)["step"]
+         f"{family}_gen_model.zip", f"{family}_dis_model.zip",
+         "events.jsonl", "run_manifest.json"])
+    steps = [json.loads(l).get("step")
              for l in open(tmp_path / f"{family}_metrics.jsonl")]
-    assert steps == [1, 2]
+    assert steps == [1, 2, None]  # + the ranks' goodput record
 
 
 def _zips(d):
@@ -193,9 +196,9 @@ def test_roadmap_main_two_ranks_resume_equals_a_straight_run(tmp_path):
                 "2", "--resume", *kw)
     assert out["steps"] == 4 and out["world"] == 2
     assert _zips(straight) == _zips(ckpt)
-    steps = {json.loads(l)["step"]
+    steps = {json.loads(l).get("step")
              for l in open(ckpt / "wgan-gp_metrics.jsonl")}
-    assert steps == {1, 2, 3, 4}
+    assert steps == {1, 2, 3, 4, None}  # + the goodput records
     one = tmp_path / "one"
     _main(one, "wgan-gp", "--iterations", "2", "--checkpoint-every", "2",
           "--ema-decay", "0.9")
@@ -219,3 +222,31 @@ def test_a_share_that_splits_a_minibatch_stddev_group_is_refused():
     assert pair.local_batch(16) == 4
     with pytest.raises(ValueError, match="group_size 4"):
         pair.local_batch(B)
+
+
+def test_roadmap_main_two_ranks_profile_and_goodput(tmp_path):
+    """``--profile DIR --metrics-port 0`` at world 2: each rank's capture
+    in ``DIR/rank<r>`` (with its sidecar), rank 0's manifest (process 0 of
+    2, the data axis 2) and the ranks' mean goodput in the result and the
+    last metrics record, aggregated over both processes."""
+    prof = tmp_path / "prof"
+    result = _main(tmp_path / "r", "wgan-gp", "--iterations", "2",
+                   "--n-devices", "2", "--profile", str(prof),
+                   "--metrics-port", "0")
+    assert sorted(os.listdir(prof)) == ["rank0", "rank1"]
+    for r in ("rank0", "rank1"):
+        files = os.listdir(prof / r)
+        assert "host_anchor.json" in files
+        assert [f for f in files if f.endswith(".pt.trace.json")]
+    gp = result["goodput"]
+    assert gp["aggregated_processes"] == 2
+    assert sum(gp[p] for p in ("data_wait", "dispatch", "readback",
+                               "checkpoint", "eval", "other")) \
+        == pytest.approx(gp["wall_s"], rel=1e-3)
+    manifest = json.load(open(tmp_path / "r" / "run_manifest.json"))
+    assert (manifest["process_index"], manifest["process_count"],
+            manifest["mesh"]) == (0, 2, {"data": 2})
+    assert manifest["run_id"] == result["run_id"]
+    last = json.loads((tmp_path / "r" / "wgan-gp_metrics.jsonl")
+                      .read_text().splitlines()[-1])
+    assert last == {"goodput": gp, "run_id": result["run_id"]}

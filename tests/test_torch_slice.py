@@ -177,7 +177,9 @@ from gan_deeplearning4j_tpu_torch.serve import (admission, client, engine,
                                                 gateway, loadgen, replica,
                                                 router)
 from gan_deeplearning4j_tpu_torch.train import watchdog
-from gan_deeplearning4j_tpu_torch.telemetry import events, ingraph
+from gan_deeplearning4j_tpu_torch.telemetry import (events, exporter, goodput,
+                                                    ingraph, resources)
+from gan_deeplearning4j_tpu_torch.utils import live_ui, profiling
 from gan_deeplearning4j_tpu_torch.train import divergence, rollback, shell
 from gan_deeplearning4j_tpu_torch import testing
 import numpy as np

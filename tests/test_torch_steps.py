@@ -54,6 +54,19 @@ SPAWN_TIMEOUT_S = 300
 MAPS = (MT.DIS_TO_GAN, MT.GAN_TO_GEN, MT.DIS_TO_CLASSIFIER)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """torch's CPU ops on one thread while this module runs (then the
+    process's setting again): the tier-1 lane runs six test processes at
+    once, and torch's OpenMP pool in each, as wide as the host, spins
+    against the others' (these three modules' test-seconds fell from 1,024
+    to 262 s at three processes on eight cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _numpy_tree(tree):
     return jax.tree.map(lambda a: np.array(a), tree)
 
@@ -255,28 +268,42 @@ def test_ema_init_returns_fresh_buffers():
 
 # -- K steps per call against the port's single steps -------------------------
 
-def test_k_step_call_equals_single_calls_bitwise():
+@pytest.fixture(scope="module")
+def eager_steps():
+    """Five eager single steps (EMA at decay 0.9) from one start on a
+    three-batch table (the fourth step wraps to batch 0), latents from a
+    generator of seed 9: each step's losses and the state after steps 4
+    and 5.  The K-step call and the graph body are held to them."""
+    d = _data(3)
+    graphs = _torch_graphs()
+    start = FT.state_from_graphs(*graphs, ema=True)
+    single = FT.make_protocol_step(*graphs, *MAPS, z_size=2, num_features=784,
+                                   ema_decay=0.9)
+    gen = torch.Generator().manual_seed(9)
+    state, losses, after = FT.clone_state(start), [], {}
+    for it in range(5):
+        state, out = single(state, *_inputs(d), z_gen=gen)
+        losses.append(torch.stack(out))
+        if it >= 3:
+            after[it + 1] = _torch_state(FT.clone_state(state))
+    return dict(d=d, graphs=graphs, start=start, step=single, losses=losses,
+                after=after, it=int(state.it))
+
+
+def test_k_step_call_equals_single_calls_bitwise(eager_steps):
     """One call of K = 4 against four calls of one, from one start, with
     latents from two generators of one seed, on a three-batch table (the
     fourth step wraps to batch 0): the same losses and state, bit for bit,
     the EMA (decay 0.9) and the step counter included."""
-    d = _data(3)
-    graphs = _torch_graphs()
-    start = FT.state_from_graphs(*graphs, ema=True)
-    multi_step = FT.make_protocol_step(*graphs, *MAPS, z_size=2,
+    e = eager_steps
+    multi_step = FT.make_protocol_step(*e["graphs"], *MAPS, z_size=2,
                                        num_features=784, steps_per_call=4,
                                        ema_decay=0.9)
-    single = FT.make_protocol_step(*graphs, *MAPS, z_size=2, num_features=784,
-                                   ema_decay=0.9)
-    gens = [torch.Generator().manual_seed(9) for _ in range(2)]
-    s4, l4 = multi_step(FT.clone_state(start), *_inputs(d), z_gen=gens[0])
-    s1, l1 = FT.clone_state(start), []
-    for _ in range(4):
-        s1, losses = single(s1, *_inputs(d), z_gen=gens[1])
-        l1.append(torch.stack(losses))
-    assert torch.equal(torch.stack(l4, -1), torch.stack(l1))
-    assert int(s4.it) == int(s1.it) == 4
-    _assert_trees_equal(_torch_state(s1), _torch_state(s4))
+    s4, l4 = multi_step(FT.clone_state(e["start"]), *_inputs(e["d"]),
+                        z_gen=torch.Generator().manual_seed(9))
+    assert torch.equal(torch.stack(l4, -1), torch.stack(e["losses"][:4]))
+    assert int(s4.it) == 4
+    _assert_trees_equal(e["after"][4], _torch_state(s4))
 
 
 @pytest.mark.parametrize("world", [1, 2])
@@ -360,30 +387,23 @@ def test_graphed_launch_counts_on_a_stub():
             fn.launches = before[name]
 
 
-def test_graph_body_matches_eager_steps():
+def test_graph_body_matches_eager_steps(eager_steps):
     """What the CUDA graph records, run on the CPU: five steps of
     ``graph_body`` on one static state with a ring of 3 loss rows give the
     eager steps' bits — each step's losses in row it % 3, the new state
     copied into the static buffers (which keep their storage), the EMA and
     the counter included."""
-    d = _data(2)
-    graphs = _torch_graphs()
-    start = FT.state_from_graphs(*graphs, ema=True)
-    step = FT.make_protocol_step(*graphs, *MAPS, z_size=2, num_features=784,
-                                 ema_decay=0.9)
-    static = FT.clone_state(start)
+    e = eager_steps
+    static = FT.clone_state(e["start"])
     ptrs = {k: t.data_ptr() for k, t in FT._leaves(static).items()}
     ring = torch.zeros((3, 3))
-    gens = [torch.Generator().manual_seed(2) for _ in range(2)]
-    eager, rows = FT.clone_state(start), []
+    gen = torch.Generator().manual_seed(9)
     for it in range(5):
-        FT.graph_body(step, _inputs(d), gens[0], 3, static, ring)
-        eager, losses = step(eager, *_inputs(d), z_gen=gens[1])
-        rows.append(torch.stack(losses))
-        assert torch.equal(ring[it % 3], rows[-1])
-    assert int(static.it) == 5
+        FT.graph_body(e["step"], _inputs(e["d"]), gen, 3, static, ring)
+        assert torch.equal(ring[it % 3], e["losses"][it])
+    assert int(static.it) == e["it"] == 5
     assert {k: t.data_ptr() for k, t in FT._leaves(static).items()} == ptrs
-    _assert_trees_equal(_torch_state(eager), _torch_state(static))
+    _assert_trees_equal(e["after"][5], _torch_state(static))
 
 
 def test_copy_state_refuses_crossed_leaves():
