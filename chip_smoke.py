@@ -138,7 +138,12 @@ exits non-zero:
                 first CSV read meets an injected transient OSError (one
                 retry); and the cost of a checkpoint (snapshot ms, sync
                 and async save seconds, bytes, restore seconds, the
-                capture after a resume) for both models.
+                capture after a resume) for both models.  The world-2 run
+                goes beside the insurance children and the default-policy
+                CV child beside the first untimed one (the script's limit;
+                every check they make is bitwise or reported; their
+                seconds and host timings, two runs' at once, stand under
+                ``shared_card``).
  11. roadmap  — the roadmap families (``roadmap_main``: CelebA-64 DCGAN,
                 WGAN-GP and the conditional cgan-cifar10 on the ``GANPair``
                 engine, Adam) at full width and batch 128: ``bn_act`` at
@@ -150,12 +155,13 @@ exits non-zero:
                 same params and draws; RM_K graphed iterations against
                 RM_K eager ones, bitwise, with and without the EMA, the
                 capture's seconds and pool memory, and the two timed in
-                turns; each program as a child process (artifacts, result
-                line, and the port kernels' launches around its graphed
-                iterations: one ``bn_act`` an iteration for celeba and
-                wgan-gp, none of the six for cgan-cifar10, whose child also
-                prints its ``examples_per_sec``, ``conditional_fidelity``
-                and ``mean_class_fid``); celeba's and wgan-gp's ``train``
+                turns; each program as a child process, the three side
+                by side, their timings under ``shared_card`` (artifacts,
+                result line, and the port kernels' launches around its
+                graphed iterations: one ``bn_act`` an iteration for celeba
+                and wgan-gp, none of the six for cgan-cifar10, whose child
+                also prints its ``conditional_fidelity`` and
+                ``mean_class_fid``); celeba's and wgan-gp's ``train``
                 in this process with the launch counters zeroed just before
                 and read just after; and celeba checkpointed at
                 RM_RESUME[1] and resumed in this process, its zips
@@ -227,7 +233,41 @@ exits non-zero:
                 shedding) / 408 (a slow body) / 503 (wedged), /admin/
                 hotswap, ``run_socket_load`` at 80% of the in-process
                 saturation, SIGTERM -> exit 0.
- 15. supervision — supervision's numerics and hang half, each check
+ 15. serve_mesh — the serving plane across processes, traced, each check
+                required, its seconds beside SM_BUDGET_S: a generator at
+                full width from a seed, saved by the port's checkpointer and
+                served here through a ``ServeEngine`` behind a ``Gateway``;
+                a ``ControlPlane`` spawns two replica processes (``python
+                -m ...serve.replica --events``, buckets (8, 32, 64)) from
+                that checkpoint, each one's seconds from spawn to its ready
+                line recorded; a ``MeshRouter`` over the two sends one
+                request to the first, the second is SIGKILLed (before it
+                serves anything: a killed process loses its unflushed
+                events) and a traced request fails over (the seconds from
+                the kill to its answer), the control plane replacing the
+                dead replica; SM_REQUESTS traced requests of the size mix
+                through a client of each live replica and through the
+                control plane's mesh, each held against the same rows
+                through this process's engine within SERVE_CPU_TOL; a
+                replica wedged through ``/admin/chaos/wedge``, its seconds
+                to ejection and to re-admission; a canary deploy of the
+                checkpoint promoting and a deploy of its poisoned successor
+                rolling back to step 1 and charging the budget; one scrape
+                of a ``MetricsRegistry`` fed by the engine's, gateway's,
+                client's, mesh's and control plane's reports (the serve and
+                gateway series non-zero); the control plane stopped (each
+                replica flushes its events on SIGTERM) and the files merged
+                with ``merge_trace_files``: every trace tree complete, the
+                failover trace over two processes with two ``trace.hop``
+                spans, one closing with ``error``, and no port kernel
+                launched here or in any replica; then what tracing
+                costs, in turns: the engine's wall ms per full batch of
+                a queued burst under no recorder, the ring, the ring
+                with a trace on every request (as the gateway mints
+                one) and a file with traces; and an in-process
+                gateway's requests a second, closed loop, under no
+                recorder, the ring and a file.
+ 16. supervision — supervision's numerics and hang half, each check
                 required: the CV protocol step at batch 200 with its
                 telemetry block (``--telemetry``), captured, 2 calls of
                 MAIN_K: losses and state bitwise the same run without the
@@ -254,7 +294,7 @@ exits non-zero:
                 ``cv_main`` healthy at 200 steps, K = 100, with every alarm
                 and the auto-deadline watchdog armed: nothing fires, every
                 record's block finite, launches exact.
- 16. observability — the training run's observability, each check
+ 17. observability — the training run's observability, each check
                 required, its seconds beside OBS_BUDGET_S: ``cv_main``
                 at full width (200 steps at batch 200) as a child with
                 ``--telemetry --profile DIR --metrics-port 0 --live-ui
@@ -281,17 +321,18 @@ exits non-zero:
                 resume phase's preemption drill must leave
                 ``preempt.signal``, ``preempt.exit``, the save's
                 ``checkpoint.*`` stages and the flight record.)
- 17. the ``kernels`` line (each kernel's insurance numbers beside the
+ 18. the ``kernels`` line (each kernel's insurance numbers beside the
      CV step's, where the insurance path runs it, ``bn_act``'s roadmap
      numbers, each kernel's launches on the cgan-cifar10 path: 0, at
      world 2 per roadmap family (``pair_dp``, with the pair's numbers at
      its per-rank shapes), per workload and mode in the precision phase,
-     on the serving path: 0, on the supervision phase's path, one card
-     and world 2, and on the observability phase's), the seconds line
-     (the script's total beside its total before the precision phase was
-     added and before the serve phase in this run, the pair_dp,
-     supervision and observability phases', and every phase line's
-     seconds), the nvidia-smi line, and last
+     on the serving path: 0, on the mesh over replica processes: 0, on
+     the supervision phase's path, one card and world 2, and on the
+     observability phase's), the seconds line (the script's total beside
+     its total before the precision phase was added and before the serve
+     phase in this run, the pair_dp, serve_mesh, supervision and
+     observability phases', and every phase line's seconds), the
+     nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is available.
@@ -300,6 +341,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import hashlib
 import io
@@ -1413,6 +1455,13 @@ def child_command(module: str, args, untimed: bool = False):
     return [sys.executable, *head, *args], root, env
 
 
+def shared_card(beside, **timings) -> dict:
+    """Timings taken while ``beside`` ran on the same card (children run
+    side by side for the script's limit): kept under their own key, so that
+    none of them reads as a program's rate alone."""
+    return {"beside": beside, **timings}
+
+
 def run_child(module: str, args, stop_after=None, untimed: bool = False,
               profile_lines=None):
     """``python -m module args`` in a child process from this checkout ->
@@ -1640,13 +1689,15 @@ def resume_insurance(ref: str, ref_auroc: float, root: str) -> dict:
             f"{res_b['test_auroc']} vs {ref_auroc}")
     hs = res_b["host_seconds"]
     return {"stopped_at": stop, "exit_a": rc_a, "marker": marker,
-            "events_a": names_a,
-            "checkpoint_bytes": ckpt_bytes, "seconds_a": sec_a,
-            "seconds_b": sec_b, "bitwise": True, "largest_param_diff": worst,
+            "events_a": names_a, "checkpoint_bytes": ckpt_bytes,
+            "bitwise": True, "largest_param_diff": worst,
             "metrics_steps_equal": INS_STEPS, "test_auroc": ref_auroc,
-            "b_restore_s": hs.get("restore_s"),
-            "b_capture_s": hs.get("capture_s"),
-            "b_checkpoint_s": hs.get("checkpoint_s")}
+            # the world-2 resume runs beside both children
+            "shared_card": shared_card(
+                "the world-2 resume", seconds_a=sec_a, seconds_b=sec_b,
+                b_restore_s=hs.get("restore_s"),
+                b_capture_s=hs.get("capture_s"),
+                b_checkpoint_s=hs.get("checkpoint_s"))}
 
 
 def resume_cv(torch, root: str, serve_src: str) -> dict:
@@ -1739,17 +1790,13 @@ def resume_cv(torch, root: str, serve_src: str) -> dict:
     del tu, tr
 
     # across processes under the default policy: a child resumes the copy
-    # of P's directory (reported, not gated)
+    # of P's directory (reported, not gated).  It runs beside W below (the
+    # script's limit): the two children share the card, so their seconds
+    # are those of two runs at once, and X's timed cuDNN choices are made
+    # beside W's work (its distance is reported, W's checks are bitwise
+    # under the untimed choice whatever runs beside)
     cv_main_mod = "gan_deeplearning4j_tpu_torch.train.cv_main"
     zips = ("dis", "gan", "gen", "CV")
-    rc_b, res_b, sec_b, err = run_child(
-        cv_main_mod, RES_CV_BASE + RES_CV_CKPT + ["--res-path", x, "--resume"])
-    require(rc_b == 0 and res_b is not None
-            and res_b.get("steps") == RES_CV_STEPS
-            and not os.path.exists(f"{x}/PREEMPTED.json"),
-            f"cv child: exit {rc_b}, {res_b}; stderr: {err}")
-    worst, first = zips_diff(u, x, "mnist", zips)
-    bound = next((b for b in RES_CV_BOUNDS if worst <= b), None)
     # across processes under the untimed choice: W uninterrupted, then a
     # resume of W's step-RES_CV_STOP checkpoint, both fresh children
     from gan_deeplearning4j_tpu_torch.checkpoint import TrainCheckpointer
@@ -1757,9 +1804,19 @@ def resume_cv(torch, root: str, serve_src: str) -> dict:
     # (checkpoints at RES_CV_STOP only: the resume needs no other)
     untimed_ckpt = ["--checkpoint-every", str(RES_CV_STOP)]
     w = res_dir("cv_w")
-    rc_w, res_w, sec_w, err = run_child(
-        cv_main_mod, RES_CV_BASE + untimed_ckpt + ["--res-path", w],
-        untimed=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        x_child = pool.submit(run_child, cv_main_mod, RES_CV_BASE
+                              + RES_CV_CKPT + ["--res-path", x, "--resume"])
+        rc_w, res_w, sec_w, err = run_child(
+            cv_main_mod, RES_CV_BASE + untimed_ckpt + ["--res-path", w],
+            untimed=True)
+        rc_b, res_b, sec_b, err_b = x_child.result()
+    require(rc_b == 0 and res_b is not None
+            and res_b.get("steps") == RES_CV_STEPS
+            and not os.path.exists(f"{x}/PREEMPTED.json"),
+            f"cv child: exit {rc_b}, {res_b}; stderr: {err_b}")
+    worst, first = zips_diff(u, x, "mnist", zips)
+    bound = next((b for b in RES_CV_BOUNDS if worst <= b), None)
     require(rc_w == 0 and res_w is not None
             and res_w.get("steps") == RES_CV_STEPS,
             f"cv untimed child W: exit {rc_w}, {res_w}; stderr: {err}")
@@ -1797,18 +1854,19 @@ def resume_cv(torch, root: str, serve_src: str) -> dict:
                 "policy": "cudnn deterministic, benchmark off, both children",
                 "largest_param_diff": worst_u, "bitwise": True,
                 "resumed_from": RES_CV_STOP, "checkpoints_cut": cut,
-                "seconds_uninterrupted": sec_w, "seconds_resumed": sec_y},
-            "cross_process": {"policy": "default (timed), not gated",
-                              "largest_param_diff": worst,
-                              "first_differing_leaf": first,
-                              "bound_met": bound, "bitwise": worst == 0.0,
-                              "seconds": sec_b,
-                              "checkpoint_s": res_b["host_seconds"].get(
-                                  "checkpoint_s"),
-                              "restore_s": res_b["host_seconds"].get(
-                                  "restore_s"),
-                              "capture_s": res_b["host_seconds"].get(
-                                  "capture_s")}}
+                "seconds_resumed": sec_y,
+                "shared_card": shared_card("the timed-choice resume child",
+                                           seconds_uninterrupted=sec_w)},
+            "cross_process": {
+                # cuDNN timed its choices while W ran on the card
+                "policy": "default (timed, beside the untimed child W), "
+                          "not gated",
+                "largest_param_diff": worst, "first_differing_leaf": first,
+                "bound_met": bound, "bitwise": worst == 0.0,
+                "shared_card": shared_card(
+                    "the untimed child W", seconds=sec_b,
+                    **{k: res_b["host_seconds"].get(k) for k in (
+                        "checkpoint_s", "restore_s", "capture_s")})}}
 
 
 def resume_dp_rank(group, dirs) -> dict:
@@ -1854,10 +1912,16 @@ def resume_dp(root: str) -> dict:
             and all(r["steps"] == RES_DP_STEPS[1] for r in ranks),
             f"dp resume: the resumed world-2 run is not the uninterrupted "
             f"one: {ranks}")
+    # the insurance resume's children run beside the two ranks
     return {"world": DP_WORLD, "backend": ranks[0]["backend"],
             "checkpoint_at": RES_DP_STEPS[0], "steps": RES_DP_STEPS[1],
-            "equal": True, "ranks": ranks,
-            "seconds": time.perf_counter() - t0}
+            "equal": True,
+            "ranks": [{k: v for k, v in r.items() if k != "restore_s"}
+                      for r in ranks],
+            "shared_card": shared_card(
+                "the insurance resume's children",
+                seconds=time.perf_counter() - t0,
+                restore_s=[r["restore_s"] for r in ranks])}
 
 
 def resume_data_retry(root: str, torch) -> dict:
@@ -1903,14 +1967,19 @@ def resume_phase(torch, smi: str, ins_ref: str, ins_auroc: float,
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="gan4j_resume_")
     try:
-        out = {"insurance": resume_insurance(ins_ref, ins_auroc, root)}
+        # the world-2 resume's ranks run beside the insurance children (the
+        # script's limit): every check of both is bitwise, whatever shares
+        # the card; their timings stand under ``shared_card``
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            dp = pool.submit(resume_dp, root)
+            out = {"insurance": resume_insurance(ins_ref, ins_auroc, root),
+                   "dp": dp.result()}
         t1 = time.perf_counter()
         out["cv"] = resume_cv(torch, root, serve_src)
         t2 = time.perf_counter()
-        out["dp"] = resume_dp(root)
         out["data_retry"] = resume_data_retry(root, torch)
-        out["seconds_by_part"] = {"insurance": t1 - t0, "cv": t2 - t1,
-                                  "dp_and_retry": time.perf_counter() - t2}
+        out["seconds_by_part"] = {"insurance_and_dp": t1 - t0, "cv": t2 - t1,
+                                  "retry": time.perf_counter() - t2}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
@@ -2209,17 +2278,26 @@ def roadmap_children(root: str) -> dict:
     JAX layer does not send to Pallas; Adam is torch ops).  The cgan child
     also runs its end-of-run conditional evaluation (``--fidelity-steps``
     RM_FIDELITY_STEPS; every class has over 50 rows, so the per-class
-    frozen FID runs too)."""
+    frozen FID runs too).  The three children run side by side (the
+    script's limit): every check here is a count, a file or a score; each
+    child's seconds, ``examples_per_sec``, host seconds and goodput are
+    those of three programs at once and stand under ``shared_card``; the
+    graph part's graphed and eager rates, timed in turns, are the
+    families' rates of record."""
     out = {}
+    with concurrent.futures.ThreadPoolExecutor(len(RM_CHILD)) as pool:
+        children = {family: pool.submit(
+            run_child, "gan_deeplearning4j_tpu_torch.train.roadmap_main",
+            ["--family", family, "--iterations", str(iters), "--n-train",
+             str(RM_N_TRAIN), "--print-every", str(every), "--res-path",
+             f"{root}/{family}_child",
+             *(["--fidelity-steps", str(RM_FIDELITY_STEPS)]
+               if family == "cgan-cifar10" else [])])
+            for family, (iters, every) in RM_CHILD.items()}
+        done = {family: child.result() for family, child in children.items()}
     for family, (iters, every) in RM_CHILD.items():
         res = f"{root}/{family}_child"
-        extra = (["--fidelity-steps", str(RM_FIDELITY_STEPS)]
-                 if family == "cgan-cifar10" else [])
-        rc, result, secs, tail = run_child(
-            "gan_deeplearning4j_tpu_torch.train.roadmap_main",
-            ["--family", family, "--iterations", str(iters), "--n-train",
-             str(RM_N_TRAIN), "--print-every", str(every), "--res-path", res,
-             *extra])
+        rc, result, secs, tail = done[family]
         require(rc == 0 and result is not None,
                 f"roadmap_main {family}: exit {rc}, stderr {tail}")
         want = sorted([f"{family}_samples_{s}.png"
@@ -2252,11 +2330,15 @@ def roadmap_children(root: str) -> dict:
                     and len(result["per_class_fid"]) == 10
                     and 0.0 <= result["conditional_fidelity"] <= 1.0,
                     f"roadmap_main {family}: conditional scores {result}")
-            print(json.dumps({"cgan_child": {
-                k: result[k] for k in ("examples_per_sec", *keys)}}),
-                flush=True)
-        out[family] = dict(seconds=secs, files=len(files), result=result,
-                           expected_launches=expected)
+            print(json.dumps({"cgan_child": {k: result[k] for k in keys}}),
+                  flush=True)
+        timed = ("examples_per_sec", "host_seconds", "goodput")
+        out[family] = dict(
+            files=len(files), expected_launches=expected,
+            result={k: v for k, v in result.items() if k not in timed},
+            shared_card=shared_card(
+                [f for f in RM_CHILD if f != family], seconds=secs,
+                **{k: result.get(k) for k in timed}))
     return out
 
 
@@ -3316,7 +3398,13 @@ SERVE_SLO_FRAC = 0.8
 SERVE_SLO_STAGES = 5
 SERVE_SWAP_S = 2.0  # the load stage a hot swap lands in
 SERVE_HANG_DEADLINE_S = 2.0
-SERVE_SOCKET_S = 2.0  # run_socket_load through the replica child
+# run_socket_load through the replica child at 80% of the in-process
+# saturation, several times what one replica's gateway answers: the stage
+# overloads it and requires every request answered.  A 2 s stage's backlog
+# took 10-15 s to drain on an H100 host; at 0.5 s the achieved req/s is not
+# a backlogged replica's steady rate (the serve_mesh phase's gateway turns
+# time what tracing costs a replica)
+SERVE_SOCKET_S = 0.5
 SERVE_MIX_SIZES = (1, 4, 16, 48)
 SERVE_CHILD_TIMEOUT_S = 180
 
@@ -3888,6 +3976,487 @@ def _serve(torch, root: str, serve_src: str) -> dict:
     return out
 
 
+# -- the serve_mesh phase -----------------------------------------------------
+
+SM_BUDGET_S = 90.0
+SM_SEED = 20261018
+SM_REQUESTS = 24  # traced requests of the size mix: half by client, half mesh
+SM_WEDGE_S = 2.0
+SM_SETTLE_S = 60.0  # the longest wait for a replacement or a deploy
+SM_CYCLE_REQUESTS = 2000  # requests queued for each engine turn
+# the engine's turns: (recorder, traced requests).  "ring" is a replica's
+# default recorder, "file" its ``--events`` one, "off" a recorder that
+# records nothing (not the ``serve.dispatch`` span either)
+SM_CYCLE_MODES = {"off": ("off", False), "ring": ("ring", False),
+                  "ring_traced": ("ring", True),
+                  "file_traced": ("file", True)}
+SM_CYCLE_TURNS = ("off", "ring", "ring_traced", "file_traced",
+                  "file_traced", "ring_traced", "ring", "off")
+SM_GW_REQUESTS = 400  # requests over the loopback for each gateway turn
+SM_GW_CONNS = 8  # closed-loop keep-alive connections, a thread each
+SM_GW_TURNS = ("off", "ring", "file", "file", "ring", "off")
+
+
+def _sm_wait(pred, timeout_s: float, what: str) -> float:
+    """Seconds until ``pred()`` holds, polled every 20 ms (raises past
+    ``timeout_s``)."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout_s:
+            raise RuntimeError(f"chip_smoke: serve_mesh: no {what} within "
+                               f"{timeout_s} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def _sm_recorder(kind: str, path: str):
+    """The recorder of a cost turn: "off" records nothing, "ring" keeps
+    the default ring only, "file" writes ``path`` as well."""
+    from gan_deeplearning4j_tpu_torch.telemetry import events
+
+    if kind == "off":
+        return events.EventRecorder(enabled=False)
+    return events.EventRecorder(path=path if kind == "file" else None)
+
+
+def _sm_spread(turns, key: str) -> dict:
+    """Median, least and most of ``key`` over each mode's turns."""
+    by = {}
+    for t in turns:
+        by.setdefault(t["mode"], []).append(t[key])
+    return {m: {"median": statistics.median(v), "min": min(v), "max": max(v)}
+            for m, v in by.items()}
+
+
+def sm_cycle_cost(infer, root: str) -> dict:
+    """The engine's wall ms per full batch on ``infer`` under each of
+    SM_CYCLE_MODES, in turns (SM_CYCLE_TURNS, after one not counted):
+    each turn queues SM_CYCLE_REQUESTS requests of the size mix before the
+    engine starts (every batch full, ~7.8 requests), then the wall seconds
+    until the last is answered over the batches it took (graph replay and
+    readback fence included), and the stage sums (``stage_report``) over
+    the same batches.  The differences of the modes' medians: the
+    ``serve.dispatch`` span (ring - off), a trace on every request as the
+    gateway mints one (ring_traced - ring), the file (file_traced -
+    ring_traced)."""
+    import numpy as np
+
+    from gan_deeplearning4j_tpu_torch.serve import (
+        AdmissionQueue,
+        Request,
+        ServeEngine,
+    )
+    from gan_deeplearning4j_tpu_torch.serve.loadgen import DEFAULT_SIZE_MIX
+    from gan_deeplearning4j_tpu_torch.telemetry import events, tracing
+
+    rows, p = zip(*DEFAULT_SIZE_MIX)
+    sizes = np.random.RandomState(SM_SEED + 1).choice(
+        rows, size=SM_CYCLE_REQUESTS, p=p)
+    turns = []
+    # a first turn, not counted: the first after the phase's traffic reads
+    # slow (1.28 against 0.80 ms on the card, same mode)
+    for i, mode in enumerate(("off", *SM_CYCLE_TURNS)):
+        kind, traced = SM_CYCLE_MODES[mode]
+        path = f"{root}/cycle_{i}.jsonl"
+        rec = _sm_recorder(kind, path)
+        prev = events.install(rec)
+        try:
+            eng = ServeEngine(infer=infer, admission=AdmissionQueue(
+                max_depth=SM_CYCLE_REQUESTS, deadline_ms=1e9))
+            reqs = [Request((_z(np.random.RandomState(j), int(n)),),
+                            trace=tracing.mint() if traced else None)
+                    for j, n in enumerate(sizes)]
+            for r in reqs:
+                eng.admission.submit(r)
+            t0 = time.perf_counter()
+            with eng:
+                for r in reqs:
+                    r.result(timeout=120.0)
+                wall = time.perf_counter() - t0
+                st = eng.stage_report()
+        finally:
+            events.install(prev)
+            rec.close()
+        if i == 0:
+            continue
+        batches = st["batches"]
+        turns.append({
+            "mode": mode, "requests": len(reqs), "batches": batches,
+            "wall_ms_per_full_batch": wall / batches * 1e3,
+            "stage_ms_per_full_batch": sum(
+                v for k, v in st.items() if k != "batches") / batches * 1e3,
+            "events_written": (len(events.read_events(path))
+                               if kind == "file" else None)})
+    wall = _sm_spread(turns, "wall_ms_per_full_batch")
+
+    def added(mode, over):
+        return wall[mode]["median"] - wall[over]["median"]
+
+    return {"turns": turns, "wall_ms_per_full_batch": wall,
+            "stage_ms_per_full_batch": _sm_spread(
+                turns, "stage_ms_per_full_batch"),
+            "added_ms_per_full_batch": {
+                "dispatch_span": added("ring", "off"),
+                "traces_in_ring": added("ring_traced", "ring"),
+                "file": added("file_traced", "ring_traced"),
+                "file_traced_over_off": added("file_traced", "off")}}
+
+
+def sm_gateway_cost(infer, root: str) -> dict:
+    """Requests a second through an in-process ``Gateway`` over an engine
+    on ``infer`` under each recorder, in turns (SM_GW_TURNS, after one not
+    counted): SM_GW_CONNS
+    threads, each a keep-alive connection, send SM_GW_REQUESTS requests of
+    the size mix closed loop.  The gateway mints a trace for every request
+    (its own and the engine's ``trace.*`` spans), so "ring" is what a
+    replica pays by default, "file" what it pays under ``--events``, and
+    "off" the same work recording nothing.  The senders share this
+    process; p50 / p99 ms of the requests beside."""
+    import threading
+    from http.client import HTTPConnection
+
+    import numpy as np
+
+    from gan_deeplearning4j_tpu_torch.serve import (
+        AdmissionQueue,
+        Gateway,
+        Router,
+        ServeEngine,
+    )
+    from gan_deeplearning4j_tpu_torch.serve.loadgen import (
+        DEFAULT_SIZE_MIX,
+        percentiles,
+    )
+    from gan_deeplearning4j_tpu_torch.telemetry import events
+
+    rows, p = zip(*DEFAULT_SIZE_MIX)
+    rng = np.random.RandomState(SM_SEED + 2)
+    bodies = [_npy(_z(rng, int(n)))
+              for n in rng.choice(rows, size=SM_GW_REQUESTS, p=p)]
+    turns = []
+    for i, mode in enumerate(("off", *SM_GW_TURNS)):  # the first not counted
+        rec = _sm_recorder(mode, f"{root}/gateway_{i}.jsonl")
+        prev = events.install(rec)
+        lat, bad = [], []
+        try:
+            eng = ServeEngine(infer=infer, admission=AdmissionQueue(
+                deadline_ms=60_000.0))
+            with eng, Gateway(Router([eng])) as gw:
+                def send(k):
+                    conn = HTTPConnection("127.0.0.1", gw.port, timeout=60.0)
+                    try:
+                        for body in bodies[k::SM_GW_CONNS]:
+                            t = time.perf_counter()
+                            conn.request("POST", "/v1/generate", body=body,
+                                         headers={"Content-Type":
+                                                  "application/x-npy"})
+                            resp = conn.getresponse()
+                            resp.read()
+                            lat.append(time.perf_counter() - t)
+                            if resp.status != 200:
+                                bad.append(resp.status)
+                    finally:
+                        conn.close()
+
+                threads = [threading.Thread(target=send, args=(k,))
+                           for k in range(SM_GW_CONNS)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                wall = time.perf_counter() - t0
+        finally:
+            events.install(prev)
+            rec.close()
+        require(not bad and len(lat) == SM_GW_REQUESTS,
+                f"serve_mesh: gateway turn {mode}: {len(lat)} answered, "
+                f"statuses {bad[:5]}")
+        if i == 0:
+            continue
+        p50, p99 = percentiles([x * 1e3 for x in lat], (50, 99))
+        turns.append({"mode": mode, "requests_per_s": SM_GW_REQUESTS / wall,
+                      "p50_ms": p50, "p99_ms": p99})
+    rps = _sm_spread(turns, "requests_per_s")
+    return {"turns": turns, "requests_per_s": rps,
+            "p99_ms": _sm_spread(turns, "p99_ms"),
+            "ring_over_off": rps["ring"]["median"] / rps["off"]["median"],
+            "file_over_off": rps["file"]["median"] / rps["off"]["median"]}
+
+
+def serve_mesh_phase(torch, smi: str) -> dict:
+    """The serving plane across processes, traced (module docstring, phase
+    15), each check required."""
+    import glob
+
+    import numpy as np
+
+    from gan_deeplearning4j_tpu_torch.checkpoint import TrainCheckpointer
+    from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.parallel.inference import (
+        ParallelInference,
+    )
+    from gan_deeplearning4j_tpu_torch.serve import (
+        AdmissionQueue,
+        Autoscaler,
+        ControlPlane,
+        Gateway,
+        GatewayClient,
+        MeshRouter,
+        RemoteReplica,
+        ReplicaLauncher,
+        Router,
+        ServeEngine,
+    )
+    from gan_deeplearning4j_tpu_torch.serve.loadgen import DEFAULT_SIZE_MIX
+    from gan_deeplearning4j_tpu_torch.telemetry import events, tracing
+    from gan_deeplearning4j_tpu_torch.telemetry.exporter import (
+        MetricsRegistry,
+        serve_exporter,
+    )
+    from gan_deeplearning4j_tpu_torch.testing import chaos
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="gan4j_serve_mesh_")
+    out = {"nvidia_smi": smi, "buckets": list(SERVE_BUCKETS),
+           "size_mix": [list(p) for p in DEFAULT_SIZE_MIX],
+           "tolerance": SERVE_CPU_TOL}
+    recorder = events.EventRecorder(path=f"{root}/parent.events.jsonl",
+                                    ring_size=8192)
+    prev = events.install(recorder)
+    cp = gw = ref = ref_client = None
+    clients = []
+    try:
+        # the served weights: the generator at full width from a seed,
+        # saved by the port's checkpointer; the replicas boot from it and
+        # this process serves it through its own engine behind a gateway
+        torch.manual_seed(SM_SEED)
+        gen = M.build_generator(device="cuda")
+        ckpt_dir = f"{root}/gen_ckpt"
+        TrainCheckpointer(ckpt_dir).save(1, {"gen": gen})
+        infer = ParallelInference(gen, buckets=SERVE_BUCKETS)
+        ref = ServeEngine(infer=infer,
+                          admission=AdmissionQueue(deadline_ms=60_000.0))
+        ref.warmup(np.zeros((1, 2), np.float32))
+        ref.start()
+        gw = Gateway(Router([ref])).start()
+        ref_client = GatewayClient("127.0.0.1", gw.port, retries=0)
+        kernels.reset_launch_counts()
+        worst = [0.0]
+
+        def check(z, got, what):
+            want = ref_client.generate([z], encoding="npy")[0]
+            err = float(np.abs(got - want).max())
+            worst[0] = max(worst[0], err)
+            require(got.shape == want.shape and err <= SERVE_CPU_TOL,
+                    f"serve_mesh: {what}: {got.shape} against "
+                    f"{want.shape}, max abs err {err}")
+
+        # 1. two replica processes of the CV generator under the control
+        # plane, each with --events
+        launcher = ReplicaLauncher(
+            checkpoint=ckpt_dir, buckets=SERVE_BUCKETS, log_dir=root,
+            events_dir=root)
+        cp = ControlPlane(launcher, autoscaler=Autoscaler(
+            min_replicas=2, max_replicas=2, down_after=10 ** 9),
+            tick_s=0.25, hold_ticks=2, max_rollbacks=2,
+            p99_floor_ms=10_000.0)
+        t1 = time.perf_counter()
+        cp.start()
+        out["start_s"] = time.perf_counter() - t1
+        first = cp.replica_names()
+        require(len(first) == 2, f"serve_mesh: started {first}")
+        rng = np.random.RandomState(SM_SEED)
+
+        # 3. (first, so that the replica killed has served nothing: a
+        # SIGKILLed process loses its unflushed events) a mesh over the
+        # two; one request to replica 0, replica 1 SIGKILLed, the next
+        # traced request fails over to replica 0
+        hosts = [n.rsplit(":", 1) for n in first]
+        fmesh = MeshRouter([RemoteReplica(h, int(p)) for h, p in hosts],
+                           recheck_s=30.0)
+        try:
+            z = _z(rng, 4)
+            check(z, fmesh.generate([z])[0], "mesh warm request")
+            victim = cp.process(first[1])
+            t_kill = time.perf_counter()
+            chaos.kill_replica_process(victim)
+            failover = tracing.mint()
+            with events.span("trace.client", trace=failover.trace,
+                             span=failover.span):
+                got = fmesh.generate([z], trace=failover)[0]
+            out["failover_s"] = time.perf_counter() - t_kill
+            check(z, got, "failover request")
+        finally:
+            fmesh.close()
+        out["replace_s"] = _sm_wait(
+            lambda: (cp.report()["replaced_total"] >= 1
+                     and len(cp.replica_names()) == 2
+                     and cp.mesh.report()["replicas_healthy"] == 2),
+            SM_SETTLE_S, "replacement") + out["failover_s"]
+        live = cp.replica_names()
+        require(first[1] not in live, f"serve_mesh: {first[1]} still in "
+                f"{live} after its kill")
+
+        # 2. traced requests of the size mix over both live replicas:
+        # through a client of each (the client mints the root) and through
+        # the control plane's mesh (the mesh mints), each output held
+        # against the same rows through this process's engine
+        clients = [GatewayClient(h, int(p), retries=0)
+                   for h, p in (n.rsplit(":", 1) for n in live)]
+        rows, p = zip(*DEFAULT_SIZE_MIX)
+        sizes = rng.choice(rows, size=SM_REQUESTS, p=p)
+        for i, n in enumerate(sizes):
+            z = _z(rng, int(n))
+            if i % 2:
+                got = cp.mesh.generate([z])[0]
+            else:
+                got = clients[(i // 2) % 2].generate([z], encoding="npy")[0]
+            check(z, got, f"{n} rows")
+        out["requests"] = {"traced": int(SM_REQUESTS),
+                           "rows": [int(n) for n in sizes],
+                           "max_abs_err": worst[0]}
+
+        # 4. a replica wedged: ejected by the probe, then re-admitted
+        wname = live[0]
+
+        def healthy():
+            cp.mesh.poll()  # one probe sweep
+            return cp.mesh.report()["replica_ok"][
+                cp.mesh.names().index(wname)]
+
+        wh, wp = wname.rsplit(":", 1)
+        t_w = time.perf_counter()
+        chaos.wedge_replica(wh, int(wp), seconds=SM_WEDGE_S)
+        eject_s = _sm_wait(lambda: not healthy(), 10.0,
+                           "ejection of the wedged replica")
+        z = _z(rng, 4)
+        check(z, cp.mesh.generate([z])[0], "request while wedged")
+        readmit_s = _sm_wait(healthy, 10.0 + SM_WEDGE_S,
+                             "re-admission") + eject_s
+        out["wedge"] = {"seconds": SM_WEDGE_S, "eject_s": eject_s,
+                        "readmit_s": readmit_s,
+                        "wedge_to_readmit_s": time.perf_counter() - t_w}
+
+        # 5. a canary deploy of the checkpoint promotes; a deploy of its
+        # poisoned successor rolls back and charges the budget
+        def deploy(what):
+            t = time.perf_counter()
+            cp.deploy(ckpt_dir)
+            s = _sm_wait(lambda: cp.deployment_status()["state"]
+                         not in ("pending", "canary"), SM_SETTLE_S, what)
+            return cp.deployment_status(), s
+
+        promoted, promote_s = deploy("promotion")
+        require(promoted["state"] == "promoted" and promoted["step"] == 1,
+                f"serve_mesh: clean deploy {promoted}")
+        bad = chaos.poison_checkpoint_dir(ckpt_dir)
+        rolled, rollback_s = deploy("rollback")
+        rep = cp.report()
+        require(rolled["state"] == "rolled_back" and rolled["step"] == bad
+                and rolled["restored_step"] == 1
+                and "non-finite" in rolled["reason"]
+                and rep["rollbacks_total"] == 1 and rep["ok"],
+                f"serve_mesh: poisoned deploy {rolled}, {rep}")
+        for _ in live:
+            z = _z(rng, 8)
+            check(z, cp.mesh.generate([z])[0], "request after rollback")
+        out["canary"] = {"promote_s": promote_s, "rollback_s": rollback_s,
+                         "poisoned_step": bad,
+                         "restored_step": rolled["restored_step"],
+                         "rollbacks_total": rep["rollbacks_total"],
+                         "promoted_total": rep["promoted_total"]}
+
+        # 7. the five reports fed to one registry, scraped once
+        reg = MetricsRegistry()
+        reg.observe_serve(ref.report)
+        reg.observe_gateway(gw.report)
+        reg.observe_client(ref_client.report)
+        reg.observe_serving_mesh(cp.mesh.report)
+        reg.observe_controlplane(cp.report)
+        stop_exporter = serve_exporter(reg, 0)
+        try:
+            got = http_get(f"http://127.0.0.1:{stop_exporter.port}/metrics")
+        finally:
+            stop_exporter()
+        require(got is not None and got[0] == 200,
+                f"serve_mesh: /metrics answered {got}")
+        text = got[1].decode()
+        series = {s: prom_value(text, s) for s in (
+            "gan4j_serve_requests_total", "gan4j_serve_batch_fill",
+            "gan4j_gateway_requests_total", "gan4j_client_reused_total",
+            "gan4j_mesh_replicas", "gan4j_mesh_replicas_healthy",
+            "gan4j_mesh_ejected_total", "gan4j_controlplane_replicas",
+            "gan4j_controlplane_replaced_total",
+            "gan4j_controlplane_rollbacks_total")}
+        require(all(series[s] for s in (
+            "gan4j_serve_requests_total", "gan4j_serve_batch_fill",
+            "gan4j_gateway_requests_total")),
+            f"serve_mesh: serving series {series}")
+        out["scrape"] = series
+        spawned = [e for e in recorder.recent()
+                   if e["name"] == "controlplane.replica_spawned"]
+        out["ready_s"] = [e["ready_s"] for e in spawned]
+    finally:
+        for c in clients:
+            c.close()
+        if cp is not None:
+            cp.stop()  # SIGTERM: each replica flushes its events' tail
+        if ref_client is not None:
+            ref_client.close()
+        if gw is not None:
+            gw.stop()
+        if ref is not None:
+            ref.stop()
+        events.install(prev)
+        recorder.close()
+    try:
+        launches = kernels.launch_counts()
+        # 6. the per-process files merged into one timeline
+        files = [f"{root}/parent.events.jsonl"] + sorted(
+            glob.glob(f"{root}/replica_*.events.jsonl"))
+        merged = tracing.merge_trace_files(files,
+                                           include_events=("controlplane.",))
+        stats = merged["stats"]
+        tr = merged["traces"].get(failover.trace, {})
+        hops = [s for s in tr.get("spans", []) if s["name"] == "trace.hop"]
+        stopped = [e for f in files[1:] for e in events.read_events(f)
+                   if e["name"] == "replica.stopped"]
+        for e in stopped:
+            for k, v in e["port_launches"].items():
+                launches[k] += v
+        require(stats["traces"] >= SM_REQUESTS + 2
+                and stats["complete"] == stats["traces"],
+                f"serve_mesh: trace trees {stats}")
+        require(tr.get("complete") and len(tr["processes"]) >= 2
+                and len(hops) == 2
+                and sum("error" in h for h in hops) == 1,
+                f"serve_mesh: the failover trace {tr}")
+        require(len(stopped) == 2 and not any(launches.values()),
+                f"serve_mesh: replicas stopped {len(stopped)}, port "
+                f"kernels launched {launches}")
+        require(len(out["ready_s"]) == 3,
+                f"serve_mesh: spawns {out['ready_s']}")
+        out["traces"] = {k: stats[k] for k in (
+            "files", "segments", "spans", "traces", "complete",
+            "complete_frac", "cross_process", "errors", "timeline_events",
+            "stage_p50_ms")}
+        out["failover_trace"] = {"processes": len(tr["processes"]),
+                                 "spans": len(tr["spans"]),
+                                 "hops": [h.get("error") is not None
+                                          for h in hops]}
+        out["launches"] = launches
+        # 8. what tracing costs: the engine's ms per full batch and the
+        # gateway's requests a second under each recorder, in turns
+        out["cycle"] = sm_cycle_cost(infer, root)
+        out["gateway_cost"] = sm_gateway_cost(infer, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # -- the supervision phase ----------------------------------------------------
 
 # the card's first telemetry block against the CPU's from the same start and
@@ -3971,7 +4540,7 @@ def sv_world2(group) -> dict:
 
 def sv_telemetry(torch) -> dict:
     """The CV protocol step at batch 200 with its telemetry block, captured
-    (module docstring, phase 15): 2 graphed calls of MAIN_K steps against
+    (module docstring, phase 16): 2 graphed calls of MAIN_K steps against
     the same run without the block (losses and state bitwise) and against
     the eager step from the graph's start (every column and the state
     bitwise), the counters around the graphed calls, the first step's block
@@ -4329,7 +4898,7 @@ def sv_healthy(torch, root: str) -> dict:
 
 def supervision_phase(torch, smi: str, world2) -> dict:
     """Supervision's numerics and hang half on the card (module docstring,
-    phase 15).  ``world2``: the dp phase's telemetry runs, one per rank."""
+    phase 16).  ``world2``: the dp phase's telemetry runs, one per rank."""
     t0 = time.perf_counter()
     out = {"nvidia_smi": smi, "telemetry": sv_telemetry(torch)}
     root = tempfile.mkdtemp(prefix="gan4j_sv_")
@@ -4688,7 +5257,7 @@ def obs_roadmap(torch, root: str, child) -> dict:
 
 def observability_phase(torch, smi: str) -> dict:
     """The training run's observability on the card (module docstring,
-    phase 16).  The preemption drill's events are the resume phase's
+    phase 17).  The preemption drill's events are the resume phase's
     (``resume_insurance``: its SIGTERM'd child's ``events.jsonl``)."""
     import threading
 
@@ -5369,18 +5938,24 @@ def main() -> int:
         shutil.rmtree(serve_src, ignore_errors=True)
     emit("serve", **serve)
 
-    # -- 15. supervision's numerics and hangs ---------------------------------
+    # -- 15. the serving plane across processes, traced -----------------------
+    sm = serve_mesh_phase(torch, smi)
+    # its time against its budget, recorded as the observability phase's
+    emit("serve_mesh", budget_s=SM_BUDGET_S,
+         within_budget=sm["seconds"] <= SM_BUDGET_S, **sm)
+
+    # -- 16. supervision's numerics and hangs ---------------------------------
     sv = supervision_phase(torch, smi, [r["supervision"] for r in ranks])
     emit("supervision", **sv)
 
-    # -- 16. the training run's observability --------------------------------
+    # -- 17. the training run's observability --------------------------------
     obs = observability_phase(torch, smi)
     # its time against its budget, recorded (the script's own limit is
     # what a run must meet)
     emit("observability", budget_s=OBS_BUDGET_S,
          within_budget=obs["seconds"] <= OBS_BUDGET_S, **obs)
 
-    # -- 17. the kernels line and the result ---------------------------------
+    # -- 18. the kernels line and the result ---------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
     # pair, and the kernel phase's check for the 4-D BN, which no model
     # path runs (as in the JAX package)
@@ -5443,6 +6018,9 @@ def main() -> int:
          # (the JAX forward reaches no Pallas kernel): counted around the
          # serve phase's load stages
          "serve": {"launches": serve["launches"][r["name"]]},
+         # the mesh over replica processes runs none of the six either:
+         # this process's counts over the phase plus each replica's own
+         "serve_mesh": {"launches": sm["launches"][r["name"]]},
          # the supervision phase's path: the CV step with its telemetry
          # block, captured (GRAPH_STEPS replays), and at world 2 per rank
          # (SV_DP_STEPS eager steps)
@@ -5467,6 +6045,7 @@ def main() -> int:
         "total_before_the_precision_phase": TOTAL_BEFORE_PRECISION_S,
         "serve": serve["seconds"],
         "total_before_the_serve_phase": before_serve_s,
+        "serve_mesh": sm["seconds"],
         "pair_dp": pdp["seconds"], "supervision": sv["seconds"],
         "observability": obs["seconds"], "by_phase": PHASE_SECONDS}}),
         flush=True)

@@ -1,5 +1,5 @@
 """Serving plane — the continuous-batching generation service (torch twin
-of ``gan_deeplearning4j_tpu/serve/``, single host).
+of ``gan_deeplearning4j_tpu/serve/``).
 
 ``parallel/inference.py`` runs ONE bucketed dispatch, a CUDA graph per
 bucket on the card; this package turns it into a service: an
@@ -10,12 +10,14 @@ harness (``loadgen.py``) that measures p50/p95/p99 and saturation
 throughput, and the network front door: an HTTP gateway (``gateway.py``)
 over a health-aware replica router (``router.py``) with a retrying
 reference client (``client.py``); ``replica.py`` runs the stack as a
-standalone process.  The wire formats, error types, status codes and
-report keys are the JAX package's.
+standalone process.  Across processes, ``mesh.py`` routes over replica
+processes by their HTTP surface (typed ejection and re-probe), and
+``controlplane.py`` spawns them, heals, autoscales and canary-deploys
+checkpoints.  The wire formats, the trace header, error types, status
+codes and report keys are the JAX package's.
 
-Not ported yet (ROADMAP Queue 1 item 10): the mesh tier (``mesh.py``),
-the control plane and the checkpoint publisher; the fleet tenant bank
-(item 9) raises.
+Not ported yet: the checkpoint publisher (ROADMAP Queue 1 item 10.3);
+the fleet tenant bank (item 9) raises.
 """
 
 from gan_deeplearning4j_tpu_torch.serve.admission import (
@@ -27,6 +29,15 @@ from gan_deeplearning4j_tpu_torch.serve.client import (
     GatewayClient,
     GatewayHTTPError,
 )
+from gan_deeplearning4j_tpu_torch.serve.controlplane import (
+    Autoscaler,
+    CanaryDeployment,
+    ControlPlane,
+    DeploymentRollbackError,
+    ReplicaLauncher,
+    ReplicaProcess,
+    ReplicaSpawnError,
+)
 from gan_deeplearning4j_tpu_torch.serve.engine import DispatchError, ServeEngine
 from gan_deeplearning4j_tpu_torch.serve.gateway import Gateway, TokenBucket
 from gan_deeplearning4j_tpu_torch.serve.loadgen import (
@@ -35,6 +46,11 @@ from gan_deeplearning4j_tpu_torch.serve.loadgen import (
     run_load,
     run_socket_load,
     z_inputs,
+)
+from gan_deeplearning4j_tpu_torch.serve.mesh import (
+    MeshRouter,
+    RemoteReplica,
+    ReplicaProbeError,
 )
 from gan_deeplearning4j_tpu_torch.serve.router import (
     FleetTenantBank,
@@ -45,12 +61,22 @@ from gan_deeplearning4j_tpu_torch.serve.router import (
 
 __all__ = [
     "AdmissionQueue",
+    "Autoscaler",
+    "CanaryDeployment",
+    "ControlPlane",
+    "DeploymentRollbackError",
     "DispatchError",
     "FleetTenantBank",
     "Gateway",
     "GatewayClient",
     "GatewayHTTPError",
+    "MeshRouter",
     "NoHealthyReplicaError",
+    "RemoteReplica",
+    "ReplicaLauncher",
+    "ReplicaProbeError",
+    "ReplicaProcess",
+    "ReplicaSpawnError",
     "Request",
     "Router",
     "ServeEngine",

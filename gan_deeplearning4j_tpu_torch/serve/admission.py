@@ -1,7 +1,6 @@
 """Admission control — the bounded front door of the serving plane
 (torch twin of ``gan_deeplearning4j_tpu/serve/admission.py``, a copy:
-numpy and the stdlib only; the ``serve.shed`` event of the JAX timeline
-waits for the telemetry slice).
+numpy and the stdlib only).
 
 An unbounded request queue converts overload into unbounded latency
 (every admitted request waits behind everything before it) and
@@ -20,7 +19,8 @@ implements exactly that:
   one fast failure into one guaranteed SLO miss.
 
 A shed raises ``ShedError`` — a TYPED rejection carrying the depth,
-the wait estimate, and the budget; it never blocks.  The queue itself
+the wait estimate, and the budget — and emits a ``serve.shed`` instant;
+it never blocks.  The queue itself
 never blocks either: ``submit`` and ``drain`` are lock-and-go, and the
 engine's idle wait parks on the ``wake`` event OUTSIDE any lock.
 """
@@ -33,6 +33,8 @@ from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from gan_deeplearning4j_tpu_torch.telemetry import events
 
 # weight of the newest rows/sec sample in the service-rate EWMA: high
 # enough to track a hot-swap or bucket-mix change within a few
@@ -75,8 +77,8 @@ class Request:
         self.error: Optional[BaseException] = None
         self.t_submit = time.perf_counter()
         self.t_done: Optional[float] = None
-        # a trace context (the JAX package's telemetry/tracing.py): only
-        # None until the telemetry slice (ServeEngine.submit refuses one)
+        # a ``tracing.TraceContext``: the engine cuts this request's
+        # ``trace.*`` stage spans under it (None records nothing)
         self.trace = trace
 
     def result(self, timeout: Optional[float] = None) -> List:
@@ -157,12 +159,18 @@ class AdmissionQueue:
                 reason = None
             if reason is not None:
                 self._shed_total += 1
+                shed_total = self._shed_total
         if closed:
             # a closed queue is a STOPPED service, not load shedding:
             # raise the engine's "not running" error, don't count a shed
             raise RuntimeError(
                 "admission queue is closed (serve engine stopped)")
         if reason is not None:
+            # event + raise OUTSIDE the lock: the recorder may write
+            events.instant("serve.shed", depth=depth, rows=request.rows,
+                           est_wait_ms=est_wait_ms,
+                           budget_ms=self.deadline_ms,
+                           shed_total=shed_total)
             raise ShedError(f"request shed: {reason}", depth=depth,
                             est_wait_ms=est_wait_ms,
                             budget_ms=self.deadline_ms)

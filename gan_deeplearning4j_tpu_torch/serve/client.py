@@ -1,6 +1,6 @@
 """Retrying HTTP client for the serving gateway (torch twin of
 ``gan_deeplearning4j_tpu/serve/client.py``, a copy: the stdlib and numpy
-only; its trace header and spans wait for the telemetry slice).
+only).
 
 The gateway's error contract is TYPED at the wire level (429 shed with
 ``Retry-After``, 503 unavailable, 400 validation — serve/gateway.py),
@@ -48,6 +48,8 @@ from http.client import HTTPConnection, HTTPException
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from gan_deeplearning4j_tpu_torch.telemetry import events, tracing
 
 # statuses worth retrying: the service is up but cannot take THIS
 # request right now (shed / no healthy replica / engine restarting)
@@ -171,14 +173,20 @@ class GatewayClient:
     # -- low-level -------------------------------------------------------------
 
     def _request(self, method: str, path: str, body: Optional[bytes],
-                 content_type: Optional[str]):
+                 content_type: Optional[str], trace=None,
+                 attempt: int = 0):
         headers = {}
         if content_type is not None:
             headers["Content-Type"] = content_type
+        if trace is not None:
+            headers[tracing.TRACE_HEADER] = tracing.to_header(trace)
         conn, reused = self._checkout()
+        t_send = t_recv = None
         try:
             try:
+                t_send = time.perf_counter()
                 conn.request(method, path, body=body, headers=headers)
+                t_recv = time.perf_counter()
                 resp = conn.getresponse()
                 data = resp.read()
             except (ConnectionError, HTTPException, OSError):
@@ -194,16 +202,31 @@ class GatewayClient:
                 conn = HTTPConnection(self.host, self.port,
                                       timeout=self.timeout_s)
                 reused = False
+                t_send = time.perf_counter()
                 conn.request(method, path, body=body, headers=headers)
+                t_recv = time.perf_counter()
                 resp = conn.getresponse()
                 data = resp.read()
         except BaseException:
             conn.close()
             raise
+        t_done = time.perf_counter()
         if resp.will_close:
             conn.close()
         else:
             self._checkin(conn)
+        if trace is not None:
+            # one send + one recv span per wire attempt, children of
+            # the caller's span — the client side of the wire gap
+            events.complete("trace.wire_send", dur=t_recv - t_send,
+                            t_start=t_send, trace=trace.trace,
+                            span=tracing.new_span_id(),
+                            parent=trace.span, attempt=attempt)
+            events.complete("trace.wire_recv", dur=t_done - t_recv,
+                            t_start=t_recv, trace=trace.trace,
+                            span=tracing.new_span_id(),
+                            parent=trace.span, attempt=attempt,
+                            status=resp.status)
         return (resp.status, dict(resp.getheaders()), data)
 
     def _raise(self, status: int, headers: Dict, data: bytes) -> None:
@@ -226,13 +249,14 @@ class GatewayClient:
 
     def _with_retries(self, method: str, path: str,
                       body: Optional[bytes],
-                      content_type: Optional[str]):
+                      content_type: Optional[str], trace=None):
         backoff = self.backoff_s
         attempt = 0
         while True:
             try:
                 status, headers, data = self._request(
-                    method, path, body, content_type)
+                    method, path, body, content_type,
+                    trace=trace, attempt=attempt)
             except (ConnectionError, HTTPException, OSError):
                 # transport-level failure (reset, refused mid-restart):
                 # retry on the same schedule as a 503
@@ -272,12 +296,14 @@ class GatewayClient:
         ``tenant`` targets ``/v1/tenants/{tenant}/generate`` (the
         fleet-sliced model); without it the request load-balances
         across the replica set.  Raises ``GatewayHTTPError`` on a
-        non-200 answer after retries.  ``trace``: only None (request
-        tracing is ROADMAP Queue 1 item 6.5)."""
-        if trace is not None:
-            raise NotImplementedError(
-                "request tracing (trace=) is not ported yet (ROADMAP "
-                "Queue 1 item 6.5, telemetry)")
+        non-200 answer after retries.
+
+        Tracing: with ``trace=None`` the client is the FIRST hop and
+        mints a root ``trace.client`` span (the whole call, retries
+        included); a caller-supplied ``tracing.TraceContext`` (the
+        mesh's per-hop context) is propagated instead, without a new
+        root.  Either way the context rides the ``X-Gan4j-Trace``
+        header and each wire attempt records send/recv spans."""
         if encoding == "json":
             body, ctype = _encode_json(xs), "application/json"
         elif encoding == "npy":
@@ -287,8 +313,18 @@ class GatewayClient:
                              "(expected 'json' or 'npy')")
         path = ("/v1/generate" if tenant is None
                 else f"/v1/tenants/{tenant}/generate")
-        headers, data = self._with_retries("POST", path, body, ctype)
-        return _decode_outputs(data, headers.get("Content-Type", ""))
+        if trace is not None:
+            headers, data = self._with_retries("POST", path, body,
+                                               ctype, trace=trace)
+            return _decode_outputs(data,
+                                   headers.get("Content-Type", ""))
+        ctx = tracing.mint()
+        with events.span("trace.client", trace=ctx.trace,
+                         span=ctx.span, path=path):
+            headers, data = self._with_retries("POST", path, body,
+                                               ctype, trace=ctx)
+            return _decode_outputs(data,
+                                   headers.get("Content-Type", ""))
 
     def healthz(self) -> Dict:
         """GET the gateway's own /healthz block (any status — health is
@@ -299,8 +335,9 @@ class GatewayClient:
         return payload
 
     def report(self) -> Dict:
-        """The keep-alive pool's counters (the JAX package's
-        ``gan4j_client_*`` exporter feed), read under the pool lock."""
+        """Scrape feed for ``MetricsRegistry.observe_client`` (the
+        ``gan4j_client_*`` series): the keep-alive pool's counters,
+        read under the pool lock."""
         with self._pool_lock:
             return {"reused_total": self.reused_total,
                     "reconnects_total": self.reconnects_total,

@@ -33,10 +33,16 @@ loads the newest VERIFIED checkpoint (the JAX on-disk format, through
 ``checkpoint/checkpointer.py``) into the graph and then flags the
 refresh.
 
-Ops surface: ``report()`` carries the JAX engine's keys.  The JAX
-package's ``serve.*`` events and per-request trace spans wait for the
-telemetry slice (ROADMAP Queue 1 item 6.5); ``stage_report()`` sums the
-host's time per dispatch cycle by stage instead.
+Ops surface: ``report()`` carries the JAX engine's keys (the feed of
+``MetricsRegistry.observe_serve``); ``stage_report()`` sums the host's
+time per dispatch cycle by stage.  Every cycle is a ``serve.dispatch``
+span on the events timeline, and hot swaps, timeouts and raised cycles
+are ``serve.*`` instants.  A request submitted with a trace context gets
+its ``trace.*`` stage spans (queue wait, coalesce, bucket pad, dispatch,
+readback), cut from the same timestamps ``stage_report`` sums: the
+dispatch span brackets the uploads, the graph replays and the copies'
+enqueue, the readback span the fence that ends the copy to host memory.
+Untraced requests record nothing per request.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from gan_deeplearning4j_tpu_torch.parallel.inference import (
 )
 from gan_deeplearning4j_tpu_torch.serve.admission import AdmissionQueue, Request
 from gan_deeplearning4j_tpu_torch.serve.loadgen import percentiles
+from gan_deeplearning4j_tpu_torch.telemetry import events, tracing
 from gan_deeplearning4j_tpu_torch.train.watchdog import (
     HeartbeatWatchdog,
     WatchdogTimeout,
@@ -77,7 +84,7 @@ _chaos_dispatch_hook: Optional[Callable[[], None]] = None
 
 # one in-flight batch: (requests, its segments' outputs as started host
 # copies, dispatch-start time, real rows, padded device rows, stage
-# timings)
+# timings and the timestamps trace spans are cut from)
 _Batch = Tuple[List[Request], Tuple, float, int, int, Dict]
 
 # the host's time per dispatch cycle, by stage (stage_report)
@@ -198,15 +205,19 @@ class ServeEngine:
         malformed request can never poison the shared coalesced batch),
         ``ShedError`` when admission control rejects it,
         ``RuntimeError`` when the engine is not running (a dead engine
-        must never accept work it can't finish).  ``trace``: only None
-        (request tracing is ROADMAP Queue 1 item 6.5)."""
-        if trace is not None:
-            raise NotImplementedError(
-                "request tracing (trace=) is not ported yet (ROADMAP "
-                "Queue 1 item 6.5, telemetry)")
+        must never accept work it can't finish).
+
+        ``trace``: optional ``tracing.TraceContext`` — when set, the
+        dispatch loop decomposes this request into ``trace.*`` stage
+        spans (queue wait, coalesce, bucket pad, dispatch, readback)
+        parented under it (``TypeError`` for anything else).  Untraced
+        requests record nothing extra."""
+        if trace is not None and not isinstance(trace, tracing.TraceContext):
+            raise TypeError(f"trace must be a tracing.TraceContext, not "
+                            f"{type(trace).__name__}")
         if not self.running:
             raise RuntimeError("serve engine is not running")
-        req = Request(xs)
+        req = Request(xs, trace=trace)
         self._validate(req)
         return self.admission.submit(req)
 
@@ -279,7 +290,7 @@ class ServeEngine:
             with self._swap_lock:
                 got, _ = ckpt.restore({name: self._infer.graph}, step=step)
                 self._swapped()
-            _log.info("serve: hot-swapped step %d from %s", got, directory)
+            events.instant("serve.hotswap", step=got, directory=directory)
             return got
         candidates = ckpt.steps()
         if max_step is not None:
@@ -288,9 +299,10 @@ class ServeEngine:
             # verify OUTSIDE the swap lock (sha256 over every file); only
             # the in-place load itself excludes the dispatch loop's refresh
             if not ckpt.verify(s):
-                _log.warning("serve: hot-swap rejected step %d in %s: "
-                             "fails manifest verification (torn or "
-                             "corrupt)", s, directory)
+                events.instant("serve.hotswap_rejected", step=s,
+                               directory=directory,
+                               reason="fails manifest verification "
+                                      "(torn or corrupt)")
                 continue
             try:
                 with self._swap_lock:
@@ -299,10 +311,11 @@ class ServeEngine:
             except ValueError:
                 raise  # structure mismatch: fatal, not corruption
             except Exception as e:  # unreadable despite the manifest
-                _log.warning("serve: hot-swap rejected step %d in %s: "
-                             "failed to load: %r", s, directory, e)
+                events.instant("serve.hotswap_rejected", step=s,
+                               directory=directory,
+                               reason=f"failed to load: {e!r}")
                 continue
-            _log.info("serve: hot-swapped step %d from %s", got, directory)
+            events.instant("serve.hotswap", step=got, directory=directory)
             return got
         raise NoVerifiedCheckpointError(
             f"no VERIFIED checkpoint in {directory}"
@@ -527,12 +540,15 @@ class ServeEngine:
     def _dispatch(self, reqs: List[Request],
                   wd: Optional[HeartbeatWatchdog]) -> _Batch:
         hook = _chaos_dispatch_hook
+        t_drained = time.perf_counter()
         rows = sum(r.rows for r in reqs)
         segments = self._plan(rows)
         padded = sum(segments)
         region = wd.region("dispatch") if wd is not None \
             else nullcontext()
-        with region:
+        with region, events.span("serve.dispatch", requests=len(reqs),
+                                 rows=rows, padded=padded,
+                                 segments=len(segments)):
             if hook is not None:
                 hook()
             t0 = time.perf_counter()
@@ -563,7 +579,8 @@ class ServeEngine:
             t_dispatched = time.perf_counter()
         stages = {"coalesce_s": (t_coalesced - t0) - pad_s,
                   "bucket_pad_s": pad_s,
-                  "dispatch_s": t_dispatched - t_coalesced}
+                  "dispatch_s": t_dispatched - t_coalesced,
+                  "t_drained": t_drained, "t_infer": t_coalesced}
         return (reqs, started, t0, rows, padded, stages)
 
     def _complete(self, batch: _Batch,
@@ -595,10 +612,43 @@ class ServeEngine:
             for r in reqs:
                 self._latencies.append((now - r.t_submit) * 1000.0)
             del self._open[:len(reqs)]
-            for k, v in stages.items():
-                self._stage_s[k] += v
+            for k in ("coalesce_s", "bucket_pad_s", "dispatch_s"):
+                self._stage_s[k] += stages[k]
             self._stage_s["readback_s"] += t_fenced - t_fence
             self._stage_s["fanout_s"] += time.perf_counter() - t_fenced
+        # trace stage spans for traced requests — emitted OUTSIDE every
+        # lock (the recorder may write), and only when a trace context
+        # rode in, so the untraced hot path records nothing extra
+        for r in reqs:
+            if r.trace is not None:
+                self._emit_trace(r, rows, stages, t_fence,
+                                 t_fenced - t_fence)
+
+    def _emit_trace(self, r: Request, batch_rows: int, stages: Dict,
+                    t_fence: float, readback_s: float) -> None:
+        """Cut one traced request's stage spans from the batch's
+        timings: queue wait is per-request, the rest are the batch's
+        shared stages (continuous batching — the batch IS the unit of
+        work, so its stage costs are every member's stage costs)."""
+        ctx = r.trace
+        base = {"trace": ctx.trace, "parent": ctx.span,
+                "rows": r.rows, "batch_rows": batch_rows}
+        events.complete("trace.queue_wait",
+                        dur=stages["t_drained"] - r.t_submit,
+                        t_start=r.t_submit,
+                        span=tracing.new_span_id(), **base)
+        events.complete("trace.coalesce", dur=stages["coalesce_s"],
+                        t_start=stages["t_drained"],
+                        span=tracing.new_span_id(), **base)
+        events.complete("trace.bucket_pad", dur=stages["bucket_pad_s"],
+                        t_start=stages["t_drained"],
+                        span=tracing.new_span_id(), **base)
+        events.complete("trace.dispatch", dur=stages["dispatch_s"],
+                        t_start=stages["t_infer"],
+                        span=tracing.new_span_id(), **base)
+        events.complete("trace.readback", dur=readback_s,
+                        t_start=t_fence,
+                        span=tracing.new_span_id(), **base)
 
     # -- hang recovery ---------------------------------------------------------
 
@@ -623,8 +673,8 @@ class ServeEngine:
             r.t_done = now
             r.done.set()
         failed_queued = self.admission.fail_all(err)
-        _log.error("serve: dispatch hung; failed %d in-flight and %d "
-                   "queued requests", len(open_reqs), len(failed_queued))
+        events.instant("serve.timeout", failed_inflight=len(open_reqs),
+                       failed_queued=len(failed_queued))
         self._arm_watchdog(thread)
 
     def _on_error(self, exc: Exception) -> None:
@@ -648,8 +698,8 @@ class ServeEngine:
             r.error = err
             r.t_done = now
             r.done.set()
-        _log.error("serve: dispatch failed (%r); failed %d in-flight "
-                   "requests", exc, len(open_reqs))
+        events.instant("serve.error", error=repr(exc),
+                       failed_inflight=len(open_reqs))
 
     def _disarm_watchdog(self) -> None:
         with self._lock:
@@ -669,7 +719,8 @@ class ServeEngine:
     # -- ops surface -----------------------------------------------------------
 
     def report(self) -> Dict:
-        """The JAX engine's report (its ``/healthz`` serving block)."""
+        """Scrape feed for ``MetricsRegistry.observe_serve`` (the
+        ``gan4j_serve_*`` series and the ``/healthz`` serving block)."""
         adm = self.admission.report()
         with self._lock:
             lats = list(self._latencies)

@@ -47,10 +47,14 @@ enforces a TOTAL wall-clock deadline (``read_timeout_s``), not a
 per-recv timeout: a slow-loris dripping one byte per interval keeps
 every per-recv timer happy forever, but not the total.
 
-Ops surface: ``report()`` is the ``/healthz`` gateway block.  A reply
-to a generate request carries ``Server-Timing`` (the gateway's stages in
-ms), as the JAX gateway's does; the JAX package's trace header, spans and
-``gateway.*`` events wait for the telemetry slice.
+Ops surface: ``report()`` feeds ``MetricsRegistry.observe_gateway``
+(the ``gan4j_gateway_*`` series and the ``/healthz`` gateway block).
+Tracing: each generate request continues the caller's trace (the
+``X-Gan4j-Trace`` header) or mints a root, records its stages as
+``trace.*`` spans, and echoes the header on every reply, typed errors
+included (with a terminal ``trace.reject``); a 200 carries
+``Server-Timing`` (the gateway's stages in ms).  ``gateway.start`` and
+``gateway.reject`` are instants on the events timeline.
 """
 
 from __future__ import annotations
@@ -73,9 +77,9 @@ from gan_deeplearning4j_tpu_torch.serve.router import (
     Router,
     TenantThrottledError,
 )
+from gan_deeplearning4j_tpu_torch.telemetry import events, tracing
 from gan_deeplearning4j_tpu_torch.train.watchdog import WatchdogTimeout
 
-TIMING_HEADER = "Server-Timing"
 _GENERATE = "/v1/generate"
 _TENANT_PREFIX = "/v1/tenants/"
 _ADMIN_PREFIX = "/admin/"
@@ -198,6 +202,14 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _reply(self, status: int, body: bytes, content_type: str,
                headers: Tuple[Tuple[str, str], ...] = ()) -> None:
+        ctx = getattr(self, "_trace_ctx", None)
+        if ctx is not None:
+            # EVERY traced reply — success AND typed error — echoes
+            # the trace header, so a shed/timeout caller can still
+            # find its request in the merged timeline
+            headers = tuple(headers) + (
+                (tracing.TRACE_HEADER, tracing.to_header(ctx)),)
+            self._trace_status = status
         try:
             self.send_response(status)
             self.send_header("Content-Type", content_type)
@@ -214,6 +226,14 @@ class _Handler(BaseHTTPRequestHandler):
     def _reply_error(self, status: int, error_type: str, message: str,
                      retry_after: Optional[float] = None) -> None:
         self.gateway._count_rejected(status, error_type)
+        ctx = getattr(self, "_trace_ctx", None)
+        if ctx is not None:
+            # terminal span for the rejected request: without it the
+            # trace would end mid-tree and vanish from merged views
+            events.instant("trace.reject", trace=ctx.trace,
+                           span=tracing.new_span_id(),
+                           parent=ctx.span, status=status,
+                           type=error_type)
         headers: Tuple[Tuple[str, str], ...] = ()
         if retry_after is not None:
             # integral seconds, always >= 1: a 0s hint just converts
@@ -225,10 +245,15 @@ class _Handler(BaseHTTPRequestHandler):
                                 "type": error_type}).encode("utf-8"),
                     "application/json", headers)
 
-    def _stage(self, name: str, t0: float) -> None:
-        """Record one gateway-side stage as a ``Server-Timing`` entry on
-        this response."""
-        self._stage_ms[name] = (time.perf_counter() - t0) * 1000.0
+    def _stage(self, name: str, t0: float,
+               ctx: "tracing.TraceContext") -> None:
+        """Record one gateway-side stage both as a ``trace.*`` child
+        span and as a ``Server-Timing`` entry on this response."""
+        dur = time.perf_counter() - t0
+        self._stage_ms[name] = dur * 1000.0
+        events.complete(f"trace.{name}", dur=dur, t_start=t0,
+                        trace=ctx.trace, span=tracing.new_span_id(),
+                        parent=ctx.span)
 
     def _server_timing(self) -> str:
         return ", ".join(f"{k};dur={v:.3f}"
@@ -355,10 +380,30 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path.startswith(_ADMIN_PREFIX):
             self._do_admin()
             return
+        # trace envelope: continue the caller's trace (header) or mint
+        # a fresh root for untraced callers — EVERY generate request
+        # lands in the merged timeline either way
+        incoming = tracing.from_header(
+            self.headers.get(tracing.TRACE_HEADER))
+        ctx = (tracing.child(incoming) if incoming is not None
+               else tracing.mint())
+        self._trace_ctx = ctx
+        self._trace_status: Optional[int] = None
         self._stage_ms: Dict[str, float] = {}
-        self._do_generate()
+        t_req = time.perf_counter()
+        try:
+            self._do_generate(ctx)
+        finally:
+            attrs = {"trace": ctx.trace, "span": ctx.span,
+                     "status": self._trace_status, "path": self.path}
+            if incoming is not None:
+                attrs["parent"] = incoming.span
+            events.complete("trace.request",
+                            dur=time.perf_counter() - t_req,
+                            t_start=t_req, **attrs)
+            self._trace_ctx = None
 
-    def _do_generate(self):
+    def _do_generate(self, ctx: "tracing.TraceContext"):
         tenant: Optional[str] = None
         if self.path == _GENERATE:
             # the limiter key for untenanted traffic: the declared
@@ -378,7 +423,7 @@ class _Handler(BaseHTTPRequestHandler):
         self.gateway._count_request()
         t0 = time.perf_counter()
         ok, retry_after = self.gateway._rate_check(limiter_key)
-        self._stage("rate_limit", t0)
+        self._stage("rate_limit", t0, ctx)
         if not ok:
             self._reply_error(
                 429, "rate_limit",
@@ -421,7 +466,7 @@ class _Handler(BaseHTTPRequestHandler):
             self.gateway._count_rejected(0, "disconnect")
             self.close_connection = True
             return
-        self._stage("wire_recv", t0)
+        self._stage("wire_recv", t0, ctx)
         ctype = (self.headers.get("Content-Type") or "").split(";")[0]
         npy = ctype == "application/x-npy"
         t0 = time.perf_counter()
@@ -435,10 +480,10 @@ class _Handler(BaseHTTPRequestHandler):
         except ValueError as e:
             self._reply_error(400, "validation", str(e))
             return
-        self._stage("decode", t0)
+        self._stage("decode", t0, ctx)
         t0 = time.perf_counter()
         status, payload, content_type, error = \
-            self.gateway._dispatch(xs, tenant, npy)
+            self.gateway._dispatch(xs, tenant, npy, trace=ctx)
         self._stage_ms["dispatch"] = \
             (time.perf_counter() - t0) * 1000.0
         if error is not None:
@@ -446,7 +491,8 @@ class _Handler(BaseHTTPRequestHandler):
                               retry_after=error[2])
             return
         self._reply(status, payload, content_type,
-                    headers=((TIMING_HEADER, self._server_timing()),))
+                    headers=((tracing.TIMING_HEADER,
+                              self._server_timing()),))
 
 
 class _GatewayServer(ThreadingHTTPServer):
@@ -537,6 +583,8 @@ class Gateway:
                 name="gan4j-gateway-http", daemon=True)
             self._thread = thread
         thread.start()
+        events.instant("gateway.start", host=self._host,
+                       port=server.server_address[1])
         return self
 
     def stop(self) -> None:
@@ -581,6 +629,7 @@ class Gateway:
             self._rejected_total += 1
             self._rejected_by_type[error_type] = \
                 self._rejected_by_type.get(error_type, 0) + 1
+        events.instant("gateway.reject", status=status, type=error_type)
 
     def _rate_check(self, key: str) -> Tuple[bool, float]:
         if self._rate_limit is None:
@@ -593,14 +642,17 @@ class Gateway:
             return bucket.take()
 
     def _dispatch(self, xs: List[np.ndarray], tenant: Optional[str],
-                  npy: bool):
+                  npy: bool, trace=None):
         """Place one decoded request and wait (bounded) for its
         answer.  Returns ``(status, payload, content_type, error)``
         where ``error`` is ``None`` on success and
         ``(type, message, retry_after)`` otherwise — the handler
-        stays a thin wire adapter."""
+        stays a thin wire adapter.  ``trace`` rides through to the
+        engine (the replica-side stage spans parent under it) and
+        cuts the gateway's own wait/encode spans."""
+        t0 = time.perf_counter()
         try:
-            req = self.router.submit(xs, tenant=tenant)
+            req = self.router.submit(xs, tenant=tenant, trace=trace)
             outs = req.result(timeout=self.result_timeout_s)
         except ShedError as e:
             wait_ms = e.est_wait_ms if e.est_wait_ms is not None \
@@ -627,15 +679,27 @@ class Gateway:
             # "engine is not running" / "queue is closed": a replica
             # died after routing — still a typed unavailable
             return 503, b"", "", ("unavailable", str(e), 1.0)
+        t1 = time.perf_counter()
         payload, content_type = (_encode_npz if npy
                                  else _encode_json)(outs)
+        if trace is not None:
+            events.complete("trace.dispatch_wait", dur=t1 - t0,
+                            t_start=t0, trace=trace.trace,
+                            span=tracing.new_span_id(),
+                            parent=trace.span)
+            events.complete("trace.response_encode",
+                            dur=time.perf_counter() - t1, t_start=t1,
+                            trace=trace.trace,
+                            span=tracing.new_span_id(),
+                            parent=trace.span)
         return 200, payload, content_type, None
 
     # -- ops surface -----------------------------------------------------------
 
     def report(self) -> Dict:
-        """The ``/healthz`` gateway block (the JAX package's
-        ``gan4j_gateway_*`` exporter feed)."""
+        """Scrape feed for ``MetricsRegistry.observe_gateway`` (the
+        ``gan4j_gateway_*`` series and the ``/healthz`` gateway
+        block)."""
         r = self.router.report()
         with self._lock:
             out = {

@@ -2,12 +2,13 @@
 ``gan_deeplearning4j_tpu/serve/replica.py``).
 
 ``python -m gan_deeplearning4j_tpu_torch.serve.replica --port N
-[--checkpoint DIR] [--device cpu]`` builds the single-host serving stack
-— the DCGAN-MNIST generator at full width → ``ParallelInference`` (one
-CUDA graph per bucket) → ``ServeEngine`` → ``Router`` → ``Gateway`` — on
-the card (``--device cpu`` is the only way onto the CPU) and runs it until
-SIGTERM/SIGINT.  It serves the reference's f32 parity numerics: like the
-JAX replica it takes no ``--bf16`` / ``--mp``.
+[--checkpoint DIR] [--events PATH] [--device cpu]`` builds the single-host
+serving stack — the DCGAN-MNIST generator at full width →
+``ParallelInference`` (one CUDA graph per bucket) → ``ServeEngine`` →
+``Router`` → ``Gateway`` — on the card (``--device cpu`` is the only way
+onto the CPU) and runs it until SIGTERM/SIGINT.  It serves the
+reference's f32 parity numerics: like the JAX replica it takes no
+``--bf16`` / ``--mp``.
 
 The process contract (what spawners and probes rely on):
 
@@ -24,6 +25,12 @@ The process contract (what spawners and probes rely on):
   S seconds while still listening).
 * **shutdown** — SIGTERM/SIGINT drains: gateway stops taking
   connections, the engine fails open requests typed, exit code 0.
+* **events** — ``--events PATH`` writes this process's events timeline
+  (``replica.ready``, the gateway's and engine's ``serve.*`` /
+  ``gateway.*`` instants, the ``trace.*`` spans of traced requests,
+  ``replica.stopped`` with the port kernels' launch counts) and flushes
+  its tail on SIGTERM: the per-process file that
+  ``telemetry.tracing.merge_trace_files`` joins with the others.
 
 A ``--checkpoint`` directory (a checkpoint holding a ``gen`` graph, in the
 JAX package's on-disk format) is restored via ``hotswap_from`` BEFORE the
@@ -32,8 +39,7 @@ empty/unverifiable directory serves the fresh initialization instead of
 refusing to boot.
 
 Not ported: ``--fleet`` (the tenant bank needs the fleet trainer, ROADMAP
-Queue 1 item 9) and ``--events`` (the events timeline, item 6.5); each
-raises.
+Queue 1 item 9); it raises.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import time
 import numpy as np
 
 from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
 from gan_deeplearning4j_tpu_torch.parallel.inference import (
     DEFAULT_SERVING_BUCKETS,
     ParallelInference,
@@ -56,6 +63,7 @@ from gan_deeplearning4j_tpu_torch.parallel.inference import (
 from gan_deeplearning4j_tpu_torch.serve.engine import ServeEngine
 from gan_deeplearning4j_tpu_torch.serve.gateway import Gateway
 from gan_deeplearning4j_tpu_torch.serve.router import Router
+from gan_deeplearning4j_tpu_torch.telemetry import events
 
 
 class WedgeState:
@@ -176,15 +184,16 @@ def main(argv=None) -> int:
                    help="torch device (default: the card; 'cpu' runs the "
                         "plain eager forward on the CPU)")
     p.add_argument("--events", default=None,
-                   help="events timeline path (not ported: item 6.5)")
+                   help="write this process's events timeline to PATH "
+                        "(jsonl)")
     p.add_argument("--fleet", action="store_true",
                    help="serve a multi-tenant fleet (not ported: item 9)")
     args = p.parse_args(argv)
-    if args.events:
-        raise _not_ported("--events (the events timeline)", "6.5")
     if args.fleet:
         raise _not_ported("--fleet (FleetTenantBank over train/fleet.py)",
                           "9")
+    if args.events:
+        events.install(events.EventRecorder(path=args.events))
 
     engine, gateway, _wedge = build_replica(
         port=args.port, host=args.host, checkpoint=args.checkpoint,
@@ -202,12 +211,20 @@ def main(argv=None) -> int:
     print(json.dumps({"event": "replica_ready", "host": args.host,
                       "port": gateway.port, "pid": os.getpid()}),
           flush=True)
+    events.instant("replica.ready", port=gateway.port, pid=os.getpid())
 
     while not stop_evt.wait(0.5):
         pass
 
     gateway.stop()
     engine.stop()
+    # the serving path launches none of the port's kernels: the counts
+    # say so for this process's whole life
+    events.instant("replica.stopped", pid=os.getpid(),
+                   port_launches=kernels.launch_counts())
+    # flush the events file's buffered tail: with fewer events than the
+    # recorder's flush_every, NOTHING would reach the disk otherwise
+    events.current().close()
     return 0
 
 

@@ -18,13 +18,14 @@ Fleet tenants (``FleetTenantBank``: ``/v1/tenants/{id}/generate`` routed
 to a tenant's generator sliced from a fleet state) need the fleet
 trainer, which is not ported (ROADMAP Queue 1 item 9): the class raises.
 Without a bank a tenant request raises ``KeyError`` (the gateway's 404),
-as the JAX router does.  The router's ``router.*`` events wait for the
-telemetry slice.
+as the JAX router does.  A replica's ejection and its return are
+``router.replica_ejected`` / ``router.replica_restored`` instants on the
+events timeline.
 
 Lock discipline: the router lock guards only its own bookkeeping
-(round-robin cursor, ejection map); engine calls — submit, stop — always
-happen OUTSIDE it, so it can never be part of a cycle with the engine or
-admission locks.
+(round-robin cursor, ejection map); engine calls — submit, stop — and
+event writes always happen OUTSIDE it, so it can never be part of a cycle
+with the engine, admission or recorder locks.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import numpy as np
 
 from gan_deeplearning4j_tpu_torch.serve.admission import Request, ShedError
 from gan_deeplearning4j_tpu_torch.serve.engine import ServeEngine
+from gan_deeplearning4j_tpu_torch.telemetry import events
 
 
 class NoHealthyReplicaError(RuntimeError):
@@ -98,20 +100,28 @@ class Router:
             if down_at is not None and now - down_at < self._recheck_s:
                 return False
         ok = self._probe(idx)
+        flipped = None
         with self._lock:
             if ok:
-                self._down.pop(idx, None)
+                if self._down.pop(idx, None) is not None:
+                    flipped = "router.replica_restored"
             else:
                 if idx not in self._down:
                     self._ejected_total += 1
+                    flipped = "router.replica_ejected"
                 self._down[idx] = now
+        if flipped is not None:
+            events.instant(flipped, replica=idx)
         return ok
 
     def _eject(self, idx: int) -> None:
         with self._lock:
-            if idx not in self._down:
+            fresh = idx not in self._down
+            if fresh:
                 self._ejected_total += 1
             self._down[idx] = time.monotonic()
+        if fresh:
+            events.instant("router.replica_ejected", replica=idx)
 
     # -- dispatch --------------------------------------------------------------
 
@@ -125,8 +135,9 @@ class Router:
         is ejected and skipped, a shedding replica is passed over; the
         request fails with the LAST shed only when every healthy
         replica shed it, and with ``NoHealthyReplicaError`` when none
-        was healthy at all.  ``trace`` rides through to the engine
-        unchanged (which takes only None until the telemetry slice)."""
+        was healthy at all.  ``trace`` (a ``tracing.TraceContext``)
+        rides through to the engine, which parents the request's stage
+        spans under it."""
         if tenant is not None:
             if self.tenants is None:
                 raise KeyError(tenant)

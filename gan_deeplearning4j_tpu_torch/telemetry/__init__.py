@@ -13,13 +13,14 @@
   the Chrome-trace export that merges a ``torch.profiler`` capture;
 * ``telemetry.exporter``: the ``/metrics`` + ``/healthz`` scrape endpoint
   behind ``--metrics-port``, fed by the above and by
-  ``telemetry.resources`` (host RSS, device bytes, fds, threads).
-
-The JAX package's request tracing (``telemetry/tracing.py``) is not
-ported yet (ROADMAP Queue 1 item 10.7).
+  ``telemetry.resources`` (host RSS, device bytes, fds, threads);
+* ``telemetry.tracing``: request-scoped tracing across the serving
+  plane's processes (the ``X-Gan4j-Trace`` header, ``trace.*`` spans on
+  the events timeline) and ``merge_trace_files``, which joins the
+  per-process ``events.jsonl`` files into one timeline.
 """
 
-from gan_deeplearning4j_tpu_torch.telemetry import events
+from gan_deeplearning4j_tpu_torch.telemetry import events, tracing
 from gan_deeplearning4j_tpu_torch.telemetry.events import (
     EventRecorder,
     export_chrome_trace,
@@ -39,8 +40,13 @@ from gan_deeplearning4j_tpu_torch.telemetry.ingraph import (
     graph_telemetry,
     tree_norm,
 )
+from gan_deeplearning4j_tpu_torch.telemetry.tracing import (
+    TraceContext,
+    merge_trace_files,
+)
 
 __all__ = ["GoodputTimer", "write_run_manifest", "NanAlarm",
            "NanAlarmError", "count_nonfinite", "graph_telemetry",
            "tree_norm", "events", "EventRecorder", "export_chrome_trace",
-           "MetricsRegistry", "serve_exporter"]
+           "MetricsRegistry", "serve_exporter", "tracing", "TraceContext",
+           "merge_trace_files"]

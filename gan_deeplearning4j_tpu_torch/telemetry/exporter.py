@@ -16,9 +16,12 @@ loss and NaN series), the ``GoodputTimer`` phase totals (read at scrape
 time), the watchdog's report, the data plane's ``DataHealth``, the data
 group's size and the ``ResourceMonitor``.  The three mains expose it as
 ``--metrics-port`` (0 = ephemeral, the port is printed).  The serving
-feeds (``observe_serve``, ``observe_gateway``, ...) are here so that the
-render is the JAX module's; the port's serving plane does not feed them
-yet (ROADMAP Queue 1 item 10.7).
+feeds take the serving plane's reports, as in the JAX package:
+``observe_serve(engine.report)``, ``observe_gateway(gateway.report)``,
+``observe_client(client.report)``, ``observe_serving_mesh(mesh.report)``
+and ``observe_controlplane(controlplane.report)``.  The fleet and
+publication feeds render the JAX module's series too; nothing of the port
+feeds them yet (ROADMAP Queue 1 items 9 and 10.3).
 
 Metric names (all ``gan4j_``-prefixed):
 
@@ -36,7 +39,9 @@ Metric names (all ``gan4j_``-prefixed):
   gan4j_data_last_error_age_seconds  gauge  age of the last data incident
   gan4j_mesh_devices           gauge    ranks of the data group
   gan4j_resource_*             gauges   RSS, device bytes, fds, threads
-  (and the JAX module's serving, fleet and publication series, at 0)
+  gan4j_serve_* / gan4j_gateway_* / gan4j_client_* / gan4j_mesh_* /
+  gan4j_controlplane_*         the serving plane's feeds (above)
+  (and the JAX module's fleet and publication series, at 0)
 """
 
 from __future__ import annotations

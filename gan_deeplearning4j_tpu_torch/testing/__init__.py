@@ -6,6 +6,14 @@ from gan_deeplearning4j_tpu_torch.testing.chaos import (
     HangingSource,
     NanSource,
     ReadbackHang,
+    SlowLorisClient,
+    kill_replica,
+    kill_replica_process,
+    mid_body_disconnect,
+    poison_checkpoint_dir,
+    wedge_replica,
 )
 
-__all__ = ["HangingSource", "NanSource", "ReadbackHang"]
+__all__ = ["HangingSource", "NanSource", "ReadbackHang", "SlowLorisClient",
+           "kill_replica", "kill_replica_process", "mid_body_disconnect",
+           "poison_checkpoint_dir", "wedge_replica"]

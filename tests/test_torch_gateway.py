@@ -388,15 +388,37 @@ def test_clients_and_gateways_interoperate(gens, stack):
         router_j.stop()
 
 
-def test_fleet_bank_and_tracing_are_not_ported(stack):
+@pytest.mark.parametrize("part", ["fleet", "tracing"])
+def test_the_fleet_is_not_ported_and_tracing_is(stack, part):
+    """The fleet (ROADMAP Queue 1 item 9) still raises, in the bank and in
+    ``replica --fleet``; tracing works: a traced generate answers with its
+    rows and records its client spans under the caller's context."""
     _, _, client = stack
-    with pytest.raises(NotImplementedError, match="item 9"):
-        FleetTenantBank(lambda: None, state=object())
-    with pytest.raises(NotImplementedError, match="6.5"):
-        client.generate([_mk(2)], trace=object())
-    for argv, item in ((["--fleet"], "item 9"), (["--events", "x"], "6.5")):
-        with pytest.raises(NotImplementedError, match=item):
-            replica.main(argv)
+    if part == "fleet":
+        with pytest.raises(NotImplementedError, match="item 9"):
+            FleetTenantBank(lambda: None, state=object())
+        with pytest.raises(NotImplementedError, match="item 9"):
+            replica.main(["--fleet"])
+        return
+    from gan_deeplearning4j_tpu_torch.telemetry import events, tracing
+
+    ctx = tracing.mint()
+    rec = events.EventRecorder(ring_size=512)
+    prev = events.install(rec)
+    try:
+        out = client.generate([_mk(2)], trace=ctx)[0]
+    finally:
+        events.install(prev)
+    assert out.shape == (2, 1, 28, 28)
+    mine = [e for e in rec.recent() if e.get("trace") == ctx.trace]
+    # the client's wire spans (each carries its attempt; the gateway's own
+    # trace.wire_recv stage does not)
+    wire = [e for e in mine if "attempt" in e]
+    assert {e["name"] for e in wire} == {"trace.wire_send", "trace.wire_recv"}
+    assert all(e["parent"] == ctx.span for e in wire)
+    # the gateway children itself under the caller's span
+    assert any(e["name"] == "trace.request" and e["parent"] == ctx.span
+               for e in mine)
 
 
 def test_the_replica_needs_a_card_unless_told_cpu():

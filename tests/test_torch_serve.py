@@ -360,7 +360,7 @@ def test_submit_rejects_malformed_before_admission(warm_engine):
     with pytest.raises(ValueError):                    # input count
         warm_engine.submit(np.zeros((4, 2), np.float32),
                            np.zeros((4, 2), np.float32))
-    with pytest.raises(NotImplementedError, match="6.5"):
+    with pytest.raises(TypeError, match="TraceContext"):  # not a trace
         warm_engine.submit(*_mk(4), trace=object())
     assert warm_engine.admission.report()["admitted_total"] == before
     out = warm_engine.generate(*_mk(4, seed=33), timeout=120.0)

@@ -173,12 +173,14 @@ from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
 from gan_deeplearning4j_tpu_torch.utils import async_dump, metrics as logger
 from gan_deeplearning4j_tpu_torch.utils import device as device_lib
 from gan_deeplearning4j_tpu_torch.parallel import inference
-from gan_deeplearning4j_tpu_torch.serve import (admission, client, engine,
-                                                gateway, loadgen, replica,
-                                                router)
+from gan_deeplearning4j_tpu_torch.serve import (admission, client,
+                                                controlplane, engine,
+                                                gateway, loadgen, mesh as smesh,
+                                                replica, router)
 from gan_deeplearning4j_tpu_torch.train import watchdog
 from gan_deeplearning4j_tpu_torch.telemetry import (events, exporter, goodput,
-                                                    ingraph, resources)
+                                                    ingraph, resources,
+                                                    tracing)
 from gan_deeplearning4j_tpu_torch.utils import live_ui, profiling
 from gan_deeplearning4j_tpu_torch.train import divergence, rollback, shell
 from gan_deeplearning4j_tpu_torch import testing
@@ -189,6 +191,12 @@ try:
     assert tuple(c.generate([np.zeros((3, 2), np.float32)])[0].shape) == (
         3, 1, 28, 28)
     assert c.healthz()["_status"] == 200
+    m = smesh.MeshRouter([smesh.RemoteReplica("127.0.0.1", gw.port)])
+    ctx = tracing.mint()
+    assert tuple(m.generate([np.zeros((2, 2), np.float32)], trace=ctx)[0]
+                 .shape) == (2, 1, 28, 28)
+    m.close()
+    assert controlplane.Autoscaler().tick({}, 1) == 0
 finally:
     gw.stop()
     eng.stop()
