@@ -62,6 +62,13 @@ exits non-zero:
                 have run its expected count per step (``fused_update`` once
                 per graph update: 3).  Then a 10x10 latent grid from the
                 trained generator.
+  4b. dl4j    — the main phase's four trained graphs and the insurance
+                program's four through DL4J ModelSerializer zips
+                (``graph/dl4j_import.py``): each written by
+                ``export_dl4j`` with its RmsProp state and read back onto
+                the card by ``import_dl4j``; params and updater state
+                bitwise, the outputs bitwise the source graph's on a fixed
+                batch; each zip's bytes and seconds.
   5. parity   — one protocol step on cuda (kernels) and on the CPU (plain
                 versions) from the same state, latents and targets.
   6. graph    — from one start, 20 eager steps against two graphed calls
@@ -82,7 +89,9 @@ exits non-zero:
                 average), then INS_DP_STEPS insurance steps at global
                 batch 50 (the pair at [50, 12], [25, 2], [25, 12],
                 [25, 100] per rank), each held against the single-process
-                step, with exact launch counts; then, in this process,
+                step, with exact launch counts, then the supervision
+                phase's world-2 telemetry steps and the world-2 rollback
+                (reported there); then, in this process,
                 one step of a 1-rank NCCL group against the single-process
                 step, and under torch.profiler one sync-BN forward per BN
                 shape on that group: exactly one moments and one apply
@@ -293,7 +302,15 @@ exits non-zero:
                 finite; ``DivergenceError``, not restarted); and
                 ``cv_main`` healthy at 200 steps, K = 100, with every alarm
                 and the auto-deadline watchdog armed: nothing fires, every
-                record's block finite, launches exact.
+                record's block finite, launches exact.  Its
+                ``rollback_world2`` is the dp phase's ranks' rollback
+                (``rb_world2``): the CV step at global batch 200 on two
+                ranks under ``nan_alarm="rollback"``, streamed in f32, a
+                checkpoint at step 2, a NaN in the third batch; exactly
+                one rollback on each rank to step 2, the same LR scale and
+                latent lineage, finite losses after the heal, equal final
+                states, the launches per rank exact, and the seconds from
+                the rollback's raise to the first healed boundary.
  17. observability — the training run's observability, each check
                 required, its seconds beside OBS_BUDGET_S: ``cv_main``
                 at full width (200 steps at batch 200) as a child with
@@ -321,14 +338,24 @@ exits non-zero:
                 resume phase's preemption drill must leave
                 ``preempt.signal``, ``preempt.exit``, the save's
                 ``checkpoint.*`` stages and the flight record.)
- 18. the ``kernels`` line (each kernel's insurance numbers beside the
+ 18. migration — early stopping on the card: the DCGAN-MNIST transfer
+                classifier at full width under ``EarlyStoppingGraphTrainer``
+                over a cut of the cv_main phase's MNIST CSVs (2,000 / 500
+                rows, the train split's ``NormalizerMinMaxScaler``, a
+                ``ScoreIterationListener``): the reason, the best epoch,
+                the restored and the persisted best scores, one
+                ``fused_update`` and one ``bn_act`` launch a fit; beside
+                it, ``utils/probe.py``'s child on the card (its round
+                trip and wall).
+ 19. the ``kernels`` line (each kernel's insurance numbers beside the
      CV step's, where the insurance path runs it, ``bn_act``'s roadmap
      numbers, each kernel's launches on the cgan-cifar10 path: 0, at
      world 2 per roadmap family (``pair_dp``, with the pair's numbers at
      its per-rank shapes), per workload and mode in the precision phase,
      on the serving path: 0, on the mesh over replica processes: 0, on
-     the supervision phase's path, one card and world 2, and on the
-     observability phase's), the seconds line (the script's total beside
+     the supervision phase's path, one card and world 2, on the
+     observability phase's, at world 2 in the rollback's ranks, and on
+     the migration surface), the seconds line (the script's total beside
      its total before the precision phase was added and before the serve
      phase in this run, the pair_dp, serve_mesh, supervision and
      observability phases', and every phase line's seconds), the
@@ -946,6 +973,11 @@ def insurance_phase(torch, smi: str, keep: str) -> dict:
                 "insurance: the metrics JSONL does not hold one record a step")
         require(os.path.getsize(f"{d}/evaluation_stats.txt") > 0,
                 "insurance: no evaluation_stats.txt")
+        # the loss curves' PNG (utils/plot_metrics.py: the stdlib raster
+        # where matplotlib is absent, as on the card's host)
+        with open(f"{d}/insurance_metrics_losses.png", "rb") as f:
+            require(f.read(8) == b"\x89PNG\r\n\x1a\n",
+                    "insurance: no loss-curve PNG")
         for g, path in trainer.model_paths().items():
             back = serialization.read_model(path, trainer.device)
             live = getattr(trainer, g)
@@ -1129,8 +1161,9 @@ def graph_phase(cfg, torch):
     return out
 
 
-def dp_rank(group, host, ins):
-    """One rank of the dp phase (a spawned process)."""
+def dp_rank(group, host, ins, rb_root):
+    """One rank of the dp phase (a spawned process); ``rb_root``: the
+    world-2 rollback's res-path, one for both ranks."""
     import torch
 
     from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
@@ -1208,6 +1241,7 @@ def dp_rank(group, host, ins):
     del pa, trainer
     out["insurance"] = insurance_dp(group, ins)
     out["supervision"] = sv_world2(group)
+    out["rollback"] = rb_world2(group, rb_root)
     return out
 
 
@@ -1268,13 +1302,15 @@ def sync_bn_profile(group, torch):
     return outs
 
 
-def cv_main_phase(torch, smi: str) -> dict:
+def cv_main_phase(torch, smi: str, keep_csv: str) -> dict:
     """The CV program as a user runs it (``cv_main``), on the card, three
     times in temporary res-paths: as given (the launch counters zeroed just
     before and read just after; artifacts, model zips read back, scores),
     with ``--sync-dumps`` (the dumps byte-identical), and with the table
     streamed in chunks of K = 100 steps (``data_on_device=False``; per-step
-    losses bitwise the resident run's).  Returns the phase's line."""
+    losses bitwise the resident run's).  The run's MNIST CSV pair is kept
+    in ``keep_csv`` (the migration phase's early stopping reads a cut of
+    it).  Returns the phase's line."""
     import numpy as np
 
     from gan_deeplearning4j_tpu_torch.graph import serialization
@@ -1321,6 +1357,11 @@ def cv_main_phase(torch, smi: str) -> dict:
                 "cv_main: the metrics JSONL does not hold one record a step")
         require(os.path.getsize(f"{d}/evaluation_stats.txt") > 0,
                 "cv_main: no evaluation_stats.txt")
+        # the loss curves' PNG (utils/plot_metrics.py: the stdlib raster
+        # where matplotlib is absent, as on the card's host)
+        with open(f"{d}/mnist_metrics_losses.png", "rb") as f:
+            require(f.read(8) == b"\x89PNG\r\n\x1a\n",
+                    "cv_main: no loss-curve PNG")
         # the four zips read back give the trainer's params, bit for bit
         for g, path in trainer.model_paths().items():
             back = serialization.read_model(path, "cuda")
@@ -1367,6 +1408,8 @@ def cv_main_phase(torch, smi: str) -> dict:
                 == [[r[k] for k in keys] for r in recs_s],
                 "cv_main: the streamed run's per-step losses differ from "
                 "the resident run's")
+        for split in ("train", "test"):
+            shutil.copy(f"{dirs['async']}/mnist_{split}.csv", keep_csv)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return dict(
@@ -4483,6 +4526,15 @@ SV_CV_ARGS = CV_ARGS[:-1] + ["0", "--steps-per-call", str(CV_K),
                              "--telemetry", "--nan-alarm", "abort",
                              "--divergence", "--watchdog"]
 SV_DP_STEPS = 4  # the dp phase's telemetry steps per rank
+# the world-2 rollback (the dp phase's ranks): the CV protocol step at
+# global batch 200, streamed in f32 (no u8 codec, which would not carry a
+# NaN), one step a call, a checkpoint every RB_CKPT steps, RB_STEPS steps;
+# the first incarnation's RB_NAN_AT-th batch (0-based) carries a NaN
+RB_STEPS = 3
+RB_CKPT = 2
+RB_NAN_AT = 2  # step 3 goes bad; the heal restores step 2 and redoes 3
+RB_RESTORED = 2
+RB_EXECUTED = RB_NAN_AT + 1 + RB_STEPS - RB_RESTORED  # steps run per rank
 
 
 def sv_config(**kw):
@@ -4536,6 +4588,96 @@ def sv_world2(group) -> dict:
     return {"launches": launches, "steps": result["steps"],
             "blocks": blocks,
             "digest": hashlib.sha256(json.dumps(blocks).encode()).hexdigest()}
+
+
+def rb_world2(group, root: str) -> dict:
+    """The world-2 rollback on one rank (module docstring, phases 7 and
+    16): ``nan_alarm="rollback"`` through ``run_with_recovery`` as the
+    mains run it under a group, the first incarnation's training iterator
+    wrapped by a ``NanSource``; the counters zeroed just before and read
+    just after; the seconds from the rollback's raise to the first healed
+    step's boundary, the rank's budget, LR scale, latent lineage and final
+    state digest."""
+    import dataclasses
+
+    import torch
+
+    from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.testing import NanSource
+    from gan_deeplearning4j_tpu_torch.train import gan_trainer
+    from gan_deeplearning4j_tpu_torch.train.gan_trainer import (
+        GANTrainer,
+        run_with_recovery,
+    )
+
+    config = sv_config(
+        telemetry=True, nan_alarm="rollback", checkpoint_every=RB_CKPT,
+        num_iterations=RB_STEPS, steps_per_call=1, res_path=root,
+        data_on_device=False, use_data_codec=False)
+    orig_iter = gan_trainer.RecordReaderDataSetIterator
+    orig_rollback = GANTrainer._maybe_rollback
+    orig_book = GANTrainer._boundary_bookkeeping
+    built, marks = [], {"raised": None, "healed": None, "boundaries": []}
+
+    def first_wrapped(*a, **kw):
+        it = orig_iter(*a, **kw)
+        built.append(it)
+        return NanSource(it, nan_at=RB_NAN_AT) if len(built) == 1 else it
+
+    def maybe_rollback(self):
+        try:
+            orig_rollback(self)
+        except Exception:
+            marks["raised"] = time.perf_counter()
+            raise
+
+    def boundary(self):
+        if marks["raised"] is not None and marks["healed"] is None:
+            marks["healed"] = time.perf_counter()
+        marks["boundaries"].append(self.steps)
+        orig_book(self)
+
+    def make_trainer(resume, manager):
+        c = dataclasses.replace(config, resume=True) if resume else config
+        t = GANTrainer(M.CVConfig(), n_train=N_TRAIN, group=group, config=c,
+                       rollback_manager=manager)
+        # the alarm trips at the bad step's own boundary
+        t.metrics.flush_every = 1
+        return t
+
+    gan_trainer.RecordReaderDataSetIterator = first_wrapped
+    GANTrainer._maybe_rollback = maybe_rollback
+    GANTrainer._boundary_bookkeeping = boundary
+    # the run's end writes no model zips (the checkpoints hold the state;
+    # the observability phase's turns skip them the same way)
+    save = GANTrainer.save_models
+    GANTrainer.save_models = lambda self: None
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer, result = run_with_recovery(make_trainer, config, log=None)
+        torch.cuda.synchronize(group.device)
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        gan_trainer.RecordReaderDataSetIterator = orig_iter
+        GANTrainer._maybe_rollback = orig_rollback
+        GANTrainer._boundary_bookkeeping = orig_book
+        GANTrainer.save_models = save
+    mgr = trainer._rollback_mgr
+    return {"rank": group.rank, "launches": launches,
+            "steps": result["steps"], "boundaries": marks["boundaries"],
+            "rollbacks": mgr.total, "attempts": mgr.attempts,
+            "lr_scale": mgr.lr_scale,
+            "z_gen": hashlib.sha256(
+                trainer.z_gen.get_state().cpu().numpy().tobytes()
+            ).hexdigest(),
+            "losses": [result[k] for k in ("d_loss", "g_loss", "clf_loss")],
+            "digest": state_digest(trainer.state),
+            "heal_s": marks["healed"] - marks["raised"]
+            if marks["healed"] is not None and marks["raised"] else None,
+            "seconds": seconds}
 
 
 def sv_telemetry(torch) -> dict:
@@ -4896,9 +5038,56 @@ def sv_healthy(torch, root: str) -> dict:
     return out
 
 
-def supervision_phase(torch, smi: str, world2) -> dict:
+def rb_check(rb, rb_events) -> dict:
+    """The world-2 rollback's line, each check required: exactly one
+    rollback on each rank, to the checkpoint before the bad step, the
+    same budget, LR scale and latent lineage on both ranks, finite losses
+    after the heal, equal final states, the launches per rank exact.
+    ``rb``: one result per rank; ``rb_events``: rank 0's timeline."""
+    per_step = {"fused_update": 3, "bn_act": 0, "upsample_bwd": 2,
+                "bn_moments": 3, "bn_apply": 3, "bn_act_4d": 0}
+    expected = {k: v * RB_EXECUTED for k, v in per_step.items()}
+    request = [{k: e.get(k) for k in ("step", "bad_step", "rollbacks",
+                                       "lr_scale")}
+               for e in _named(rb_events, "rollback.request")]
+    restore = [{k: e.get(k) for k in ("step", "bad_step")}
+               for e in _named(rb_events, "rollback.restore")]
+    out = dict(
+        world=len(rb), steps=[r["steps"] for r in rb],
+        nan_at_batch=RB_NAN_AT, checkpoint_every=RB_CKPT,
+        rollbacks=[r["rollbacks"] for r in rb],
+        lr_scale=[r["lr_scale"] for r in rb],
+        losses=[r["losses"] for r in rb],
+        boundaries=rb[0]["boundaries"], request=request, restore=restore,
+        heal_s=[r["heal_s"] for r in rb], seconds=[r["seconds"] for r in rb],
+        launches=[r["launches"] for r in rb], expected_launches=expected,
+        digests=[r["digest"] for r in rb])
+    bad = RB_NAN_AT + 1
+    for r in rb:
+        require(r["steps"] == RB_STEPS and r["rollbacks"] == 1
+                and r["attempts"] == 1 and r["lr_scale"] == 0.5
+                and all(math.isfinite(v) for v in r["losses"])
+                and isinstance(r["heal_s"], float) and r["heal_s"] > 0,
+                f"rollback world 2 rank {r['rank']}: {out}")
+        require(r["launches"] == expected,
+                f"rollback world 2 rank {r['rank']}: launches "
+                f"{r['launches']} != {expected}")
+    require(len({r["digest"] for r in rb}) == 1
+            and len({r["z_gen"] for r in rb}) == 1,
+            f"rollback world 2: the ranks' states differ {out['digests']}")
+    require(request == [{"step": bad, "bad_step": bad, "rollbacks": 1,
+                         "lr_scale": 0.5}]
+            and restore == [{"step": RB_RESTORED, "bad_step": bad}]
+            and rb[0]["boundaries"] == list(range(1, bad + 1))
+            + list(range(RB_RESTORED + 1, RB_STEPS + 1)),
+            f"rollback world 2: the timeline {out}")
+    return out
+
+
+def supervision_phase(torch, smi: str, world2, rb, rb_events) -> dict:
     """Supervision's numerics and hang half on the card (module docstring,
-    phase 16).  ``world2``: the dp phase's telemetry runs, one per rank."""
+    phase 16).  ``world2``: the dp phase's telemetry runs, one per rank;
+    ``rb``, ``rb_events``: its world-2 rollback (``rb_check``)."""
     t0 = time.perf_counter()
     out = {"nvidia_smi": smi, "telemetry": sv_telemetry(torch)}
     root = tempfile.mkdtemp(prefix="gan4j_sv_")
@@ -4927,6 +5116,7 @@ def supervision_phase(torch, smi: str, world2) -> dict:
                 f"supervision world 2 rank {rank}: a bad block")
     require(len({r["digest"] for r in world2}) == 1,
             "supervision world 2: the ranks' blocks differ")
+    out["rollback_world2"] = rb_check(rb, rb_events)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -5301,6 +5491,214 @@ def observability_phase(torch, smi: str) -> dict:
     out["cleanup_s"] = time.perf_counter() - t1
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+# -- the migration surface: DL4J zips, early stopping, the probe --------------
+
+# the fixed batch each imported graph is held to its source on: a batch no
+# later phase runs the CV graphs at in this process (cuDNN keeps its first
+# choice for a shape for the process, and the serve phase holds its
+# buckets, 8 / 32 / 64, to a fresh child's untimed choice)
+MG_BATCH = 5
+ES_TRAIN, ES_VAL = 2000, 500  # the cut of the cv_main phase's MNIST CSVs
+ES_BATCH = 200
+ES_EPOCHS, ES_PATIENCE = 4, 1
+ES_PRINT = 5  # the ScoreIterationListener's cadence (iterations)
+PROBE_TIMEOUT_S = 120.0
+
+
+def _graph_batch(graph, torch, seed: int):
+    """A fixed [MG_BATCH, ...] input per graph input, on the graph's
+    device, in [-1, 1) (feature-flat for the flat CNN inputs)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    xs = []
+    for name in graph.input_names:
+        spec = graph.input_specs[name]
+        n = math.prod(spec.shape)
+        xs.append((torch.rand((MG_BATCH, n), generator=gen) * 2 - 1)
+                  .reshape((MG_BATCH,) + ((n,) if spec.kind != "cnn"
+                                          else tuple(spec.shape)))
+                  .to(graph.device))
+    return xs
+
+
+def dl4j_phase(torch, smi: str, trainer, dev: str = "cuda") -> dict:
+    """DL4J ModelSerializer zips on the card (module docstring, phase
+    4b): the main phase's four trained CV graphs at full width and the
+    insurance program's four, each written by ``export_dl4j`` with its
+    RmsProp state and read back by ``import_dl4j`` onto the card; params
+    and updater state bitwise, and the outputs bitwise the source graph's
+    on a fixed batch.  The counters are zeroed just before and read just
+    after."""
+    from gan_deeplearning4j_tpu_torch.graph import dl4j_import
+    from gan_deeplearning4j_tpu_torch.models import mlpgan_insurance as I
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.optim.rmsprop import RmsProp
+
+    t0 = time.perf_counter()
+    trainer._sync_graphs()
+    ins_dis = I.build_discriminator(device=dev)
+    graphs = {**{f"cv_{k}": g for k, g in trainer._graphs().items()},
+              "ins_dis": ins_dis, "ins_gen": I.build_generator(device=dev),
+              "ins_gan": I.build_gan(device=dev),
+              "ins_classifier": I.build_classifier(ins_dis)}
+    root = tempfile.mkdtemp(prefix="gan4j_dl4j_")
+    kernels.reset_launch_counts()
+    out = {"nvidia_smi": smi, "graphs": {}}
+    try:
+        for i, (name, g) in enumerate(graphs.items()):
+            up = next(u for u in g.updater.layer_updaters.values()
+                      if isinstance(u, RmsProp))
+            path = f"{root}/{name}.zip"
+            t1 = time.perf_counter()
+            dl4j_import.export_dl4j(g, path, save_updater=True)
+            t2 = time.perf_counter()
+            back = dl4j_import.import_dl4j(path, updater=up, device=dev)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            params = all(torch.equal(back.params[l][k], v)
+                         for l, lp in g.params.items() for k, v in lp.items())
+            state = all(torch.equal(back.opt_state[l][k], g.opt_state[l][k])
+                        for l, lp in g.params.items() for k in lp
+                        if k not in ("mean", "var"))
+            xs = _graph_batch(g, torch, 20261018 + i)
+            outputs = all(torch.equal(a, b) for a, b in
+                          zip(g.output(*xs), back.output(*xs)))
+            rec = {"zip_bytes": os.path.getsize(path),
+                   "params": g.num_params(), "export_s": t2 - t1,
+                   "import_s": t3 - t2, "params_bitwise": params,
+                   "updater_state_bitwise": state,
+                   "outputs_bitwise": outputs}
+            out["graphs"][name] = rec
+            require(params and state and outputs,
+                    f"dl4j {name}: the round trip is not bitwise {rec}")
+        torch.cuda.synchronize()
+        out["launches"] = kernels.launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def es_run(torch, csv_dir: str, root: str, dev: str = "cuda") -> dict:
+    """Early stopping on the card: the DCGAN-MNIST transfer classifier at
+    full width, ``EarlyStoppingGraphTrainer`` over a cut of the cv_main
+    phase's MNIST CSVs (ES_TRAIN / ES_VAL rows, the train split's
+    ``NormalizerMinMaxScaler`` on both iterators), a
+    ``ScoreIterationListener``, the best model persisted; the counters
+    zeroed just before and read just after."""
+    import numpy as np
+
+    from gan_deeplearning4j_tpu_torch.data.csv import (
+        RecordReaderDataSetIterator,
+        write_csv_matrix,
+    )
+    from gan_deeplearning4j_tpu_torch.data.normalizers import (
+        NormalizerMinMaxScaler,
+    )
+    from gan_deeplearning4j_tpu_torch.graph import serialization
+    from gan_deeplearning4j_tpu_torch.graph.layers import BatchNorm
+    from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.train.early_stopping import (
+        EarlyStoppingConfig,
+        EarlyStoppingGraphTrainer,
+    )
+    from gan_deeplearning4j_tpu_torch.utils.listeners import (
+        ScoreIterationListener,
+    )
+
+    cut = {}
+    for split, rows in (("train", ES_TRAIN), ("test", ES_VAL)):
+        table = np.loadtxt(f"{csv_dir}/mnist_{split}.csv", delimiter=",",
+                           max_rows=rows, ndmin=2, dtype=np.float32)
+        cut[split] = f"{root}/es_{split}.csv"
+        write_csv_matrix(cut[split], table)
+    cfg = M.CVConfig()
+    train = RecordReaderDataSetIterator(cut["train"], ES_BATCH,
+                                        cfg.num_features, cfg.num_classes)
+    val = RecordReaderDataSetIterator(cut["test"], ES_VAL, cfg.num_features,
+                                      cfg.num_classes)
+    scaler = NormalizerMinMaxScaler().fit(train)
+    train.set_preprocessor(scaler)
+    val.set_preprocessor(scaler)
+    clf = M.build_classifier(M.build_discriminator(cfg, dev), cfg)
+    lines = []
+    clf.set_listeners(ScoreIterationListener(ES_PRINT, log=lines.append))
+    val.reset()
+    first = val.next()
+    before = clf.score_on(first.features, first.labels)
+    save = f"{root}/es_best.zip"
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = EarlyStoppingGraphTrainer(
+        clf, train, val, EarlyStoppingConfig(
+            max_epochs=ES_EPOCHS, patience=ES_PATIENCE,
+            save_path=save)).fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    fits = res.total_epochs * (ES_TRAIN // ES_BATCH)
+    n_bn = sum(isinstance(n.layer, BatchNorm) for n in clf.nodes.values()
+               if n.name not in clf.frozen)
+    after = clf.score_on(first.features, first.labels)
+    back = serialization.read_model(save, dev).score_on(first.features,
+                                                        first.labels)
+    out = {"reason": res.reason, "best_epoch": res.best_epoch,
+           "best_score": res.best_score, "total_epochs": res.total_epochs,
+           "score_before": before, "score_restored": after,
+           "score_persisted": back, "fits": fits, "seconds": seconds,
+           "listener_lines": len(lines), "last_line": lines[-1:],
+           "launches": launches, "bn_layers_trained": n_bn,
+           "rows": {"train": ES_TRAIN, "val": ES_VAL}}
+    require(res.reason in ("max_epochs", "patience") and res.best_epoch >= 1
+            and math.isfinite(res.best_score) and res.best_score < before
+            and abs(after - res.best_score) <= 1e-5 * abs(res.best_score)
+            and abs(back - res.best_score) <= 1e-5 * abs(res.best_score),
+            f"early stopping: {out}")
+    require(len(lines) == fits // ES_PRINT,
+            f"early stopping: {len(lines)} listener lines for {fits} fits")
+    require(launches["fused_update"] == fits
+            and launches["bn_act"] == n_bn * fits
+            and launches["upsample_bwd"] == launches["bn_moments"]
+            == launches["bn_apply"] == launches["bn_act_4d"] == 0,
+            f"early stopping: launches {launches} for {fits} fits")
+    return out
+
+
+def migration_phase(torch, smi: str, csv_dir: str) -> dict:
+    """Early stopping and the device probe on the card (module docstring,
+    phase 18): ``es_run`` while the probe's child reaches the card beside
+    it (its round trip is then a shared card's)."""
+    import threading
+
+    from gan_deeplearning4j_tpu_torch.utils import probe
+
+    t0 = time.perf_counter()
+    box = {}
+
+    def run_probe():
+        try:
+            box["probe"] = probe.probe(PROBE_TIMEOUT_S)
+        except Exception as e:  # required below, on the main thread
+            box["error"] = e
+
+    th = threading.Thread(target=run_probe)
+    th.start()
+    root = tempfile.mkdtemp(prefix="gan4j_es_")
+    try:
+        es = es_run(torch, csv_dir, root)
+    finally:
+        th.join()
+        shutil.rmtree(root, ignore_errors=True)
+    require("error" not in box, f"probe: {box.get('error')!r}")
+    pr = box["probe"]
+    require(pr["platform"] == "gpu"
+            and pr["device"] == torch.cuda.get_device_name(0)
+            and pr["rt_ms"] > 0, f"probe: {pr}")
+    return {"nvidia_smi": smi, "early_stopping": es,
+            "probe": {**pr, "shared_card": "beside early stopping"},
+            "seconds": time.perf_counter() - t0}
 
 
 def main() -> int:
@@ -5768,6 +6166,10 @@ def main() -> int:
             f"launch counts {launches} != expected {expected}")
     require(tuple(grid.shape) == (100, 1, 28, 28)
             and bool(torch.isfinite(grid).all()), "bad latent grid")
+
+    # -- 4b. the main phase's graphs through DL4J zips --------------------------
+    dl4j = dl4j_phase(torch, smi, trainer)
+    emit("dl4j", **dl4j)
     del trainer, grid
 
     # -- 5. one step on the card against one on the CPU ----------------------
@@ -5804,8 +6206,15 @@ def main() -> int:
     # -- 7. data parallel ----------------------------------------------------
     n_cards = torch.cuda.device_count()
     ins_host = insurance_host(torch, INS_DP_STEPS)
-    ranks = mesh.spawn(dp_rank, DP_WORLD, (host, ins_host), device="cuda",
-                       timeout=DP_TIMEOUT_S)
+    from gan_deeplearning4j_tpu_torch.telemetry.events import read_events
+
+    rb_root = tempfile.mkdtemp(prefix="gan4j_rb_")
+    try:
+        ranks = mesh.spawn(dp_rank, DP_WORLD, (host, ins_host, rb_root),
+                           device="cuda", timeout=DP_TIMEOUT_S)
+        rb_events = read_events(f"{rb_root}/events.jsonl")
+    finally:
+        shutil.rmtree(rb_root, ignore_errors=True)
     r0 = ranks[0]
     dp_expected = {"fused_update": 3 * MAIN_STEPS,
                    "bn_act": 0, "upsample_bwd": 2 * MAIN_STEPS,
@@ -5902,7 +6311,8 @@ def main() -> int:
             f"a sync-BN forward is not moments, collective, apply: {sync_bn}")
 
     # -- 8. the CV program end to end -----------------------------------------
-    emit("cv_main", **cv_main_phase(torch, smi))
+    mnist_csv = tempfile.mkdtemp(prefix="gan4j_mnist_")
+    emit("cv_main", **cv_main_phase(torch, smi, mnist_csv))
 
     # -- 9. the insurance program end to end ----------------------------------
     ins_ref = tempfile.mkdtemp(prefix="gan4j_ins_ref_")
@@ -5945,7 +6355,8 @@ def main() -> int:
          within_budget=sm["seconds"] <= SM_BUDGET_S, **sm)
 
     # -- 16. supervision's numerics and hangs ---------------------------------
-    sv = supervision_phase(torch, smi, [r["supervision"] for r in ranks])
+    sv = supervision_phase(torch, smi, [r["supervision"] for r in ranks],
+                           [r["rollback"] for r in ranks], rb_events)
     emit("supervision", **sv)
 
     # -- 17. the training run's observability --------------------------------
@@ -5955,7 +6366,14 @@ def main() -> int:
     emit("observability", budget_s=OBS_BUDGET_S,
          within_budget=obs["seconds"] <= OBS_BUDGET_S, **obs)
 
-    # -- 18. the kernels line and the result ---------------------------------
+    # -- 18. early stopping and the device probe ------------------------------
+    try:
+        mig = migration_phase(torch, smi, mnist_csv)
+    finally:
+        shutil.rmtree(mnist_csv, ignore_errors=True)
+    emit("migration", **mig)
+
+    # -- 19. the kernels line and the result ---------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
     # pair, and the kernel phase's check for the 4-D BN, which no model
     # path runs (as in the JAX package)
@@ -6037,7 +6455,23 @@ def main() -> int:
              "launches": obs["flag_cost"]["launches"][r["name"]],
              "trace_counts": obs["full_run"]["trace_counts"].get(r["name"]),
              "celeba_launches": obs["roadmap"]["launches"][r["name"]],
-             "steps": CV_STEPS}}
+             "steps": CV_STEPS},
+         # the world-2 rollback in the dp phase's ranks: each rank's
+         # launches over its RB_EXECUTED steps (the NaN step, then the
+         # healed redo)
+         "rollback_world2": {
+             "launches_per_rank": [
+                 rl[r["name"]]
+                 for rl in sv["rollback_world2"]["launches"]],
+             "steps_per_rank": RB_EXECUTED},
+         # the migration surface: the DL4J round trips' forwards (the
+         # source and the imported graph, inference) and early stopping's
+         # fits on the transfer classifier
+         "migration": {
+             "dl4j_launches": dl4j["launches"][r["name"]],
+             "early_stopping_launches": mig["early_stopping"]["launches"][
+                 r["name"]],
+             "early_stopping_fits": mig["early_stopping"]["fits"]}}
         for r in report]}), flush=True)
     print(json.dumps({"seconds": {
         "total": time.perf_counter() - T_START,
@@ -6047,7 +6481,10 @@ def main() -> int:
         "total_before_the_serve_phase": before_serve_s,
         "serve_mesh": sm["seconds"],
         "pair_dp": pdp["seconds"], "supervision": sv["seconds"],
-        "observability": obs["seconds"], "by_phase": PHASE_SECONDS}}),
+        "observability": obs["seconds"], "dl4j": dl4j["seconds"],
+        "migration": mig["seconds"],
+        "rollback_world2": max(sv["rollback_world2"]["seconds"]),
+        "by_phase": PHASE_SECONDS}}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

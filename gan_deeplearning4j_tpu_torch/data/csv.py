@@ -202,6 +202,7 @@ class RecordReaderDataSetIterator:
         self._shuffle = bool(shuffle)
         self._shuffle_seed = int(shuffle_seed)
         self._order = self._epoch_order(0) if self._shuffle else None
+        self._preprocessor = None
 
     @property
     def features(self) -> np.ndarray:
@@ -227,7 +228,23 @@ class RecordReaderDataSetIterator:
         feats = self._features[rows]
         labels = (self._labels[rows] if self._labels is not None
                   else np.zeros((hi - lo, 0), dtype=feats.dtype))
-        return DataSet(feats, labels)
+        ds = DataSet(feats, labels)
+        if self._preprocessor is not None:
+            # contract: preprocess REPLACES ds.features (the normalizers
+            # do), never mutates it — feats may be a view of the table
+            self._preprocessor.preprocess(ds)
+        return ds
+
+    @property
+    def preprocessor(self):
+        return self._preprocessor
+
+    def set_preprocessor(self, preprocessor) -> None:
+        """ND4J ``iterator.setPreProcessor(normalizer)``: applied to every
+        ``next()``'s DataSet (``data/normalizers.py``, or any object with
+        ``preprocess(DataSet)`` that REPLACES ``features`` rather than
+        mutating the passed view)."""
+        self._preprocessor = preprocessor
 
     def reset(self) -> None:
         """Rewind for the next pass; a shuffled iterator re-permutes."""

@@ -7,8 +7,10 @@ columns, compare.  Cell 10: the weighted AUROC of
 ``insurance_test_predictions_{k}.csv`` against the test labels (the JAX
 package calls sklearn's ``roc_auc_score``; here it is the Mann-Whitney
 statistic in numpy, sklearn being absent on the card's host).
-``write_evaluation_report`` writes the DL4J-style ``evaluation_stats.txt``;
-the JAX package's loss-curve PNG needs matplotlib and is not ported.
+``write_evaluation_report`` writes the DL4J-style ``evaluation_stats.txt``
+and, from the run's metrics JSONL, the loss-curve PNG
+(``utils/plot_metrics.py``: matplotlib where it imports, else the stdlib
+raster).
 """
 
 from __future__ import annotations
@@ -83,12 +85,24 @@ def grid_to_lattices(grid_csv_or_array, rows: int, cols: int) -> np.ndarray:
 
 
 def write_evaluation_report(res_path: str, predictions, labels,
-                            num_classes: int, f1_cls=None) -> dict:
-    """DL4J-style Evaluation over the final prediction dump, its stats block
-    written to ``evaluation_stats.txt``.  Returns {"test_f1": ...} (class
-    ``f1_cls`` if given, else macro)."""
+                            num_classes: int, f1_cls=None,
+                            metrics_jsonl=None, smooth: int = 25) -> dict:
+    """The mains' end-of-run report: DL4J-style Evaluation over the final
+    prediction dump, its stats block written to ``evaluation_stats.txt``,
+    plus, when ``metrics_jsonl`` has step records, the loss-curve PNG
+    beside it.  Returns {"test_f1": ...} (class ``f1_cls`` if given, else
+    macro)."""
     ev = Evaluation(num_classes)
     ev.eval(labels, predictions)
     with open(os.path.join(res_path, "evaluation_stats.txt"), "w") as f:
         f.write(ev.stats() + "\n")
+    if metrics_jsonl and os.path.exists(metrics_jsonl):
+        from gan_deeplearning4j_tpu_torch.utils.plot_metrics import plot_losses
+
+        try:
+            plot_losses(metrics_jsonl, smooth=smooth)
+        except ValueError:
+            # no step records (a run resumed at its end): the stats file
+            # above is the product, the plot is best-effort, as in JAX
+            pass
     return {"test_f1": ev.f1(f1_cls) if f1_cls is not None else ev.f1()}

@@ -6,7 +6,10 @@ device, and every step is functional: ``_train_step`` takes params and
 updater state and returns new ones without touching its inputs (``fit``
 runs it on the graph's own state).  So the protocol's cross-graph weight
 syncs are dict assignments that alias tensors, as they are pytree merges
-in the JAX package.  Listeners are not ported.
+in the JAX package.  DL4J's listener surface (``set_listeners``,
+``add_listeners``; ``utils/listeners.py``) fires after each eager ``fit``
+with the step's loss as a device scalar; ``score_on`` is DL4J's
+``score(DataSet)``, the inference-mode loss.
 
 Under the ``--mp`` policy (``backend.configure(compute_bf16=True)``) the
 forward casts, with explicit casts where the JAX package puts them (not
@@ -205,6 +208,8 @@ class ComputationGraph:
             l2=l2, clip_threshold=clip_threshold)
         self.params: Tree = {}
         self.opt_state: Tree = {}
+        self._step_count = 0
+        self.listeners: List = []  # DL4J TrainingListener surface
 
     # -- init ---------------------------------------------------------------
 
@@ -335,21 +340,54 @@ class ComputationGraph:
             return new_params, new_opt_state, loss, tel
         return new_params, new_opt_state, loss
 
+    def _named(self, values, names: List[str]) -> Dict[str, torch.Tensor]:
+        """A tensor (or array) for the single input/output, or a dict by
+        name, as tensors on the graph's device."""
+        if not isinstance(values, dict):
+            values = dict(zip(names, [values]))
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in values.items()}
+
+    def score_on(self, features, labels) -> float:
+        """Inference-mode loss on a batch (no update, running BN stats, no
+        dropout) — DL4J ``ComputationGraph.score(DataSet)``."""
+        inputs = self._named(features, self.input_names)
+        label_map = self._named(labels, self.output_names)
+        with torch.no_grad():
+            values, _ = self._forward(self.params, inputs, False)
+            loss = self._loss({n: values[n] for n in self.output_names},
+                              label_map)
+        return float(loss)
+
     def fit(self, features, labels) -> torch.Tensor:
         """One optimization step on a batch — DL4J ``ComputationGraph.fit``,
         the unit the reference's ``SparkComputationGraph.fit`` reduces to per
         worker (``parallel/data_parallel.py`` for the distributed one).
-        ``features``/``labels``: a tensor for the single input/output, or a
-        dict by name.  Sets ``score`` and returns the loss (a 0-d tensor on
-        the graph's device)."""
-        inputs = (features if isinstance(features, dict)
-                  else dict(zip(self.input_names, [features])))
-        label_map = (labels if isinstance(labels, dict)
-                     else dict(zip(self.output_names, [labels])))
+        ``features``/``labels``: a tensor (or array) for the single
+        input/output, or a dict by name.  Sets ``score``, fires the
+        listeners and returns the loss (a 0-d tensor on the graph's
+        device)."""
+        inputs = self._named(features, self.input_names)
+        label_map = self._named(labels, self.output_names)
+        self._step_count += 1
         self.params, self.opt_state, loss = self._train_step(
             self.params, self.opt_state, inputs, label_map)
         self.score = loss
+        for listener in self.listeners:
+            listener.iteration_done(self, self._step_count, loss)
         return loss
+
+    def set_listeners(self, *listeners) -> "ComputationGraph":
+        """DL4J ``setListeners`` (replaces): listeners get
+        ``iteration_done(model, iteration, score)`` after each eager
+        ``fit``; the score arrives as a device scalar (``utils/listeners.py``
+        for the readback-cost contract)."""
+        self.listeners = list(listeners)
+        return self
+
+    def add_listeners(self, *listeners) -> "ComputationGraph":
+        self.listeners.extend(listeners)
+        return self
 
     # -- param access (the GAN protocol's weight-sync surface) ---------------
 

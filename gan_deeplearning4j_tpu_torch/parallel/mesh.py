@@ -216,10 +216,11 @@ def aggregate_goodput(report: Dict, group: Optional[DataGroup]) -> Dict:
 
 
 def agree_max(values: Sequence[int], group: DataGroup) -> List[int]:
-    """The ranks' element-wise maximum of small non-negative ints: one
-    all-reduce.  The trainer's alarm consensus sends rank 0's trips
-    (flags and steps) this way, the other ranks zeros; every rank must
-    enter it at every boundary while an alarm is armed."""
+    """The ranks' element-wise maximum of small ints: one all-reduce.  The
+    trainer's alarm consensus sends rank 0's trips (flags and steps) this
+    way, the other ranks zeros; every rank must enter it at every boundary
+    while an alarm is armed.  A rollback's budget check sends each value
+    and its negation (the maximum and the minimum at once)."""
     dev = group.device if group.backend == "nccl" else torch.device("cpu")
     t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=dev)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)

@@ -1,12 +1,22 @@
-"""Fault injection for tests and drills (torch twin of part of
+"""Fault injection for tests and drills (torch twin of
 ``gan_deeplearning4j_tpu/testing``); nothing on the training path imports
 this package."""
 
 from gan_deeplearning4j_tpu_torch.testing.chaos import (
+    ChaosInjector,
+    ChaosSchedule,
+    CorruptRecordSource,
+    DeviceLostError,
+    FlakyReader,
+    FlakySource,
     HangingSource,
+    InjectedCrash,
+    LeakyDispatchSource,
     NanSource,
     ReadbackHang,
     SlowLorisClient,
+    SlowRequestSource,
+    StallingSource,
     kill_replica,
     kill_replica_process,
     mid_body_disconnect,
@@ -14,6 +24,9 @@ from gan_deeplearning4j_tpu_torch.testing.chaos import (
     wedge_replica,
 )
 
-__all__ = ["HangingSource", "NanSource", "ReadbackHang", "SlowLorisClient",
-           "kill_replica", "kill_replica_process", "mid_body_disconnect",
-           "poison_checkpoint_dir", "wedge_replica"]
+__all__ = ["ChaosInjector", "ChaosSchedule", "CorruptRecordSource",
+           "DeviceLostError", "FlakyReader", "FlakySource", "HangingSource",
+           "InjectedCrash", "LeakyDispatchSource", "NanSource",
+           "ReadbackHang", "SlowLorisClient", "SlowRequestSource",
+           "StallingSource", "kill_replica", "kill_replica_process",
+           "mid_body_disconnect", "poison_checkpoint_dir", "wedge_replica"]

@@ -1,21 +1,42 @@
-"""Fault injectors (own copies of part of
-``gan_deeplearning4j_tpu/testing/chaos.py``; the rest of that module is
-ROADMAP Queue 1 item 11.3).  For the supervision paths:
+"""Fault injection (torch twin of ``gan_deeplearning4j_tpu/testing/
+chaos.py``): prove the fault-tolerance contract, don't assert it.  Every
+injector is parameterized by an explicit seed, so a chaos failure replays
+exactly.
 
-* ``HangingSource``: a data source whose ``next()`` never returns (a dead
-  storage layer);
-* ``NanSource``: a data source that poisons one batch with a NaN (a bad
-  record reaching the gradient path);
-* ``ReadbackHang`` (the JAX ``hang_at_readback``): a device readback
-  that never completes, through ``utils/device.py``'s
-  ``_chaos_readback_hook``.
+For the training plane:
 
-Each hang sleeps in small increments, so the monitored thread stays
-interruptible at bytecode boundaries: the only way out is the hang
-watchdog (``train/watchdog.py``).
+* kill-during-save: ``ChaosInjector.kill_at_save_event`` hooks the
+  checkpointer's enumerated write / rename points
+  (``checkpoint/checkpointer.py`` ``_chaos_hook``) and raises
+  ``InjectedCrash`` at the chosen one, which leaves the directory as a
+  SIGKILL would; ``count_save_events`` enumerates the points;
+* corruption: ``corrupt_one_file`` flips one seeded byte of a committed
+  checkpoint, ``truncate_file`` cuts a seeded tail off, ``delete_file``
+  removes one, ``corrupt_csv_rows`` rewrites seeded CSV lines as garbage
+  (the quarantine must name them back);
+* lose part of the devices: ``shrink_world`` / ``lost_device`` hook the
+  trainer's step-boundary seam (``train/gan_trainer.py``
+  ``_chaos_step_hook``) and raise ``DeviceLostError`` at a seeded step;
+  ``world_size()`` then reports the survivors (the elastic restore over
+  them is ROADMAP item 7.5);
+* data sources: ``StallingSource`` blocks in ``next()`` until released,
+  ``HangingSource`` never returns (a dead storage layer: the watchdog's
+  case), ``FlakySource`` / ``FlakyReader`` raise transient ``OSError``s
+  (the retry layer's case), ``CorruptRecordSource`` yields malformed
+  batches and ``NanSource`` one NaN (the quarantine's and the NaN alarm's
+  cases);
+* hangs: ``hang_at_readback`` (``ReadbackHang``) parks a readback of
+  ``utils/device.py`` (``_chaos_readback_hook``), ``hang_at_dispatch``
+  a serving batch dispatch (``serve/engine.py`` ``_chaos_dispatch_hook``).
+  Each hang sleeps in small increments, so the monitored thread stays
+  interruptible at bytecode boundaries: the way out is the watchdog.
 
-For the serving plane's network path and its replica processes:
+For the serving plane:
 
+* ``SlowRequestSource`` injects oversized request sizes into a load
+  harness's size stream (the chunked dispatch path under live traffic);
+  ``LeakyDispatchSource`` hoards memory on every dispatch (what a leak
+  gate must flag);
 * ``SlowLorisClient`` drips a request body one tiny chunk at a time (the
   gateway's TOTAL body-read deadline must answer 408 in bounded time);
   ``mid_body_disconnect`` sends part of a declared body and hangs up;
@@ -29,6 +50,10 @@ For the serving plane's network path and its replica processes:
   must land on the step before it.  The forged directory is written in
   the JAX on-disk format, so the JAX checkpointer verifies and loads it
   exactly as the port's does.
+
+Across the planes, ``ChaosSchedule`` fires a seeded timeline of such
+injections and writes the resolved timeline into the events up front.
+The fleet poisoners wait for the fleet (ROADMAP item 9).
 """
 
 from __future__ import annotations
@@ -47,12 +72,304 @@ import threading
 import time
 import zipfile
 from http.client import HTTPConnection
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from gan_deeplearning4j_tpu_torch.checkpoint import checkpointer as _ckpt_mod
 from gan_deeplearning4j_tpu_torch.graph import serialization
+
+
+class InjectedCrash(RuntimeError):
+    """A simulated hard kill.  ``simulates_kill`` tells the checkpointer
+    to leave the directory un-cleaned (debris and all), exactly as a
+    real SIGKILL would; the recovery wrapper still classifies it as a
+    retryable failure (it is a RuntimeError, not a config error)."""
+
+    simulates_kill = True
+
+
+class DeviceLostError(RuntimeError):
+    """A simulated loss of part of the device fleet mid-run (a spot
+    eviction, a failed chip).  A plain RuntimeError on purpose: the
+    recovery wrapper classifies it RETRYABLE — the restart is exactly
+    where the elastic layer re-forms the mesh over the survivors and
+    reshards the checkpoint onto it."""
+
+
+class ChaosInjector:
+    """Seeded injector; one instance per test scenario."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+        self.rng = random.Random(seed)
+
+    # -- kill-during-save ------------------------------------------------------
+
+    def count_save_events(self, save_fn) -> List[str]:
+        """Run ``save_fn()`` with a recording hook; return the ordered
+        list of chaos events it passed (the enumerable kill points)."""
+        events: List[str] = []
+        prev = _ckpt_mod._chaos_hook
+        _ckpt_mod._chaos_hook = events.append
+        try:
+            save_fn()
+        finally:
+            _ckpt_mod._chaos_hook = prev
+        return events
+
+    def kill_at_save_event(self, index: int,
+                           after_times: int = 0) -> "_KillPoint":
+        """Context manager: the ``index``-th chaos event of the
+        (``after_times``+1)-th save inside the block raises
+        ``InjectedCrash``.  ``after_times`` lets a test crash the Nth
+        save of a run while earlier ones succeed."""
+        return _KillPoint(index, after_times)
+
+    # -- corruption ------------------------------------------------------------
+
+    def corrupt_one_file(self, ckpt_dir: str,
+                         exclude_manifest: bool = False) -> tuple:
+        """Flip one seeded byte of one seeded file under ``ckpt_dir``
+        (committed checkpoint).  Returns (path, offset).  With
+        ``exclude_manifest`` the manifest itself stays intact — the
+        harder case: the corruption is only discoverable by hashing."""
+        files = sorted(
+            f for f in os.listdir(ckpt_dir)
+            if os.path.isfile(os.path.join(ckpt_dir, f))
+            and not (exclude_manifest and f == _ckpt_mod.MANIFEST_NAME))
+        name = self.rng.choice(files)
+        path = os.path.join(ckpt_dir, name)
+        data = bytearray(open(path, "rb").read())
+        off = self.rng.randrange(len(data))
+        data[off] ^= 0xFF
+        with open(path, "wb") as f:
+            f.write(bytes(data))
+        return path, off
+
+    def truncate_file(self, ckpt_dir: str) -> tuple:
+        """Cut a seeded non-empty tail off one seeded data file (torn
+        write).  Returns (path, new_size)."""
+        files = sorted(
+            f for f in os.listdir(ckpt_dir)
+            if os.path.isfile(os.path.join(ckpt_dir, f))
+            and f != _ckpt_mod.MANIFEST_NAME)
+        name = self.rng.choice(files)
+        path = os.path.join(ckpt_dir, name)
+        size = os.path.getsize(path)
+        new_size = self.rng.randrange(max(1, size))  # strictly shorter
+        with open(path, "rb+") as f:
+            f.truncate(new_size)
+        return path, new_size
+
+    def delete_file(self, ckpt_dir: str, name: str) -> str:
+        """Remove one named file of a committed checkpoint (e.g.
+        ``state.npz`` lost to a filesystem fault)."""
+        path = os.path.join(ckpt_dir, name)
+        os.remove(path)
+        return path
+
+    def corrupt_csv_rows(self, path: str, n_rows: int = 1,
+                         skip_lines: int = 0) -> List[int]:
+        """Rewrite ``n_rows`` seeded data lines of an on-disk CSV as
+        unparseable garbage (silent upstream-producer corruption /
+        bit-rot that still splits into lines).  Returns the 1-based
+        line numbers hit — exactly what ``quarantine.jsonl`` must name
+        back."""
+        with open(path) as f:
+            lines = f.read().splitlines()
+        eligible = list(range(skip_lines, len(lines)))
+        hit = sorted(self.rng.sample(eligible, min(n_rows, len(eligible))))
+        for i in hit:
+            lines[i] = f"#CORRUPT#,{self.rng.random()},###"
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return [i + 1 for i in hit]
+
+    # -- device loss / world shrink --------------------------------------------
+
+    def shrink_world(self, kill_step: int, before: int,
+                     after: int) -> "_ShrinkWorld":
+        """Context manager: the run loses ``before - after`` devices at
+        the first step boundary >= ``kill_step`` — the trainer's step
+        seam raises ``DeviceLostError`` (one-shot; the restarted
+        incarnation trains normally) and ``world_size()`` flips from
+        ``before`` to ``after``.  The test's ``make_trainer`` reads
+        ``world_size()`` so the next incarnation rebuilds its mesh over
+        the surviving subset (the rebuild over the survivors, and the
+        elastic restore it needs, are ROADMAP item 7.5)."""
+        if not 0 < after < before:
+            raise ValueError(
+                f"shrink_world needs 0 < after < before, got "
+                f"{before} -> {after}")
+        return _ShrinkWorld(kill_step, before, after)
+
+    def lost_device(self, kill_step: int, before: int,
+                    lose: int = 1) -> "_ShrinkWorld":
+        """``shrink_world`` phrased as "K devices died": drop ``lose``
+        of the ``before`` devices at the seeded kill step."""
+        return self.shrink_world(kill_step, before, before - lose)
+
+    # -- hangs -----------------------------------------------------------------
+
+    def hang_at_readback(self, at: int = 0) -> "ReadbackHang":
+        """Context manager: the ``at``-th ``device_fence`` call inside
+        the block hangs indefinitely (a wedged device readback /
+        tunnel).  One-shot — a restarted run's fences proceed normally,
+        so a watchdog-driven restart can finish.  The hang sleeps in
+        small increments, which keeps the hung thread interruptible at
+        bytecode boundaries — exactly the property a real C-level hang
+        lacks until its call returns, and the reason the watchdog also
+        dumps diagnostics and checkpoints from its OWN thread."""
+        return ReadbackHang(at)
+
+    def hang_at_dispatch(self, at: int = 0) -> "_DispatchHang":
+        """Context manager: the ``at``-th serving batch dispatch inside
+        the block hangs indefinitely (``serve/engine.py``'s chaos seam
+        — a wedged card under the serving plane).  One-shot: after
+        the watchdog fails the in-flight requests and re-arms, later
+        dispatches proceed normally, so the "degrade, recover, keep
+        serving" contract is what the test observes.  Sleeps in small
+        increments for the same bytecode-boundary interruptibility as
+        ``hang_at_readback``."""
+        return _DispatchHang(at)
+
+
+class SlowRequestSource:
+    """Request-size iterator wrapper that injects OVERSIZED sizes at
+    seeded emitted indices — the serving-plane burst/abuse pattern: a
+    caller whose batches exceed the largest declared bucket forces the
+    chunked dispatch path under live traffic.  Wraps any iterable of
+    row counts (e.g. the load harness's size stream); ``factor`` scales
+    the hit sizes past ``largest_bucket``."""
+
+    def __init__(self, sizes, largest_bucket: int, slow_at=(0,),
+                 factor: int = 2):
+        if factor < 1:
+            raise ValueError("factor must be >= 1")
+        self._sizes = iter(sizes)
+        self.largest_bucket = int(largest_bucket)
+        self.slow_at = frozenset(slow_at)
+        self.factor = int(factor)
+        self.emitted = 0
+        self.injected = 0
+
+    def __iter__(self) -> "SlowRequestSource":
+        return self
+
+    def __next__(self) -> int:
+        size = next(self._sizes)
+        if self.emitted in self.slow_at:
+            self.injected += 1
+            size = self.largest_bucket * self.factor + size
+        self.emitted += 1
+        return size
+
+
+class _ShrinkWorld:
+    """Seeded device-loss injector (``ChaosInjector.shrink_world``).
+    Installs the trainer step-boundary hook for the with-block; fires
+    ONCE at the first boundary at or past ``kill_step`` (chunked paths
+    only visit multiples of steps_per_call, so "at or past" is the
+    honest contract), then reports the shrunken world."""
+
+    def __init__(self, kill_step: int, before: int, after: int):
+        self.kill_step = kill_step
+        self.before = before
+        self.after = after
+        self.fired = False          # one-shot, like _KillPoint
+        self.killed_at: Optional[int] = None
+        self._prev = None
+
+    def world_size(self) -> int:
+        """Devices alive right now: ``before`` until the kill fires,
+        ``after`` from then on — what an elastic ``make_trainer`` hands
+        to ``n_devices``."""
+        return self.after if self.fired else self.before
+
+    def _hook(self, step: int) -> None:
+        if self.fired or step < self.kill_step:
+            return
+        self.fired = True
+        self.killed_at = step
+        raise DeviceLostError(
+            f"injected device loss at step {step}: fleet shrank "
+            f"{self.before} -> {self.after} devices")
+
+    def __enter__(self) -> "_ShrinkWorld":
+        from gan_deeplearning4j_tpu_torch.train import gan_trainer as _gt_mod
+
+        self._gt_mod = _gt_mod
+        self._prev = _gt_mod._chaos_step_hook
+        _gt_mod._chaos_step_hook = self._hook
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._gt_mod._chaos_step_hook = self._prev
+
+
+class _KillPoint:
+    def __init__(self, index: int, after_times: int):
+        self.index = index
+        self.after_times = after_times
+        self.fired = False  # one-shot: a killed process stays dead once
+        self._events = 0
+        self._saves_seen = 0
+        self._prev = None
+
+    def _hook(self, event: str) -> None:
+        if self.fired:
+            return  # the "process" already died; later saves (the
+            # restarted run's) proceed normally
+        if self._saves_seen < self.after_times:
+            if event == "post_swap":  # one per completed save
+                self._saves_seen += 1
+            return
+        if self._events == self.index:
+            self.fired = True
+            raise InjectedCrash(
+                f"injected kill at save event #{self.index} ({event!r})")
+        self._events += 1
+
+    def __enter__(self) -> "_KillPoint":
+        self._prev = _ckpt_mod._chaos_hook
+        _ckpt_mod._chaos_hook = self._hook
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _ckpt_mod._chaos_hook = self._prev
+
+
+class StallingSource:
+    """DataSet-iterator wrapper whose ``next()`` blocks at the
+    ``stall_at``-th call until ``release()`` (or forever) — a wedged
+    storage layer under the prefetch worker."""
+
+    def __init__(self, source, stall_at: int):
+        self.source = source
+        self.stall_at = stall_at
+        self.calls = 0
+        self.stalled = threading.Event()   # observable: worker is stuck
+        self._release = threading.Event()
+
+    def release(self) -> None:
+        self._release.set()
+
+    def has_next(self):
+        return self.source.has_next()
+
+    def reset(self):
+        return self.source.reset()
+
+    def next(self):
+        self.calls += 1
+        if self.calls - 1 == self.stall_at:
+            self.stalled.set()
+            self._release.wait()  # block until the test releases us
+        return self.source.next()
+
+    def __getattr__(self, name):
+        return getattr(self.source, name)
 
 
 class HangingSource:
@@ -80,6 +397,116 @@ class HangingSource:
             while True:  # never released — the watchdog's problem now
                 time.sleep(0.05)
         return self.source.next()
+
+    def __getattr__(self, name):
+        return getattr(self.source, name)
+
+
+class FlakySource:
+    """DataSet-iterator wrapper whose ``next()`` raises a TRANSIENT
+    ``OSError`` on ``failures`` consecutive calls starting at call
+    index ``at``, then succeeds forever — an NFS blip / flaky disk
+    under the reader.  The failure happens BEFORE the delegate is
+    touched, so a retried call replays the exact same batch sequence
+    (the property the bit-identical-resume tests lean on).  Seeded:
+    the error payload carries the seed so a chaos failure replays
+    exactly."""
+
+    def __init__(self, source, failures: int = 1, at: int = 0,
+                 seed: int = 0):
+        self.source = source
+        self.failures = failures
+        self.at = at
+        self.seed = seed
+        self.calls = 0
+        self.raised = 0
+
+    def has_next(self):
+        return self.source.has_next()
+
+    def reset(self):
+        return self.source.reset()
+
+    def next(self):
+        call = self.calls
+        self.calls += 1
+        if self.at <= call < self.at + self.failures:
+            self.raised += 1
+            raise OSError(
+                f"injected transient read failure "
+                f"{self.raised}/{self.failures} (seed {self.seed})")
+        return self.source.next()
+
+    def __getattr__(self, name):
+        return getattr(self.source, name)
+
+
+class FlakyReader:
+    """CSV-reader wrapper whose ``read()`` raises a transient
+    ``OSError`` the first ``failures`` calls, then delegates — the
+    ingest-time counterpart of ``FlakySource`` (drives
+    ``RetryingReader``)."""
+
+    def __init__(self, reader, failures: int = 1, seed: int = 0):
+        self.reader = reader
+        self.failures = failures
+        self.seed = seed
+        self.calls = 0
+
+    def read(self, *a, **kw):
+        call = self.calls
+        self.calls += 1
+        if call < self.failures:
+            raise OSError(
+                f"injected transient decode failure "
+                f"{call + 1}/{self.failures} (seed {self.seed})")
+        return self.reader.read(*a, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self.reader, name)
+
+
+class CorruptRecordSource:
+    """DataSet-iterator wrapper that yields MALFORMED batches at the
+    chosen emitted indices — the runtime-corruption counterpart of
+    ``corrupt_csv_rows``.  ``mode="nan"`` poisons one seeded row per
+    hit batch with NaNs (a bad record that parsed); ``mode="shape"``
+    emits the batch with an extra feature column (a producer schema
+    break).  Drives the quarantine layer (data/resilient.py
+    ``ValidatingSource``): NaN rows must be skipped-and-charged
+    row-by-row, shape breaks quarantined as a batch."""
+
+    def __init__(self, source, corrupt_at=(0,), mode: str = "nan",
+                 rng: Optional[random.Random] = None):
+        if mode not in ("nan", "shape"):
+            raise ValueError(f"unknown corruption mode {mode!r}")
+        self.source = source
+        self.corrupt_at = frozenset(corrupt_at)
+        self.mode = mode
+        self.rng = rng or random.Random(0)
+        self.emitted = 0
+        self.corrupted = 0
+
+    def has_next(self):
+        return self.source.has_next()
+
+    def reset(self):
+        return self.source.reset()
+
+    def next(self):
+        ds = self.source.next()
+        if self.emitted in self.corrupt_at:
+            self.corrupted += 1
+            feats = np.array(ds.features, copy=True)
+            if self.mode == "nan":
+                feats[self.rng.randrange(max(1, feats.shape[0]))] = np.nan
+            else:  # "shape": one extra column — the record width broke
+                feats = np.concatenate(
+                    [feats, np.zeros((feats.shape[0], 1), feats.dtype)],
+                    axis=1)
+            ds.features = feats
+        self.emitted += 1
+        return ds
 
     def __getattr__(self, name):
         return getattr(self.source, name)
@@ -159,6 +586,44 @@ class ReadbackHang:
 
     def __exit__(self, *exc) -> None:
         self._device_mod._chaos_readback_hook = self._prev
+        self._release.set()  # free any thread still parked in the hook
+
+
+class _DispatchHang:
+    """Seeded serving-dispatch hang (``ChaosInjector.hang_at_dispatch``):
+    parks the ``at``-th batch dispatch of ``serve/engine.py`` until the
+    watchdog unwinds it (or ``__exit__`` releases the parked thread on
+    cleanup).  Structured exactly like ``_ReadbackHang`` — observable
+    ``hung`` event, one-shot ``fired`` flag, released on exit."""
+
+    def __init__(self, at: int):
+        self.at = at
+        self.calls = 0
+        self.fired = False                  # one-shot, like _ReadbackHang
+        self.hung = threading.Event()       # observable: dispatch stuck
+        self._release = threading.Event()   # set on __exit__ (cleanup)
+        self._prev = None
+
+    def _hook(self) -> None:
+        if self.fired:
+            return
+        if self.calls == self.at:
+            self.fired = True
+            self.hung.set()
+            while not self._release.is_set():
+                time.sleep(0.05)
+        self.calls += 1
+
+    def __enter__(self) -> "_DispatchHang":
+        from gan_deeplearning4j_tpu_torch.serve import engine as _serve_mod
+
+        self._serve_mod = _serve_mod
+        self._prev = _serve_mod._chaos_dispatch_hook
+        _serve_mod._chaos_dispatch_hook = self._hook
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._serve_mod._chaos_dispatch_hook = self._prev
         self._release.set()  # free any thread still parked in the hook
 
 
@@ -402,3 +867,161 @@ def poison_checkpoint_dir(directory: str, name: str = "gen") -> int:
     os.rename(tmp, os.path.join(directory, f"ckpt_{new_step}"))
     _ckpt_mod._fsync_dir(directory)
     return new_step
+
+
+class ChaosSchedule:
+    """A seeded CROSS-PLANE chaos timeline: one coordinator firing
+    injections against the training plane (preemption signal, world
+    shrink, corrupt tenant rows) and the serving plane (replica kill,
+    slow-loris, wedge) in the same run — the combined-chaos scenario's
+    conductor (the JAX package's scenario/runner.py; the port's scenario
+    runner is ROADMAP item 10.4).
+
+    Determinism contract: actions are registered with ``add(at_s,
+    name, fn)`` in a fixed caller order; per-entry jitter (when
+    ``jitter_s`` > 0) is drawn from ``random.Random(seed)`` in that
+    order, so the same seed + same registration sequence yields the
+    same resolved timeline, every run.  The resolved timeline is
+    written into the events stream UP FRONT (``chaos.schedule``) and
+    every firing lands a ``chaos.fire`` event with the action's
+    outcome — an action's exception is captured and counted, never
+    allowed to kill the coordinator thread (chaos that crashes the
+    chaos harness proves nothing)."""
+
+    def __init__(self, seed: int, *, jitter_s: float = 0.0):
+        self.seed = int(seed)
+        self.jitter_s = float(jitter_s)
+        self._rng = random.Random(self.seed)
+        self._entries: list = []
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+        self.fired: list = []
+
+    def add(self, at_s: float, name: str, fn, **attrs) -> float:
+        """Register ``fn`` to fire ``at_s`` seconds (plus seeded
+        jitter) after ``start()``.  Returns the resolved offset."""
+        if self._thread is not None:
+            raise RuntimeError("schedule already started")
+        at = float(at_s)
+        if self.jitter_s > 0:
+            at += self._rng.uniform(0.0, self.jitter_s)
+        self._entries.append({"at_s": round(at, 3), "name": str(name),
+                              "fn": fn, "attrs": dict(attrs)})
+        return at
+
+    def timeline(self) -> list:
+        """The resolved deterministic timeline (no callables — the
+        JSON-safe form written to events and verdicts)."""
+        return [{"at_s": e["at_s"], "name": e["name"], **e["attrs"]}
+                for e in sorted(self._entries,
+                                key=lambda e: e["at_s"])]
+
+    def start(self) -> "ChaosSchedule":
+        with self._lock:
+            if self._thread is not None:
+                raise RuntimeError("schedule already started")
+            t = threading.Thread(
+                target=self._run, name="gan4j-chaos-schedule",
+                daemon=True)
+            self._thread = t
+        from gan_deeplearning4j_tpu_torch.telemetry import events
+
+        events.instant("chaos.schedule", seed=self.seed,
+                       jitter_s=self.jitter_s,
+                       timeline=self.timeline())
+        t.start()
+        return self
+
+    def _run(self) -> None:
+        from gan_deeplearning4j_tpu_torch.telemetry import events
+
+        t0 = time.monotonic()
+        for entry in sorted(self._entries, key=lambda e: e["at_s"]):
+            delay = t0 + entry["at_s"] - time.monotonic()
+            if delay > 0 and self._stop.wait(delay):
+                return
+            if self._stop.is_set():
+                return
+            rec = {"name": entry["name"], "at_s": entry["at_s"],
+                   "error": None}
+            try:
+                entry["fn"]()
+            except Exception as e:
+                # an injection that raises (its target already dead, a
+                # race with the plane it attacks) is an outcome to record,
+                # not a crash of the coordinator
+                rec["error"] = repr(e)
+            with self._lock:
+                self.fired.append(rec)
+            events.instant("chaos.fire", action=rec["name"],
+                           at_s=rec["at_s"], error=rec["error"])
+
+    def stop(self) -> None:
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=30.0)
+
+    def __enter__(self) -> "ChaosSchedule":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def report(self) -> Dict:
+        with self._lock:
+            fired = list(self.fired)
+        return {"seed": self.seed,
+                "planned": len(self._entries),
+                "fired": len(fired),
+                "errors": sum(1 for f in fired if f["error"]),
+                "timeline": self.timeline(),
+                "outcomes": fired}
+
+
+class LeakyDispatchSource:
+    """Reference-hoarding leak injector for the soak gate
+    (the JAX ``bench --soak --soak-leak``): hooks the serving engine's
+    per-batch dispatch (``serve/engine._chaos_dispatch_hook``, the
+    same seam ``hang_at_dispatch`` uses) and APPENDS
+    ``bytes_per_dispatch`` of live memory to an internal hoard on
+    every batch — the classic "a callback captured a buffer and the
+    list never drains" production leak.  RSS then grows linearly with
+    served load, which is exactly the signature
+    ``telemetry/resources.leak_verdict`` must flag; the CI soak lane
+    uses this to prove the leak gate CAN fail."""
+
+    def __init__(self, bytes_per_dispatch: int = 256 << 10):
+        if bytes_per_dispatch <= 0:
+            raise ValueError("bytes_per_dispatch must be > 0")
+        self.bytes_per_dispatch = int(bytes_per_dispatch)
+        self.hoard: list = []   # the leak: grows forever, never read
+        self.dispatches = 0
+        self._prev = None
+        self._serve_mod = None
+
+    def _hook(self) -> None:
+        # bytearray, not bytes: guarantees fresh, non-interned pages
+        self.hoard.append(bytearray(self.bytes_per_dispatch))
+        self.dispatches += 1
+
+    def install(self) -> "LeakyDispatchSource":
+        from gan_deeplearning4j_tpu_torch.serve import engine as _serve_mod
+
+        self._serve_mod = _serve_mod
+        self._prev = _serve_mod._chaos_dispatch_hook
+        _serve_mod._chaos_dispatch_hook = self._hook
+        return self
+
+    def uninstall(self) -> None:
+        if self._serve_mod is not None:
+            self._serve_mod._chaos_dispatch_hook = self._prev
+            self._serve_mod = None
+        self.hoard.clear()
+
+    def __enter__(self) -> "LeakyDispatchSource":
+        return self.install()
+
+    def __exit__(self, *exc) -> None:
+        self.uninstall()

@@ -37,8 +37,8 @@ restarts the whole world from the newest checkpoint),
 exit code 75; with ``--n-devices`` this process forwards the signal to the
 ranks), ``--data-retries`` and ``--max-quarantine``; training health, as in
 the JAX program: ``--telemetry``, ``--nan-alarm
-{warn,snapshot,abort,rollback}`` (rollback in one process only),
-``--divergence``, ``--max-rollbacks``, ``--rollback-lr-factor``,
+{warn,snapshot,abort,rollback}`` (under ``--n-devices`` every rank rolls
+back at once, in place), ``--divergence``, ``--max-rollbacks``, ``--rollback-lr-factor``,
 ``--watchdog`` and ``--watchdog-deadline``; the run's timeline goes to
 ``events.jsonl``.  Observability, as in the JAX program: every run writes
 ``run_manifest.json`` and its goodput breakdown (the last metrics record
@@ -81,7 +81,6 @@ from gan_deeplearning4j_tpu_torch.train.gan_trainer import (
     live_ui_for,
     profiled,
     recovery_config_kwargs,
-    refuse_rollback_under_group,
     resolve_n_devices,
     run_with_recovery,
     spawn_with_recovery,
@@ -197,7 +196,9 @@ def evaluate(trainer: GANTrainer, fid_samples: int = 10000) -> Dict[str, float]:
         out["test_accuracy"] = metrics_lib.accuracy_from_predictions(
             preds, labels)
         out.update(metrics_lib.write_evaluation_report(
-            c.res_path, preds, labels, c.num_classes))
+            c.res_path, preds, labels, c.num_classes,
+            metrics_jsonl=os.path.join(
+                c.res_path, f"{c.dataset_name}_metrics.jsonl")))
     t1 = time.perf_counter()
     trainer.timings["report_s"] = t1 - t0
     if fid_samples and os.path.exists(test_csv):
@@ -310,7 +311,6 @@ def run(args: argparse.Namespace, timeout: float = 3600.0, **overrides
     ``data_on_device``, ``stream_chunk_bytes``)."""
     config = _config(args, overrides)
     world = resolve_n_devices(args.n_devices, args.batch_size, args.device)
-    refuse_rollback_under_group(config, world)
     if world == 1:
         try:
             # --bf16 / --mp over the configured policy, before any graph

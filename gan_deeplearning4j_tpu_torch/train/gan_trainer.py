@@ -84,8 +84,10 @@ actions):
     ``train/shell.py`` around the loops.
 Under a group only rank 0 logs metrics, so only rank 0 observes; the
 alarms' outcome is agreed at every boundary so that every rank acts at
-the same step (rollback under a group is refused: ROADMAP Queue 1 item
-6.3b).
+the same step.  A rollback under a group heals in place, on every rank at
+once: each rank's ``run_with_recovery`` keeps a ``RollbackManager``
+charged in lockstep (agreed after each charge), and rebuilds its trainer
+over the same live group from the checkpoint rank 0 wrote.
 Observability (the JAX trainer's):
   - goodput: a ``GoodputTimer`` (``telemetry/goodput.py``) from the start
     of the constructor, whose data set-up, restore and capture are this
@@ -187,6 +189,14 @@ from gan_deeplearning4j_tpu_torch.utils.profiling import (
 )
 
 log_ = logging.getLogger(__name__)
+
+# fault-injection seam (``testing/chaos.py`` ``shrink_world`` /
+# ``lost_device``): called with the step count at every call boundary,
+# before the boundary's own bookkeeping; a raise simulates losing part of
+# the devices mid-run (the process fails retryably, and the next
+# incarnation forms its world over the survivors).  The checkpointer's
+# ``_chaos_hook`` discipline.
+_chaos_step_hook: Optional[Callable[[int], None]] = None
 
 DP_MODES = ("gradient_sync", "param_averaging")
 NAN_ALARM_ACTIONS = (None, "warn", "snapshot", "abort", "rollback")
@@ -745,16 +755,6 @@ def check_recovery_args(parser, args) -> None:
                      "can only replay from step 0)")
 
 
-def refuse_rollback_under_group(config: GANTrainerConfig, world: int) -> None:
-    """``nan_alarm="rollback"`` runs in one process only."""
-    if config.nan_alarm == "rollback" and world > 1:
-        raise ValueError(
-            "nan_alarm='rollback' under a data-parallel group is not "
-            "ported yet (ROADMAP Queue 1 item 6.3b: the RollbackManager "
-            "would have to outlive a re-spawn of the world); use it with "
-            "one rank, or 'abort' / 'snapshot' / 'warn'")
-
-
 def run_with_recovery(make_trainer: Callable[[bool, Optional[RollbackManager]],
                                              "GANTrainer"],
                       config: GANTrainerConfig, max_restarts: int = 0,
@@ -768,7 +768,9 @@ def run_with_recovery(make_trainer: Callable[[bool, Optional[RollbackManager]],
     LR scale, the epoch and the rollback budget must survive the rebuild),
     and the run goes through ``train_with_recovery`` even at
     ``max_restarts`` 0, so that the rollback path exists (other failures
-    still re-raise at once)."""
+    still re-raise at once).  A rank of a data-parallel world calls this
+    too: its trainers are rebuilt over the same group, in lockstep with the
+    other ranks'."""
     holder = {}
     manager = None
     if config.nan_alarm == "rollback":
@@ -1115,7 +1117,6 @@ class GANTrainer:
         if c.nan_alarm in ("snapshot", "rollback") and not c.res_path:
             raise ValueError(f"nan_alarm={c.nan_alarm!r} needs a res_path "
                              "(its checkpoints go there)")
-        refuse_rollback_under_group(c, group.world if group else 1)
         if c.nan_alarm == "rollback" and rollback_manager is None:
             raise ValueError(
                 "nan_alarm='rollback' needs a RollbackManager shared "
@@ -1485,6 +1486,10 @@ class GANTrainer:
         alarm whose action is abort or rollback unwinds BEFORE this
         boundary checkpoints the state it just found bad."""
         c = self.c
+        if _chaos_step_hook is not None:
+            # before this boundary's checkpoint, so the resume comes from
+            # an earlier save, as a real loss mid-call leaves it
+            _chaos_step_hook(self.steps)
         self._health_polls()
         grid = bool(c.print_every) and self.steps % c.print_every == 0
         preds = bool(c.save_every) and self.steps % c.save_every == 0
@@ -1710,13 +1715,13 @@ class GANTrainer:
             if max_step is not None:
                 # still a rollback: the checkpoints above the bound are
                 # poisoned and must not be resumable later
-                self.checkpointer.prune_above(max_step)
+                self._prune_above(max_step)
                 self._consume_rollback_restore(0, max_step)
             return
         if max_step is not None:
             # the restore point is committed: drop the poisoned suffix (a
             # later plain restart must never resume into it)
-            self.checkpointer.prune_above(step)
+            self._prune_above(step)
             self._consume_rollback_restore(step, max_step)
         dev = self.device
         self.steps = step
@@ -1747,6 +1752,15 @@ class GANTrainer:
         self.train_iter.restore_state(json.loads(raw) if raw is not None
                                       else self.train_iter.state_for_step(step))
         self.timings["restore_s"] = time.perf_counter() - t0
+
+    def _prune_above(self, step: int) -> None:
+        """A rollback's pruning of the checkpoints above ``step``: under a
+        group every rank has read its restore point first (a barrier), and
+        rank 0 alone deletes, as rank 0 alone writes."""
+        if self.group is not None:
+            mesh.barrier(self.group)
+        if self.rank0:
+            self.checkpointer.prune_above(step)
 
     def _consume_rollback_restore(self, restored_step: int,
                                   max_step: int) -> None:
@@ -1877,14 +1891,19 @@ class GANTrainer:
         """Take a pending rollback request: charge the manager's
         (progress-aware) budget, leave the timeline behind, and unwind
         through ``RollbackRequested`` — or ``RollbackError`` once the
-        budget is exhausted (fatal in the recovery wrapper).  Rollback
-        runs in one process (``refuse_rollback_under_group``)."""
+        budget is exhausted (fatal in the recovery wrapper).  Under a group
+        every rank takes the request at the same boundary (the alarms are
+        agreed) and charges its own manager; the ranks then agree that
+        their budgets are equal, so that every rank heals, or fails, at
+        once."""
         mgr, pending = self._rollback_mgr, self._rollback_pending
         if mgr is None or pending is None:
             return
         reason, bad_step = pending
         self._rollback_pending = None
         ok = mgr.request(self.steps, reason, bad_step=bad_step)
+        if self.group is not None:
+            self._agree_budget(mgr)
         events.instant("rollback.request", step=self.steps,
                        bad_step=bad_step, rollbacks=mgr.total,
                        attempts=mgr.attempts, lr_scale=mgr.lr_scale,
@@ -1900,6 +1919,18 @@ class GANTrainer:
         raise RollbackRequested(
             f"rollback #{mgr.total} at step {self.steps}: {reason}",
             step=self.steps, rollbacks=mgr.total)
+
+    def _agree_budget(self, mgr: RollbackManager) -> None:
+        """Every rank's manager holds the same (total, attempts) after a
+        charge, or the world fails: ranks with different budgets would
+        heal with different learning rates and latent lineages."""
+        got = [mgr.total, mgr.attempts]
+        agreed = mesh.agree_max(got + [-v for v in got], self.group)
+        if agreed[:2] != [-v for v in agreed[2:]]:
+            raise RollbackError(
+                f"the ranks' rollback budgets disagree at step {self.steps}: "
+                f"(total, attempts) from {[-v for v in agreed[2:]]} to "
+                f"{agreed[:2]}, this rank {got}")
 
     def _watchdog_emergency(self) -> None:
         """The watchdog's ``on_timeout`` (its sacrificial thread, bounded

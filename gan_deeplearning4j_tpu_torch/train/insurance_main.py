@@ -78,7 +78,6 @@ from gan_deeplearning4j_tpu_torch.train.gan_trainer import (
     live_ui_for,
     profiled,
     recovery_config_kwargs,
-    refuse_rollback_under_group,
     resolve_n_devices,
     run_with_recovery,
     spawn_with_recovery,
@@ -186,7 +185,9 @@ def evaluate(trainer: GANTrainer) -> Dict[str, float]:
         labels = read_csv_matrix(test_csv)[:, c.label_index]
         out["test_auroc"] = metrics_lib.auroc_from_predictions(preds, labels)
         out.update(metrics_lib.write_evaluation_report(
-            c.res_path, preds, labels, num_classes=2, f1_cls=1))
+            c.res_path, preds, labels, num_classes=2, f1_cls=1,
+            metrics_jsonl=os.path.join(c.res_path,
+                                       "insurance_metrics.jsonl")))
     trainer.timings["report_s"] = time.perf_counter() - t0
     return out
 
@@ -256,7 +257,6 @@ def run(args: argparse.Namespace, timeout: float = 3600.0, **overrides
     ``overrides`` set further ``GANTrainerConfig`` fields."""
     config = _config(args, overrides)
     world = resolve_n_devices(args.n_devices, args.batch_size, args.device)
-    refuse_rollback_under_group(config, world)
     if world == 1:
         try:
             # --bf16 / --mp over the configured policy, before any graph

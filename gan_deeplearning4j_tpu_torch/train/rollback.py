@@ -33,9 +33,12 @@ to ``RollbackError``, which the recovery wrapper classifies FATAL.
 
 One ``RollbackManager`` must be shared across every trainer incarnation
 of a run (``run_with_recovery`` owns it): the LR scale, the epoch and the
-budget live on it.  A data-parallel world would need the manager to
-outlive a re-spawn of its ranks: rollback under a group is refused
-(ROADMAP Queue 1 item 6.3b).
+budget live on it.  In a data-parallel world each rank's
+``run_with_recovery`` owns one and charges it in lockstep with the others
+(every rank takes the agreed alarm at the same boundary; the trainer then
+agrees on the budgets), and every rank rebuilds its trainer in place over
+the same live group: no process is re-spawned.  A re-spawn of the world
+(``--max-restarts``) starts fresh managers.
 """
 
 from __future__ import annotations

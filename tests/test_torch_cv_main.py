@@ -44,9 +44,10 @@ ARTIFACTS = {"mnist_train.csv", "mnist_test.csv", "mnist_out_2.csv",
              "mnist_test_predictions_2.csv", "mnist_metrics.jsonl",
              "evaluation_stats.txt", "mnist_dis_model.zip",
              "mnist_gan_model.zip", "mnist_gen_model.zip",
-             "mnist_CV_model.zip", "events.jsonl", "run_manifest.json"}
-# ... and what only the JAX run writes: the PNGs (matplotlib)
-JAX_ONLY = {"DCGAN_Generated_Images.png", "mnist_metrics_losses.png"}
+             "mnist_CV_model.zip", "events.jsonl", "run_manifest.json",
+             "mnist_metrics_losses.png"}
+# ... and what only the JAX run writes: the sample grid's PNG
+JAX_ONLY = {"DCGAN_Generated_Images.png"}
 SCORES = ("steps", "examples_per_sec", "d_loss", "g_loss", "test_accuracy",
           "test_f1", "fid", "fid_frozen", "fid_primary", "fid_primary_source")
 DUMP_ATOL = 1e-5

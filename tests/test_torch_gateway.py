@@ -402,11 +402,20 @@ def test_the_fleet_is_not_ported_and_tracing_is(stack, part):
         return
     from gan_deeplearning4j_tpu_torch.telemetry import events, tracing
 
+    def gateway_span():
+        return any(e["name"] == "trace.request"
+                   and e.get("trace") == ctx.trace for e in rec.recent())
+
     ctx = tracing.mint()
     rec = events.EventRecorder(ring_size=512)
     prev = events.install(rec)
     try:
         out = client.generate([_mk(2)], trace=ctx)[0]
+        # the gateway records its span after the reply is written (as the
+        # JAX gateway does): keep the recorder installed until it lands
+        deadline = time.monotonic() + 10.0
+        while not gateway_span() and time.monotonic() < deadline:
+            time.sleep(0.01)
     finally:
         events.install(prev)
     assert out.shape == (2, 1, 28, 28)

@@ -184,6 +184,11 @@ from gan_deeplearning4j_tpu_torch.telemetry import (events, exporter, goodput,
 from gan_deeplearning4j_tpu_torch.utils import live_ui, profiling
 from gan_deeplearning4j_tpu_torch.train import divergence, rollback, shell
 from gan_deeplearning4j_tpu_torch import testing
+from gan_deeplearning4j_tpu_torch.compat import Nd4j
+from gan_deeplearning4j_tpu_torch.data import normalizers
+from gan_deeplearning4j_tpu_torch.graph import dl4j_import, keras_import
+from gan_deeplearning4j_tpu_torch.train import early_stopping
+from gan_deeplearning4j_tpu_torch.utils import listeners, plot_metrics, probe
 import numpy as np
 eng, gw, _ = replica.build_replica(device="cpu")
 try:
@@ -214,6 +219,12 @@ assert "cgan-cifar10" in roadmap_main.FAMILIES
 g = cgan_cifar10.build_generator(cgan_cifar10.CGANConfig(base_filters=2),
                                  device="cpu")
 assert g.input_names == ["z", "label"]
+import io
+buf = io.BytesIO()
+dl4j_import.write_nd4j(buf, np.ones((1, 3), np.float32))
+assert dl4j_import.read_nd4j(io.BytesIO(buf.getvalue())).shape == (1, 3)
+assert Nd4j.linspace(-1, 1, 10).shape() == (1, 10)
+assert "keras" not in sys.modules
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "gan_deeplearning4j_tpu"
@@ -247,6 +258,39 @@ def test_no_jax_imports(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "gan_deeplearning4j_tpu"), (
             f"{path} imports {mod}")
+
+
+# the one import of an optional package that itself loads a backend of its
+# own (keras loads tensorflow, and with it jax): only inside a function of
+# the Keras importer, to load a model file
+LAZY_ONLY = {"keras": "gan_deeplearning4j_tpu_torch/graph/keras_import.py"}
+
+
+@pytest.mark.parametrize("path", sorted(
+    [*(REPO / "gan_deeplearning4j_tpu_torch").rglob("*.py"),
+     REPO / "chip_smoke.py"]), ids=lambda p: str(p.relative_to(REPO)))
+def test_keras_is_imported_lazily_by_the_keras_importer_only(path):
+    """No module imports keras, tensorflow or h5py, except the Keras
+    importer, and it only inside a function (never when it is
+    imported)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top_level = {id(n) for n in tree.body}
+    rel = str(path.relative_to(REPO))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        else:
+            continue
+        for mod in names:
+            top = mod.split(".")[0]
+            if top in ("tensorflow", "h5py"):
+                raise AssertionError(f"{rel} imports {mod}")
+            if top == "keras":
+                assert LAZY_ONLY["keras"] == rel, f"{rel} imports keras"
+                assert id(node) not in top_level, (
+                    f"{rel} imports keras at module level")
 
 
 def test_default_device_is_the_card():

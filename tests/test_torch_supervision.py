@@ -299,21 +299,24 @@ def test_request_rollback_keeps_the_earliest_bad_step(tmp_path):
 
 
 def test_rollback_needs_a_manager_and_one_process(tmp_path):
+    """Rollback needs a manager shared by the incarnations, in one process
+    and in each rank of a group alike; a group is no longer refused (its
+    ranks heal in place, ``tests/test_torch_rollback_world.py``), and the
+    mains' parsers take ``--nan-alarm rollback`` with ``--n-devices``."""
     with pytest.raises(ValueError, match="RollbackManager"):
         _trainer(str(tmp_path), telemetry=True, nan_alarm="rollback")
     group = argparse.Namespace(world=2)
-    with pytest.raises(ValueError, match="item 6.3b"):
+    with pytest.raises(ValueError, match="RollbackManager"):
         gt.GANTrainer(device="cpu", group=group, config=_ins_config(
             str(tmp_path), telemetry=True, nan_alarm="rollback"),
-            workload=insurance_main.InsuranceWorkload(),
-            rollback_manager=RT.RollbackManager())
-    args = insurance_main.parse_args([
-        "--device", "cpu", "--n-devices", "2", "--batch-size", "10",
-        "--iterations", "2", "--telemetry", "--nan-alarm", "rollback",
-        "--checkpoint-every", "2", "--res-path", str(tmp_path / "w2")])
-    with pytest.raises(ValueError, match="item 6.3b"):
-        insurance_main.run(args)
-    assert not os.path.exists(tmp_path / "w2")  # refused before any rank
+            workload=insurance_main.InsuranceWorkload())
+    assert not hasattr(gt, "refuse_rollback_under_group")
+    for main in (insurance_main, cv_main):
+        args = main.parse_args([
+            "--device", "cpu", "--n-devices", "2", "--batch-size", "10",
+            "--iterations", "2", "--telemetry", "--nan-alarm", "rollback",
+            "--checkpoint-every", "2", "--res-path", str(tmp_path / "w2")])
+        assert (args.n_devices, args.nan_alarm) == (2, "rollback")
 
 
 # -- recovery classification ---------------------------------------------------
