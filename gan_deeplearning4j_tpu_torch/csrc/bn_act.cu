@@ -177,3 +177,132 @@ extern "C" int gan4j_bn_act(const void* x, const void* gamma,
   if (!gan4j::dispatch_act(act, l)) return (int)cudaErrorInvalidValue;
   return (int)l.err;
 }
+
+// ---------------------------------------------------------------------------
+// The tenant-batched form: x [N, B, F] row-major, gamma/beta [N, F]; each
+// tenant's statistics over its own B rows -> y [N, B, F], mean/var [N, F].
+// This is what jax.vmap of fused_bn_act_train computes: the Pallas
+// batching rule turns the tenant axis into a grid axis of _fused_kernel.
+//
+// The fleet's BNs are small per tenant ([16..32, 2..100] at batch 16), so
+// the cluster split above has no rows to split.  Instead a block owns a
+// run of whole tenants, whose [per_block, B, F] slab is contiguous in x:
+//   - it copies the slab into shared memory with one coalesced walk;
+//   - one thread per (tenant, column) sums x and x*x down the B rows of
+//     the tile and keeps the column's mean and rsqrt(var + eps) in shared
+//     memory (and writes mean/var);
+//   - a second coalesced walk normalizes, scales, shifts, activates and
+//     writes y.
+// x is read once and y written once; no atomics, no cluster.  The plan
+// (tenants per block, threads, shared memory) is ops/cuda/bn_act.py
+// tenant_plan's and is checked here.  A plan whose one tenant's slab does
+// not fit in shared memory is refused there and here.
+
+namespace {
+
+constexpr int kTenantMaxThreads = 256;
+
+template <int ACT>
+__global__ void __launch_bounds__(kTenantMaxThreads)
+bn_act_tenants_kernel(const float* __restrict__ x,
+                      const float* __restrict__ gamma,
+                      const float* __restrict__ beta, float* __restrict__ y,
+                      float* __restrict__ mean_out,
+                      float* __restrict__ var_out, int tenants, int rows,
+                      int cols, int per_block, float inv_n, float eps) {
+  extern __shared__ float smem[];
+  const int t0 = blockIdx.x * per_block;
+  const int nt = tenants - t0 < per_block ? tenants - t0 : per_block;
+  const int tile = rows * cols;  // one tenant's elements
+  const int elems = nt * tile;
+  const int pairs = nt * cols;
+  const int cstride = per_block * cols;
+  float* coef = smem;                  // [2][per_block * cols]
+  float* xs = smem + 2 * cstride;      // [per_block * rows * cols]
+  const int64_t base = (int64_t)t0 * tile;
+  const float* xb = x + base;
+  float* yb = y + base;
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) xs[e] = xb[e];
+  __syncthreads();
+  for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
+    const int t = p / cols, f = p - t * cols;
+    const float* col = xs + t * tile + f;
+    float s = 0.0f, s2 = 0.0f;
+    for (int b = 0; b < rows; ++b) {
+      const float v = col[b * cols];
+      s += v;
+      s2 = fmaf(v, v, s2);
+    }
+    const float mean = s * inv_n;
+    const float var = s2 * inv_n - mean * mean;
+    coef[p] = mean;
+    coef[cstride + p] = rsqrtf(var + eps);
+    const int64_t o = (int64_t)t0 * cols + p;
+    mean_out[o] = mean;
+    var_out[o] = var;
+  }
+  __syncthreads();
+  const float* gb = gamma + (int64_t)t0 * cols;
+  const float* bb = beta + (int64_t)t0 * cols;
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    const int t = e / tile;
+    const int p = t * cols + (e - t * tile) % cols;
+    const float v = xs[e];
+    yb[e] = activate<ACT>((v - coef[p]) * coef[cstride + p] * gb[p] + bb[p]);
+  }
+}
+
+struct TenantLaunch {
+  const float *x, *gamma, *beta;
+  float *y, *mean, *var;
+  int tenants, rows, cols, per_block, threads, smem;
+  float eps;
+  cudaStream_t stream;
+  cudaError_t err;
+
+  template <int ACT>
+  void run() {
+    static const cudaError_t attr =
+        gan4j::allow_max_dynamic_smem(bn_act_tenants_kernel<ACT>);
+    if (attr != cudaSuccess) {
+      err = attr;
+      return;
+    }
+    const int grid = (tenants + per_block - 1) / per_block;
+    bn_act_tenants_kernel<ACT><<<grid, threads, (size_t)smem, stream>>>(
+        x, gamma, beta, y, mean, var, tenants, rows, cols, per_block,
+        1.0f / (float)rows, eps);
+    err = cudaGetLastError();
+  }
+};
+
+}  // namespace
+
+// x [tenants, rows, cols]; gamma, beta, mean, var [tenants, cols].  The
+// plan (per_block tenants a block, threads, smem bytes) is
+// ops/cuda/bn_act.py tenant_plan's.  Returns cudaErrorInvalidValue for an
+// unknown activation code or a plan this kernel cannot run, else the
+// launch's error.
+extern "C" int gan4j_bn_act_tenants(const void* x, const void* gamma,
+                                    const void* beta, void* y, void* mean,
+                                    void* var, int tenants, int rows,
+                                    int cols, float eps, int act,
+                                    int per_block, int threads, int smem,
+                                    void* stream) {
+  if (tenants <= 0 || rows <= 0 || cols <= 0) return 0;
+  const int64_t tile = (int64_t)rows * cols;
+  const int64_t need = 4 * (int64_t)per_block * (2 * cols + tile);
+  const bool ok = per_block >= 1 && threads >= 32 &&
+                  threads <= kTenantMaxThreads && threads % 32 == 0 &&
+                  (int64_t)per_block * tile <= 0x7fffffffLL &&
+                  (int64_t)smem == need &&
+                  smem <= gan4j::kMaxDynamicSmem;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  TenantLaunch l{(const float*)x, (const float*)gamma, (const float*)beta,
+                 (float*)y,       (float*)mean,        (float*)var,
+                 tenants,         rows,                cols,
+                 per_block,       threads,             smem,
+                 eps,             (cudaStream_t)stream, cudaSuccess};
+  if (!gan4j::dispatch_act(act, l)) return (int)cudaErrorInvalidValue;
+  return (int)l.err;
+}

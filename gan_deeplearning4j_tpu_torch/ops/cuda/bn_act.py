@@ -30,6 +30,16 @@ either owns 4 neighbouring columns (float4) of a 32-column group, the
 moments give a group one block (``moments_plan``), and the apply grid is
 row chunks x column groups (``apply_plan``; ``csrc/bn_moments_apply.cu``).
 
+The tenant-batched form (``fused_bn_act_train_tenants``, the fleet's: x
+[N, B, F], each tenant's moments over its own B rows; what ``jax.vmap`` of
+``fused_bn_act_train`` computes, the Pallas batching rule making the tenant
+axis a grid axis of ``_fused_kernel``) is a second kernel of
+``csrc/bn_act.cu``: a block owns whole tenants, copies their contiguous
+slab into shared memory in one coalesced walk, reduces one column per
+thread and writes y in a second coalesced walk (``tenant_plan``).  The
+cluster plan above does not carry over: at the fleet's shapes (B 16-32
+rows, F 2-100 columns a tenant) there are no rows to split across blocks.
+
 Neither TPU path has a backward kernel and neither has the port: the
 backward recomputes through the plain composition under autograd (with
 the differentiable all-reduce on the pair's path), as the JAX
@@ -61,6 +71,8 @@ _APPLY_ARGTYPES = [ctypes.c_void_p] * 6 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
 _APPLY_SUMS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_TENANTS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
     ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -127,6 +139,40 @@ def launch_plan(B: int, F: int, sms: int = SMS) -> Plan:
                 row_threads=min(MAX_ROW_THREADS, -(-rows // 2)),
                 grid=groups * k, smem_bytes=smem if resident else 0,
                 resident=resident)
+
+
+class TenantPlan(NamedTuple):
+    """How ``csrc/bn_act.cu``'s tenant kernel splits x [N, B, F]."""
+
+    per_block: int  # whole tenants a block owns
+    threads: int  # a multiple of 32, at most TENANT_MAX_THREADS
+    grid: int  # ceil(N / per_block)
+    smem_bytes: int  # the [2, per_block, F] coefficients and the slab
+
+
+# csrc/bn_act.cu kTenantMaxThreads; a block's slab is kept under the
+# shared memory that needs no opt-in, and the grid aims at this many
+# blocks an SM
+TENANT_MAX_THREADS = 256
+TENANT_SMEM = 48 * 1024
+TENANT_BLOCKS_PER_SM = 4
+
+
+def tenant_plan(N: int, B: int, F: int, sms: int = SMS) -> TenantPlan:
+    """The tenant kernel's split of x [N, B, F]: ceil(N / (4 * sms))
+    tenants a block (about four blocks an SM), fewer when their slabs and
+    coefficients pass TENANT_SMEM.  Raises ValueError when one tenant's
+    slab and coefficients do not fit in MAX_DYNAMIC_SMEM (no fleet shape
+    comes near: its largest is 7.2 KB)."""
+    per_tenant = 4 * (B * F + 2 * F)
+    if per_tenant > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"bn_act over tenants: one tenant's [{B}, {F}] does "
+                         "not fit one block's shared memory")
+    want = -(-N // (TENANT_BLOCKS_PER_SM * sms))
+    per = max(1, min(want, TENANT_SMEM // per_tenant, N))
+    threads = min(TENANT_MAX_THREADS, max(32, -(-per * B * F // 32) * 32))
+    return TenantPlan(per_block=per, threads=threads, grid=-(-N // per),
+                      smem_bytes=per * per_tenant)
 
 
 class MomentsPlan(NamedTuple):
@@ -211,6 +257,19 @@ def bn_act_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return bn_apply_plain(x, mean, var, gamma, beta, eps, act_name), mean, var
 
 
+def bn_act_tenants_plain(x: torch.Tensor, gamma: torch.Tensor,
+                         beta: torch.Tensor, eps: float, act_name: str
+                         ) -> Triple:
+    """``bn_act_plain`` for each tenant of x [N, B, F] with its own gamma,
+    beta [N, F] -> (y [N, B, F], mean [N, F], var [N, F]): the moments over
+    dim 1 (``jax.vmap`` of bn_act.py ``_reference``)."""
+    mean = torch.mean(x, dim=1)
+    var = torch.mean(torch.square(x), dim=1) - torch.square(mean)
+    y = (x - mean[:, None]) * torch.rsqrt(var[:, None] + eps)
+    y = y * gamma[:, None] + beta[:, None]
+    return act_lib.get(act_name)(y), mean, var
+
+
 def bn_apply_sums_plain(x: torch.Tensor, sums: torch.Tensor, world: int,
                         gamma: torch.Tensor, beta: torch.Tensor, eps: float,
                         act_name: str) -> Triple:
@@ -244,6 +303,22 @@ def _launch(x, gamma, beta, eps, act_name):
               _stream(x))
     build.check(code, "fused_bn_act_train")
     fused_bn_act_train.launches += 1
+    return y, mean, var
+
+
+def _tenants_launch(x, gamma, beta, eps, act_name):
+    N, B, F = x.shape
+    y = torch.empty_like(x)
+    mean = torch.empty((N, F), dtype=x.dtype, device=x.device)
+    var = torch.empty((N, F), dtype=x.dtype, device=x.device)
+    plan = tenant_plan(N, B, F, sm_count(x.device))
+    fn = build.function("bn_act", "gan4j_bn_act_tenants", _TENANTS_ARGTYPES)
+    code = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+              mean.data_ptr(), var.data_ptr(), N, B, F, eps,
+              ACT_CODES[act_name], plan.per_block, plan.threads,
+              plan.smem_bytes, _stream(x))
+    build.check(code, "fused_bn_act_train_tenants")
+    fused_bn_act_train_tenants.launches += 1
     return y, mean, var
 
 
@@ -314,6 +389,20 @@ class _BnAct(torch.autograd.Function):
     def backward(ctx, gy, gmean, gvar):
         grads = recompute_grads(ctx, (gy, gmean, gvar), bn_act_plain, ctx.eps,
                                 ctx.act_name)
+        return (*grads, None, None)
+
+
+class _BnActTenants(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, act_name):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps, ctx.act_name = eps, act_name
+        return _tenants_launch(x, gamma, beta, eps, act_name)
+
+    @staticmethod
+    def backward(ctx, gy, gmean, gvar):
+        grads = recompute_grads(ctx, (gy, gmean, gvar), bn_act_tenants_plain,
+                                ctx.eps, ctx.act_name)
         return (*grads, None, None)
 
 
@@ -434,6 +523,37 @@ def fused_bn_act_train(x: torch.Tensor, gamma: torch.Tensor,
     return _BnAct.apply(*args)
 
 
+def fused_bn_act_train_tenants(x: torch.Tensor, gamma: torch.Tensor,
+                               beta: torch.Tensor, eps: float = 1e-5,
+                               act_name: str = "identity") -> Triple:
+    """-> (act(bn(x)) [N, B, F], mean [N, F], var [N, F]) for an f32 x
+    [N, B, F] of N tenants, each normalized by its own B rows with its own
+    gamma, beta [N, F].  A CPU x takes the plain version; a CUDA x launches
+    the tenant kernel (one launch for every tenant)."""
+    if x.dim() != 3:
+        raise ValueError(f"fused_bn_act_train_tenants takes [N, B, F], got "
+                         f"{tuple(x.shape)}")
+    for name, t in (("gamma", gamma), ("beta", beta)):
+        if (t.shape != (x.shape[0], x.shape[2]) or t.device != x.device
+                or t.dtype != torch.float32):
+            raise ValueError(f"fused_bn_act_train_tenants: {name} "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device} is "
+                             f"not f32 [{x.shape[0]}, {x.shape[2]}] on "
+                             f"{x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"fused_bn_act_train_tenants takes float32 only, got "
+                        f"{x.dtype}")
+    if x.device.type == "cpu":
+        return bn_act_tenants_plain(x, gamma, beta, eps, act_name.lower())
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_bn_act_train_tenants: unsupported device "
+                         f"{x.device}")
+    name = kernel_act("fused_bn_act_train_tenants", act_name)
+    return _BnActTenants.apply(x.contiguous(), gamma.contiguous(),
+                               beta.contiguous(), float(eps), name)
+
+
 fused_bn_act_train.launches = 0
+fused_bn_act_train_tenants.launches = 0
 bn_moments.launches = 0
 bn_apply.launches = 0

@@ -16,8 +16,10 @@ processes by their HTTP surface (typed ejection and re-probe), and
 checkpoints.  The wire formats, the trace header, error types, status
 codes and report keys are the JAX package's.
 
-Not ported yet: the checkpoint publisher (ROADMAP Queue 1 item 10.3);
-the fleet tenant bank (item 9) raises.
+``publisher.py`` carries every verified checkpoint of a trainer's
+directory (single-model or fleet) through the control plane's canary
+deployment; ``router.py``'s ``FleetTenantBank`` serves each tenant of a
+fleet checkpoint from its own engine (``replica --fleet``).
 """
 
 from gan_deeplearning4j_tpu_torch.serve.admission import (
@@ -52,6 +54,10 @@ from gan_deeplearning4j_tpu_torch.serve.mesh import (
     RemoteReplica,
     ReplicaProbeError,
 )
+from gan_deeplearning4j_tpu_torch.serve.publisher import (
+    CheckpointPublisher,
+    finite_params_probe,
+)
 from gan_deeplearning4j_tpu_torch.serve.router import (
     FleetTenantBank,
     NoHealthyReplicaError,
@@ -63,6 +69,7 @@ __all__ = [
     "AdmissionQueue",
     "Autoscaler",
     "CanaryDeployment",
+    "CheckpointPublisher",
     "ControlPlane",
     "DeploymentRollbackError",
     "DispatchError",
@@ -83,6 +90,7 @@ __all__ = [
     "ShedError",
     "TenantThrottledError",
     "TokenBucket",
+    "finite_params_probe",
     "measure_saturation",
     "percentiles",
     "run_load",

@@ -13,8 +13,8 @@ Endpoints:
 
 * ``POST /v1/generate`` — balanced across the replica set.
 * ``POST /v1/tenants/{id}/generate`` — the tenant's own fleet-sliced
-  model (404 ``unknown_tenant`` while no tenant bank is configured: the
-  fleet is not ported).
+  model through the router's ``FleetTenantBank`` (404 ``unknown_tenant``
+  for an id the bank does not serve, or when no bank is configured).
 * ``GET /healthz`` — the gateway block (200 when the router has a
   healthy replica, 503 otherwise).  With a ``serve_report`` hook
   configured (the replica process), the reply carries a ``serve``

@@ -2,7 +2,8 @@
 ``gan_deeplearning4j_tpu/serve/replica.py``).
 
 ``python -m gan_deeplearning4j_tpu_torch.serve.replica --port N
-[--checkpoint DIR] [--events PATH] [--device cpu]`` builds the single-host
+[--checkpoint DIR] [--events PATH] [--device cpu] [--fleet
+[--fleet-tenants N]]`` builds the single-host
 serving stack — the DCGAN-MNIST generator at full width →
 ``ParallelInference`` (one CUDA graph per bucket) → ``ServeEngine`` →
 ``Router`` → ``Gateway`` — on the card (``--device cpu`` is the only way
@@ -38,8 +39,13 @@ ready line (newest verified checkpoint, corrupt ones skipped); an
 empty/unverifiable directory serves the fresh initialization instead of
 refusing to boot.
 
-Not ported: ``--fleet`` (the tenant bank needs the fleet trainer, ROADMAP
-Queue 1 item 9); it raises.
+``--fleet [--fleet-tenants N]`` serves a multi-tenant insurance fleet
+instead (``build_fleet_replica``): a ``FleetTenantBank`` over the fleet
+checkpoint in ``--checkpoint`` (or a fresh N-tenant fleet while it holds
+none) behind ``/v1/tenants/{id}/generate``; tenant 0's engine doubles as
+the plain ``/v1/generate`` replica, so the control plane's zero-latent
+canary probes run real fleet weights, and ``/admin/hotswap`` pushes each
+live tenant's slice of a newer fleet checkpoint in place.
 """
 
 from __future__ import annotations
@@ -96,26 +102,21 @@ def _parse_buckets(text: str):
     return buckets
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item {item})")
-
-
-def build_replica(*, port: int = 0, host: str = "127.0.0.1",
-                  checkpoint=None, buckets=DEFAULT_SERVING_BUCKETS,
-                  max_rows: int = 4096, read_timeout_s: float = 5.0,
-                  result_timeout_s: float = 60.0, device=None):
-    """Build (engine, gateway, wedge) — the replica stack minus the
-    process scaffolding, so tests can run one in-process too.
-    ``device``: None = the card."""
-    graph = M.build_generator(device=device)
-    infer = ParallelInference(graph, buckets=tuple(buckets))
-    engine = ServeEngine(infer=infer)
+def _replica_gateway(router, engine, hotswap, extra_report=None, *,
+                     host: str, port: int, max_rows: int,
+                     read_timeout_s: float, result_timeout_s: float):
+    """-> (gateway, wedge): the replica's gateway over ``router``, not
+    started.  ``/healthz`` carries ``engine``'s report (with
+    ``extra_report()``'s keys), unhealthy while wedged;
+    ``/admin/hotswap`` calls ``hotswap(directory, params, step,
+    max_step)`` -> the step now served; ``/admin/chaos/wedge``."""
     wedge = WedgeState()
 
     def serve_report():
         rep = engine.report()
         rep["wedged"] = wedge.wedged()
+        if extra_report is not None:
+            rep.update(extra_report())
         if rep["wedged"]:
             # stalled-but-listening: the report says unhealthy while
             # the socket keeps accepting — the probe must see a 503,
@@ -131,11 +132,9 @@ def build_replica(*, port: int = 0, host: str = "127.0.0.1",
                 'hotswap needs {"directory": "<checkpoint dir>"}')
         step = params.get("step")
         max_step = params.get("max_step")
-        got = engine.hotswap_from(
-            str(directory), name=str(params.get("name", "gen")),
-            step=None if step is None else int(step),
-            max_step=None if max_step is None else int(max_step))
-        return {"step": got}
+        return {"step": hotswap(
+            str(directory), params, None if step is None else int(step),
+            None if max_step is None else int(max_step))}
 
     def admin_wedge(params):
         seconds = float(params.get("seconds", 5.0))
@@ -143,11 +142,31 @@ def build_replica(*, port: int = 0, host: str = "127.0.0.1",
         return {"wedged_s": seconds}
 
     gateway = Gateway(
-        Router([engine]), host=host, port=port, max_rows=max_rows,
+        router, host=host, port=port, max_rows=max_rows,
         read_timeout_s=read_timeout_s,
         result_timeout_s=result_timeout_s,
         serve_report=serve_report,
         admin={"hotswap": admin_hotswap, "chaos/wedge": admin_wedge})
+    return gateway, wedge
+
+
+def build_replica(*, port: int = 0, host: str = "127.0.0.1",
+                  checkpoint=None, buckets=DEFAULT_SERVING_BUCKETS,
+                  max_rows: int = 4096, read_timeout_s: float = 5.0,
+                  result_timeout_s: float = 60.0, device=None):
+    """Build (engine, gateway, wedge) — the replica stack minus the
+    process scaffolding, so tests can run one in-process too.
+    ``device``: None = the card."""
+    graph = M.build_generator(device=device)
+    infer = ParallelInference(graph, buckets=tuple(buckets))
+    engine = ServeEngine(infer=infer)
+    gateway, wedge = _replica_gateway(
+        Router([engine]), engine,
+        lambda d, params, step, max_step: engine.hotswap_from(
+            d, name=str(params.get("name", "gen")), step=step,
+            max_step=max_step),
+        host=host, port=port, max_rows=max_rows,
+        read_timeout_s=read_timeout_s, result_timeout_s=result_timeout_s)
     # capture every bucket before the dispatch thread starts
     engine.warmup(np.zeros((1, graph.input_specs[
         graph.input_names[0]].shape[-1]), np.float32))
@@ -163,6 +182,80 @@ def build_replica(*, port: int = 0, host: str = "127.0.0.1",
                   file=sys.stderr, flush=True)
     gateway.start()
     return engine, gateway, wedge
+
+
+def build_fleet_replica(*, port: int = 0, host: str = "127.0.0.1",
+                        checkpoint=None, tenants: int = 4,
+                        buckets=DEFAULT_SERVING_BUCKETS,
+                        max_rows: int = 4096,
+                        read_timeout_s: float = 5.0,
+                        result_timeout_s: float = 60.0, device=None):
+    """Build (engine, gateway, wedge, bank): the FLEET serving stack, a
+    ``FleetTenantBank`` over the insurance generators with
+    ``/v1/tenants/{id}/generate`` routing, behind the same process
+    contract as :func:`build_replica`.  ``device``: None = the card.
+
+    Tenant 0's engine doubles as the plain ``/v1/generate`` replica, so
+    the control plane's model-agnostic canary probes (zero-latent rows,
+    the insurance ``z_size`` wide) exercise real fleet weights: a poisoned
+    tenant-0 slice fails the canary, not just the publisher's file probe.
+    ``max_live`` is pinned above the tenant count so the probe engine is
+    never LRU-evicted.
+
+    ``checkpoint``: a fleet checkpoint directory, restored when it holds a
+    verified fleet checkpoint; otherwise (empty, first boot before the
+    trainer's first save, or not a fleet directory) the bank serves a
+    freshly initialized ``tenants``-wide fleet, as the single-model
+    replica serves its fresh init."""
+    from gan_deeplearning4j_tpu_torch.models import mlpgan_insurance as IM
+    from gan_deeplearning4j_tpu_torch.serve.router import FleetTenantBank
+    from gan_deeplearning4j_tpu_torch.train import fused_step as fused_lib
+    from gan_deeplearning4j_tpu_torch.train.fleet import (
+        FleetCheckpointer,
+        replicate_state,
+    )
+
+    cfg = IM.InsuranceConfig()
+
+    def build_graph():
+        return IM.build_generator(cfg, device=device)
+
+    max_live = max(int(tenants), 4) + 1
+    bank = None
+    if checkpoint:
+        # read-side handle: the trainer owns the checkpoint directory
+        ck = FleetCheckpointer(str(checkpoint), sweep_debris=False)
+        if ck.latest_verified_step() is not None:
+            candidate = FleetTenantBank(
+                build_graph, checkpointer=ck, buckets=tuple(buckets),
+                max_live=max_live)
+            try:
+                candidate.num_tenants()  # the restore, now
+                bank = candidate
+            except (FileNotFoundError, ValueError) as e:
+                print(f"replica: cannot serve a fleet from {checkpoint!r} "
+                      f"({e}); serving fresh initialization",
+                      file=sys.stderr, flush=True)
+    if bank is None:
+        dis = IM.build_discriminator(cfg, device="cpu")
+        graphs = (dis, IM.build_generator(cfg, device="cpu"),
+                  IM.build_gan(cfg, device="cpu"),
+                  IM.build_classifier(dis, cfg))
+        state = replicate_state(fused_lib.state_from_graphs(*graphs),
+                                int(tenants))
+        bank = FleetTenantBank(build_graph, state=state,
+                               buckets=tuple(buckets), max_live=max_live)
+    engine = bank.engine(0)  # built, warmed, started
+    gateway, wedge = _replica_gateway(
+        Router([engine], tenants=bank), engine,
+        lambda d, params, step, max_step: bank.hotswap_from(
+            d, step=step, max_step=max_step),
+        lambda: {"tenants": bank.num_tenants(),
+                 "tenants_live": bank.live_count()},
+        host=host, port=port, max_rows=max_rows,
+        read_timeout_s=read_timeout_s, result_timeout_s=result_timeout_s)
+    gateway.start()
+    return engine, gateway, wedge, bank
 
 
 def main(argv=None) -> int:
@@ -187,18 +280,27 @@ def main(argv=None) -> int:
                    help="write this process's events timeline to PATH "
                         "(jsonl)")
     p.add_argument("--fleet", action="store_true",
-                   help="serve a multi-tenant fleet (not ported: item 9)")
+                   help="serve a multi-tenant FLEET (insurance generators + "
+                        "/v1/tenants/{id}/generate) instead of the single "
+                        "dcgan generator")
+    p.add_argument("--fleet-tenants", type=int, default=4,
+                   help="fresh-init fleet width when --checkpoint holds no "
+                        "verified fleet checkpoint yet")
     args = p.parse_args(argv)
-    if args.fleet:
-        raise _not_ported("--fleet (FleetTenantBank over train/fleet.py)",
-                          "9")
     if args.events:
         events.install(events.EventRecorder(path=args.events))
 
-    engine, gateway, _wedge = build_replica(
-        port=args.port, host=args.host, checkpoint=args.checkpoint,
-        buckets=_parse_buckets(args.buckets),
-        result_timeout_s=args.result_timeout_s, device=args.device)
+    bank = None
+    if args.fleet:
+        engine, gateway, _wedge, bank = build_fleet_replica(
+            port=args.port, host=args.host, checkpoint=args.checkpoint,
+            tenants=args.fleet_tenants, buckets=_parse_buckets(args.buckets),
+            result_timeout_s=args.result_timeout_s, device=args.device)
+    else:
+        engine, gateway, _wedge = build_replica(
+            port=args.port, host=args.host, checkpoint=args.checkpoint,
+            buckets=_parse_buckets(args.buckets),
+            result_timeout_s=args.result_timeout_s, device=args.device)
 
     stop_evt = threading.Event()
 
@@ -217,7 +319,10 @@ def main(argv=None) -> int:
         pass
 
     gateway.stop()
-    engine.stop()
+    if bank is not None:
+        bank.stop()  # every live tenant engine, the probe one included
+    else:
+        engine.stop()
     # the serving path launches none of the port's kernels: the counts
     # say so for this process's whole life
     events.instant("replica.stopped", pid=os.getpid(),

@@ -19,9 +19,12 @@ group's size and the ``ResourceMonitor``.  The three mains expose it as
 feeds take the serving plane's reports, as in the JAX package:
 ``observe_serve(engine.report)``, ``observe_gateway(gateway.report)``,
 ``observe_client(client.report)``, ``observe_serving_mesh(mesh.report)``
-and ``observe_controlplane(controlplane.report)``.  The fleet and
-publication feeds render the JAX module's series too; nothing of the port
-feeds them yet (ROADMAP Queue 1 items 9 and 10.3).
+and ``observe_controlplane(controlplane.report)``.  The fleet trainer feeds
+``observe_fleet`` (``train/fleet.py`` ``FleetTrainer``, whose
+``--metrics-port`` serves it) and the checkpoint publisher
+``observe_publication`` (``serve/publisher.py``
+``CheckpointPublisher.report``); the lifecycle fleet's per-tenant series
+stay at 0 until ``train/lifecycle.py`` is ported.
 
 Metric names (all ``gan4j_``-prefixed):
 
@@ -41,7 +44,7 @@ Metric names (all ``gan4j_``-prefixed):
   gan4j_resource_*             gauges   RSS, device bytes, fds, threads
   gan4j_serve_* / gan4j_gateway_* / gan4j_client_* / gan4j_mesh_* /
   gan4j_controlplane_*         the serving plane's feeds (above)
-  (and the JAX module's fleet and publication series, at 0)
+  gan4j_fleet_* / gan4j_publish_*  the fleet's and the publisher's
 """
 
 from __future__ import annotations

@@ -21,6 +21,7 @@ from gan_deeplearning4j_tpu_torch.testing.chaos import (
     kill_replica_process,
     mid_body_disconnect,
     poison_checkpoint_dir,
+    poison_fleet_checkpoint_dir,
     wedge_replica,
 )
 
@@ -29,4 +30,5 @@ __all__ = ["ChaosInjector", "ChaosSchedule", "CorruptRecordSource",
            "InjectedCrash", "LeakyDispatchSource", "NanSource",
            "ReadbackHang", "SlowLorisClient", "SlowRequestSource",
            "StallingSource", "kill_replica", "kill_replica_process",
-           "mid_body_disconnect", "poison_checkpoint_dir", "wedge_replica"]
+           "mid_body_disconnect", "poison_checkpoint_dir",
+           "poison_fleet_checkpoint_dir", "wedge_replica"]

@@ -51,9 +51,14 @@ For the serving plane:
   the JAX on-disk format, so the JAX checkpointer verifies and loads it
   exactly as the port's does.
 
+* ``poison_fleet_checkpoint_dir`` forges a verifying newest FLEET
+  checkpoint with one tenant's generator NaN: the publisher's
+  finite-params probe must reject it at publication.
+
 Across the planes, ``ChaosSchedule`` fires a seeded timeline of such
 injections and writes the resolved timeline into the events up front.
-The fleet poisoners wait for the fleet (ROADMAP item 9).
+The lifecycle poisoners (``poison_tenant_params``, ``TenantFeedPoisoner``)
+wait for ``train/lifecycle.py`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -866,6 +871,45 @@ def poison_checkpoint_dir(directory: str, name: str = "gen") -> int:
     _ckpt_mod._fsync_dir(tmp)
     os.rename(tmp, os.path.join(directory, f"ckpt_{new_step}"))
     _ckpt_mod._fsync_dir(directory)
+    return new_step
+
+
+def poison_fleet_checkpoint_dir(directory: str, tenant: int = 0) -> int:
+    """Fleet variant of :func:`poison_checkpoint_dir`: forge a VERIFYING
+    newest fleet checkpoint whose ``gen_params`` are NaN for ONE tenant's
+    slice.  The forgery goes through ``FleetCheckpointer.save`` itself
+    (restore the newest verified, NaN the slice, save as step N+1), so the
+    manifest hashing is genuine: only a semantic probe catches it, the
+    publisher's finite-params probe over ``state.npz`` (rejection at
+    publication) or the canary's finite-output probe against the tenant's
+    engine.  Returns the poisoned step."""
+    from gan_deeplearning4j_tpu_torch.train.fleet import FleetCheckpointer
+
+    # keep ALL existing checkpoints (the forge must not prune the live
+    # trainer's history) and never sweep the owner's in-flight tmps
+    ck = FleetCheckpointer(directory, keep=10 ** 9, sweep_debris=False)
+    steps = ck.steps()
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints in {directory} to poison")
+    _, state, _ = ck.restore()
+    n = int(state.it.shape[0])
+    if not 0 <= int(tenant) < n:
+        raise ValueError(f"tenant {tenant} outside fleet of {n}")
+
+    def nan_slice(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = nan_slice(v)
+            else:
+                v = v.clone()
+                if v.is_floating_point():
+                    v[int(tenant)] = float("nan")
+                out[k] = v
+        return out
+
+    new_step = max(steps) + 1
+    ck.save(new_step, state._replace(gen_params=nan_slice(state.gen_params)))
     return new_step
 
 

@@ -377,6 +377,11 @@ def unpack_rows(rows) -> Tuple[List[List[float]], Dict[str, List[float]]]:
     return losses, tel
 
 
+def step_counter(state) -> torch.Tensor:
+    """The 0-d step counter: ``state.it``, or tenant 0's of a fleet's [N]."""
+    return state.it.reshape(-1)[0]
+
+
 def graph_body(step, inputs, z_gen: Optional[torch.Generator], ring: int,
                state, losses: torch.Tensor) -> None:
     """What the CUDA graph of ``GraphedStep`` records: one ``step`` from
@@ -384,8 +389,9 @@ def graph_body(step, inputs, z_gen: Optional[torch.Generator], ring: int,
     ``z_gen``), its outputs (``pack_outputs``) written to row ``it % ring``
     of ``losses`` [ring, n_losses] through a device index, and the new
     state copied into ``state``.  Everything the step reads from the old
-    state, the telemetry block included, is computed before that copy."""
-    slot = (state.it % ring).view(1)
+    state, the telemetry block included, is computed before that copy.
+    A fleet's ``it`` holds one counter a tenant: its first keys the row."""
+    slot = (step_counter(state) % ring).view(1)
     new, out = step(state, *inputs, z_gen=z_gen)
     losses.index_copy_(0, slot, pack_outputs(out).view(1, -1))
     copy_state_(state, new)
@@ -403,7 +409,8 @@ class GraphedStep:
     """A single-card step as a CUDA graph: captured once, a call replays it
     K times back to back and reads the [K, n_losses] losses back once.  The
     protocol step (3 losses, 13 columns with its telemetry block) and
-    ``GANPair``'s iteration (2) both run so.
+    ``GANPair``'s iteration (2) both run so, and the fleet step
+    (``train/fleet.py``: 3 a tenant, its ring row keyed by tenant 0's ``it``).
 
     The graph's inputs are static tensors: ``self.state`` (a copy of the
     start state, one buffer per leaf, that the step reads and, at its end,
@@ -431,7 +438,7 @@ class GraphedStep:
         self.policy = backend.config()
         self.state = clone_state(state)
         self.losses = torch.zeros((ring, n_losses), device=dev)
-        self.steps = int(state.it)
+        self.steps = int(step_counter(state))
         t0 = time.perf_counter()
         z_start = z_gen.get_state()
         side = torch.cuda.Stream(dev)

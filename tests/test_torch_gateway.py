@@ -390,15 +390,22 @@ def test_clients_and_gateways_interoperate(gens, stack):
 
 @pytest.mark.parametrize("part", ["fleet", "tracing"])
 def test_the_fleet_is_not_ported_and_tracing_is(stack, part):
-    """The fleet (ROADMAP Queue 1 item 9) still raises, in the bank and in
-    ``replica --fleet``; tracing works: a traced generate answers with its
-    rows and records its client spans under the caller's context."""
+    """The fleet's bank is ported (tests/test_torch_fleet_serve.py serves
+    it, and ``replica --fleet``): here it refuses, typed, what it cannot
+    serve from (neither or both of a checkpointer and a state, no live
+    engine allowed), and a tenant request through a router without a bank
+    is the gateway's 404; tracing works: a traced generate answers with
+    its rows and records its client spans under the caller's context."""
     _, _, client = stack
     if part == "fleet":
-        with pytest.raises(NotImplementedError, match="item 9"):
-            FleetTenantBank(lambda: None, state=object())
-        with pytest.raises(NotImplementedError, match="item 9"):
-            replica.main(["--fleet"])
+        for kw in ({}, {"state": object(), "checkpointer": object()},
+                   {"state": object(), "max_live": 0}):
+            with pytest.raises(ValueError):
+                FleetTenantBank(lambda: None, **kw)
+        with pytest.raises(GatewayHTTPError) as ei:
+            client.generate([_mk(2)], tenant="0")
+        assert (ei.value.status, ei.value.error_type) == (404,
+                                                          "unknown_tenant")
         return
     from gan_deeplearning4j_tpu_torch.telemetry import events, tracing
 

@@ -183,6 +183,9 @@ from gan_deeplearning4j_tpu_torch.telemetry import (events, exporter, goodput,
                                                     tracing)
 from gan_deeplearning4j_tpu_torch.utils import live_ui, profiling
 from gan_deeplearning4j_tpu_torch.train import divergence, rollback, shell
+from gan_deeplearning4j_tpu_torch.train import fleet
+from gan_deeplearning4j_tpu_torch.scenario import trainer_child
+from gan_deeplearning4j_tpu_torch.serve import publisher
 from gan_deeplearning4j_tpu_torch import testing
 from gan_deeplearning4j_tpu_torch.compat import Nd4j
 from gan_deeplearning4j_tpu_torch.data import normalizers
