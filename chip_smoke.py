@@ -327,7 +327,7 @@ exits non-zero:
                 the Chrome trace merged from ``events.jsonl`` and the
                 capture holding the host spans and the kernels inside
                 them; beside it, as a second child, ``roadmap_main
-                --family celeba`` (2,000 rows, 100 iterations) with
+                --family celeba`` (2,000 rows, 50 iterations) with
                 ``--profile --metrics-port 0`` (one ``bn_act`` an
                 iteration in its summary and its ``port_launches``, its
                 manifest and goodput); then ``cv_main`` in this process
@@ -352,11 +352,20 @@ exits non-zero:
                 required: the tenant-batched ``bn_act`` at the fleet step's
                 four BN shapes at batch 16 against its plain version at
                 every size of FLEET_SWEEP (every plan the sweep launches:
-                1, 2, 6 and 8 tenants a block, a partial last block), and
+                1 to 16 tenants a stage, rows split over 1, 2 or 4
+                threads, a ring of one or two, a partial last stage), and
                 for FLEET_KERNEL_N tenants a bitwise repeat and the
                 gradient, timed against ``F.batch_norm`` on the [B, N*F]
                 transpose in turns, floor and bound, and at 16 tenants
-                beside the [B, F] cluster kernel once a tenant; the graphed
+                beside the [B, F] cluster kernel once a tenant; its
+                backward kernel (``bn_act_tenants_bwd``) with non-zero
+                cotangents on y, mean and var against its plain version
+                and against autograd of the plain forward at every size
+                of FLEET_SWEEP, dgamma/dbeta bit for bit without dx, a
+                bitwise repeat, the closed form without its gvar term
+                outside the tolerance, timed against
+                ``aten.native_batch_norm_backward`` in turns; both kernels
+                at one odd shape (FLEET_ODD, x off 16 bytes); the graphed
                 fleet step (insurance at full width, batch 16) at each size
                 of FLEET_SWEEP: FLEET_PER_STEP launches a step at every
                 size with the counters zeroed just before and read just
@@ -454,7 +463,7 @@ SOURCES = {"fused_update": "fused_update.cu", "bn_act": "bn_act.cu",
            "upsample_bwd": "upsample_bwd.cu",
            "bn_moments": "bn_moments_apply.cu",
            "bn_apply": "bn_moments_apply.cu", "bn_act_4d": "bn_act_4d.cu",
-           "bn_act_tenants": "bn_act.cu"}
+           "bn_act_tenants": "bn_act.cu", "bn_act_tenants_bwd": "bn_act.cu"}
 REPLACES = {"fused_update": "ops/pallas/fused_update.py:40",
             "bn_act": "ops/pallas/bn_act.py:56",
             "upsample_bwd": "ops/pallas/dma_pipeline.py:86",
@@ -463,7 +472,11 @@ REPLACES = {"fused_update": "ops/pallas/fused_update.py:40",
             "bn_act_4d": "ops/pallas/bn_act.py:180",
             # _fused_kernel under jax.vmap (train/fleet.py make_fleet_step):
             # the batching rule makes the tenant axis a grid axis
-            "bn_act_tenants": "ops/pallas/bn_act.py:56"}
+            "bn_act_tenants": "ops/pallas/bn_act.py:56",
+            # no Pallas kernel: the custom_vjp backward of
+            # fused_bn_act_train (_bwd, rematerialized through _reference)
+            # under the same vmap
+            "bn_act_tenants_bwd": "ops/pallas/bn_act.py:304"}
 # f32 peak outside the tensor cores and device-memory bandwidth, by card
 # (NVIDIA data sheets, dense rates, full power limit)
 PEAK_F32_FLOPS = 67e12
@@ -984,7 +997,8 @@ def insurance_phase(torch, smi: str, keep: str) -> dict:
         calls = INS_STEPS + 1
         expected = {"fused_update": 3 * calls, "bn_act": 4 * calls,
                     "upsample_bwd": 0, "bn_moments": 0, "bn_apply": 0,
-                    "bn_act_4d": 0, "bn_act_tenants": 0}
+                    "bn_act_4d": 0, "bn_act_tenants": 0,
+                "bn_act_tenants_bwd": 0}
         require(launches == expected,
                 f"insurance: launch counts {launches} != expected {expected}")
         require(res["steps"] == INS_STEPS and res["graphed"]
@@ -1367,7 +1381,8 @@ def cv_main_phase(torch, smi: str, keep_csv: str) -> dict:
         calls = CV_STEPS + 1
         expected = {"fused_update": 3 * calls, "bn_act": 3 * calls,
                     "upsample_bwd": 2 * calls, "bn_moments": 0,
-                    "bn_apply": 0, "bn_act_4d": 0, "bn_act_tenants": 0}
+                    "bn_apply": 0, "bn_act_4d": 0, "bn_act_tenants": 0,
+                "bn_act_tenants_bwd": 0}
         require(launches == expected,
                 f"cv_main: launch counts {launches} != expected {expected}")
         require(res["steps"] == CV_STEPS and res["graphed"]
@@ -1838,7 +1853,8 @@ def resume_cv(torch, root: str, serve_src: str) -> dict:
     calls = 1 + RES_CV_STEPS - RES_CV_STOP  # the warm-up step and replays
     expected = {"fused_update": 3 * calls, "bn_act": 3 * calls,
                 "upsample_bwd": 2 * calls, "bn_moments": 0, "bn_apply": 0,
-                "bn_act_4d": 0, "bn_act_tenants": 0}
+                "bn_act_4d": 0, "bn_act_tenants": 0,
+                "bn_act_tenants_bwd": 0}
     require(launches == expected,
             f"cv resume: launch counts {launches} != expected {expected}")
     require(rr["steps"] == RES_CV_STEPS and rr["graphed"],
@@ -2077,10 +2093,11 @@ RM_K = 10  # iterations per call of the graphed-vs-eager runs
 RM_TURN_CALLS = 3  # calls of RM_K iterations in one timed turn
 RM_EMA = 0.999
 # the programs as child processes: (iterations, print_every)
-RM_CHILD = {"celeba": (100, 50), "wgan-gp": (100, 50),
-            "cgan-cifar10": (100, 50)}
+# (50 iterations: the depth the script's time limit leaves them)
+RM_CHILD = {"celeba": (50, 25), "wgan-gp": (50, 25),
+            "cgan-cifar10": (50, 25)}
 RM_FIDELITY_STEPS = 100  # the cgan child's --fidelity-steps
-RM_RESUME = (100, 50)  # celeba in this process: straight, then 50 + resume
+RM_RESUME = (50, 25)  # celeba in this process: straight, then 25 + resume
 # one iteration on the card against one on the CPU, from the same state and
 # draws, each held against the CPU in float64.  A GAN's first generator
 # gradients are mostly cancellation (D's outputs sit near 0.5, and a
@@ -4776,7 +4793,8 @@ def sv_telemetry(torch) -> dict:
     n_cols = 3 + len(fused_step.TELEMETRY_KEYS)
     expected = {"fused_update": 3 * GRAPH_STEPS, "bn_act": 3 * GRAPH_STEPS,
                 "upsample_bwd": 2 * GRAPH_STEPS, "bn_moments": 0,
-                "bn_apply": 0, "bn_act_4d": 0, "bn_act_tenants": 0}
+                "bn_apply": 0, "bn_act_4d": 0, "bn_act_tenants": 0,
+                "bn_act_tenants_bwd": 0}
     _, tel = fused_step.unpack_rows(lg)
     # the CPU's first step from the same start, draws and targets
     d = M.build_discriminator(cfg, "cpu")
@@ -5059,7 +5077,8 @@ def sv_healthy(torch, root: str) -> dict:
     calls = CV_STEPS + 1  # the warm-up step, then a replay per step
     expected = {"fused_update": 3 * calls, "bn_act": 3 * calls,
                 "upsample_bwd": 2 * calls, "bn_moments": 0, "bn_apply": 0,
-                "bn_act_4d": 0, "bn_act_tenants": 0}
+                "bn_act_4d": 0, "bn_act_tenants": 0,
+                "bn_act_tenants_bwd": 0}
     names = [e["name"] for e in read_events(f"{d}/events.jsonl")]
     recs = step_records(f"{d}/mnist_metrics.jsonl")
     out = dict(steps=res["steps"], steps_per_call=res["steps_per_call"],
@@ -5091,7 +5110,8 @@ def rb_check(rb, rb_events) -> dict:
     ``rb``: one result per rank; ``rb_events``: rank 0's timeline."""
     per_step = {"fused_update": 3, "bn_act": 0, "upsample_bwd": 2,
                 "bn_moments": 3, "bn_apply": 3, "bn_act_4d": 0,
-                "bn_act_tenants": 0}
+                "bn_act_tenants": 0,
+                "bn_act_tenants_bwd": 0}
     expected = {k: v * RB_EXECUTED for k, v in per_step.items()}
     request = [{k: e.get(k) for k in ("step", "bad_step", "rollbacks",
                                        "lr_scale")}
@@ -5148,7 +5168,8 @@ def supervision_phase(torch, smi: str, world2, rb, rb_events) -> dict:
                    "upsample_bwd": 2 * SV_DP_STEPS,
                    "bn_moments": 3 * SV_DP_STEPS,
                    "bn_apply": 3 * SV_DP_STEPS, "bn_act_4d": 0,
-                   "bn_act_tenants": 0}
+                   "bn_act_tenants": 0,
+                "bn_act_tenants_bwd": 0}
     out["world2"] = dict(
         steps=[r["steps"] for r in world2],
         launches=[r["launches"] for r in world2],
@@ -5176,7 +5197,7 @@ OBS_CV_ARGS = CV_ARGS[:-1] + ["0"]
 # the port kernels on the CV program's path, as its summary lists them
 OBS_KERNELS = ("fused_update", "bn_act", "upsample_bwd")
 # the celeba run: the roadmap phase's cut (rows, iterations, print-every)
-OBS_RM = ("celeba", 2000, 100, 50)
+OBS_RM = ("celeba", 2000, 50, 25)
 OBS_SCRAPE_TIMEOUT_S = 0.5
 OBS_BUDGET_S = 120.0
 OBS_PHASES = ("data_wait", "dispatch", "readback", "checkpoint", "eval",
@@ -5449,7 +5470,8 @@ def obs_turns(torch, root: str, csv_dir: str) -> dict:
     calls = CV_STEPS + 1
     expected = {"fused_update": 3 * calls, "bn_act": 3 * calls,
                 "upsample_bwd": 2 * calls, "bn_moments": 0, "bn_apply": 0,
-                "bn_act_4d": 0, "bn_act_tenants": 0}
+                "bn_act_4d": 0, "bn_act_tenants": 0,
+                "bn_act_tenants_bwd": 0}
     require(launches == expected,
             f"observability: a profiled run's launches {launches} != "
             f"{expected}")
@@ -5760,7 +5782,8 @@ FLEET_SEED = 20261019
 # the fleet step's four train-mode BNs, per tenant: (rows, features), act
 FLEET_BN = [((32, 12), "elu"), ((16, 2), "tanh"), ((16, 12), "elu"),
             ((16, 100), "elu")]
-FLEET_PER_STEP = {"fused_update": 3, "bn_act_tenants": 4}  # the others 0
+FLEET_PER_STEP = {"fused_update": 3, "bn_act_tenants": 4,
+                  "bn_act_tenants_bwd": 4}  # the others 0
 # the card's fleet step against the CPU's from one start at 4 tenants, from
 # each seed of FLEET_TOL_SEEDS (the weights' init, tables and latents):
 # loss relative, params (and BN statistics) absolute, caches relative to a
@@ -5864,6 +5887,144 @@ def fleet_kernel(torch, randn, bw: float, sms: int) -> dict:
             "cluster_kernel_once_a_tenant_ms": time_ms(lambda: [
                 kernels.fused_bn_act_train(x[i], gm[i], bt[i], 1e-5, act)
                 for (x, gm, bt), act in sub for i in range(16)], torch)},
+        bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _without_gvar(x, gamma, beta, mean, var, gy, gmean, gvar, eps, act):
+    """A known fault for the backward's tolerance to catch: the closed form
+    with the variance cotangent's term, gvar * 2 (x - mean) / B, dropped."""
+    from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act as bn2d
+
+    dx, dgamma, dbeta = bn2d.bn_act_tenants_bwd_plain(
+        x, gamma, beta, mean, var, gy, gmean, gvar, eps, act)
+    return (dx - gvar[:, None] * 2 * (x - mean[:, None]) / x.shape[1],
+            dgamma, dbeta)
+
+
+FLEET_BWD_TOL = (1e-4, 1e-4)  # atol, rtol on dx, dgamma, dbeta
+FLEET_ODD = ((1000, 5, 2), "sigmoid")  # 40 bytes a tenant, x off 16 bytes
+
+
+def fleet_kernel_bwd(torch, randn, bw: float, sms: int) -> dict:
+    """The tenant BN's backward kernel (``bn_act_tenants_bwd``) at the fleet
+    step's four BN shapes, from the forward kernel's mean and var with
+    non-zero cotangents on y, mean and var: against its plain version (the
+    closed form) and against autograd of the plain forward (the recompute
+    it replaced) at every N of FLEET_SWEEP; without dx, the same dgamma and
+    dbeta bit for bit; for FLEET_KERNEL_N tenants a bitwise repeat, and the
+    closed form with the gvar term dropped (``_without_gvar``) outside the
+    tolerance.  One odd shape (FLEET_ODD: [5, 2] a tenant, 40 bytes, x a
+    view 4 bytes past a 16-byte boundary) through both kernels against
+    their plain versions.  Timed at FLEET_KERNEL_N against
+    ``aten.native_batch_norm_backward`` on the [B, N*F] transpose (without
+    the activation or the copy) in turns; the plain time is the recompute
+    as the backward ran it before (autograd through
+    ``bn_act_tenants_plain``).  -> the kernels line's row."""
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act as bn2d
+
+    n = FLEET_KERNEL_N
+    atol, rtol = FLEET_BWD_TOL
+
+    def case(m, b, f, act, offset=False):
+        x = randn(m, b, f, scale=0.5, shift=0.2)
+        if offset:
+            x = offset_view(x, torch)
+        gm, bt = randn(m, f, scale=0.1, shift=1.0), randn(m, f, scale=0.1)
+        _, mean, var = kernels.fused_bn_act_train_tenants(x, gm, bt, 1e-5, act)
+        return (x, gm, bt, mean, var, randn(m, b, f), randn(m, f),
+                randn(m, f)), act
+
+    err, grad_err, fault = 0.0, 0.0, float("inf")
+    for m in FLEET_SWEEP:
+        for (b, f), act in FLEET_BN:
+            args, _ = case(m, b, f, act)
+            got = kernels.bn_act_tenants_bwd(*args, 1e-5, act)
+            want = bn2d.bn_act_tenants_bwd_plain(*args, 1e-5, act)
+            for a, p in zip(got, want):
+                require(within(a, p, atol, rtol), "bn_act_tenants_bwd "
+                        f"disagrees with its plain version at [{m},{b},{f}] "
+                        f"{act}")
+                err = max(err, max_err(a, p))
+            leaves = [t.clone().requires_grad_(True) for t in args[:3]]
+            auto = torch.autograd.grad(bn2d.bn_act_tenants_plain(
+                *leaves, 1e-5, act), leaves, args[5:])
+            for a, p in zip(got, auto):
+                require(within(a, p, 1e-4, 1e-3), "bn_act_tenants_bwd "
+                        f"disagrees with autograd of the plain forward at "
+                        f"[{m},{b},{f}] {act}")
+                grad_err = max(grad_err, max_err(a, p))
+            none, dg, db = kernels.bn_act_tenants_bwd(*args, 1e-5, act,
+                                                      need_dx=False)
+            require(none is None and torch.equal(dg, got[1])
+                    and torch.equal(db, got[2]), "bn_act_tenants_bwd: "
+                    f"without dx, other dgamma/dbeta at [{m},{b},{f}]")
+            if m == n:
+                require(bitwise_repeat(lambda *t: kernels.bn_act_tenants_bwd(
+                    *t, 1e-5, act), [args], torch),
+                    f"bn_act_tenants_bwd: two launches differ at [{n},{b},{f}]")
+                bad = _without_gvar(*args, 1e-5, act)[0]
+                require(not within(got[0], bad, atol, rtol),
+                        "bn_act_tenants_bwd: the tolerance does not catch the "
+                        f"dropped gvar term at [{n},{b},{f}] {act}")
+                fault = min(fault, max_err(got[0], bad))
+    (m, b, f), act = FLEET_ODD
+    args, _ = case(m, b, f, act, offset=True)
+    require(args[0].data_ptr() % 16 == 4, "fleet: the odd shape's x is aligned")
+    for a, p in zip(kernels.fused_bn_act_train_tenants(*args[:3], 1e-5, act),
+                    bn2d.bn_act_tenants_plain(*args[:3], 1e-5, act)):
+        require(within(a, p, 1e-5, 1e-4), f"bn_act_tenants disagrees with its "
+                f"plain version at the odd shape [{m},{b},{f}]")
+    for a, p in zip(kernels.bn_act_tenants_bwd(*args, 1e-5, act),
+                    bn2d.bn_act_tenants_bwd_plain(*args, 1e-5, act)):
+        require(within(a, p, atol, rtol), "bn_act_tenants_bwd disagrees with "
+                f"its plain version at the odd shape [{m},{b},{f}]")
+
+    ins = [case(n, b, f, act) for (b, f), act in FLEET_BN]
+    lib_in = []
+    for (x, gm, _, mean, var, gy, _, _), _ in ins:
+        nb = x.shape[1]
+        lib_in.append((gy.transpose(0, 1).reshape(nb, -1).contiguous(),
+                       x.transpose(0, 1).reshape(nb, -1).contiguous(),
+                       gm.reshape(-1), mean.reshape(-1),
+                       torch.rsqrt(var + 1e-5).reshape(-1)))
+
+    def recompute(args, act):
+        x, gm, bt, _, _, gy, gmean, gvar = args
+        leaves = [t.detach().requires_grad_(True) for t in (x, gm, bt)]
+        torch.autograd.grad(bn2d.bn_act_tenants_plain(*leaves, 1e-5, act),
+                            leaves, (gy, gmean, gvar))
+
+    ms, library_ms, turns = in_turns(
+        lambda: [kernels.bn_act_tenants_bwd(*t, 1e-5, act) for t, act in ins],
+        lambda: [torch.ops.aten.native_batch_norm_backward(
+            g, xt, w, None, None, mu, inv, True, 1e-5, [True, True, True])
+            for g, xt, w, mu, inv in lib_in], torch)
+    nbytes = sum(12 * n * b * f + 32 * n * f for (b, f), _ in FLEET_BN)
+    flops = sum(24 * n * b * f for (b, f), _ in FLEET_BN)
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return dict(
+        name="bn_act_tenants_bwd", tolerance=f"|d| <= {atol} + {rtol}|plain| "
+        "on dx, dgamma, dbeta; against autograd of the plain forward "
+        "1e-4 + 1e-3|autograd|", max_abs_err=err, autograd_max_abs_err=grad_err,
+        known_fault={"without_gvar_least_max_abs_d": fault},
+        calls=[f"[{n},{b},{f}] {act}" for (b, f), act in FLEET_BN],
+        checked_at_tenants=list(FLEET_SWEEP),
+        odd_shape=f"[{FLEET_ODD[0][0]},{FLEET_ODD[0][1]},{FLEET_ODD[0][2]}] "
+        f"{FLEET_ODD[1]}, x 4 bytes past 16",
+        plans={str(m_): [bn2d.tenant_plan(m_, b, f, sms, slabs=2)._asdict()
+                         for (b, f), _ in FLEET_BN] for m_ in FLEET_SWEEP},
+        bitwise_repeat=True, ms=ms,
+        plain_ms=sum(time_ms(lambda: recompute(t, act), torch)
+                     for t, act in ins),
+        plain_call="autograd through bn_act_tenants_plain from x, gamma, beta "
+        "(the recompute the kernel replaced), each BN timed alone (the four "
+        "together take the host over the sleep's cover to enqueue)",
+        library_ms=library_ms, turns_ms=turns,
+        library_call="aten.native_batch_norm_backward (training, all three "
+        "grads) on the [B, N*F] transpose, without the activation or the copy",
+        floor_ms=floor_ms(len(ins), torch),
         bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -6287,6 +6448,7 @@ def fleet_phase(torch, smi: str, randn, bw: float, sms: int) -> dict:
     the children, the publisher and the fleet replica."""
     t0 = time.perf_counter()
     row = fleet_kernel(torch, randn, bw, sms)
+    row_bwd = fleet_kernel_bwd(torch, randn, bw, sms)
     sweep = fleet_sweep(torch)
     root = tempfile.mkdtemp(prefix="gan4j_fleet_")
     try:
@@ -6295,7 +6457,8 @@ def fleet_phase(torch, smi: str, randn, bw: float, sms: int) -> dict:
                                 os.path.join(root, "ref", "checkpoints"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"nvidia_smi": smi, "kernel": row, "step": sweep,
+    return {"nvidia_smi": smi, "kernel": row, "kernel_bwd": row_bwd,
+            "step": sweep,
             "trainer_child": children, "serving": serving,
             "seconds": time.perf_counter() - t0}
 
@@ -6749,7 +6912,8 @@ def main() -> int:
     expected = {"fused_update": 3 * MAIN_STEPS,
                 "bn_act": 3 * MAIN_STEPS, "upsample_bwd": 2 * MAIN_STEPS,
                 "bn_moments": 0, "bn_apply": 0, "bn_act_4d": 0,
-                "bn_act_tenants": 0}
+                "bn_act_tenants": 0,
+                "bn_act_tenants_bwd": 0}
     losses = [result[k] for k in ("d_loss", "g_loss", "clf_loss")]
     grid = trainer.sample_grid(10)
     emit("main", steps=result["steps"], batch=BATCH, n_train=N_TRAIN,
@@ -6819,7 +6983,8 @@ def main() -> int:
     dp_expected = {"fused_update": 3 * MAIN_STEPS,
                    "bn_act": 0, "upsample_bwd": 2 * MAIN_STEPS,
                    "bn_moments": 3 * MAIN_STEPS, "bn_apply": 3 * MAIN_STEPS,
-                   "bn_act_4d": 0, "bn_act_tenants": 0}
+                   "bn_act_4d": 0, "bn_act_tenants": 0,
+                "bn_act_tenants_bwd": 0}
     dp_losses = [r0["result"][k] for k in ("d_loss", "g_loss", "clf_loss")]
     emit("dp", world=DP_WORLD, backend=r0["backend"],
          shared_card=n_cards < DP_WORLD,
@@ -6848,7 +7013,8 @@ def main() -> int:
             "dp: the ranks' states differ after the run")
     pa_expected = {"fused_update": 3 * PA_STEPS, "bn_act": 3 * PA_STEPS,
                    "upsample_bwd": 2 * PA_STEPS, "bn_moments": 0,
-                   "bn_apply": 0, "bn_act_4d": 0, "bn_act_tenants": 0}
+                   "bn_apply": 0, "bn_act_4d": 0, "bn_act_tenants": 0,
+                "bn_act_tenants_bwd": 0}
     pa_losses = [r0["pa_result"][k] for k in ("d_loss", "g_loss", "clf_loss")]
     emit("dp_param_averaging", world=DP_WORLD, backend=r0["backend"],
          steps=r0["pa_result"]["steps"], averaging_frequency=PA_FREQ,
@@ -6872,7 +7038,8 @@ def main() -> int:
     ins_expected = {"fused_update": 3 * INS_DP_STEPS, "bn_act": 0,
                     "upsample_bwd": 0, "bn_moments": 4 * INS_DP_STEPS,
                     "bn_apply": 4 * INS_DP_STEPS, "bn_act_4d": 0,
-                    "bn_act_tenants": 0}
+                    "bn_act_tenants": 0,
+                "bn_act_tenants_bwd": 0}
     ins_dp = [r["insurance"] for r in ranks]
     emit("dp_insurance", world=DP_WORLD, backend=r0["backend"],
          steps=INS_DP_STEPS, global_batch=INS_BATCH,
@@ -6978,6 +7145,7 @@ def main() -> int:
     fleet = fleet_phase(torch, smi, randn, bw, sms)
     emit("fleet", **fleet)
     report.append(fleet["kernel"])
+    report.append(fleet["kernel_bwd"])
 
     # -- 20. the kernels line and the result ---------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
@@ -6987,7 +7155,9 @@ def main() -> int:
     counted = {**launches, "bn_moments": r0["launches"]["bn_moments"],
                "bn_apply": r0["launches"]["bn_apply"],
                "bn_act_4d": bn4d_launches,
-               "bn_act_tenants": fleet["step"]["launches"]["bn_act_tenants"]}
+               "bn_act_tenants": fleet["step"]["launches"]["bn_act_tenants"],
+               "bn_act_tenants_bwd": fleet["step"]["launches"][
+                   "bn_act_tenants_bwd"]}
     # the insurance path's own: the program's run for bn_act and
     # fused_update, the dp phase's insurance steps (rank 0) for the pair
     ins_counted = {"bn_act": ins["launches"]["bn_act"],

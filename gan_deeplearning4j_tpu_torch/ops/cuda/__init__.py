@@ -8,7 +8,8 @@ first use (build.py); importing this package compiles nothing.
 ``bn_apply_sums`` is a second entry of the apply kernel (it finishes the
 moments from the all-reduced sums): its launches count as ``bn_apply``.
 ``bn_act_tenants`` is the fleet's tenant-batched BN (a second kernel of
-``csrc/bn_act.cu``), counted apart from the [B, F] ``bn_act``.
+``csrc/bn_act.cu``), counted apart from the [B, F] ``bn_act``, and
+``bn_act_tenants_bwd`` its backward (a third).
 A wrapper called while a CUDA graph captures records its kernel instead
 of launching it: ``captured_launches`` takes those calls back off the
 counters, and ``add_launches`` counts them once per replay.
@@ -21,6 +22,7 @@ from typing import Dict, Iterator
 
 from gan_deeplearning4j_tpu_torch.ops.cuda.bn_act import (
     bn_apply,
+    bn_act_tenants_bwd,
     bn_apply_sums,
     bn_moments,
     fused_bn_act_train,
@@ -41,6 +43,7 @@ WRAPPERS = {
     "bn_apply": bn_apply,
     "bn_act_4d": fused_bn_act_train_4d,
     "bn_act_tenants": fused_bn_act_train_tenants,
+    "bn_act_tenants_bwd": bn_act_tenants_bwd,
 }
 
 
@@ -81,5 +84,6 @@ def add_launches(per_replay: Dict[str, int], replays: int) -> None:
 __all__ = ["fused_bn_act_train", "fused_rmsprop_chain", "fused_rmsprop_chains",
            "upsample_bwd", "bn_moments", "bn_apply", "bn_apply_sums",
            "fused_bn_act_train_4d", "fused_bn_act_train_tenants",
+           "bn_act_tenants_bwd",
            "WRAPPERS", "reset_launch_counts", "launch_counts",
            "captured_launches", "add_launches"]

@@ -34,22 +34,36 @@ The tenant-batched form (``fused_bn_act_train_tenants``, the fleet's: x
 [N, B, F], each tenant's moments over its own B rows; what ``jax.vmap`` of
 ``fused_bn_act_train`` computes, the Pallas batching rule making the tenant
 axis a grid axis of ``_fused_kernel``) is a second kernel of
-``csrc/bn_act.cu``: a block owns whole tenants, copies their contiguous
-slab into shared memory in one coalesced walk, reduces one column per
-thread and writes y in a second coalesced walk (``tenant_plan``).  The
-cluster plan above does not carry over: at the fleet's shapes (B 16-32
-rows, F 2-100 columns a tenant) there are no rows to split across blocks.
+``csrc/bn_act.cu``, and its backward a third.  Both are bound by bytes
+(the forward reads x and writes y, the backward reads x and gy and writes
+dx) and move a few MB a launch at the fleet's widths (B 16-32 rows, F
+2-100 columns a tenant), so they are built to keep copies in flight and
+lanes busy: a persistent grid walks stages of T whole tenants, each
+stage's contiguous slab brought into shared memory by one bulk copy (TMA)
+on an mbarrier with the next stage's copy in flight, each (tenant, column)
+pair owned by R neighbouring threads of a warp (R > 1 splits the rows
+where the launch moves little and its time is each thread's chain of
+work), T chosen so that the pairs fill whole warps, and the result
+leaving by one bulk store (``tenant_plan``).  Each column's moments are
+summed in the order of the plain reference on the CPU, every step rounded
+as its torch op rounds, so that they are its bits.  The cluster plan above
+does not carry over: at the fleet's shapes there are no rows to split
+across blocks.
 
-Neither TPU path has a backward kernel and neither has the port: the
-backward recomputes through the plain composition under autograd (with
-the differentiable all-reduce on the pair's path), as the JAX
-``custom_vjp`` does with its ``pmean``.
+The [B, F] kernels and the pair have no backward kernel, as the TPU paths
+have none: their backward recomputes through the plain composition under
+autograd (with the differentiable all-reduce on the pair's path), as the
+JAX ``custom_vjp`` does with its ``pmean``.  The tenant form's backward is
+the kernel ``bn_act_tenants_bwd`` (closed form, ``bn_act_tenants_bwd_plain``
+beside it): under ``vmap`` on the TPU XLA fuses that recompute into a few
+fusions, on the card it was some forty launches a BN.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -73,7 +87,9 @@ _APPLY_ARGTYPES = [ctypes.c_void_p] * 6 + [
 _APPLY_SUMS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
     ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _TENANTS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_TENANTS_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
+    ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -142,37 +158,124 @@ def launch_plan(B: int, F: int, sms: int = SMS) -> Plan:
 
 
 class TenantPlan(NamedTuple):
-    """How ``csrc/bn_act.cu``'s tenant kernel splits x [N, B, F]."""
+    """How ``csrc/bn_act.cu``'s tenant kernels split x [N, B, F]."""
 
-    per_block: int  # whole tenants a block owns
-    threads: int  # a multiple of 32, at most TENANT_MAX_THREADS
-    grid: int  # ceil(N / per_block)
-    smem_bytes: int  # the [2, per_block, F] coefficients and the slab
-
-
-# csrc/bn_act.cu kTenantMaxThreads; a block's slab is kept under the
-# shared memory that needs no opt-in, and the grid aims at this many
-# blocks an SM
-TENANT_MAX_THREADS = 256
-TENANT_SMEM = 48 * 1024
-TENANT_BLOCKS_PER_SM = 4
+    per_stage: int  # T whole tenants a stage: one [T, B, F] slab an input
+    split: int  # R neighbouring threads a (tenant, column) pair, B/R rows each
+    threads: int  # T*F pairs x R, in whole warps
+    ring: int  # stages in flight a block (1 or 2)
+    stages: int  # ceil(N / T)
+    grid: int  # persistent blocks: the stages, at most blocks_per_sm an SM
+    blocks_per_sm: int  # by threads and shared memory
+    smem_bytes: int  # ring x slabs x the slab buffer (T*B*F + a head of 3)
 
 
-def tenant_plan(N: int, B: int, F: int, sms: int = SMS) -> TenantPlan:
-    """The tenant kernel's split of x [N, B, F]: ceil(N / (4 * sms))
-    tenants a block (about four blocks an SM), fewer when their slabs and
-    coefficients pass TENANT_SMEM.  Raises ValueError when one tenant's
-    slab and coefficients do not fit in MAX_DYNAMIC_SMEM (no fleet shape
-    comes near: its largest is 7.2 KB)."""
-    per_tenant = 4 * (B * F + 2 * F)
-    if per_tenant > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"bn_act over tenants: one tenant's [{B}, {F}] does "
-                         "not fit one block's shared memory")
-    want = -(-N // (TENANT_BLOCKS_PER_SM * sms))
-    per = max(1, min(want, TENANT_SMEM // per_tenant, N))
-    threads = min(TENANT_MAX_THREADS, max(32, -(-per * B * F // 32) * 32))
-    return TenantPlan(per_block=per, threads=threads, grid=-(-N // per),
-                      smem_bytes=per * per_tenant)
+# csrc/bn_act.cu kTenantMaxThreads, kTenantMaxRing and kTenantMaxSplit; an
+# H100 SM holds 2,048 threads and 228 KB of shared memory (1 KB of it kept
+# by the system a block)
+TENANT_MAX_THREADS = 512
+TENANT_MAX_RING = 2
+TENANT_MAX_SPLIT = 4
+THREADS_PER_SM = 2048
+SMEM_PER_SM = 233_472
+# rows a thread of a pair walks (B / R), and stages a plan aims at for each
+# SM: more, smaller stages balance the SMs and let one block's copies run
+# under another's work
+TENANT_ROWS_A_THREAD = 4
+TENANT_STAGES_PER_SM = 2
+# x bytes an SM up to which a launch splits its rows fully, and in two
+# (tenant_split): on the H100 the full split won at 12 KB an SM, lost at
+# 24 KB; a split in two won at 24-48 KB for [16-32, 12]
+TENANT_SPLIT_BYTES = 16 * 1024
+TENANT_PAIR_SPLIT_BYTES = 64 * 1024
+
+
+def tenant_buffer_floats(per_stage: int, B: int, F: int) -> int:
+    """Floats of one slab's shared buffer: T*B*F and a head of up to 3
+    that keeps the array's alignment, rounded to 16 bytes (bn_act.cu
+    tenant_dims)."""
+    return -(-(per_stage * B * F + 3) // 4) * 4
+
+
+def tenant_split(N: int, B: int, F: int, sms: int = SMS) -> int:
+    """R, the threads that share a pair: a power of two that leaves each at
+    least TENANT_ROWS_A_THREAD of the B rows, at most TENANT_MAX_SPLIT
+    where the launch moves little (x up to TENANT_SPLIT_BYTES an SM: its
+    time is each thread's chain of dependent work, B rows walked twice),
+    at most 2 up to TENANT_PAIR_SPLIT_BYTES, else 1 (the SMs' threads are
+    busy anyway, and fewer threads a byte keep more bytes in flight).  1
+    for rows of 32 columns or more: their first 32 * (F // 32) columns sum
+    their rows in order, as the reference does (csrc/bn_act.cu
+    OrderedSum), which one thread must do.  The bands are the H100's,
+    measured at the fleet's shapes (PERF.md, chip_fleet_ab.py)."""
+    x_per_sm = 4 * N * B * F / sms
+    if F >= GROUP:
+        return 1
+    if x_per_sm <= TENANT_SPLIT_BYTES:
+        most = TENANT_MAX_SPLIT
+    elif x_per_sm <= TENANT_PAIR_SPLIT_BYTES:
+        most = 2
+    else:
+        return 1
+    r = 1
+    while 2 * r <= min(most, B // TENANT_ROWS_A_THREAD):
+        r *= 2
+    return r
+
+
+def tenant_plan(N: int, B: int, F: int, sms: int = SMS,
+                slabs: int = 1) -> TenantPlan:
+    """The tenant kernels' split of x [N, B, F] with ``slabs`` inputs staged
+    (1: the forward's x; 2: the backward's x and gy).
+
+    Each (tenant, column) pair is R = tenant_split(N, B, F) neighbouring
+    threads of one warp.  T tenants a stage: enough to fill a warp and about
+    TENANT_STAGES_PER_SM stages an SM (ceil(N / (2 sms))), at most one
+    pair a group of R threads (TENANT_MAX_THREADS / (F R)) and what shared
+    memory holds (two buffers a slab where they fit); then rounded down to
+    whole warps (a multiple of 32 / gcd(F R, 32)) and to a slab that ends
+    on 16 bytes (4 / gcd(B F, 4)), where T is that large.  A ring of two
+    stages where a block walks more than one and two still leave an SM two
+    blocks; the grid is the stages or blocks_per_sm x sms, whichever is
+    fewer.  Raises ValueError when one tenant's slabs do not fit in
+    MAX_DYNAMIC_SMEM (the fleet's largest, [16, 100], takes 6.4 KB)."""
+    elems = B * F
+    split = tenant_split(N, B, F, sms)
+    lanes = F * split  # threads a tenant
+
+    def smem(per: int, ring: int) -> int:
+        return 4 * ring * slabs * tenant_buffer_floats(per, B, F)
+
+    def fit(ring: int) -> int:
+        floats = MAX_DYNAMIC_SMEM // (4 * ring * slabs) // 4 * 4
+        return (floats - 3) // elems
+
+    if fit(1) < 1:
+        raise ValueError(f"bn_act over tenants: one tenant's [{B}, {F}] "
+                         f"({slabs} slab{'s' * (slabs > 1)}) does not fit "
+                         "one block's shared memory")
+    room = fit(TENANT_MAX_RING) if fit(TENANT_MAX_RING) >= 1 else fit(1)
+    want = max(-(-GROUP // lanes), -(-N // (TENANT_STAGES_PER_SM * sms)))
+    per = max(1, min(max(1, TENANT_MAX_THREADS // lanes), room, want, N))
+    for q in (GROUP // math.gcd(lanes, GROUP), 4 // math.gcd(elems, 4)):
+        if per >= q:
+            per -= per % q
+    threads = min(TENANT_MAX_THREADS, -(-per * lanes // 32) * 32)
+    stages = -(-N // per)
+
+    def grid(ring: int) -> Tuple[int, int]:
+        per_sm = max(1, min(THREADS_PER_SM // threads,
+                            SMEM_PER_SM // (smem(per, ring) + 1024), 32))
+        return per_sm, min(stages, per_sm * sms)
+
+    ring = TENANT_MAX_RING
+    if (smem(per, ring) > MAX_DYNAMIC_SMEM or stages <= grid(1)[1]
+            or grid(ring)[0] < 2):
+        ring = 1
+    per_sm, g = grid(ring)
+    return TenantPlan(per_stage=per, split=split, threads=threads, ring=ring,
+                      stages=stages, grid=g, blocks_per_sm=per_sm,
+                      smem_bytes=smem(per, ring))
 
 
 class MomentsPlan(NamedTuple):
@@ -270,6 +373,64 @@ def bn_act_tenants_plain(x: torch.Tensor, gamma: torch.Tensor,
     return act_lib.get(act_name)(y), mean, var
 
 
+def act_grad_plain(z: torch.Tensor, act_name: str) -> torch.Tensor:
+    """d act(z) / dz as JAX differentiates ``ops/activations.py``
+    (csrc/bn_common.cuh activate_grad): tanh 1 - tanh^2, the logistic
+    s(1 - s), relu 0 at 0, elu exp(z) for z <= 0, leaky relu 1 at 0."""
+    if act_name == "tanh":
+        return 1 - torch.square(torch.tanh(z))
+    if act_name == "sigmoid":
+        s = torch.sigmoid(z)
+        return s * (1 - s)
+    if act_name == "relu":
+        return (z > 0).to(z.dtype)
+    if act_name == "elu":
+        return torch.where(z > 0, torch.ones_like(z), torch.exp(z))
+    if act_name == "leakyrelu":
+        return torch.where(z >= 0, torch.ones_like(z),
+                           torch.full_like(z, 0.01))
+    if act_name == "identity":
+        return torch.ones_like(z)
+    raise ValueError(f"no derivative for activation {act_name!r}")
+
+
+def bn_act_tenants_bwd_plain(x: torch.Tensor, gamma: torch.Tensor,
+                             beta: torch.Tensor, mean: torch.Tensor,
+                             var: torch.Tensor, gy: torch.Tensor,
+                             gmean: torch.Tensor, gvar: torch.Tensor,
+                             eps: float, act_name: str) -> Triple:
+    """The closed-form vector-Jacobian product of ``bn_act_tenants_plain``
+    from its saved mean and var: -> (dx [N, B, F], dgamma, dbeta [N, F])
+    for the cotangents gy of y and gmean, gvar of mean and var.
+
+        dbeta = sum_b gz,  dgamma = sum_b gz * xh,  where
+        xh = (x - mean) * rstd,  gz = gy * act'(gamma * xh + beta)
+        dx = gamma * rstd / B * (B * gz - dbeta - xh * dgamma)
+             + gmean / B + gvar * 2 (x - mean) / B
+
+    (var = E[x^2] - mean^2 has the biased variance's derivative,
+    2 (x - mean) / B.)  dx is evaluated in the order autograd of the plain
+    forward takes it, through the gradients of rstd, mean and E[x^2]:
+    gv = gvar - rstd^3 / 2 * sum_b gz gamma (x - mean), gm = gmean -
+    sum_b gz gamma rstd - 2 mean gv, dx = gz gamma rstd + gm / B + 2 gv x /
+    B.  The kernel (csrc/bn_act.cu BwdPair) does the same, so that its
+    rounding follows the recompute it replaced: the B gz - dbeta - xh
+    dgamma form cancels in another place, and on the card it moved the
+    fleet step's first RmsProp update past its band against the CPU."""
+    n = x.shape[1]
+    r = torch.rsqrt(var + eps)
+    c = x - mean[:, None]
+    xh = c * r[:, None]
+    gz = gy * act_grad_plain(xh * gamma[:, None] + beta[:, None], act_name)
+    dbeta = gz.sum(dim=1)
+    dgamma = (gz * xh).sum(dim=1)
+    gxh = gz * gamma[:, None]
+    gv = gvar + -0.5 * (gxh * c).sum(dim=1) * (r * r * r)
+    gm = gmean - (gxh * r[:, None]).sum(dim=1) - 2 * mean * gv
+    dx = gxh * r[:, None] + (gm / n)[:, None] + (2 * gv / n)[:, None] * x
+    return dx, dgamma, dbeta
+
+
 def bn_apply_sums_plain(x: torch.Tensor, sums: torch.Tensor, world: int,
                         gamma: torch.Tensor, beta: torch.Tensor, eps: float,
                         act_name: str) -> Triple:
@@ -306,20 +467,51 @@ def _launch(x, gamma, beta, eps, act_name):
     return y, mean, var
 
 
+def empty_aligned_with(ref: torch.Tensor) -> torch.Tensor:
+    """An empty tensor of ref's shape whose address agrees with ref's
+    modulo 16 bytes: the tenant kernels store the result from the buffer
+    of that input by 16-byte-aligned bulk copies."""
+    if ref.data_ptr() % 16 == 0:
+        return torch.empty_like(ref)
+    buf = torch.empty(ref.numel() + 3, dtype=ref.dtype, device=ref.device)
+    shift = (ref.data_ptr() - buf.data_ptr()) % 16 // ref.element_size()
+    return buf[shift:shift + ref.numel()].view(ref.shape)
+
+
 def _tenants_launch(x, gamma, beta, eps, act_name):
     N, B, F = x.shape
-    y = torch.empty_like(x)
+    y = empty_aligned_with(x)
     mean = torch.empty((N, F), dtype=x.dtype, device=x.device)
     var = torch.empty((N, F), dtype=x.dtype, device=x.device)
     plan = tenant_plan(N, B, F, sm_count(x.device))
     fn = build.function("bn_act", "gan4j_bn_act_tenants", _TENANTS_ARGTYPES)
     code = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
               mean.data_ptr(), var.data_ptr(), N, B, F, eps,
-              ACT_CODES[act_name], plan.per_block, plan.threads,
-              plan.smem_bytes, _stream(x))
+              ACT_CODES[act_name], plan.per_stage, plan.split, plan.threads,
+              plan.ring, plan.grid, plan.smem_bytes, _stream(x))
     build.check(code, "fused_bn_act_train_tenants")
     fused_bn_act_train_tenants.launches += 1
     return y, mean, var
+
+
+def _tenants_bwd_launch(x, gamma, beta, mean, var, gy, gmean, gvar, eps,
+                        act_name, need_dx):
+    N, B, F = x.shape
+    dx = empty_aligned_with(gy) if need_dx else None
+    dgamma = torch.empty((N, F), dtype=x.dtype, device=x.device)
+    dbeta = torch.empty((N, F), dtype=x.dtype, device=x.device)
+    plan = tenant_plan(N, B, F, sm_count(x.device), slabs=2)
+    fn = build.function("bn_act", "gan4j_bn_act_tenants_bwd",
+                        _TENANTS_BWD_ARGTYPES)
+    code = fn(x.data_ptr(), gy.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+              mean.data_ptr(), var.data_ptr(), gmean.data_ptr(),
+              gvar.data_ptr(), None if dx is None else dx.data_ptr(),
+              dgamma.data_ptr(), dbeta.data_ptr(), N, B, F, eps,
+              ACT_CODES[act_name], plan.per_stage, plan.split, plan.threads,
+              plan.ring, plan.grid, plan.smem_bytes, _stream(x))
+    build.check(code, "bn_act_tenants_bwd")
+    bn_act_tenants_bwd.launches += 1
+    return dx, dgamma, dbeta
 
 
 def _moments_launch(x: torch.Tensor) -> torch.Tensor:
@@ -395,15 +587,18 @@ class _BnAct(torch.autograd.Function):
 class _BnActTenants(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, eps, act_name):
-        ctx.save_for_backward(x, gamma, beta)
+        y, mean, var = _tenants_launch(x, gamma, beta, eps, act_name)
+        ctx.save_for_backward(x, gamma, beta, mean, var)
         ctx.eps, ctx.act_name = eps, act_name
-        return _tenants_launch(x, gamma, beta, eps, act_name)
+        return y, mean, var
 
     @staticmethod
     def backward(ctx, gy, gmean, gvar):
-        grads = recompute_grads(ctx, (gy, gmean, gvar), bn_act_tenants_plain,
-                                ctx.eps, ctx.act_name)
-        return (*grads, None, None)
+        x, gamma, beta, mean, var = ctx.saved_tensors
+        dx, dgamma, dbeta = bn_act_tenants_bwd(
+            x, gamma, beta, mean, var, gy, gmean, gvar, ctx.eps,
+            ctx.act_name, need_dx=ctx.needs_input_grad[0])
+        return dx, dgamma, dbeta, None, None
 
 
 class _BnSync(torch.autograd.Function):
@@ -553,7 +748,47 @@ def fused_bn_act_train_tenants(x: torch.Tensor, gamma: torch.Tensor,
                                beta.contiguous(), float(eps), name)
 
 
+def bn_act_tenants_bwd(x: torch.Tensor, gamma: torch.Tensor,
+                       beta: torch.Tensor, mean: torch.Tensor,
+                       var: torch.Tensor, gy: torch.Tensor,
+                       gmean: torch.Tensor, gvar: torch.Tensor,
+                       eps: float = 1e-5, act_name: str = "identity",
+                       need_dx: bool = True):
+    """The backward of ``fused_bn_act_train_tenants`` from its saved mean
+    and var: -> (dx [N, B, F] or None when not ``need_dx``, dgamma, dbeta
+    [N, F]) for the cotangents gy [N, B, F] and gmean, gvar [N, F].  A CPU
+    x takes the closed form (``bn_act_tenants_bwd_plain``); a CUDA x
+    launches the backward kernel."""
+    if x.dim() != 3 or gy.shape != x.shape:
+        raise ValueError(f"bn_act_tenants_bwd takes x and gy [N, B, F], got "
+                         f"{tuple(x.shape)} and {tuple(gy.shape)}")
+    vectors = {"gamma": gamma, "beta": beta, "mean": mean, "var": var,
+               "gmean": gmean, "gvar": gvar}
+    for name, t in vectors.items():
+        if t.shape != (x.shape[0], x.shape[2]) or t.device != x.device:
+            raise ValueError(f"bn_act_tenants_bwd: {name} {tuple(t.shape)} on "
+                             f"{t.device} is not [{x.shape[0]}, {x.shape[2]}] "
+                             f"on {x.device}")
+    if gy.device != x.device:
+        raise ValueError(f"bn_act_tenants_bwd: gy on {gy.device}, x on "
+                         f"{x.device}")
+    if any(t.dtype != torch.float32 for t in (x, gy, *vectors.values())):
+        raise TypeError("bn_act_tenants_bwd takes float32 only")
+    if x.device.type == "cpu":
+        dx, dgamma, dbeta = bn_act_tenants_bwd_plain(
+            x, gamma, beta, mean, var, gy, gmean, gvar, eps,
+            act_name.lower())
+        return (dx if need_dx else None), dgamma, dbeta
+    if x.device.type != "cuda":
+        raise ValueError(f"bn_act_tenants_bwd: unsupported device {x.device}")
+    name = kernel_act("bn_act_tenants_bwd", act_name)
+    return _tenants_bwd_launch(
+        *(t.contiguous() for t in (x, gamma, beta, mean, var, gy, gmean,
+                                   gvar)), float(eps), name, bool(need_dx))
+
+
 fused_bn_act_train.launches = 0
 fused_bn_act_train_tenants.launches = 0
+bn_act_tenants_bwd.launches = 0
 bn_moments.launches = 0
 bn_apply.launches = 0

@@ -37,7 +37,10 @@ PORT_KERNELS = {"fused_update": "rmsprop_multi_kernel",
                 "upsample_bwd": "upsample_bwd_kernel",
                 "bn_moments": "bn_moments_kernel",
                 "bn_apply": "bn_apply_kernel",
-                "bn_act_4d": "bn_act_4d_kernel"}
+                "bn_act_4d": "bn_act_4d_kernel",
+                # csrc/bn_act.cu tenant_stages<FwdPair<ACT>> / <BwdPair<ACT>>
+                "bn_act_tenants": "FwdPair",
+                "bn_act_tenants_bwd": "BwdPair"}
 _DEVICE_CAT = re.compile(r'"cat"\s*:\s*"(?:%s)"' % "|".join(DEVICE_CATS))
 
 

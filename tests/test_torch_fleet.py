@@ -189,16 +189,20 @@ def test_tenant_bn_act_checks_its_inputs_and_plans():
     with pytest.raises(TypeError):
         kernels.fused_bn_act_train_tenants(x.double(), torch.ones(2, 3),
                                            torch.zeros(2, 3))
-    # the plan: whole tenants a block, about four blocks an SM, the slab
-    # within 48 KB; a tenant whose slab does not fit shared memory is refused
+    # the plan: stages of whole tenants, about two stages an SM, each
+    # (tenant, column) pair R threads in whole warps, a persistent grid of
+    # the stages or of whole SMs; a tenant whose slab does not fit shared
+    # memory is refused
     p = bn2d.tenant_plan(1024, 16, 12, sms=132)
-    assert (p.per_block, p.grid) == (2, 512)
-    assert p.smem_bytes == 2 * 4 * (16 * 12 + 2 * 12) and p.threads == 256
+    assert (p.per_stage, p.split, p.threads) == (4, 4, 192)
+    assert (p.stages, p.grid) == (256, 256)
+    assert p.smem_bytes == 4 * (4 * 16 * 12 + 4) and p.ring == 1
     p = bn2d.tenant_plan(4096, 16, 100, sms=132)
-    assert (p.per_block, p.grid) == (6, 683)
-    assert p.smem_bytes == 6 * 4 * (16 * 100 + 2 * 100) <= bn2d.TENANT_SMEM
+    assert (p.per_stage, p.split, p.threads, p.ring) == (5, 1, 512, 2)
+    assert (p.stages, p.grid, p.blocks_per_sm) == (820, 396, 3)
+    assert p.smem_bytes == 2 * 4 * (5 * 16 * 100 + 4) <= bn2d.MAX_DYNAMIC_SMEM
     p = bn2d.tenant_plan(1, 200, 200, sms=132)
-    assert (p.per_block, p.smem_bytes) == (1, 4 * (200 * 200 + 2 * 200))
+    assert (p.per_stage, p.smem_bytes) == (1, 4 * (200 * 200 + 4))
     with pytest.raises(ValueError, match="shared memory"):
         bn2d.tenant_plan(1, 200, 6272, sms=132)
     with pytest.raises(ValueError, match="shared memory"):

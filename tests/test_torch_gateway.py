@@ -480,28 +480,41 @@ def _read_ready(proc, timeout_s):
     return json.loads(box[0]) if box and box[0] else None
 
 
+def _tail(path, n=4000):
+    """The last ``n`` characters of a child's stderr file, for a failure
+    message."""
+    try:
+        return "\n--- replica stderr (tail) ---\n" + path.read_text()[-n:]
+    except OSError as exc:
+        return f"\n--- replica stderr unreadable: {exc} ---"
+
+
 def test_replica_process_serves_hotswaps_and_drains(jax_gen_ckpt, tmp_path):
     """``python -m ...serve.replica --port 0 --device cpu --checkpoint``:
     the ready line, ``/healthz`` 200, replies equal to an in-process
     engine serving the same checkpoint, ``/admin/hotswap`` returning the
     step, a wedge turning ``/healthz`` 503 while it still listens, and
-    SIGTERM -> exit 0."""
+    SIGTERM -> exit 0.  The child's stderr goes to a file (a pipe nobody
+    reads can fill and block it) whose tail every failure message carries."""
     d, params = jax_gen_ckpt
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "gan_deeplearning4j_tpu_torch.serve.replica",
-         "--port", "0", "--device", "cpu", "--checkpoint", d],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
+    err_path = tmp_path / "replica.stderr"
+    with open(err_path, "w") as err_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "gan_deeplearning4j_tpu_torch.serve.replica", "--port", "0",
+             "--device", "cpu", "--checkpoint", d],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=err_file,
+            text=True)
     try:
         ready = _read_ready(proc, 120.0)
         assert ready is not None and ready["event"] == "replica_ready", (
-            proc.poll(), ready)
+            proc.poll(), ready, _tail(err_path))
         assert ready["pid"] == proc.pid
         port = ready["port"]
         client = GatewayClient("127.0.0.1", port, seed=2)
-        assert client.healthz()["_status"] == 200
+        assert client.healthz()["_status"] == 200, _tail(err_path)
         gt = MT.build_generator(device="cpu")
         gt.params = interop.params_from_numpy(params, "cpu", like=gt.params)
         want_eng = ServeEngine(infer=ParallelInference(gt, buckets=BUCKETS),
@@ -516,31 +529,35 @@ def test_replica_process_serves_hotswaps_and_drains(jax_gen_ckpt, tmp_path):
                 z = _mk(rows, seed=rows)
                 got = client.generate([z], encoding=encoding)[0]
                 want = want_eng.generate(z, timeout=120.0)[0]
-                np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+                np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7,
+                                           err_msg=_tail(err_path))
         s, _, data = _raw(port, "POST", "/admin/hotswap",
                           json.dumps({"directory": d}).encode(),
                           (("Content-Type", "application/json"),))
-        assert s == 200 and json.loads(data)["result"] == {"step": 7}
+        assert s == 200 and json.loads(data)["result"] == {"step": 7}, (
+            s, data, _tail(err_path))
         s, _, data = _raw(port, "POST", "/admin/hotswap", b"{}",
                           (("Content-Type", "application/json"),))
-        assert s == 400
+        assert s == 400, (s, data, _tail(err_path))
         s, _, data = _raw(port, "POST", "/admin/hotswap",
                           json.dumps({"directory": str(tmp_path)}).encode(),
                           (("Content-Type", "application/json"),))
-        assert s == 404 and json.loads(data)["type"] == "not_found"
+        assert s == 404 and json.loads(data)["type"] == "not_found", (
+            s, data, _tail(err_path))
         s, _, _ = _raw(port, "POST", "/admin/chaos/wedge",
                        json.dumps({"seconds": 30}).encode(),
                        (("Content-Type", "application/json"),))
-        assert s == 200
+        assert s == 200, _tail(err_path)
         doc = client.healthz()
-        assert doc["_status"] == 503 and doc["serve"]["wedged"] is True
-        assert client.generate([_mk(2)])[0].shape[0] == 2  # still serves
+        assert doc["_status"] == 503 and doc["serve"]["wedged"] is True, (
+            doc, _tail(err_path))
+        assert client.generate([_mk(2)])[0].shape[0] == 2, _tail(err_path)
         client.close()
         proc.send_signal(signal.SIGTERM)
-        assert proc.wait(timeout=60.0) == 0
+        rc = proc.wait(timeout=60.0)
+        assert rc == 0, (rc, _tail(err_path))
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=30.0)
         proc.stdout.close()
-        proc.stderr.close()
