@@ -101,13 +101,18 @@ exits non-zero:
                 pair written and decoded, 200 steps at batch 200 graphed in
                 calls of K = 100, the grid and prediction dumps at 100 and
                 200, the four model zips, the evaluation with FID on 2,000
-                samples), three times: with the launch counters zeroed just
+                samples), four times: with the launch counters zeroed just
                 before and read just after (a warm-up step and 200 replays'
                 worth), the dumps' shapes, the metrics JSONL, the zips read
-                back bit for bit as the trained graphs, finite scores; then
-                with ``--sync-dumps`` (the dumps byte-identical); then with
-                the table streamed in chunks of 100 steps (per-step losses
-                bitwise the resident run's).  Host seconds of the export,
+                back bit for bit as the trained graphs, finite scores,
+                ``DCGAN_Generated_Images.png`` decoded to the last grid
+                dump's mosaic; then with ``--sync-dumps`` (the dumps
+                byte-identical); then with the table streamed in chunks of
+                100 steps on the plain chunk tier (``stream_dedup=False``)
+                and on the dedup tier (the u8 table once, a row schedule a
+                chunk), each run's per-step losses bitwise the resident
+                run's, and the bytes each put on the host link.  Host
+                seconds of the export,
                 decode, upload, capture, each dump, the save and the
                 evaluation, and examples/sec, beside the card's name and
                 power limit.
@@ -119,8 +124,9 @@ exits non-zero:
                 and read just after (4 ``bn_act`` and 3 ``fused_update`` a
                 step, warm-up included, nothing else), every dump's shape,
                 the metrics JSONL, the zips read back bit for bit, a test
-                AUROC above 0.5; then with ``--sync-dumps`` (every dump
-                byte-identical).  Then the program's step graphed against
+                AUROC above 0.5, the three lattice PNGs decoded to the last
+                dump's mosaic and first lattice; then with ``--sync-dumps``
+                (every dump byte-identical).  Then the program's step graphed against
                 eager (bitwise over 20 steps) and the two timed in turns.
  10. resume   — checkpoints, preemption and resume, each check required:
                 the insurance program at its defaults in child processes,
@@ -131,15 +137,15 @@ exits non-zero:
                 and one resuming it to
                 5,000, bitwise the insurance phase's uninterrupted run (the
                 four zips' params and updater state, every metrics record,
-                test_auroc); the CV program at full width, 200 steps at
-                batch 200 with checkpoints every 100, preempted at 100 and
+                test_auroc); the CV program at full width, 100 steps at
+                batch 200 with checkpoints every 50, preempted at 50 and
                 resumed in this process (bitwise the uninterrupted run,
                 with the resumed path's launch counts), and in a child
                 process from a copy of that checkpoint (the largest param
                 difference and the bound it meets, reported: cuDNN times
                 its choices per process); then, under cuDNN's untimed
                 deterministic choice in two fresh child processes, a run
-                with checkpoints and a resume of its step-100 checkpoint,
+                with checkpoints and a resume of its step-50 checkpoint,
                 bitwise; the latent generator's state after graph replays
                 against eager draws; the insurance step at world 2 over
                 gloo on one card, checkpointed at 4 and resumed to 8
@@ -148,11 +154,12 @@ exits non-zero:
                 retry); and the cost of a checkpoint (snapshot ms, sync
                 and async save seconds, bytes, restore seconds, the
                 capture after a resume) for both models.  The world-2 run
-                goes beside the insurance children and the default-policy
-                CV child beside the first untimed one (the script's limit;
-                every check they make is bitwise or reported; their
-                seconds and host timings, two runs' at once, stand under
-                ``shared_card``).
+                goes beside the insurance children, both beside the CV
+                children, and the default-policy CV child beside the first
+                untimed one (the script's limit; every check they make is
+                bitwise or reported; their seconds and host timings,
+                several runs' at once, stand under ``shared_card``).  The
+                CV runs read the cv_main phase's CSV pair.
  11. roadmap  — the roadmap families (``roadmap_main``: CelebA-64 DCGAN,
                 WGAN-GP and the conditional cgan-cifar10 on the ``GANPair``
                 engine, Adam) at full width and batch 128: ``bn_act`` at
@@ -384,7 +391,20 @@ exits non-zero:
                 ``serve.replica --fleet`` process, rejecting its poisoned
                 successor (``poison_fleet_checkpoint_dir``), and requests
                 for four tenants held against their slices.
- 20. the ``kernels`` line (each kernel's insurance numbers beside the
+ 20. lifecycle — the tenant lifecycle (``train/lifecycle.py``) at the
+                reference's width: two cohorts over bucketed capacities,
+                one CUDA graph each (cohort, warmed bucket), onboard /
+                offboard cycles through ghost slots, a hop to the next
+                bucket, an offboard and re-onboard from its checkpoint, and
+                the two lifecycle poisoners in a chaos run held against a
+                control run (``lifecycle_phase``).
+ 21. extractors — the three frozen FID extractors' recipes on the card,
+                each retrained extractor's held-out score beside the
+                committed zip's (``extractors_phase``), run as a child
+                beside the precision phase's children (its seconds under
+                ``shared_card``); its line is printed after the
+                lifecycle's.
+ 22. the ``kernels`` line (each kernel's insurance numbers beside the
      CV step's, where the insurance path runs it, ``bn_act``'s roadmap
      numbers, each kernel's launches on the cgan-cifar10 path: 0, at
      world 2 per roadmap family (``pair_dp``, with the pair's numbers at
@@ -392,7 +412,8 @@ exits non-zero:
      on the serving path: 0, on the mesh over replica processes: 0, on
      the supervision phase's path, one card and world 2, on the
      observability phase's, at world 2 in the rollback's ranks, and on
-     the migration surface, and on the fleet's step at each size), the
+     the migration surface, on the fleet's step at each size, and on the
+     lifecycle's cohort steps at each capacity), the
      seconds line (the script's total beside
      its total before the precision phase was added and before the serve
      phase in this run, the pair_dp, serve_mesh, supervision and
@@ -452,7 +473,9 @@ INS_PAIR = [((50, 12), "elu"), ((25, 2), "tanh"), ((25, 12), "elu"),
 # the insurance step against another from the same state: STEP_TOL, with
 # params held to one generator learning rate of this model (4e-4)
 INS_STEP_TOL = {"loss": 1e-4, "param": 4e-4, "cache": 5e-2}
-REPS = 30
+# timed repetitions of a group (30 before the lifecycle and extractors
+# phases came; 20 for the script's limit: each costs a ~20 ms sleep)
+REPS = 20
 # the script's whole run before the precision phase was added (from a
 # git archive of that tree, NVIDIA H100 80GB HBM3, 700.00 W)
 TOTAL_BEFORE_PRECISION_S = 419.0
@@ -487,6 +510,8 @@ BANDWIDTH = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
 # seconds of the script by phase line: the time from the line before (the
 # script's start for the first) to each line, summed over a phase's lines
 PHASE_SECONDS: dict = {}
+# the seconds the script spent in ``time_ms``
+TIMED_S = [0.0]
 _LAST_LINE = [0.0]
 
 
@@ -517,32 +542,37 @@ def time_ms(fn, torch) -> float:
     the start event, every launch and the end event before the device
     reaches them: the events then time the device's work back to back, not
     the Python wrappers' launch rate.  A repetition whose enqueue took
-    longer than half the sleep (a host hiccup) is dropped and run again;
-    more than REPS drops fail the run."""
+    longer than half the sleep (a slow host: many small launches) is
+    dropped and run again behind a sleep twice as long (up to 16x); more
+    than REPS drops fail the run."""
+    t_start = time.perf_counter()
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times, dropped = [], []
+    scale = 1
     for _ in range(2 * REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(SLEEP_CYCLES * scale)
         t0 = time.perf_counter()
         start.record()
         fn()
         end.record()
         enqueue = time.perf_counter() - t0
         end.synchronize()
-        if enqueue < 0.01:
+        if enqueue < 0.01 * scale:
             times.append(start.elapsed_time(end))
         else:
             dropped.append(enqueue)
+            scale = min(2 * scale, 16)
         if len(times) == REPS:
+            TIMED_S[0] += time.perf_counter() - t_start
             return statistics.median(times)
     raise RuntimeError(
         f"chip_smoke: the host took {max(dropped) * 1e3:.1f} ms to enqueue a "
-        f"timed group ({len(dropped)} of {2 * REPS} repetitions over 10 ms); "
-        "the sleep no longer covers it")
+        f"timed group ({len(dropped)} of {2 * REPS} repetitions over half "
+        "their sleep); the sleep no longer covers it")
 
 
 def in_turns(kernel_fn, library_fn, torch):
@@ -970,6 +1000,7 @@ def insurance_phase(torch, smi: str, keep: str) -> dict:
     phase's uninterrupted run).  Returns the phase's line."""
     import numpy as np
 
+    from gan_deeplearning4j_tpu_torch.eval import plots
     from gan_deeplearning4j_tpu_torch.graph import serialization
     from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
     from gan_deeplearning4j_tpu_torch.train import fused_step, insurance_main
@@ -1025,6 +1056,14 @@ def insurance_phase(torch, smi: str, keep: str) -> dict:
         with open(f"{d}/insurance_metrics_losses.png", "rb") as f:
             require(f.read(8) == b"\x89PNG\r\n\x1a\n",
                     "insurance: no loss-curve PNG")
+        # the reference's three lattice PNGs (eval/plots.py, no
+        # matplotlib): the last grid dump's mosaic and its first lattice
+        grid = read_csv(f"{d}/insurance_out_{INS_STEPS}.csv")
+        raw, plotted = plots.lattice_images(grid, (4, 3))
+        pngs = check_pngs(d, [
+            ("DCGAN_Generated_Lattices.png", plots.grid_image(grid, (4, 3))),
+            ("DCGAN_Generated_Lattice_Example.png", raw),
+            ("DCGAN_Generated_Lattice_Example_Plotted.png", plotted)])
         for g, path in trainer.model_paths().items():
             back = serialization.read_model(path, trainer.device)
             live = getattr(trainer, g)
@@ -1130,7 +1169,7 @@ def insurance_phase(torch, smi: str, keep: str) -> dict:
         host_seconds=dump_summary(res["host_seconds"]),
         host_seconds_sync=dump_summary(res_sync["host_seconds"]),
         dumps_checked=len(dumps), sync_dumps_byte_identical=True,
-        nvidia_smi=smi)
+        pngs=pngs, nvidia_smi=smi)
 
 
 def graph_phase(cfg, torch):
@@ -1349,17 +1388,39 @@ def sync_bn_profile(group, torch):
     return outs
 
 
-def cv_main_phase(torch, smi: str, keep_csv: str) -> dict:
-    """The CV program as a user runs it (``cv_main``), on the card, three
-    times in temporary res-paths: as given (the launch counters zeroed just
-    before and read just after; artifacts, model zips read back, scores),
-    with ``--sync-dumps`` (the dumps byte-identical), and with the table
-    streamed in chunks of K = 100 steps (``data_on_device=False``; per-step
-    losses bitwise the resident run's).  The run's MNIST CSV pair is kept
-    in ``keep_csv`` (the migration phase's early stopping reads a cut of
-    it).  Returns the phase's line."""
+def check_pngs(res: str, pngs) -> dict:
+    """Each (file, the image its dump gives) decodes (``read_png``: its
+    chunks' CRCs and filter-0 rows checked) to that image; -> the decoded
+    shapes by file."""
     import numpy as np
 
+    from gan_deeplearning4j_tpu_torch.eval import plots
+
+    out = {}
+    for name, want in pngs:
+        img = plots.read_png(os.path.join(res, name))
+        require(img.shape == want.shape and bool(np.array_equal(img, want)),
+                f"{name} does not show the run's dump")
+        out[name] = list(img.shape)
+    return out
+
+
+def cv_main_phase(torch, smi: str, keep_csv: str) -> dict:
+    """The CV program as a user runs it (``cv_main``), on the card, four
+    times in temporary res-paths: as given (the launch counters zeroed just
+    before and read just after; artifacts, model zips read back, scores,
+    ``DCGAN_Generated_Images.png`` decoded against the last grid dump's
+    mosaic), with ``--sync-dumps`` (the dumps byte-identical), with the
+    table streamed in chunks of K = 100 steps on the plain chunk tier
+    (``data_on_device=False``, ``stream_dedup=False``: 50 batches a pass
+    would let the dedup tier engage) and on the dedup tier (``stream_dedup``
+    auto: the u8 table crosses once, each chunk its row schedule); both
+    streamed runs' per-step losses bitwise the resident run's.  The run's
+    MNIST CSV pair is kept in ``keep_csv`` (the migration phase's early
+    stopping reads a cut of it).  Returns the phase's line."""
+    import numpy as np
+
+    from gan_deeplearning4j_tpu_torch.eval import plots
     from gan_deeplearning4j_tpu_torch.graph import serialization
     from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
     from gan_deeplearning4j_tpu_torch.train import cv_main
@@ -1370,7 +1431,8 @@ def cv_main_phase(torch, smi: str, keep_csv: str) -> dict:
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="gan4j_cv_")
     try:
-        dirs = {k: f"{root}/{k}" for k in ("async", "sync", "stream")}
+        dirs = {k: f"{root}/{k}" for k in ("async", "sync", "stream",
+                                            "dedup")}
         kernels.reset_launch_counts()
         trainer, res = cv_main.run(cv_main.parse_args(
             CV_ARGS + ["--res-path", dirs["async"]]))
@@ -1410,6 +1472,10 @@ def cv_main_phase(torch, smi: str, keep_csv: str) -> dict:
         with open(f"{d}/mnist_metrics_losses.png", "rb") as f:
             require(f.read(8) == b"\x89PNG\r\n\x1a\n",
                     "cv_main: no loss-curve PNG")
+        # the sample grid's PNG (eval/plots.py, no matplotlib): the
+        # mosaic of the last grid dump
+        pngs = check_pngs(d, [("DCGAN_Generated_Images.png", plots.grid_image(
+            f"{d}/mnist_out_{CV_STEPS}.csv", (28, 28)))])
         # the four zips read back give the trainer's params, bit for bit
         for g, path in trainer.model_paths().items():
             back = serialization.read_model(path, "cuda")
@@ -1429,7 +1495,7 @@ def cv_main_phase(torch, smi: str, keep_csv: str) -> dict:
         del trainer
 
         # the same run with synchronous dumps, from the same CSV pair
-        for k in ("sync", "stream"):
+        for k in ("sync", "stream", "dedup"):
             os.makedirs(dirs[k])
             for f in ("mnist_train.csv", "mnist_test.csv"):
                 shutil.copy(f"{d}/{f}", f"{dirs[k]}/{f}")
@@ -1440,22 +1506,33 @@ def cv_main_phase(torch, smi: str, keep_csv: str) -> dict:
                     == open(f"{dirs['sync']}/{f}", "rb").read(),
                     f"cv_main: {f} differs between async and --sync-dumps")
         # streamed: K = 100 steps of u8 codes a chunk (5 bytes a feature
-        # in the byte budget, as in the JAX trainer)
+        # in the byte budget, as in the JAX trainer), the plain chunk tier
+        budget = CV_K * 200 * (5 * 784 + 4 * 10)
         _, res_stream = cv_main.run(
             cv_main.parse_args(CV_ARGS[:-1] + ["0", "--res-path",
                                                dirs["stream"]]),
-            data_on_device=False,
-            stream_chunk_bytes=CV_K * 200 * (5 * 784 + 4 * 10))
-        recs_s = step_records(f"{dirs['stream']}/mnist_metrics.jsonl")
+            data_on_device=False, stream_chunk_bytes=budget,
+            stream_dedup=False)
         keys = ("d_loss", "g_loss", "classifier_loss")
-        require(not res_stream["resident"]
+        require(not res_stream["resident"] and not res_stream["stream_dedup"]
                 and res_stream["steps_per_call"] == CV_K
                 and res_stream["data_codec"] == "u8x100",
                 f"cv_main streamed: {res_stream}")
-        require([[r[k] for k in keys] for r in recs]
-                == [[r[k] for k in keys] for r in recs_s],
-                "cv_main: the streamed run's per-step losses differ from "
-                "the resident run's")
+        # the dedup tier, on auto: the same arguments
+        _, res_dedup = cv_main.run(
+            cv_main.parse_args(CV_ARGS[:-1] + ["0", "--res-path",
+                                               dirs["dedup"]]),
+            data_on_device=False, stream_chunk_bytes=budget)
+        require(not res_dedup["resident"] and res_dedup["stream_dedup"]
+                and res_dedup["steps_per_call"] == CV_K
+                and res_dedup["data_codec"] == "u8x100",
+                f"cv_main dedup: {res_dedup}")
+        for k in ("stream", "dedup"):
+            recs_s = step_records(f"{dirs[k]}/mnist_metrics.jsonl")
+            require([[r[x] for x in keys] for r in recs]
+                    == [[r[x] for x in keys] for r in recs_s],
+                    f"cv_main: the {k} run's per-step losses differ from "
+                    "the resident run's")
         for split in ("train", "test"):
             shutil.copy(f"{dirs['async']}/mnist_{split}.csv", keep_csv)
     finally:
@@ -1467,13 +1544,19 @@ def cv_main_phase(torch, smi: str, keep_csv: str) -> dict:
         examples_per_sec=res["examples_per_sec"],
         examples_per_sec_sync_dumps=res_sync["examples_per_sec"],
         examples_per_sec_streamed=res_stream["examples_per_sec"],
+        examples_per_sec_dedup=res_dedup["examples_per_sec"],
         step_ms_median=res["step_ms_median"], losses=[
             res[k] for k in ("d_loss", "g_loss", "clf_loss")],
         scores=scores, host_seconds=res["host_seconds"],
         host_seconds_sync=res_sync["host_seconds"],
         host_seconds_streamed=res_stream["host_seconds"],
+        host_seconds_dedup=res_dedup["host_seconds"],
+        # bytes on the host link: the plain chunk tier's chunk, the dedup
+        # tier's table (once) and its chunk (the row schedule)
+        link_bytes={"plain_chunk": res_stream["link_bytes"],
+                    "dedup": res_dedup["link_bytes"]},
         sync_dumps_byte_identical=True, streamed_losses_bitwise=True,
-        nvidia_smi=smi)
+        dedup_losses_bitwise=True, pngs=pngs, nvidia_smi=smi)
 
 
 # -- the resume phase ---------------------------------------------------------
@@ -1481,15 +1564,16 @@ def cv_main_phase(torch, smi: str, keep_csv: str) -> dict:
 RES_INS_EVERY = 500  # the insurance children's --checkpoint-every
 RES_INS_SIGNAL_AFTER = 2000  # SIGTERM after this step's "Completed Batch"
 # the CV runs: full width, batch 200, RES_CV_STEPS steps in calls of K =
-# 100, the CSV pair cut as in the cv_main phase, no FID
+# 50, the CSV pair cut as in the cv_main phase, no FID
 RES_CV_BASE = ["--n-train", "10000", "--n-test", "2000", "--iterations",
-               "200", "--print-every", "100", "--save-every", "100",
+               "100", "--print-every", "50", "--save-every", "50",
                "--fid-samples", "0"]
-RES_CV_CKPT = ["--checkpoint-every", "100"]
-# 200 steps, preempted at 100 (400 and 200 up to PR 15: a save's DEFLATE
-# is seconds of host time, and the script must stay inside its limit)
-RES_CV_STEPS = 200
-RES_CV_STOP = 100
+RES_CV_CKPT = ["--checkpoint-every", "50"]
+# 100 steps, preempted at 50 (once 400 and 200, then 200 and 100: a save's
+# DEFLATE is seconds of host time, and the script must stay inside its
+# limit)
+RES_CV_STEPS = 100
+RES_CV_STOP = 50
 RES_DP_STEPS = (4, 8)  # the world-2 run: a checkpoint at 4, resumed to 8
 RES_CHILD_TIMEOUT_S = 300
 # the cross-process CV resume under the default policy against the
@@ -1498,6 +1582,8 @@ RES_CHILD_TIMEOUT_S = 300
 # process, and a chaotic GAN run amplifies another choice); under the
 # untimed choice the check is bitwise
 RES_CV_BOUNDS = (0.0, 1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 5e-2)
+# what the resume phase's CV children run beside (the script's limit)
+BESIDE_CV_CHILDREN = "the insurance children and the world-2 resume's ranks"
 # a child process under cuDNN's untimed deterministic choice (benchmark
 # off: the "heuristic" policy of train/moment_triage.py): every entry
 # point sets the parity switches through backend.set_f32_parity, so the
@@ -1783,17 +1869,19 @@ def resume_insurance(ref: str, ref_auroc: float, root: str) -> dict:
             "events_a": names_a, "checkpoint_bytes": ckpt_bytes,
             "bitwise": True, "largest_param_diff": worst,
             "metrics_steps_equal": INS_STEPS, "test_auroc": ref_auroc,
-            # the world-2 resume runs beside both children
+            # the world-2 resume runs beside both children, and all of
+            # them beside the CV resume's children
             "shared_card": shared_card(
-                "the world-2 resume", seconds_a=sec_a, seconds_b=sec_b,
+                ["the world-2 resume", "the CV resume's children"],
+                seconds_a=sec_a, seconds_b=sec_b,
                 b_restore_s=hs.get("restore_s"),
                 b_capture_s=hs.get("capture_s"),
                 b_checkpoint_s=hs.get("checkpoint_s"))}
 
 
-def resume_cv(torch, root: str, serve_src: str) -> dict:
+def resume_cv(torch, root: str, serve_src: str, csv_dir: str, beside=None):
     """The CV program at full width, RES_CV_STEPS steps at batch 200 in
-    calls of K = 100, checkpoints every 100: (1) in this process, U runs
+    calls of K = 50, checkpoints every 50: (1) in this process, U runs
     uninterrupted, P is preempted (SIGTERM to itself after step
     RES_CV_STOP's line: the emergency checkpoint), R resumes it with the
     launch counters zeroed just before and read just after; R's final
@@ -1811,14 +1899,12 @@ def resume_cv(torch, root: str, serve_src: str) -> dict:
     ``serve_src`` for the serve phase.  (The insurance part sends SIGTERM
     to a child; here the signal reaches this process, which keeps the CV
     part to its children.)"""
-    from gan_deeplearning4j_tpu_torch.data import datasets
     from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
     from gan_deeplearning4j_tpu_torch.runtime import prng
     from gan_deeplearning4j_tpu_torch.train import cv_main, fused_step
     from gan_deeplearning4j_tpu_torch.train.gan_trainer import advance_latents
 
-    data = f"{root}/cv_data"
-    datasets.ensure_mnist_csv(data, 10000, 2000)
+    data = csv_dir
 
     def res_dir(name: str) -> str:
         d = f"{root}/{name}"
@@ -1835,7 +1921,8 @@ def resume_cv(torch, root: str, serve_src: str) -> dict:
     u = res_dir("cv_u")
     tu, ru = run(["--res-path", u])
     p = res_dir("cv_p")
-    sig = _SignalAt(f"Completed Batch {RES_CV_STOP}!")
+    # the step line (a "Completed Batch" line comes every 100 steps only)
+    sig = _SignalAt(f"step {RES_CV_STOP}: ")
     tp, rp = run(RES_CV_CKPT + ["--res-path", p, "--preempt-signal",
                                 "SIGTERM", "--async-checkpoint"], sig)
     require(sig.fired and tp is None and rp.get("preempted")
@@ -1896,6 +1983,10 @@ def resume_cv(torch, root: str, serve_src: str) -> dict:
     # (checkpoints at RES_CV_STOP only: the resume needs no other)
     untimed_ckpt = ["--checkpoint-every", str(RES_CV_STOP)]
     w = res_dir("cv_w")
+    # ``beside`` (the insurance children and the world-2 ranks) runs from
+    # here to the last CV child's end
+    side_pool = concurrent.futures.ThreadPoolExecutor(1)
+    side = side_pool.submit(beside) if beside is not None else None
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         x_child = pool.submit(run_child, cv_main_mod, RES_CV_BASE
                               + RES_CV_CKPT + ["--res-path", x, "--resume"])
@@ -1931,6 +2022,8 @@ def resume_cv(torch, root: str, serve_src: str) -> dict:
             f"differs from the uninterrupted run by {worst_u} (first "
             f"differing leaf {first_u}); it must be bitwise")
     shutil.copytree(f"{w}/checkpoints", serve_src, dirs_exist_ok=True)
+    side_out = side.result() if side is not None else {}
+    side_pool.shutdown()
     return {"steps": RES_CV_STEPS, "stopped_at": RES_CV_STOP,
             "in_process_bitwise": True, "launches": launches,
             "expected_launches": expected,
@@ -1947,8 +2040,10 @@ def resume_cv(torch, root: str, serve_src: str) -> dict:
                 "largest_param_diff": worst_u, "bitwise": True,
                 "resumed_from": RES_CV_STOP, "checkpoints_cut": cut,
                 "seconds_resumed": sec_y,
-                "shared_card": shared_card("the timed-choice resume child",
-                                           seconds_uninterrupted=sec_w)},
+                "shared_card": shared_card(
+                    ["the timed-choice resume child (W's run)",
+                     BESIDE_CV_CHILDREN], seconds_uninterrupted=sec_w,
+                    seconds_resumed=sec_y)},
             "cross_process": {
                 # cuDNN timed its choices while W ran on the card
                 "policy": "default (timed, beside the untimed child W), "
@@ -1956,9 +2051,10 @@ def resume_cv(torch, root: str, serve_src: str) -> dict:
                 "largest_param_diff": worst, "first_differing_leaf": first,
                 "bound_met": bound, "bitwise": worst == 0.0,
                 "shared_card": shared_card(
-                    "the untimed child W", seconds=sec_b,
+                    ["the untimed child W", BESIDE_CV_CHILDREN],
+                    seconds=sec_b,
                     **{k: res_b["host_seconds"].get(k) for k in (
-                        "checkpoint_s", "restore_s", "capture_s")})}}
+                        "checkpoint_s", "restore_s", "capture_s")})}}, side_out
 
 
 def resume_dp_rank(group, dirs) -> dict:
@@ -2011,7 +2107,8 @@ def resume_dp(root: str) -> dict:
             "ranks": [{k: v for k, v in r.items() if k != "restore_s"}
                       for r in ranks],
             "shared_card": shared_card(
-                "the insurance resume's children",
+                ["the insurance resume's children",
+                 "the CV resume's children"],
                 seconds=time.perf_counter() - t0,
                 restore_s=[r["restore_s"] for r in ranks])}
 
@@ -2052,25 +2149,31 @@ def resume_data_retry(root: str, torch) -> dict:
 
 
 def resume_phase(torch, smi: str, ins_ref: str, ins_auroc: float,
-                 serve_src: str) -> dict:
+                 serve_src: str, csv_dir: str) -> dict:
     """Checkpoints, preemption and resume on the card (see the module
-    docstring, phase 10); leaves a CV checkpoint directory in
-    ``serve_src``."""
+    docstring, phase 10); the CV runs read the cv_main phase's CSV pair
+    in ``csv_dir``; leaves a CV checkpoint directory in ``serve_src``."""
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="gan4j_resume_")
     try:
-        # the world-2 resume's ranks run beside the insurance children (the
-        # script's limit): every check of both is bitwise, whatever shares
-        # the card; their timings stand under ``shared_card``
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            dp = pool.submit(resume_dp, root)
-            out = {"insurance": resume_insurance(ins_ref, ins_auroc, root),
-                   "dp": dp.result()}
-        t1 = time.perf_counter()
-        out["cv"] = resume_cv(torch, root, serve_src)
+        # the world-2 resume's ranks run beside the insurance children, and
+        # both beside the CV children (the script's limit): every check of
+        # them is bitwise, whatever shares the card; their timings stand
+        # under ``shared_card``
+        def insurance_and_dp():
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                dp = pool.submit(resume_dp, root)
+                return {"insurance": resume_insurance(ins_ref, ins_auroc,
+                                                      root),
+                        "dp": dp.result()}
+
+        out = {}
+        out["cv"], side = resume_cv(torch, root, serve_src, csv_dir,
+                                    beside=insurance_and_dp)
+        out.update(side)
         t2 = time.perf_counter()
         out["data_retry"] = resume_data_retry(root, torch)
-        out["seconds_by_part"] = {"insurance_and_dp": t1 - t0, "cv": t2 - t1,
+        out["seconds_by_part"] = {"cv_insurance_and_dp": t2 - t0,
                                   "retry": time.perf_counter() - t2}
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3406,9 +3509,11 @@ def pr_wrappers_refuse_bf16(torch) -> dict:
     return out
 
 
-def precision_phase(torch, smi: str, bw: float) -> dict:
+def precision_phase(torch, smi: str, bw: float, beside=None) -> dict:
     """The reference's precision modes on the card (module docstring,
-    phase 13)."""
+    phase 13).  ``beside``: one more child's function (the extractors'
+    recipes), run beside the two children; its result under
+    ``beside_result``."""
     t0 = time.perf_counter()
     out = {"wrappers_refuse_bf16": pr_wrappers_refuse_bf16(torch),
            "upsample_bf16_block_sum": pr_block_sum(torch, bw)}
@@ -3445,10 +3550,13 @@ def precision_phase(torch, smi: str, bw: float) -> dict:
                      "gan_deeplearning4j_tpu_torch.train.cv_main",
                      CV_ARGS + ["--bf16", "--mp", "--res-path",
                                 f"{root}/cv"])}
-        with concurrent.futures.ThreadPoolExecutor(len(specs)) as pool:
+        with concurrent.futures.ThreadPoolExecutor(
+                len(specs) + (beside is not None)) as pool:
+            extra = pool.submit(beside) if beside is not None else None
             futures = {name: pool.submit(run_child, *spec)
                        for name, spec in specs.items()}
             done = {name: f.result() for name, f in futures.items()}
+            out["beside_result"] = extra.result() if extra else None
         children = {}
         for name, (rc, result, secs, tail) in done.items():
             require(rc == 0 and result is not None,
@@ -3457,8 +3565,9 @@ def precision_phase(torch, smi: str, bw: float) -> dict:
             children[name] = dict(
                 result={k: v for k, v in result.items() if k not in timed},
                 shared_card=shared_card(
-                    [n for n in specs if n != name], seconds=secs,
-                    **{k: result.get(k) for k in timed}))
+                    [n for n in specs if n != name]
+                    + (["the extractors' recipes"] if beside else []),
+                    seconds=secs, **{k: result.get(k) for k in timed}))
         cg = done["roadmap_cgan_mp"][1]
         require(cg["precision"] == {"matmul_bf16": False, "compute_bf16": True}
                 and cg["steps"] == 100 and cg["graphed"]
@@ -5514,21 +5623,19 @@ def obs_roadmap(torch, root: str, child) -> dict:
                 run_id=res["run_id"], seconds=secs)
 
 
-def observability_phase(torch, smi: str) -> dict:
+def observability_phase(torch, smi: str, csv_dir: str) -> dict:
     """The training run's observability on the card (module docstring,
-    phase 17).  The preemption drill's events are the resume phase's
+    phase 17), on the cv_main phase's CSV pair in ``csv_dir``.  The
+    preemption drill's events are the resume phase's
     (``resume_insurance``: its SIGTERM'd child's ``events.jsonl``)."""
     import threading
 
-    from gan_deeplearning4j_tpu_torch.data import datasets
     from gan_deeplearning4j_tpu_torch.train import profile_step
 
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="gan4j_obs_")
     try:
-        csv_dir = f"{root}/csv"
-        datasets.ensure_mnist_csv(csv_dir, 10000, 2000)
-        out = {"nvidia_smi": smi, "csv_s": time.perf_counter() - t0}
+        out = {"nvidia_smi": smi}
         # the celeba child beside the full run (neither is timed: their
         # checks are counts, files and scrapes)
         family, rows, iters, every = OBS_RM
@@ -6463,6 +6570,399 @@ def fleet_phase(torch, smi: str, randn, bw: float, sms: int) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# -- the tenant lifecycle ----------------------------------------------------
+
+LC_BATCH = FLEET_B
+LC_BUCKETS = (2, 4, 32, 64)
+LC_STEPS = 10  # steps a window
+LC_BIG = ("h100_l3", 100, 3, 30)  # the reference's width: 30 tenants (32)
+LC_SMALL = ("h64_l2", 64, 2, 2)   # 2 tenants (bucket 2)
+LC_GHOSTS = (40, 41, 42)          # one onboard / offboard cycle each
+LC_GROW = (43, 44, 45)            # take h100_l3 past 32: the hop to 64
+LC_RETURN = 5                     # offboarded with its checkpoint, then back
+LC_POISON = 7                     # poison_tenant_params
+LC_FEED = 11                      # TenantFeedPoisoner
+LC_SEGMENTS = 46
+LC_WINDOWS = 11
+LC_POISON_W = 8                   # the window poison_tenant_params lands in
+LC_FEED_W = 9                     # the window the feed poisoner arms
+# the capacities warm-up captures (JAX ``_warm_caps``: every bucket up to
+# one above the cohort's start)
+LC_WARMED = {LC_BIG[0]: (2, 4, 32, 64), LC_SMALL[0]: (2, 4)}
+# each cohort's train-mode BNs at batch 16, per tenant: (rows, features),
+# act, as its masked step calls the tenant kernels (the discriminator's
+# over the real and fake rows; h64_l2's classifier BN is 64 wide)
+LC_BN = {LC_BIG[0]: FLEET_BN,
+         LC_SMALL[0]: [((32, 12), "elu"), ((16, 2), "tanh"),
+                       ((16, 12), "elu"), ((16, 64), "elu")]}
+
+
+def lc_kernels(torch) -> dict:
+    """Both tenant BN kernels at each cohort's BN shapes (LC_BN) and at
+    every capacity its graphs are captured at (LC_WARMED), the plans the
+    lifecycle's replays launch, on lanes of the lifecycle's kinds: the last
+    lane a ghost's (one row repeated, BN variance 0: a ghost's zero data
+    gives each later layer constant rows) and, from 3 lanes, the one
+    before it all zeros.  Each against its plain version on the same
+    inputs on the host, the forward at ``fleet_kernel``'s tolerances and
+    the backward at FLEET_BWD_TOL (so the ghost lanes' outputs finite):
+    the kernels sum each column in the CPU reference's order, and on a
+    lane of variance 0 y is the mean's rounding times rsqrt(eps) ~ 316, so
+    torch's CUDA reductions, which round the mean otherwise, move it by
+    ~2e-5.  Then lane 0's x given a NaN: every other lane's outputs,
+    forward and backward, bitwise those of the clean launch.  -> what was
+    checked and the largest differences."""
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act as bn2d
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20261021)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale + shift
+
+    fwd_tol = [(1e-5, 1e-4), (1e-6, 1e-4), (1e-6, 1e-4)]
+    atol, rtol = FLEET_BWD_TOL
+    err_f = err_b = ghost_var = 0.0
+    checked = []
+    for key, caps in LC_WARMED.items():
+        for cap in caps:
+            for (b, f), act in LC_BN[key]:
+                at = f"{key}@{cap} [{cap},{b},{f}] {act}"
+                x = randn(cap, b, f, scale=0.5, shift=0.2)
+                x[-1] = randn(1, f, scale=0.5)
+                if cap >= 3:
+                    x[-2] = 0.0
+                gm = randn(cap, f, scale=0.1, shift=1.0)
+                bt = randn(cap, f, scale=0.1)
+                got = kernels.fused_bn_act_train_tenants(x, gm, bt, 1e-5, act)
+                want = bn2d.bn_act_tenants_plain(x.cpu(), gm.cpu(), bt.cpu(),
+                                                 1e-5, act)
+                for a, p_, (at_, rt_) in zip(got, want, fwd_tol):
+                    require(within(a.cpu(), p_, at_, rt_), "bn_act_tenants "
+                            f"disagrees with its plain version at {at}")
+                    err_f = max(err_f, max_err(a.cpu(), p_))
+                _, mean, var = got
+                # E[x^2] - E[x]^2 of one repeated row: zero up to rounding
+                ghost_var = max(ghost_var, float(var[-1].abs().max()))
+                cot = (randn(cap, b, f), randn(cap, f), randn(cap, f))
+                gb = kernels.bn_act_tenants_bwd(x, gm, bt, mean, var, *cot,
+                                                1e-5, act)
+                wb = bn2d.bn_act_tenants_bwd_plain(
+                    *(t.cpu() for t in (x, gm, bt, mean, var, *cot)), 1e-5,
+                    act)
+                for a, p_ in zip(gb, wb):
+                    require(within(a.cpu(), p_, atol, rtol),
+                            "bn_act_tenants_bwd disagrees with its plain "
+                            f"version at {at}")
+                    err_b = max(err_b, max_err(a.cpu(), p_))
+                xn = x.clone()
+                xn[0, 0, 0] = float("nan")
+                gn = kernels.fused_bn_act_train_tenants(xn, gm, bt, 1e-5, act)
+                bn = kernels.bn_act_tenants_bwd(xn, gm, bt, gn[1], gn[2],
+                                                *cot, 1e-5, act)
+                require(all(torch.equal(u[1:], v[1:])
+                            for u, v in zip((*gn, *bn), (*got, *gb))),
+                        f"lifecycle kernels: a NaN in lane 0 moved another "
+                        f"lane at {at}")
+                checked.append(at)
+    return {"checked": checked, "max_abs_err": err_f,
+            "bwd_max_abs_err": err_b, "ghost_var_max_abs": ghost_var,
+            "lanes": "the last a ghost's (variance 0), from 3 lanes the one "
+                     "before it zeros; lane 0 then given a NaN (the others "
+                     "bitwise)"}
+
+
+def lc_run(torch, root: str, poison: bool) -> dict:
+    """One lifecycle run (``train/lifecycle.py``, the JAX ``bench.py``
+    ``lifecycle_dryrun`` at the reference's width): two cohorts, windows of
+    LC_STEPS steps, the membership events of the ``lifecycle_phase``
+    docstring, with or without the two poisonings; the launch counters
+    zeroed after the warm-up and read after the last window."""
+    import numpy as np
+
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.testing import chaos
+    from gan_deeplearning4j_tpu_torch.train import lifecycle as L
+
+    specs = ([L.TenantSpec(i, LC_BIG[1], LC_BIG[2]) for i in range(LC_BIG[3])]
+             + [L.TenantSpec(LC_BIG[3] + i, LC_SMALL[1], LC_SMALL[2])
+                for i in range(LC_SMALL[3])])
+    cfg = L.LifecycleConfig(batch_size=LC_BATCH, buckets=LC_BUCKETS,
+                            warm_buckets=None, res_path=root,
+                            num_segments=LC_SEGMENTS, record_timelines=True,
+                            device="cuda")
+    m = L.FleetManager(specs, cfg)
+    t0 = time.perf_counter()
+    warmed = m.warmup()
+    warm_s = time.perf_counter() - t0
+
+    def feed(w):
+        rng = np.random.RandomState(20261021 + w)
+        return (rng.rand(LC_SEGMENTS * LC_BATCH, 12).astype(np.float32),
+                (rng.rand(LC_SEGMENTS * LC_BATCH) < 0.5).astype(np.float32))
+
+    poisoner = chaos.TenantFeedPoisoner(feed, LC_FEED, LC_SEGMENTS)
+    spec = lambda t: L.TenantSpec(t, LC_BIG[1], LC_BIG[2])  # noqa: E731
+    window_s, caps, back = [], [], None
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for w in range(LC_WINDOWS):
+        if 1 <= w <= len(LC_GHOSTS):
+            m.onboard(spec(LC_GHOSTS[w - 1]))
+        if 2 <= w <= len(LC_GHOSTS) + 1:
+            m.offboard(LC_GHOSTS[w - 2])
+        if w == 5:
+            for t in LC_GROW:
+                m.onboard(spec(t))
+        if w == 6:
+            back = os.path.dirname(m.offboard(LC_RETURN))
+        if w == 7:
+            m.onboard(spec(LC_RETURN), from_checkpoint=back)
+        if poison and w == LC_POISON_W:
+            chaos.poison_tenant_params(m, LC_POISON)
+        if poison and w == LC_FEED_W:
+            poisoner.arm()
+        feats, labs = poisoner(w)
+        caps.append({k: c.capacity for k, c in m.cohorts.items()})
+        t1 = time.perf_counter()
+        m.step_window(feats, labs, LC_STEPS)
+        window_s.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    # the ghost lanes' losses in the last window: finite (zero data, BN
+    # variance 0 on every ghost feature)
+    ghosts_finite = True
+    for c in m.cohorts.values():
+        g = c.lane_graphs[c.capacity]
+        rows = [(g.steps - LC_STEPS + i) % g.ring for i in range(LC_STEPS)]
+        ring = torch.stack([g.losses[r] for r in rows]).view(
+            LC_STEPS, -1, 3).cpu()
+        for slot, t in enumerate(c.slots):
+            if t is None:
+                ghosts_finite &= bool(torch.isfinite(ring[:, slot]).all())
+    lanes = {t: L._host_row(c.state, c.slot_of(t))
+             for c in m.cohorts.values() for t in c.occupied_ids()}
+    return {"manager": m, "warmed": warmed, "warm_s": warm_s,
+            "window_s": window_s, "capacities": caps,
+            "launches": launches, "ghosts_finite": ghosts_finite,
+            "lanes": lanes}
+
+
+def lifecycle_phase(torch, smi: str) -> dict:
+    """The tenant lifecycle on the card (the JAX ``bench.py:1327``
+    ``lifecycle_dryrun``): ``LifecycleConfig(batch_size=16, buckets=(2, 4,
+    32, 64), warm_buckets=None)``, cohort h100_l3 (the reference's
+    insurance MLP-GAN: 30 tenants, bucket 32, warmed 2 / 4 / 32 / 64) and
+    h64_l2 (2 tenants, bucket 2, warmed 2 / 4), LC_WINDOWS windows of
+    LC_STEPS steps.  Events: three onboard / offboard cycles through a ghost
+    slot; three onboards taking h100_l3 past 32 tenants (the hop to 64); an
+    offboard with its final checkpoint and the re-onboard from it; then,
+    in the chaos run only, ``poison_tenant_params`` on one tenant and
+    ``TenantFeedPoisoner`` on another.  Required: 0 captures after warm-up;
+    exactly the poisoned tenants quarantined; every survivor's per-step
+    losses and final lane bitwise the control run's, each poisoned
+    tenant's up to its poisoning's window; every (cohort, capacity) graph
+    launching the tenant kernels and ``fused_update`` at the counts its
+    graphs give (4 + 4 + 3 a step at both widths) and the counters at
+    those counts over the windows; the ghost lanes finite.  Reports the
+    onboard latency (median, IQR), each (cohort, capacity)'s device ms a
+    step, the quarantine windows' seconds and the captures.  First, the
+    tenant kernels at the lifecycle's shapes, capacities and lane kinds
+    (``lc_kernels``)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    at_shapes = lc_kernels(torch)
+    root = tempfile.mkdtemp(prefix="gan4j_lifecycle_")
+    try:
+        ctl = lc_run(torch, f"{root}/control", poison=False)
+        run = lc_run(torch, f"{root}/chaos", poison=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    mc, mr = ctl["manager"], run["manager"]
+    require(ctl["warmed"] == run["warmed"] == {
+        k: list(v) for k, v in LC_WARMED.items()},
+        f"lifecycle: warmed {run['warmed']}")
+    require(mc.captures_after_warmup == mr.captures_after_warmup == 0,
+            f"lifecycle: {mr.captures_after_warmup} captures after warm-up")
+    require(mc.quarantined == {}
+            and mr.quarantined == {LC_POISON: "nan",
+                                   LC_FEED: "data-quarantine-budget"},
+            f"lifecycle: quarantined {mr.quarantined} (control "
+            f"{mc.quarantined})")
+    require(run["capacities"][-1][LC_BIG[0]] == 64
+            and run["capacities"][4][LC_BIG[0]] == 32,
+            f"lifecycle: capacities {run['capacities']}")
+    cut = {LC_POISON: LC_POISON_W * LC_STEPS, LC_FEED: LC_FEED_W * LC_STEPS}
+    for t, hist in mc.loss_history.items():
+        got = mr.loss_history[t]
+        n = cut.get(t, len(hist["d"]))
+        require(n <= len(got["d"]) and all(
+            got[k][:n] == hist[k][:n] for k in ("d", "g", "clf")),
+            f"lifecycle: tenant {t}'s losses differ from the control's "
+            f"within its first {n} steps")
+    survivors = [t for t in ctl["lanes"] if t not in cut]
+    for t in survivors:
+        a = fused_leaves(ctl["lanes"][t])
+        b = fused_leaves(run["lanes"][t])
+        require(all(torch.equal(a[k], b[k]) for k in a),
+                f"lifecycle: survivor {t}'s final lane differs from the "
+                "control's")
+    # the launches: each (cohort, capacity) graph's per replay, and the
+    # counters over every window
+    per_graph, want = {}, {}
+    for res in (ctl, run):
+        for key, c in res["manager"].cohorts.items():
+            for cap, g in c.lane_graphs.items():
+                got = {k: g.launches.get(k, 0) for k in LC_KERNELS}
+                require(got["bn_act_tenants"] == len(LC_BN[key]),
+                        f"lifecycle: {key} has {got['bn_act_tenants']} "
+                        f"tenant BNs, LC_BN checks {len(LC_BN[key])}")
+                require(got == c.launches_per_step(),
+                        f"lifecycle: {key}@{cap} launches {got} a step, not "
+                        f"{c.launches_per_step()}")
+                per_graph[f"{key}@{cap}"] = got
+    for key, c in mr.cohorts.items():
+        for k, n in c.launches_per_step().items():
+            want[k] = want.get(k, 0) + n * LC_STEPS * LC_WINDOWS
+    for res in (ctl, run):
+        got = {k: res["launches"][k] for k in LC_KERNELS}
+        require(got == want, f"lifecycle: launches {got} over the windows, "
+                f"not {want}")
+        others = {k: v for k, v in res["launches"].items()
+                  if k not in LC_KERNELS and v}
+        require(not others, f"lifecycle: other kernels launched {others}")
+    require(ctl["ghosts_finite"] and run["ghosts_finite"],
+            "lifecycle: a ghost lane's losses are not finite")
+    onboard = list(mr._onboard_ms)
+    q1, med, q3 = np.percentile(onboard, [25, 50, 75])
+    return {
+        "nvidia_smi": smi, "batch": LC_BATCH, "buckets": LC_BUCKETS,
+        "steps_per_window": LC_STEPS, "windows": LC_WINDOWS,
+        "cohorts": {LC_BIG[0]: LC_BIG[3], LC_SMALL[0]: LC_SMALL[3]},
+        "warmed": run["warmed"], "warm_s": [ctl["warm_s"], run["warm_s"]],
+        "captures": mr.captures,
+        "captures_after_warmup": mr.captures_after_warmup,
+        "capacities": run["capacities"],
+        "quarantined": {str(k): v for k, v in mr.quarantined.items()},
+        "survivors_bitwise": len(survivors),
+        "onboard_ms": {"median": med, "iqr": q3 - q1, "n": len(onboard),
+                       "all": onboard},
+        "device_ms_per_step": {
+            f"{k}@{cap}": v for (k, cap), v in
+            mr.window_device_ms.items()},
+        "window_s": run["window_s"],
+        "quarantine_window_s": {
+            "param_poison": run["window_s"][LC_POISON_W],
+            "feed_poison": run["window_s"][LC_FEED_W]},
+        "launches_per_step": per_graph,
+        "launches": {k: run["launches"][k] for k in LC_KERNELS},
+        "kernels_at_lifecycle_shapes": at_shapes,
+        "steps": LC_STEPS * LC_WINDOWS,
+        "seconds": time.perf_counter() - t0}
+
+
+LC_KERNELS = ("bn_act_tenants", "bn_act_tenants_bwd", "fused_update")
+
+
+def fused_leaves(state) -> dict:
+    from gan_deeplearning4j_tpu_torch.train import fused_step
+
+    return fused_step._leaves(state)
+
+
+# -- the frozen extractors' recipes -------------------------------------------
+
+EX_TOL = 0.02  # a retrained extractor's held-out score below the zip's, at most
+PR_CHILDREN = ("roadmap_cgan_mp", "cv_main_bf16_mp")  # what the child is beside
+EX_CHILD = """
+import json, sys, time, torch
+import chip_smoke
+chip_smoke.T_START = time.perf_counter()
+print(json.dumps(chip_smoke.extractors_phase(torch, {smi!r})), flush=True)
+"""
+EX_FID_N = 2000  # rows of each fixed MNIST sample set of the frozen FID
+
+
+def extractors_child(smi: str) -> dict:
+    """``extractors_phase`` in a child process (beside the precision
+    phase's children, for the script's limit): its line, each recipe's
+    seconds under ``shared_card``."""
+    rc, result, secs, tail = run_child_code(EX_CHILD.format(smi=smi))
+    require(rc == 0 and result is not None,
+            f"extractors: child exit {rc}, stderr {tail}")
+    timed = ("data_s", "train_s")
+    for row in result["families"].values():
+        row["shared_card"] = shared_card(
+            list(PR_CHILDREN), **{k: row.pop(k) for k in timed})
+    result["shared_card"] = shared_card(list(PR_CHILDREN),
+                                        seconds=result.pop("seconds"),
+                                        child_seconds=secs)
+    return result
+
+
+def extractors_phase(torch, smi: str) -> dict:
+    """The three frozen extractors' recipes (``eval/fid_extractor.py``) on
+    the card from the port's own init, each written under a temporary
+    root: the recipe's seconds (its data, its training), the held-out score
+    beside the committed zip's on the same held-out set (required within
+    EX_TOL below it), and a frozen FID between two fixed MNIST sample sets
+    through the new MNIST weights and through the committed ones.  Nothing
+    is written under the JAX package (its assets' times are unchanged)."""
+    from gan_deeplearning4j_tpu_torch.data import datasets
+    from gan_deeplearning4j_tpu_torch.eval import fid as fid_lib
+    from gan_deeplearning4j_tpu_torch.eval import fid_extractor as fx
+
+    t0 = time.perf_counter()
+    before = {f: os.stat(p).st_mtime_ns for f, p in fx.ASSET_PATHS.items()}
+    root = tempfile.mkdtemp(prefix="gan4j_extractors_")
+    out = {}
+    try:
+        for family in fx.FAMILIES:
+            t1 = time.perf_counter()
+            data = fx.recipe_data(family)
+            t2 = time.perf_counter()
+            graph = fx.TRAINERS[family]("cuda", log=None, data=data)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            held = fx.held_out_set(family)
+            committed = fx._load(fx.ASSET_PATHS[family], "cuda")
+            score = fx.held_out_score(graph, family, held)
+            ref = fx.held_out_score(committed, family, held)
+            path = fx.save_asset(graph, os.path.join(
+                root, os.path.basename(fx.ASSET_PATHS[family])), family)
+            require(os.path.getsize(path) > 0, f"extractors: no {path}")
+            require(score >= ref - EX_TOL,
+                    f"extractors: {family} held-out {score} against the "
+                    f"committed zip's {ref} (tolerance {EX_TOL})")
+            row = {"data_s": t2 - t1, "train_s": t3 - t2,
+                   "steps": fx.RECIPES[family][3],
+                   "held_out_score": score, "committed_score": ref,
+                   "below_committed": ref - score}
+            if family == "mnist":
+                a = datasets.synthetic_mnist(EX_FID_N, seed=668)[0]
+                b = datasets.synthetic_mnist(EX_FID_N, seed=669,
+                                             noise=0.2)[0]
+                row["frozen_fid"] = {
+                    "new": fid_lib.compute_fid(graph, a, b,
+                                               layer=fx.FEATURE_LAYER),
+                    "committed": fid_lib.compute_fid(committed, a, b,
+                                                     layer=fx.FEATURE_LAYER),
+                    "sets": "synthetic_mnist 2000 rows, seed 668 against "
+                            "seed 669 at noise 0.2"}
+                require(all(math.isfinite(v) and v >= 0 for v in (
+                    row["frozen_fid"]["new"], row["frozen_fid"]["committed"])),
+                    f"extractors: frozen FID {row['frozen_fid']}")
+            out[family] = row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require({f: os.stat(p).st_mtime_ns for f, p in fx.ASSET_PATHS.items()}
+            == before, "extractors: a committed asset was rewritten")
+    return {"nvidia_smi": smi, "families": out, "tolerance": EX_TOL,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -7092,7 +7592,7 @@ def main() -> int:
 
         # -- 10. checkpoints, preemption and resume ---------------------------
         emit("resume", **resume_phase(torch, smi, ins_ref, ins["test_auroc"],
-                                      serve_src))
+                                      serve_src, mnist_csv))
     finally:
         shutil.rmtree(ins_ref, ignore_errors=True)
 
@@ -7105,7 +7605,11 @@ def main() -> int:
     emit("pair_dp", **pdp)
 
     # -- 13. the precision modes ---------------------------------------------
-    prec = precision_phase(torch, smi, bw)
+    # the extractors' recipes (phase 21) run as a child beside the
+    # precision phase's two children
+    prec = precision_phase(torch, smi, bw,
+                           beside=lambda: extractors_child(smi))
+    ex = prec.pop("beside_result")
     emit("precision", **prec)
 
     # -- 14. the serving plane ------------------------------------------------
@@ -7128,7 +7632,7 @@ def main() -> int:
     emit("supervision", **sv)
 
     # -- 17. the training run's observability --------------------------------
-    obs = observability_phase(torch, smi)
+    obs = observability_phase(torch, smi, mnist_csv)
     # its time against its budget, recorded (the script's own limit is
     # what a run must meet)
     emit("observability", budget_s=OBS_BUDGET_S,
@@ -7147,7 +7651,15 @@ def main() -> int:
     report.append(fleet["kernel"])
     report.append(fleet["kernel_bwd"])
 
-    # -- 20. the kernels line and the result ---------------------------------
+    # -- 20. the tenant lifecycle --------------------------------------------
+    lc = lifecycle_phase(torch, smi)
+    emit("lifecycle", **lc)
+
+    # -- 21. the frozen extractors' recipes (run beside the precision
+    # phase's children)
+    emit("extractors", **ex)
+
+    # -- 22. the kernels line and the result ---------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
     # pair, the kernel phase's check for the 4-D BN, which no model path
     # runs (as in the JAX package), and the fleet's sweep for the
@@ -7257,10 +7769,20 @@ def main() -> int:
              "launches_per_step": {
                  str(x["tenants"]): x["launches_per_step"][r["name"]]
                  for x in fleet["step"]["sweep"]},
-             "steps": FLEET_CALLS * FLEET_K * len(FLEET_SWEEP)}}
+             "steps": FLEET_CALLS * FLEET_K * len(FLEET_SWEEP)},
+         # the tenant lifecycle's masked cohort steps (the chaos run):
+         # launches over its windows, and a step's at every (cohort,
+         # capacity) graph
+         "lifecycle": {
+             "launches": lc["launches"].get(r["name"], 0),
+             "launches_per_step": {
+                 k: v.get(r["name"], 0)
+                 for k, v in lc["launches_per_step"].items()},
+             "steps": lc["steps"]}}
         for r in report]}), flush=True)
     print(json.dumps({"seconds": {
         "total": time.perf_counter() - T_START,
+        "in_time_ms": TIMED_S[0],
         "precision": prec["seconds"],
         "total_before_the_precision_phase": TOTAL_BEFORE_PRECISION_S,
         "serve": serve["seconds"],
@@ -7269,6 +7791,8 @@ def main() -> int:
         "pair_dp": pdp["seconds"], "supervision": sv["seconds"],
         "observability": obs["seconds"], "dl4j": dl4j["seconds"],
         "migration": mig["seconds"], "fleet": fleet["seconds"],
+        "lifecycle": lc["seconds"],
+        "extractors": ex["shared_card"]["child_seconds"],
         "rollback_world2": max(sv["rollback_world2"]["seconds"]),
         "by_phase": PHASE_SECONDS}}),
         flush=True)

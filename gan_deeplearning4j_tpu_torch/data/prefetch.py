@@ -1,6 +1,6 @@
 """Prefetching batch iterators: overlap host IO with device compute (torch
 twin of ``PrefetchIterator`` and ``ChunkPrefetchIterator`` in
-``gan_deeplearning4j_tpu/data/prefetch.py``, without the dedup tier).
+``gan_deeplearning4j_tpu/data/prefetch.py``, with its dedup tier).
 
 ``PrefetchIterator`` runs a background thread ``prefetch_depth`` batches
 ahead of the consumer over any iterator with the ``has_next``/``next``/
@@ -18,9 +18,19 @@ A staging slot goes back to the worker only after that copy: the worker
 waits on the event the consumer recorded behind it before refilling the
 slot.  On the CPU the same protocol runs with plain host arrays.
 
+``ChunkPrefetchIterator(dedup=True)`` is the adaptive epoch-in-chunk
+tier: when one chunk covers at least a full pass of a deterministic
+source, the distinct rows (the first pass's batches, each later pass held
+to them by exact comparison) cross the link once, as one table, and each
+chunk ships only its [K*B] int32 row-index schedule into the table; the
+step (``fused_step`` ``chunk_indexed``) gathers its batch through it.  A
+pass that outgrows the shipped table, or a batch that differs from the
+first pass's at its position, raises; the tier never falls back.
+
 ``restore_state`` repositions either pipeline at a source state (a
 checkpoint's ``iter_state``): the staged batches are dropped and a fresh
-worker starts there.
+worker starts there.  The dedup tier refuses (its table is assembled from
+the pass the worker has seen); restore the source before wrapping it.
 """
 
 from __future__ import annotations
@@ -165,7 +175,11 @@ class PrefetchIterator:
         """Reposition the whole pipeline at ``state``: stop the worker,
         discard everything staged (it predates the restore point), restore
         the source, and start a fresh worker from there.  The source must
-        implement ``restore_state``."""
+        implement ``restore_state``; the dedup chunk tier refuses."""
+        if getattr(self, "dedup", False):
+            raise RuntimeError(
+                "restore_state is not supported in dedup chunk mode — "
+                "restore the raw source before wrapping instead")
         restore = getattr(self.source, "restore_state", None)
         if restore is None:
             raise AttributeError(f"{type(self.source).__name__} does not "
@@ -224,16 +238,30 @@ class ChunkPrefetchIterator(PrefetchIterator):
     it is staged; ``feature_dtype`` is then the encoded dtype.
 
     Consume with ``next_into(features, labels)``, which fills the given
-    device buffers from the next chunk in the compute stream's order."""
+    device buffers from the next chunk in the compute stream's order.
+
+    ``dedup``: the epoch-in-chunk tier (the module docstring).  The chunk
+    is then the [K*B] int32 schedule of rows into the distinct-row table,
+    and ``next_into(features, labels, row_idx)`` fills the table buffers
+    (the first call only; ``decode_features`` maps the staged encoded
+    table into ``features``) and ``row_idx``.  ``start_batch``: the pass
+    position of the source's next batch (a resumed run's source starts
+    mid-pass; the table then holds the batches in the order first met, and
+    the schedule points into it)."""
 
     def __init__(self, source, chunk_batches: int, batch_size: int,
                  prefetch_depth: int = 1, device=None,
                  encode_features: Optional[Callable] = None,
-                 feature_dtype=np.float32):
+                 feature_dtype=np.float32, dedup: bool = False,
+                 start_batch: int = 0,
+                 decode_features: Optional[Callable] = None):
         if chunk_batches < 1:
             raise ValueError("chunk_batches must be >= 1")
         self.chunk_batches = chunk_batches
         self.encode_features = encode_features
+        self.decode_features = decode_features
+        self.dedup = dedup
+        self.start_batch = start_batch
         self.device = torch.device(device) if device is not None else None
         self._cuda = self.device is not None and self.device.type == "cuda"
         rows = chunk_batches * batch_size
@@ -247,19 +275,30 @@ class ChunkPrefetchIterator(PrefetchIterator):
         self._ready: List = []
         self._done: List = []
         for s in range(n_slots):
-            hf = torch.from_numpy(np.empty((rows, n_feat), feature_dtype))
-            hl = torch.from_numpy(np.empty((rows, n_lab), np.float32))
+            if dedup:
+                bufs = (torch.empty(rows, dtype=torch.int32),)
+            else:
+                bufs = (torch.from_numpy(np.empty((rows, n_feat),
+                                                  feature_dtype)),
+                        torch.from_numpy(np.empty((rows, n_lab), np.float32)))
             if self._cuda:
-                hf, hl = hf.pin_memory(), hl.pin_memory()
-            self._host.append((hf, hl))
+                bufs = tuple(b.pin_memory() for b in bufs)
+            self._host.append(bufs)
             if self._cuda:
-                self._staged.append((torch.empty_like(hf, device=self.device),
-                                     torch.empty_like(hl, device=self.device)))
+                self._staged.append(tuple(
+                    torch.empty_like(b, device=self.device) for b in bufs))
                 self._ready.append(torch.cuda.Event())
                 self._done.append(torch.cuda.Event())
             self._free.put(s)
         self._side = torch.cuda.Stream(self.device) if self._cuda else None
         self._used = [False] * n_slots
+        # the dedup tier's table: staged once by the worker (host, device
+        # copy, its event), copied into the consumer's buffers once
+        self._table = None
+        self._table_taken = False
+        # bytes the worker put on the link: the table once, every chunk
+        self.table_bytes = 0
+        self.chunk_bytes = 0
         super().__init__(source, prefetch_depth=prefetch_depth, loop=True,
                          min_rows=batch_size)
 
@@ -271,7 +310,33 @@ class ChunkPrefetchIterator(PrefetchIterator):
                 continue
         return None
 
+    def _stage(self, arrays, st) -> bool:
+        """Fill a free slot's pinned buffers with ``arrays``, start their
+        upload on the side stream and queue the slot; False once stopped."""
+        s = self._take_slot()
+        if s is None:
+            return False
+        if self._cuda and self._used[s]:
+            # the slot's last device-to-device copy (and so its last
+            # upload from the pinned buffer) must be done
+            self._done[s].synchronize()
+        for h, a in zip(self._host[s], arrays):
+            h.numpy()[...] = a
+        self.chunk_bytes = sum(h.numel() * h.element_size()
+                               for h in self._host[s])
+        if self._cuda:
+            with torch.cuda.stream(self._side):
+                for d, h in zip(self._staged[s], self._host[s]):
+                    d.copy_(h, non_blocking=True)
+                self._ready[s].record(self._side)
+        if not self._put_stop_aware((s, st)):
+            self._free.put(s)
+            return False
+        return True
+
     def _produce(self) -> None:
+        if self.dedup:
+            return self._produce_dedup()
         while True:
             feats, labs = [], []
             while len(feats) < self.chunk_batches:
@@ -281,44 +346,119 @@ class ChunkPrefetchIterator(PrefetchIterator):
                 feats.append(np.asarray(ds.features))
                 labs.append(np.asarray(ds.labels))
             st = self._source_state()  # position after the chunk
-            s = self._take_slot()
-            if s is None:
-                return
-            if self._cuda and self._used[s]:
-                # the slot's last device-to-device copy (and so its last
-                # upload from the pinned buffer) must be done
-                self._done[s].synchronize()
             f_chunk = np.concatenate(feats)
             if self.encode_features is not None:
                 f_chunk = self.encode_features(f_chunk)
-            hf, hl = self._host[s]
-            hf.numpy()[...] = f_chunk
-            np.concatenate(labs, out=hl.numpy())
-            if self._cuda:
-                df, dl = self._staged[s]
-                with torch.cuda.stream(self._side):
-                    df.copy_(hf, non_blocking=True)
-                    dl.copy_(hl, non_blocking=True)
-                    self._ready[s].record(self._side)
-            if not self._put_stop_aware((s, st)):
-                self._free.put(s)
+            if not self._stage((f_chunk, np.concatenate(labs)), st):
+                return
+
+    def _ship_table(self, feats: List, labs: List) -> None:
+        """The distinct-row table, on the link once (the worker's first
+        chunk): pinned host copies and, on the card, their upload on the
+        side stream behind an event."""
+        tf = np.concatenate(feats)
+        if self.encode_features is not None:
+            tf = self.encode_features(tf)
+        host = (torch.from_numpy(np.ascontiguousarray(tf)),
+                torch.from_numpy(np.concatenate(labs)))
+        self.table_bytes = sum(h.numel() * h.element_size() for h in host)
+        if not self._cuda:
+            self._table = (host, None)
+            return
+        host = tuple(h.pin_memory() for h in host)
+        ready = torch.cuda.Event()
+        with torch.cuda.stream(self._side):
+            dev = tuple(h.to(self.device, non_blocking=True) for h in host)
+            ready.record(self._side)
+        self._table = (dev, ready)
+
+    def _produce_dedup(self) -> None:
+        """The JAX worker's ``_worker_dedup``: the first pass's batches
+        become the table, every later batch is held to the one at its pass
+        position, and each chunk ships the table rows of its K batches."""
+        feats: List = []   # distinct batches, in the order first met
+        labs: List = []
+        slot_of = {}       # pass position -> index into feats
+        n_pass = None      # batches a pass, known at the first wrap
+        pos = self.start_batch
+        parts: List = []
+        while not self._stop.is_set():
+            if not self.source.has_next():
+                if not feats:
+                    return  # empty (or all-partial) dataset
+                if n_pass is None:
+                    n_pass = pos
+                self.source.reset()
+                pos = 0
+                if not self.source.has_next():
+                    return
+                continue
+            ds = self.source.next()
+            if self.min_rows and ds.num_examples() < self.min_rows:
+                continue  # partial epoch tail: skip-and-wrap
+            f, lab = np.asarray(ds.features), np.asarray(ds.labels)
+            slot = slot_of.get(pos)
+            if slot is None and (n_pass is None or pos < n_pass):
+                if self._table is not None:
+                    # the table already shipped while the first pass is
+                    # still producing new batches: the chunk does not
+                    # cover a pass, and later indices would leave the table
+                    raise RuntimeError(
+                        "dedup=True requires chunk_batches >= batches per "
+                        f"pass (the shipped distinct-row table held "
+                        f"{len(feats)} batches but the first pass keeps "
+                        "going); use plain chunking for "
+                        "chunk-smaller-than-epoch streams")
+                slot_of[pos] = slot = len(feats)
+                feats.append(f)
+                labs.append(lab)
+            elif slot is None or not (np.array_equal(f, feats[slot])
+                                      and np.array_equal(lab, labs[slot])):
+                raise RuntimeError(
+                    "dedup chunk streaming requires a deterministic "
+                    f"source: batch at pass position {pos} differs from "
+                    "(or extends) the first pass; disable dedup for "
+                    "shuffling/nondeterministic iterators")
+            B = f.shape[0]
+            parts.append(np.arange(slot * B, (slot + 1) * B, dtype=np.int32))
+            pos += 1
+            if len(parts) < self.chunk_batches:
+                continue
+            if self._table is None:
+                # the chunk covers >= one full pass: the table is whole
+                self._ship_table(feats, labs)
+            st = self._source_state()  # position after the chunk
+            idx, parts = np.concatenate(parts), []
+            if not self._stage((idx,), st):
                 return
 
     def _discard(self, item) -> None:
         self._free.put(item[0])  # the staged chunk's slot
 
-    def next_into(self, features: torch.Tensor, labels: torch.Tensor) -> None:
-        """Copy the next chunk into ``features``/``labels`` (raises
-        StopIteration when the stream has ended)."""
+    def next_into(self, features: torch.Tensor, labels: torch.Tensor,
+                  row_idx: Optional[torch.Tensor] = None) -> None:
+        """Copy the next chunk into ``features``/``labels`` (dedup: the
+        table, on the first call, and the schedule into ``row_idx``);
+        raises StopIteration when the stream has ended."""
         s = self.__next__()
+        cur = torch.cuda.current_stream(self.device) if self._cuda else None
+        if self.dedup and not self._table_taken:
+            (tf, tl), ready = self._table
+            if ready is not None:
+                cur.wait_event(ready)
+            if self.decode_features is not None:
+                tf = self.decode_features(tf)
+            features.copy_(tf)
+            labels.copy_(tl)
+            self._table_taken = True
         if self._cuda:
-            cur = torch.cuda.current_stream(self.device)
             cur.wait_event(self._ready[s])
             src = self._staged[s]
         else:
             src = self._host[s]
-        features.copy_(src[0])
-        labels.copy_(src[1])
+        dst = (row_idx,) if self.dedup else (features, labels)
+        for d, a in zip(dst, src):
+            d.copy_(a)
         if self._cuda:
             self._done[s].record(cur)
             self._used[s] = True

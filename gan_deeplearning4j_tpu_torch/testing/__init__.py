@@ -17,11 +17,13 @@ from gan_deeplearning4j_tpu_torch.testing.chaos import (
     SlowLorisClient,
     SlowRequestSource,
     StallingSource,
+    TenantFeedPoisoner,
     kill_replica,
     kill_replica_process,
     mid_body_disconnect,
     poison_checkpoint_dir,
     poison_fleet_checkpoint_dir,
+    poison_tenant_params,
     wedge_replica,
 )
 
@@ -29,6 +31,7 @@ __all__ = ["ChaosInjector", "ChaosSchedule", "CorruptRecordSource",
            "DeviceLostError", "FlakyReader", "FlakySource", "HangingSource",
            "InjectedCrash", "LeakyDispatchSource", "NanSource",
            "ReadbackHang", "SlowLorisClient", "SlowRequestSource",
-           "StallingSource", "kill_replica", "kill_replica_process",
-           "mid_body_disconnect", "poison_checkpoint_dir",
-           "poison_fleet_checkpoint_dir", "wedge_replica"]
+           "StallingSource", "TenantFeedPoisoner", "kill_replica",
+           "kill_replica_process", "mid_body_disconnect",
+           "poison_checkpoint_dir", "poison_fleet_checkpoint_dir",
+           "poison_tenant_params", "wedge_replica"]

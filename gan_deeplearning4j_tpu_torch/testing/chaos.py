@@ -57,8 +57,11 @@ For the serving plane:
 
 Across the planes, ``ChaosSchedule`` fires a seeded timeline of such
 injections and writes the resolved timeline into the events up front.
-The lifecycle poisoners (``poison_tenant_params``, ``TenantFeedPoisoner``)
-wait for ``train/lifecycle.py`` (ROADMAP Queue 1).
+The lifecycle poisoners strike one tenant of a ``train/lifecycle.py``
+fleet: ``poison_tenant_params`` queues a NaN param-poison of its lane for
+the next window boundary, and ``TenantFeedPoisoner`` turns its segment's
+rows NaN once armed; the per-tenant sentinel or quarantine budget must
+then take out exactly that tenant.
 """
 
 from __future__ import annotations
@@ -1069,3 +1072,52 @@ class LeakyDispatchSource:
 
     def __exit__(self, *exc) -> None:
         self.uninstall()
+
+
+def poison_tenant_params(manager, tenant: int) -> None:
+    """Queue a NaN param-poison of ONE tenant's lane for the next window
+    boundary (``FleetManager.request`` -> ``poison_params``): the
+    per-tenant health sentinel must quarantine exactly that tenant, and
+    its cohort-mates' losses stay bitwise those of an undisturbed control.
+    Queued, because membership and state surgery happen only between
+    windows."""
+    manager.request(lambda: manager.poison_params(int(tenant)))
+
+
+class TenantFeedPoisoner:
+    """Flag-guarded per-tenant feed corruption for lifecycle fleets.
+
+    Wraps a feed ``feed(window) -> (features, labels)``; once armed,
+    every row of ``tenant``'s segment (``row % num_segments == tenant``,
+    the ``TenantRouter``'s ownership rule) comes back NaN.  The router's
+    per-tenant quarantine budget then trips that tenant
+    (``raise_on_budget=False``: a ``tripped`` marker, never an exception
+    through the loop) while every other segment's rows pass through
+    byte-identical to the unwrapped feed."""
+
+    def __init__(self, feed, tenant: int, num_segments: int):
+        self._feed = feed
+        self.tenant = int(tenant)
+        self.num_segments = int(num_segments)
+        self._armed = threading.Event()
+        self.windows_poisoned = 0
+
+    def arm(self) -> None:
+        self._armed.set()
+
+    def disarm(self) -> None:
+        self._armed.clear()
+
+    @property
+    def armed(self) -> bool:
+        return self._armed.is_set()
+
+    def __call__(self, window: int):
+        feats, labs = self._feed(window)
+        if not self._armed.is_set():
+            return feats, labs
+        feats = np.array(np.asarray(feats), np.float32, copy=True)
+        rows = np.arange(feats.shape[0])
+        feats[rows % self.num_segments == self.tenant] = np.nan
+        self.windows_poisoned += 1
+        return feats, labs

@@ -66,6 +66,7 @@ from gan_deeplearning4j_tpu_torch.data.csv import read_csv_matrix
 from gan_deeplearning4j_tpu_torch.eval import fid as fid_lib
 from gan_deeplearning4j_tpu_torch.eval import fid_extractor as fx
 from gan_deeplearning4j_tpu_torch.eval import metrics as metrics_lib
+from gan_deeplearning4j_tpu_torch.eval import plots
 from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
 from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
@@ -199,6 +200,11 @@ def evaluate(trainer: GANTrainer, fid_samples: int = 10000) -> Dict[str, float]:
             c.res_path, preds, labels, c.num_classes,
             metrics_jsonl=os.path.join(
                 c.res_path, f"{c.dataset_name}_metrics.jsonl")))
+    grid_csv = os.path.join(c.res_path, f"{c.dataset_name}_out_{step}.csv")
+    if os.path.exists(grid_csv):
+        plots.save_grid_png(
+            os.path.join(c.res_path, "DCGAN_Generated_Images.png"),
+            grid_csv, (28, 28))
     t1 = time.perf_counter()
     trainer.timings["report_s"] = t1 - t0
     if fid_samples and os.path.exists(test_csv):

@@ -32,8 +32,13 @@ Semantics (the JAX module's):
     (``tenant_keys``), which torch cannot reproduce.  The port draws the
     whole fleet's latents from ONE generator as stacked [N, B, z] tensors
     (z1, then z2, each step) and checkpoints its state (``z_gen_state``);
-    parity tests inject the JAX package's draws.  The insurance model's
-    Dropout has rate 0.0, so the step draws no masks (ROADMAP item 8.5).
+    parity tests inject the JAX package's draws.  The lifecycle's masked
+    step (``train/lifecycle.py``, one CUDA graph a cohort's capacity)
+    draws each lane's latents from (seed, tenant id, the lane's ``it``)
+    instead (``tenant_latents``), so a tenant's draws do not depend on its
+    slot.
+    The insurance model's Dropout has rate 0.0, so the step draws no
+    masks (ROADMAP item 8.5).
 
 ``parallel/fleet.py`` (the tenant-axis mesh) waits for the elastic restore
 (ROADMAP Queue 1 item 7.5); ``FleetTrainer`` runs on one device and raises
@@ -47,7 +52,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,11 +77,6 @@ from gan_deeplearning4j_tpu_torch.utils import device as device_lib
 # ProtocolState fields in checkpoint-tree order (``it`` and the optional
 # ``ema_gen`` are keyed explicitly; see state_to_tree)
 _STATE_FIELDS = fused_lib.TREES
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item {item})")
 
 
 def _map_state(fn, state: ProtocolState) -> ProtocolState:
@@ -201,8 +201,9 @@ def _forward(graph, params, inputs: Dict[str, torch.Tensor], train: bool):
         layer = node.layer
         if (not isinstance(layer, (BatchNorm, Dense, Dropout))
                 or layer.multi_input or node.preprocessor is not None):
-            raise _not_ported(f"the fleet step over layer {name!r} "
-                              f"({type(layer).__name__})", "9")
+            raise fused_lib.not_ported(
+                f"the fleet step over layer {name!r} "
+                f"({type(layer).__name__})", "9")
         x = values[node.inputs[0]]
         p = params[name]
         live = train and name not in graph.frozen
@@ -223,7 +224,8 @@ def _forward(graph, params, inputs: Dict[str, torch.Tensor], train: bool):
             y = act(torch.bmm(x, p["W"]) + p["b"][:, None])
         else:  # Dropout
             if live and layer.rate > 0.0:
-                raise _not_ported("dropout masks in the fleet step", "8.5")
+                raise fused_lib.not_ported("dropout masks in the fleet step",
+                                           "8.5")
             y = x
         values[name] = y
     return values, updates
@@ -320,7 +322,7 @@ def make_fleet_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
                          f"{steps_per_call}")
     pol = backend.config()
     if pol.compute_bf16 or pol.matmul_bf16:
-        raise _not_ported("the fleet step under --bf16 / --mp", "9")
+        raise fused_lib.not_ported("the fleet step under --bf16 / --mp", "9")
 
     def one(state: ProtocolState, real, labels, y_real, y_fake, ones,
             mask: Optional[torch.Tensor] = None, *,
@@ -407,10 +409,57 @@ def graphed_fleet_step(step, state: ProtocolState, *inputs: torch.Tensor,
                        ) -> fused_lib.GraphedStep:
     """The (unmasked, one step a call) fleet step captured as one CUDA
     graph: a replay advances every tenant.  Its loss ring holds [ring,
-    3 * N] rows: (d, g, clf) for each tenant in turn, keyed by tenant 0's
-    ``it`` (the unmasked step advances every lane together)."""
+    3 * N] rows: (d, g, clf) for each tenant in turn, on a counter started
+    at tenant 0's ``it`` (the unmasked step advances every lane
+    together)."""
     return fused_lib.GraphedStep(step, state, *inputs, z_gen=z_gen, ring=ring,
                                  n_losses=3 * fleet_size(state))
+
+
+# ---------------------------------------------------------------------------
+# per-tenant latents: a counter-based draw (the lifecycle's: a tenant's
+# draws depend only on (seed, tenant id, its own step), the JAX module's
+# ``fold_in(base, tenant_id)`` discipline)
+
+_M64 = (1 << 64) - 1
+
+
+def _i64(c: int) -> int:
+    """An unsigned 64-bit constant as the signed int64 of its bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+_GOLDEN = _i64(0x9E3779B97F4A7C15)
+_MIX1 = _i64(0xBF58476D1CE4E5B9)
+_MIX2 = _i64(0x94D049BB133111EB)
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's ``>>`` is arithmetic)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _fmix(x: torch.Tensor) -> torch.Tensor:
+    """SplitMix64's finalizer on int64 bits (products wrap mod 2^64)."""
+    x = (x ^ _shr(x, 30)) * _MIX1
+    x = (x ^ _shr(x, 27)) * _MIX2
+    return x ^ _shr(x, 31)
+
+
+def tenant_latents(key: int, tids: torch.Tensor, its: torch.Tensor, B: int,
+                   z_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(z1, z2), U[-1, 1) draws [N, B, z_size] each, for lanes whose tenant
+    ids are ``tids`` [N] at step counters ``its`` [N] (int64): a pure
+    function of (``key``, tenant id, step, draw, element), 24 bits a value
+    (exact in f32).  Device ops only, so a CUDA graph can record it."""
+    n = B * z_size
+    elem = torch.arange(2 * n, device=tids.device, dtype=torch.int64)
+    h = _fmix(tids.to(torch.int64) * _GOLDEN + _i64(key & _M64))
+    h = _fmix(h + its.to(torch.int64) * _GOLDEN)
+    h = _fmix(h[:, None] + (elem[None] + 1) * _GOLDEN)
+    u = _shr(h, 40).to(torch.float32) * (2.0 ** -24)
+    z = (u * 2 - 1).view(-1, 2, B, z_size)
+    return z[:, 0], z[:, 1]
 
 
 # ---------------------------------------------------------------------------
@@ -814,8 +863,9 @@ class FleetTrainer:
         )
 
         if config.n_devices is not None and config.n_devices > 1:
-            raise _not_ported(f"a fleet over {config.n_devices} devices "
-                              "(parallel/fleet.py, the tenant mesh)", "7.5")
+            raise fused_lib.not_ported(
+                f"a fleet over {config.n_devices} devices "
+                "(parallel/fleet.py, the tenant mesh)", "7.5")
         self.c = config
         self.device = backend.resolve_device(config.device)
         os.makedirs(config.res_path, exist_ok=True)

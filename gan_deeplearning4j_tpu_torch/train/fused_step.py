@@ -25,9 +25,11 @@ table as uint8 codes (data/codec.py) and decodes each sliced batch through
 the 256-entry f32 table, bitwise the f32 table's step.  ``telemetry`` adds the JAX step's
 in-graph numerics block (``telemetry/ingraph.py``): each trained graph's
 gradient norm, parameter norm and update ratio (``d_``/``g_``/``clf_``)
-and one total NaN/Inf count, [K] each under K steps a call.  The JAX
-step's ``chunk_indexed`` is not ported yet (ROADMAP Queue 1 item 3.1) and
-raises.
+and one total NaN/Inf count, [K] each under K steps a call.
+``chunk_indexed`` (the streaming tier's dedup mode): the step takes a
+row-index schedule after ``labels`` and ``real``/``labels`` are the
+distinct-row tables; step ``it`` gathers the table rows
+``row_idx[(it % n_batches) * B:]`` (``n_batches`` the schedule's batches).
 
 On one card the trainer runs the step as a CUDA graph (``GraphedStep``):
 captured once, a call replays it K times, the graph's launches replacing
@@ -99,9 +101,25 @@ def state_trees(state) -> List[Tuple[str, Dict]]:
             if isinstance(v, dict)]
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error of an option whose port is still to come."""
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
                                f"item {item})")
+
+
+# the u8x100 decode table on each device it has been put on
+_DECODE_TABLES: Dict[torch.device, torch.Tensor] = {}
+
+
+def decode_u8x100(codes: torch.Tensor) -> torch.Tensor:
+    """uint8 codes -> their f32 values through ``U8X100_TABLE``, bitwise
+    the f32 table's (put on the codes' device at its first call, which for
+    a captured step is the warm-up, outside the capture)."""
+    table = _DECODE_TABLES.get(codes.device)
+    if table is None:
+        table = torch.from_numpy(U8X100_TABLE).to(codes.device)
+        _DECODE_TABLES[codes.device] = table
+    return table.index_select(0, codes.reshape(-1).long()).view(codes.shape)
 
 
 def _apply_sync(dst_params: Dict, src_params: Dict, mapping) -> Dict:
@@ -122,6 +140,15 @@ def batch_rows(it: torch.Tensor, n_rows: int, B: int, rank: int = 0,
     Bl = B // world
     off = (it % (n_rows // B)) * B + rank * Bl
     return off + torch.arange(Bl, device=it.device)
+
+
+def indexed_rows(it: torch.Tensor, row_idx: torch.Tensor, B: int,
+                 rank: int = 0, world: int = 1) -> torch.Tensor:
+    """The table rows of step ``it`` for ``rank`` under a row-index
+    schedule (``chunk_indexed``): ``batch_rows`` of the schedule, looked
+    up in it (the JAX step's ``dynamic_slice_in_dim`` then ``jnp.take``)."""
+    return row_idx.index_select(
+        0, batch_rows(it, row_idx.shape[0], B, rank, world))
 
 
 def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
@@ -153,28 +180,24 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
     ``ema_update(ema_gen, gen_params, ema_decay)`` after every step.
 
     ``data_codec="u8x100"``: ``real`` holds uint8 codes, decoded after
-    slicing through ``U8X100_TABLE`` (put on ``real``'s device at the
-    first call, which for a captured step is the warm-up, outside the
-    capture)."""
+    slicing (``decode_u8x100``).
+
+    ``chunk_indexed``: the step is
+    (state, real, labels, row_idx, y_real, y_fake, ones, ...) with
+    ``real``/``labels`` the distinct-row tables of a deterministic pass and
+    ``row_idx`` a [n_batches * B] integer schedule of table rows; step ``it``
+    trains on the rows ``row_idx[(it % n_batches) * B:][:B]`` (a rank on
+    its share of them)."""
     if data_codec not in (None, "u8x100"):
         raise ValueError(f"unknown data_codec: {data_codec!r}")
-    if chunk_indexed:
-        raise _not_ported("chunk_indexed", "3.1 (the chunk dedup tier)")
     if int(steps_per_call) != steps_per_call or steps_per_call < 1:
         raise ValueError(f"steps_per_call must be a positive int, got "
                          f"{steps_per_call}")
     rank, world = (group.rank, group.world) if group is not None else (0, 1)
     reduce = mesh.reducer(group)
-    tables: Dict[torch.device, torch.Tensor] = {}
     # the precision policy the step is built under, as the JAX step's
     # trace fixes it
     policy = backend.config()
-
-    def decode(codes: torch.Tensor) -> torch.Tensor:
-        if codes.device not in tables:
-            tables[codes.device] = torch.from_numpy(U8X100_TABLE).to(codes.device)
-        return tables[codes.device].index_select(
-            0, codes.reshape(-1).long()).view(codes.shape)
 
     def train(graph, params, opt, inputs, targets):
         out = graph._train_step(params, opt, inputs, targets, group=group,
@@ -188,20 +211,25 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
     def body(state: ProtocolState, real, labels, y_real, y_fake, ones,
              z_gen: Optional[torch.Generator] = None,
              z1: Optional[torch.Tensor] = None,
-             z2: Optional[torch.Tensor] = None):
+             z2: Optional[torch.Tensor] = None,
+             row_idx: Optional[torch.Tensor] = None):
         B = ones.shape[0]
         if B % world:
             raise ValueError(f"global batch {B} does not split into {world} "
                              "equal shares")
-        if real.shape[0] < B:
-            raise ValueError(f"resident table has {real.shape[0]} rows, "
+        src = row_idx if chunk_indexed else real
+        if src.shape[0] < B:
+            raise ValueError(f"resident table has {src.shape[0]} rows, "
                              f"fewer than one batch of {B}")
         Bl = B // world
         mine = slice(rank * Bl, (rank + 1) * Bl)
-        rows = batch_rows(state.it, real.shape[0], B, rank, world)
+        if chunk_indexed:
+            rows = indexed_rows(state.it, row_idx, B, rank, world)
+        else:
+            rows = batch_rows(state.it, real.shape[0], B, rank, world)
         real, labels = real.index_select(0, rows), labels.index_select(0, rows)
         if data_codec:
-            real = decode(real)
+            real = decode_u8x100(real)
         dev = real.device
         if z1 is None or z2 is None:
             if z_gen is None:
@@ -251,18 +279,16 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
                             + c_tel["nonfinite"])
         return new_state, (losses, tel)
 
-    if steps_per_call == 1:
-        return one
-
     def multi(state: ProtocolState, real, labels, y_real, y_fake, ones,
               z_gen: Optional[torch.Generator] = None,
               z1: Optional[torch.Tensor] = None,
-              z2: Optional[torch.Tensor] = None):
+              z2: Optional[torch.Tensor] = None,
+              row_idx: Optional[torch.Tensor] = None):
         steps = []
         for k in range(steps_per_call):
             state, out = one(state, real, labels, y_real, y_fake, ones,
                              z_gen, None if z1 is None else z1[k],
-                             None if z2 is None else z2[k])
+                             None if z2 is None else z2[k], row_idx)
             steps.append(out)
         if not telemetry:
             return state, tuple(torch.stack(ls) for ls in zip(*steps))
@@ -270,7 +296,18 @@ def make_protocol_step(dis, gen, gan, classifier, dis_to_gan, gan_to_gen,
         return state, (losses, {k: torch.stack([o[1][k] for o in steps])
                                 for k in TELEMETRY_KEYS})
 
-    return multi
+    step = one if steps_per_call == 1 else multi
+    if not chunk_indexed:
+        return step
+
+    def indexed(state: ProtocolState, real, labels, row_idx, y_real, y_fake,
+                ones, z_gen: Optional[torch.Generator] = None,
+                z1: Optional[torch.Tensor] = None,
+                z2: Optional[torch.Tensor] = None):
+        return step(state, real, labels, y_real, y_fake, ones, z_gen=z_gen,
+                    z1=z1, z2=z2, row_idx=row_idx)
+
+    return indexed
 
 
 def state_from_graphs(dis, gen, gan, classifier, start_step: int = 0,
@@ -383,18 +420,19 @@ def step_counter(state) -> torch.Tensor:
 
 
 def graph_body(step, inputs, z_gen: Optional[torch.Generator], ring: int,
-               state, losses: torch.Tensor) -> None:
+               state, losses: torch.Tensor, counter: torch.Tensor) -> None:
     """What the CUDA graph of ``GraphedStep`` records: one ``step`` from
-    ``state`` (on the table and targets ``inputs``, random draws from
-    ``z_gen``), its outputs (``pack_outputs``) written to row ``it % ring``
-    of ``losses`` [ring, n_losses] through a device index, and the new
-    state copied into ``state``.  Everything the step reads from the old
-    state, the telemetry block included, is computed before that copy.
-    A fleet's ``it`` holds one counter a tenant: its first keys the row."""
-    slot = (step_counter(state) % ring).view(1)
+    ``state`` (on the ``inputs``, random draws from ``z_gen`` where the step
+    takes them), its outputs (``pack_outputs``) written to row ``counter %
+    ring`` of ``losses`` [ring, n_losses] through a device index, the new
+    state copied into ``state`` and the 0-d ``counter`` advanced by one.
+    Everything the step reads from the old state, the telemetry block
+    included, is computed before that copy."""
+    slot = (counter % ring).view(1)
     new, out = step(state, *inputs, z_gen=z_gen)
     losses.index_copy_(0, slot, pack_outputs(out).view(1, -1))
     copy_state_(state, new)
+    counter.add_(1)
 
 
 def replay(graph, replays: int, per_replay: Dict[str, int]) -> None:
@@ -409,26 +447,32 @@ class GraphedStep:
     """A single-card step as a CUDA graph: captured once, a call replays it
     K times back to back and reads the [K, n_losses] losses back once.  The
     protocol step (3 losses, 13 columns with its telemetry block) and
-    ``GANPair``'s iteration (2) both run so, and the fleet step
-    (``train/fleet.py``: 3 a tenant, its ring row keyed by tenant 0's ``it``).
+    ``GANPair``'s iteration (2) both run so, the fleet step
+    (``train/fleet.py``: 3 a tenant) and a lifecycle cohort's masked step
+    at one capacity (``train/lifecycle.py``: 3 a lane).
 
     The graph's inputs are static tensors: ``self.state`` (a copy of the
     start state, one buffer per leaf, that the step reads and, at its end,
-    overwrites with the new state), ``inputs`` (the resident table and
-    targets), and the generator ``z_gen``, registered with the graph so that
-    each replay draws new latents exactly as an eager step would.  Replay j
-    writes its losses to row ``it % ring`` of ``self.losses``.  Before the
-    capture, one eager step on copies of the state and on a side stream
-    builds every kernel and runs each one-time setup (the kernels' shared
-    memory attributes, the cluster occupancy checks, cuBLAS and cuDNN
-    handles); ``z_gen`` is then put back, so from the same start the first
-    replay gives the bits of the first eager step.  A capture that fails
-    raises.  The graph records the precision policy of its capture, and a
-    call under another policy raises."""
+    overwrites with the new state), ``inputs`` (the tables and targets, and
+    whatever else the step reads, which a caller may overwrite in place
+    between calls) and, where the step draws its latents from one, the
+    generator ``z_gen``, registered with the graph so that each replay
+    draws new latents exactly as an eager step would.  Replay j writes its
+    losses to row ``counter % ring`` of ``self.losses``, ``counter`` a
+    device counter of the graph's own, started at the start state's step
+    counter (``step_counter``: ``it``, or tenant 0's of a fleet) and
+    advanced by each replay.  Before the capture, one eager step on copies
+    of the state and on a side stream builds every kernel and runs each
+    one-time setup (the kernels' shared memory attributes, the cluster
+    occupancy checks, cuBLAS and cuDNN handles); ``z_gen`` is then put
+    back, so from the same start the first replay gives the bits of the
+    first eager step.  A capture that fails raises.  The graph records the
+    precision policy of its capture, and a call under another policy
+    raises."""
 
     def __init__(self, step, state, *inputs: torch.Tensor,
-                 z_gen: torch.Generator, ring: int = MAX_STEPS_PER_CALL,
-                 n_losses: int = 3):
+                 z_gen: Optional[torch.Generator] = None,
+                 ring: int = MAX_STEPS_PER_CALL, n_losses: int = 3):
         dev = inputs[0].device
         if dev.type != "cuda":
             raise ValueError(f"GraphedStep captures a CUDA graph; the table "
@@ -439,24 +483,28 @@ class GraphedStep:
         self.state = clone_state(state)
         self.losses = torch.zeros((ring, n_losses), device=dev)
         self.steps = int(step_counter(state))
+        self.counter = torch.full((), self.steps, dtype=torch.int64,
+                                  device=dev)
         t0 = time.perf_counter()
-        z_start = z_gen.get_state()
+        z_start = z_gen.get_state() if z_gen is not None else None
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             graph_body(step, self.inputs, z_gen, ring, clone_state(state),
-                       torch.zeros_like(self.losses))
+                       torch.zeros_like(self.losses), self.counter.clone())
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
-        z_gen.set_state(z_start)
+        if z_gen is not None:
+            z_gen.set_state(z_start)
         t1 = time.perf_counter()
         mem = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
         self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(z_gen)
+        if z_gen is not None:
+            self.graph.register_generator_state(z_gen)
         with kernels.captured_launches() as self.launches:
             with torch.cuda.graph(self.graph):
                 graph_body(step, self.inputs, z_gen, ring, self.state,
-                           self.losses)
+                           self.losses, self.counter)
         torch.cuda.synchronize(dev)
         # what the set-up cost: wall seconds, and the device memory the
         # graph's private pool holds on to (allocated / reserved growth)

@@ -22,7 +22,15 @@ of three tiers, as in the JAX trainer (``_resident_data_ok``):
     ``ChunkPrefetchIterator`` on a side stream while the previous call
     trains, and copied into the static chunk buffer the step reads
     (``_chunked_stream_loop``; the step slices ``it % K`` of it, so K must
-    divide every cadence, as ``resolve_steps_per_call`` makes it).
+    divide every cadence, as ``resolve_steps_per_call`` makes it);
+  - streamed with the dedup tier (``stream_dedup``, the JAX trainer's
+    adaptive decision): when one chunk of K steps covers at least a full
+    pass of the iterator and the distinct-row table fits
+    ``stream_chunk_bytes``, the table crosses the link once (u8 codes
+    under the codec, decoded once into the static f32 table the step
+    reads) and each call ships only its [K*B] row-index schedule into a
+    static index buffer; the step gathers through it (``fused_step``
+    ``chunk_indexed``).
 Two loops, as in the JAX trainer:
   - fused (the default, ``dp_mode="gradient_sync"``): the protocol step of
     ``fused_step``, K steps per call, with the generator EMA when
@@ -200,6 +208,10 @@ _chaos_step_hook: Optional[Callable[[int], None]] = None
 
 DP_MODES = ("gradient_sync", "param_averaging")
 NAN_ALARM_ACTIONS = (None, "warn", "snapshot", "abort", "rollback")
+# the dedup tier's byte cap (the JAX trainer's): the streamed path's K
+# alignment with the resume step, without a byte bound — only the index
+# schedule crosses per chunk
+UNCAPPED_STREAM = 1 << 62
 
 
 @dataclasses.dataclass
@@ -231,6 +243,10 @@ class GANTrainerConfig:
     steps_per_call: Optional[int] = None  # the cap on K (None = 100)
     # streaming: the byte budget of one chunk (bounds K); 0 = K 1
     stream_chunk_bytes: int = 256 << 20
+    # the epoch-in-chunk dedup tier: None = auto (a chunk covers a full
+    # pass of the deterministic iterator and the distinct-row table fits
+    # stream_chunk_bytes); False = never (nondeterministic iterators)
+    stream_dedup: Optional[bool] = None
     use_data_codec: bool = True
     metrics: bool = True
     ema_decay: float = 0.0
@@ -1021,6 +1037,9 @@ class GANTrainer:
             codec is not None and self._resident_data_ok(train_iter, codec))
         self.resident = resident
         self.data_codec = codec
+        self.stream_dedup = False
+        self.row_idx: Optional[torch.Tensor] = None
+        self._chunks: Optional[ChunkPrefetchIterator] = None
         t0 = time.perf_counter()
         with self._phase("data_wait"):
             if resident:
@@ -1031,14 +1050,29 @@ class GANTrainer:
                 self.labels = torch.from_numpy(train_iter.labels).to(dev)
                 self.stream_k = None
             else:
-                # the static chunk buffers the step reads; each call's
-                # chunk is copied in (``_chunked_stream_loop``)
+                byte_cap = c.stream_chunk_bytes
+                n_full = train_iter.num_examples() // B
+                if self._dedup_ok(train_iter, codec):
+                    self.stream_dedup = True
+                    byte_cap = UNCAPPED_STREAM
                 self.stream_k = self._resolve_steps_per_call(
-                    byte_cap=c.stream_chunk_bytes, codec=codec)
-                rows = self.stream_k * B
+                    byte_cap=byte_cap, codec=codec)
+                if self.stream_k <= 1:
+                    self.stream_dedup = False
+                if self.stream_dedup:
+                    # the static table (f32: the codes decode once, on
+                    # arrival) and the static schedule the step reads
+                    rows = n_full * B
+                    self.row_idx = torch.zeros(self.stream_k * B,
+                                               dtype=torch.int32, device=dev)
+                else:
+                    # the static chunk buffers the step reads; each call's
+                    # chunk is copied in (``_chunked_stream_loop``)
+                    rows = self.stream_k * B
                 self.features = torch.zeros(
                     (rows, c.num_features), device=dev,
-                    dtype=torch.uint8 if codec else torch.float32)
+                    dtype=(torch.uint8 if codec and not self.stream_dedup
+                           else torch.float32))
                 self.labels = torch.zeros((rows, c.num_classes), device=dev)
             if dev.type == "cuda":
                 device_lib.stream_fence(torch.cuda.current_stream(dev))
@@ -1062,8 +1096,8 @@ class GANTrainer:
                 # which its first dispatch pays
                 with self._phase("dispatch"):
                     self.graphed = fused_step.GraphedStep(
-                        self.step_fn(1), self.state, self.features,
-                        self.labels, self.y_real, self.y_fake, self.ones,
+                        self.step_fn(1), self.state, *self._tables(),
+                        self.y_real, self.y_fake, self.ones,
                         z_gen=self.z_gen,
                         ring=c.steps_per_call or fused_step.MAX_STEPS_PER_CALL,
                         n_losses=3 + (len(fused_step.TELEMETRY_KEYS)
@@ -1147,6 +1181,30 @@ class GANTrainer:
             feat_bytes //= 4
         return feat_bytes + iter_train.labels.nbytes <= c.data_on_device_max_bytes
 
+    def _dedup_ok(self, train_iter, codec) -> bool:
+        """The JAX trainer's adaptive dedup decision: not opted out, and
+        one chunk of the uncapped K covers every full batch of a pass
+        while the distinct-row table (u8 features under the codec) fits
+        the chunk budget."""
+        c = self.c
+        if c.stream_dedup is False:
+            return False
+        k_nocap = self._resolve_steps_per_call(byte_cap=UNCAPPED_STREAM,
+                                               codec=codec)
+        n_full = train_iter.num_examples() // c.batch_size
+        fb = 1 if codec == "u8x100" else 4
+        table_bytes = n_full * c.batch_size * (fb * c.num_features
+                                               + 4 * c.num_classes)
+        return (0 < n_full <= k_nocap and k_nocap > 1
+                and table_bytes <= c.stream_chunk_bytes)
+
+    def _tables(self) -> Tuple[torch.Tensor, ...]:
+        """The data the step reads: the table (resident, or the streamed
+        chunk) and its labels, and the dedup tier's row schedule."""
+        if self.stream_dedup:
+            return self.features, self.labels, self.row_idx
+        return self.features, self.labels
+
     def _resolve_steps_per_call(self, byte_cap: Optional[int] = None,
                                 codec: Optional[str] = None) -> int:
         """K for this trainer's run (``resolve_steps_per_call`` with the
@@ -1170,8 +1228,9 @@ class GANTrainer:
                 self.dis, self.gen, self.gan, self.classifier, *self.maps,
                 z_size=self.c.z_size, num_features=self.c.num_features,
                 group=self.group, steps_per_call=k,
-                ema_decay=self.c.ema_decay, data_codec=self.data_codec,
-                telemetry=self.c.telemetry)
+                ema_decay=self.c.ema_decay,
+                data_codec=None if self.stream_dedup else self.data_codec,
+                chunk_indexed=self.stream_dedup, telemetry=self.c.telemetry)
         return self._step_fns[k]
 
     # -- the steps -------------------------------------------------------------
@@ -1224,8 +1283,8 @@ class GANTrainer:
                 out = self.graphed.losses
             else:
                 self.state, o = self.step_fn(k)(
-                    self.state, self.features, self.labels, self.y_real,
-                    self.y_fake, self.ones, z_gen=self.z_gen)
+                    self.state, *self._tables(), self.y_real, self.y_fake,
+                    self.ones, z_gen=self.z_gen)
                 out = fused_step.pack_outputs(o).reshape(k, -1)
         with self._phase("readback"):
             host = torch.from_numpy(device_lib.readback(out))
@@ -1346,7 +1405,16 @@ class GANTrainer:
                         encode_features=(codec_lib.u8x100_encode
                                          if self.data_codec else None),
                         feature_dtype=(np.uint8 if self.data_codec
-                                       else np.float32))
+                                       else np.float32),
+                        dedup=self.stream_dedup,
+                        start_batch=self.steps % (
+                            self.train_iter.num_examples() // c.batch_size),
+                        # the u8 table decoded once, on its arrival (JAX
+                        # decodes the call's table once a call; this one
+                        # never changes in a run)
+                        decode_features=(fused_step.decode_u8x100
+                                         if self.data_codec else None))
+                    self._chunks = chunks
                     try:
                         self._chunked_stream_loop(chunks)
                     finally:
@@ -1398,11 +1466,21 @@ class GANTrainer:
                 "fused": self.fused, "dp_mode": self.dp_mode,
                 "ema_decay": self.ema_decay, "resident": self.resident,
                 "data_codec": self.data_codec,
+                "stream_dedup": self.stream_dedup,
+                "link_bytes": self._link_bytes(),
                 "device": str(self.device),
                 "precision": dataclasses.asdict(backend.config()),
                 "world": self.group.world if self.group else 1,
                 "backend": self.group.backend if self.group else None,
                 "run_id": run_id, "goodput": goodput}
+
+    def _link_bytes(self) -> Optional[Dict[str, int]]:
+        """What the streamed tier put on the host link: the dedup table
+        (once) and one chunk; None on the resident tier."""
+        ch = self._chunks
+        if ch is None:
+            return None
+        return {"table": ch.table_bytes, "per_chunk": ch.chunk_bytes}
 
     def _next_chunk(self) -> int:
         """Steps until the next artifact boundary or the end of the run,
@@ -1443,7 +1521,7 @@ class GANTrainer:
         while self.steps < self.c.num_iterations:
             run = self._next_chunk()
             with self._phase("data_wait"):
-                chunks.next_into(self.features, self.labels)
+                chunks.next_into(*self._tables())
             rows = self._timed_call(run)
             # the position after the chunk just trained, aligned with the
             # step count: what a checkpoint at this boundary records

@@ -46,8 +46,10 @@ and the JSON line carry ``run_id`` and ``goodput``); ``--profile DIR`` (a
 ``torch.profiler`` capture, its top time sinks printed after the run;
 each rank's under ``DIR/rank<r>`` with ``--n-devices``), ``--live-ui
 PORT`` (the dashboard; 0 = off) and ``--metrics-port PORT`` (``/metrics``
-+ ``/healthz``; 0 = ephemeral), both served by rank 0's process.  The JAX
-program's lattice PNGs are not ported.
++ ``/healthz``; 0 = ephemeral), both served by rank 0's process.  The end-of-run
+evaluation writes the JAX program's lattice PNGs
+(``DCGAN_Generated_Lattices.png`` and the single-lattice pair,
+``eval/plots.py``), without matplotlib.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ from typing import Dict, Optional, Tuple
 from gan_deeplearning4j_tpu_torch.data import datasets
 from gan_deeplearning4j_tpu_torch.data.csv import read_csv_matrix
 from gan_deeplearning4j_tpu_torch.eval import metrics as metrics_lib
+from gan_deeplearning4j_tpu_torch.eval import plots
 from gan_deeplearning4j_tpu_torch.models import mlpgan_insurance as M
 from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
@@ -188,6 +191,18 @@ def evaluate(trainer: GANTrainer) -> Dict[str, float]:
             c.res_path, preds, labels, num_classes=2, f1_cls=1,
             metrics_jsonl=os.path.join(c.res_path,
                                        "insurance_metrics.jsonl")))
+    grid_csv = os.path.join(c.res_path, f"insurance_out_{trainer.steps}.csv")
+    if os.path.exists(grid_csv):
+        grid = read_csv_matrix(grid_csv)  # parsed once, both renders
+        plots.save_grid_png(
+            os.path.join(c.res_path, "DCGAN_Generated_Lattices.png"),
+            grid, (4, 3))
+        # the reference's single-lattice artifacts (raw + annotated)
+        plots.save_lattice_example_pngs(
+            os.path.join(c.res_path, "DCGAN_Generated_Lattice_Example.png"),
+            os.path.join(c.res_path,
+                         "DCGAN_Generated_Lattice_Example_Plotted.png"),
+            grid, (4, 3))
     trainer.timings["report_s"] = time.perf_counter() - t0
     return out
 

@@ -45,9 +45,10 @@ ARTIFACTS = {"mnist_train.csv", "mnist_test.csv", "mnist_out_2.csv",
              "evaluation_stats.txt", "mnist_dis_model.zip",
              "mnist_gan_model.zip", "mnist_gen_model.zip",
              "mnist_CV_model.zip", "events.jsonl", "run_manifest.json",
-             "mnist_metrics_losses.png"}
-# ... and what only the JAX run writes: the sample grid's PNG
-JAX_ONLY = {"DCGAN_Generated_Images.png"}
+             "mnist_metrics_losses.png", "DCGAN_Generated_Images.png"}
+# ... and what only the JAX run writes: nothing since the port writes the
+# sample grid's PNG
+JAX_ONLY = set()
 SCORES = ("steps", "examples_per_sec", "d_loss", "g_loss", "test_accuracy",
           "test_f1", "fid", "fid_frozen", "fid_primary", "fid_primary_source")
 DUMP_ATOL = 1e-5
@@ -233,7 +234,9 @@ def _twelve_steps(d, resident: bool, use_data_codec: bool):
     kw = dict(num_iterations=12, print_every=0, save_every=0, metrics=False,
               use_data_codec=use_data_codec)
     if not resident:
-        kw.update(data_on_device=False,
+        # the plain chunk tier: with the dedup tier on auto, one chunk of
+        # the 12-step run would cover the 4-batch pass
+        kw.update(data_on_device=False, stream_dedup=False,
                   stream_chunk_bytes=3 * 16 * (fb * 784 + 40))
     t = _trainer(d, **kw)
     t.c.res_path = None  # no model zips

@@ -343,9 +343,10 @@ def test_plain_kernel_calls_do_not_depend_on_n(graphs, monkeypatch):
 
 def test_graph_body_keys_the_fleet_ring_on_tenant_0(graphs):
     """``graph_body`` (what ``graphed_fleet_step``'s CUDA graph records) on
-    the CPU with a fleet state: the first of the [N] counters keys the ring
-    row, which holds (d, g, clf) for each tenant in turn; every lane
-    advances.  Bitwise: both runs are the same CPU ops from one start."""
+    the CPU with a fleet state: the ring counter, started as the graph
+    starts it at the first of the [N] step counters, keys the ring row,
+    which holds (d, g, clf) for each tenant in turn; every lane advances.
+    Bitwise: both runs are the same CPU ops from one start."""
     _, gt = graphs
     feats, labels, y_real, y_fake, ones = _data(5, False)
     args = tuple(map(torch.from_numpy, (feats, labels, y_real, y_fake, ones)))
@@ -356,9 +357,10 @@ def test_graph_body_keys_the_fleet_ring_on_tenant_0(graphs):
     _, losses = step(FT.clone_state(start), *args,
                      z_gen=torch.Generator().manual_seed(3))
     state, ring = FT.clone_state(start), torch.zeros((4, 3 * N))
+    counter = FT.step_counter(state).clone()
     FT.graph_body(step, args, torch.Generator().manual_seed(3), 4, state,
-                  ring)
-    assert int(FT.step_counter(start)) == 2
+                  ring, counter)
+    assert int(FT.step_counter(start)) == 2 and int(counter) == 3
     assert torch.equal(ring[2], torch.stack(losses, -1).reshape(-1))
     assert not ring[[0, 1, 3]].any()
     assert state.it.tolist() == [3] * N

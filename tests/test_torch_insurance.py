@@ -84,10 +84,13 @@ ARTIFACTS = {"insurance_train.csv", "insurance_test.csv",
              "evaluation_stats.txt", "insurance_dis_model.zip",
              "insurance_gan_model.zip", "insurance_gen_model.zip",
              "insurance_insurance_model.zip", "events.jsonl",
-             "run_manifest.json", "insurance_metrics_losses.png"}
-# ... and what only the JAX program writes: the lattice PNGs
-JAX_ONLY = {"DCGAN_Generated_Lattices.png", "DCGAN_Generated_Lattice_Example.png",
-            "DCGAN_Generated_Lattice_Example_Plotted.png"}
+             "run_manifest.json", "insurance_metrics_losses.png",
+             "DCGAN_Generated_Lattices.png",
+             "DCGAN_Generated_Lattice_Example.png",
+             "DCGAN_Generated_Lattice_Example_Plotted.png"}
+# ... and what only the JAX program writes: nothing since the port writes
+# the lattice PNGs
+JAX_ONLY = set()
 DUMPS = ["insurance_out_2.csv", "insurance_out_4.csv",
          "insurance_out_pred_2.csv", "insurance_out_pred_4.csv",
          "insurance_test_predictions_2.csv", "insurance_test_predictions_4.csv"]

@@ -23,10 +23,8 @@ import dataclasses
 import io
 import json
 import os
-import struct
 import types
 import urllib.request
-import zlib
 
 import jax
 import jax.numpy as jnp
@@ -393,33 +391,11 @@ def test_synthetic_celeba_byte_equal():
     assert aa.tobytes() == ab.tobytes()
 
 
-def _decode_png(data: bytes) -> np.ndarray:
-    assert data[:8] == b"\x89PNG\r\n\x1a\n"
-    pos, idat, hdr = 8, b"", None
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
-        assert crc == zlib.crc32(kind + body) & 0xFFFFFFFF
-        if kind == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat += body
-        pos += 12 + n
-    w, h, depth, color = hdr[:4]
-    assert depth == 8
-    ch = {0: 1, 2: 3}[color]
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * ch)
-    assert (raw[:, 0] == 0).all()
-    img = raw[:, 1:].reshape(h, w, ch)
-    return img[..., 0] if ch == 1 else img
-
-
 @pytest.mark.parametrize("shape,vrange", [((3, 6, 5), (-1.0, 1.0)),
                                           ((1, 4, 4), (0.0, 1.0))])
 def test_tile_grid_and_png_match_jax(tmp_path, shape, vrange):
-    """The port's tile_grid is the JAX one's; the PNG decodes (zlib, in the
-    test) to the JAX tile_grid mosaic of the value-range-mapped samples,
+    """The port's tile_grid is the JAX one's; the PNG decodes (zlib, with
+    ``read_png``) to the JAX tile_grid mosaic of the value-range-mapped samples,
     scaled to 8 bits."""
     rng = np.random.RandomState(10)
     s = rng.uniform(vrange[0] - 0.2, vrange[1] + 0.2,
@@ -428,7 +404,7 @@ def test_tile_grid_and_png_match_jax(tmp_path, shape, vrange):
     assert np.array_equal(PT.tile_grid(flat, 2, 3), PJ.tile_grid(flat, 2, 3))
     path = PT.save_rgb_grid_png(str(tmp_path / "g.png"), s, shape,
                                 value_range=vrange)
-    img = _decode_png(open(path, "rb").read())
+    img = PT.read_png(path)
     c, h, w = shape
     lo, hi = vrange
     arr = np.clip((s.reshape(-1, c, h, w) - lo) / (hi - lo), 0.0, 1.0)
@@ -494,7 +470,7 @@ def test_roadmap_main_cpu_end_to_end(tmp_path, wgan_straight, family):
     gen = SJ.read_model(str(res / f"{family}_gen_model.zip"))
     assert set(ema.params) == set(gen.params)
     c, h, w = RM.SAMPLE_SHAPES[family]
-    img = _decode_png(open(res / f"{family}_samples_4.png", "rb").read())
+    img = PT.read_png(str(res / f"{family}_samples_4.png"))
     assert img.shape[:2] == (8 * (h + 1) - 1, 8 * (w + 1) - 1)
 
 

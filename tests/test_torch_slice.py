@@ -255,7 +255,8 @@ def _imported_modules(path: Path):
 
 @pytest.mark.parametrize("path", sorted(
     [*(REPO / "gan_deeplearning4j_tpu_torch").rglob("*.py"),
-     REPO / "chip_smoke.py", REPO / "chip_fleet_ab.py"]),
+     REPO / "chip_smoke.py", REPO / "chip_fleet_ab.py",
+     REPO / "chip_dedup_ab.py"]),
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_imports(path):
     for mod in _imported_modules(path):
@@ -272,7 +273,8 @@ LAZY_ONLY = {"keras": "gan_deeplearning4j_tpu_torch/graph/keras_import.py"}
 
 @pytest.mark.parametrize("path", sorted(
     [*(REPO / "gan_deeplearning4j_tpu_torch").rglob("*.py"),
-     REPO / "chip_smoke.py", REPO / "chip_fleet_ab.py"]),
+     REPO / "chip_smoke.py", REPO / "chip_fleet_ab.py",
+     REPO / "chip_dedup_ab.py"]),
     ids=lambda p: str(p.relative_to(REPO)))
 def test_keras_is_imported_lazily_by_the_keras_importer_only(path):
     """No module imports keras, tensorflow or h5py, except the Keras

@@ -349,11 +349,19 @@ def test_trainer_refuses_bad_options(kwargs, match):
         GANTrainer(batch_size=4, n_train=8, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [{"chunk_indexed": True}])
+@pytest.mark.parametrize("kwargs", [{"matmul_bf16": True},
+                                    {"compute_bf16": True}])
 def test_step_refuses_what_is_not_ported(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        FT.make_protocol_step(None, None, None, None, [], [], [], 2, 784,
-                              **kwargs)
+    """What a step still refuses raises the one shared ``not_ported``
+    error: the fleet step under a bf16 policy.  (The protocol step's
+    ``chunk_indexed``, refused here before the dedup tier, now builds:
+    ``tests/test_torch_stream_dedup.py``.)"""
+    from gan_deeplearning4j_tpu_torch.runtime import backend
+    from gan_deeplearning4j_tpu_torch.train import fleet as FL
+
+    with backend.configured(backend.RuntimeConfig(**kwargs)):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+            FL.make_fleet_step(None, None, None, None, [], [], [], 2, 12)
 
 
 # -- the graphed step's bookkeeping on the CPU ---------------------------------
@@ -390,18 +398,21 @@ def test_graphed_launch_counts_on_a_stub():
 def test_graph_body_matches_eager_steps(eager_steps):
     """What the CUDA graph records, run on the CPU: five steps of
     ``graph_body`` on one static state with a ring of 3 loss rows give the
-    eager steps' bits — each step's losses in row it % 3, the new state
-    copied into the static buffers (which keep their storage), the EMA and
-    the counter included."""
+    eager steps' bits — each step's losses in row it % 3 (the graph's ring
+    counter, started at the state's ``it``), the new state copied into the
+    static buffers (which keep their storage), the EMA and the counter
+    included."""
     e = eager_steps
     static = FT.clone_state(e["start"])
     ptrs = {k: t.data_ptr() for k, t in FT._leaves(static).items()}
     ring = torch.zeros((3, 3))
+    counter = FT.step_counter(static).clone()
     gen = torch.Generator().manual_seed(9)
     for it in range(5):
-        FT.graph_body(e["step"], _inputs(e["d"]), gen, 3, static, ring)
+        FT.graph_body(e["step"], _inputs(e["d"]), gen, 3, static, ring,
+                      counter)
         assert torch.equal(ring[it % 3], e["losses"][it])
-    assert int(static.it) == e["it"] == 5
+    assert int(static.it) == e["it"] == int(counter) == 5
     assert {k: t.data_ptr() for k, t in FT._leaves(static).items()} == ptrs
     _assert_trees_equal(e["after"][5], _torch_state(static))
 

@@ -364,7 +364,8 @@ def test_graph_body_writes_the_block_to_the_ring(insurance_setup):
     _, (losses, tel) = step(FT.clone_state(start), *args, z_gen=z_ref)
     ring = torch.zeros((4, 3 + len(FT.TELEMETRY_KEYS)))
     state = FT.clone_state(start)
-    FT.graph_body(step, args, z_gen, 4, state, ring)
+    FT.graph_body(step, args, z_gen, 4, state, ring,
+                  FT.step_counter(state).clone())
     row = ring[0]
     assert torch.equal(row[:3], torch.stack(losses))
     assert torch.equal(row[3:], torch.stack(
