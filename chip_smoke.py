@@ -404,6 +404,29 @@ exits non-zero:
                 beside the precision phase's children (its seconds under
                 ``shared_card``); its line is printed after the
                 lifecycle's.
+ 23. elastic — the fleet on a tenant mesh (``parallel/fleet.py``) at the
+                scenario's shapes (4 tenants, batch 4): both tenant BN
+                kernels against their plain versions with 1, 2 and 4
+                tenants a launch (``el_kernels``); the graphed sharded
+                step at worlds 1, 2 and 4 sharing the card, one capture a
+                shard and none after warm-up, FLEET_PER_STEP launches a
+                step a shard, worlds 2 and 4 bitwise world 1 (else within
+                FLEET_TOL, the cause named), each world's step ms; a
+                world-2 fleet checkpoint restored at 1 and 4 bitwise per
+                tenant, with the reshard's seconds; the resume phase's
+                world-2 insurance checkpoint restored in this process at
+                world 1 through the reshard and stepped to the end, its
+                losses within EL_INS_BAND of the world-2 run's
+                (``elastic_phase``).
+ 24. scenario — ``run_scenario`` (``scenario/runner.py``: seed 23, the
+                JAX defaults, soak off) on the card in a child started
+                before phase 16 and joined after it: the typed verdict
+                ok, trainer exits [75, 82, 0], the poisoned checkpoint
+                rejected and its direct deploy rolled back, no non-typed
+                serving failure, the merged timeline's incarnations,
+                replica hosts and chaos events, the band against the
+                control; its seconds by stage under ``shared_card``
+                (``scenario_phase``).
  22. the ``kernels`` line (each kernel's insurance numbers beside the
      CV step's, where the insurance path runs it, ``bn_act``'s roadmap
      numbers, each kernel's launches on the cgan-cifar10 path: 0, at
@@ -412,8 +435,10 @@ exits non-zero:
      on the serving path: 0, on the mesh over replica processes: 0, on
      the supervision phase's path, one card and world 2, on the
      observability phase's, at world 2 in the rollback's ranks, and on
-     the migration surface, on the fleet's step at each size, and on the
-     lifecycle's cohort steps at each capacity), the
+     the migration surface, on the fleet's step at each size, on the
+     lifecycle's cohort steps at each capacity, and on the tenant mesh: a
+     step a shard at worlds 1, 2 and 4, the world-1 insurance restore and
+     each scenario trainer incarnation), the
      seconds line (the script's total beside
      its total before the precision phase was added and before the serve
      phase in this run, the pair_dp, serve_mesh, supervision and
@@ -1793,7 +1818,7 @@ def checkpoint_costs(trainer, root: str, torch) -> dict:
     require(m_sync == m_async,
             "the async checkpoint's manifest differs from the sync one's")
     t0 = time.perf_counter()
-    TrainCheckpointer(sync_dir).restore(graphs, mesh_spec=spec)
+    TrainCheckpointer(sync_dir).restore(graphs, target_mesh=spec)
     restore_s = time.perf_counter() - t0
     got = {f"{g}/{f}/{ly}/{n}": t
            for g, gr in graphs.items() for f in ("params", "opt_state")
@@ -2072,7 +2097,7 @@ def resume_dp_rank(group, dirs) -> dict:
                        config=insurance_main.default_config(
                            res_path=res, num_iterations=n, print_every=every,
                            save_every=every, metrics=False, **kw))
-        t.train(log=None)
+        t.result = t.train(log=None)
         return t
 
     u = run(dirs["u"], steps)
@@ -2081,7 +2106,8 @@ def resume_dp_rank(group, dirs) -> dict:
     return {"rank": group.rank, "backend": group.backend,
             "uninterrupted": state_digest(u.state),
             "resumed": state_digest(b.state), "steps": b.steps,
-            "restore_s": b.timings.get("restore_s")}
+            "restore_s": b.timings.get("restore_s"),
+            "losses": {k: float(b.result[k]) for k in ("d_loss", "g_loss")}}
 
 
 def resume_dp(root: str) -> dict:
@@ -2100,12 +2126,17 @@ def resume_dp(root: str) -> dict:
             and all(r["steps"] == RES_DP_STEPS[1] for r in ranks),
             f"dp resume: the resumed world-2 run is not the uninterrupted "
             f"one: {ranks}")
+    # the world-2 run and its checkpoints, for the elastic phase's restore
+    # at world 1
+    keep = tempfile.mkdtemp(prefix="gan4j_el_src_")
+    shutil.copytree(dirs["r"], keep, dirs_exist_ok=True)
+    EL_KEEP.update(dir=keep, losses=ranks[0]["losses"])
     # the insurance resume's children run beside the two ranks
     return {"world": DP_WORLD, "backend": ranks[0]["backend"],
             "checkpoint_at": RES_DP_STEPS[0], "steps": RES_DP_STEPS[1],
             "equal": True,
-            "ranks": [{k: v for k, v in r.items() if k != "restore_s"}
-                      for r in ranks],
+            "ranks": [{k: v for k, v in r.items()
+                       if k not in ("restore_s", "losses")} for r in ranks],
             "shared_card": shared_card(
                 ["the insurance resume's children",
                  "the CV resume's children"],
@@ -6963,6 +6994,481 @@ def extractors_phase(torch, smi: str) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# -- the elastic phase (23) and the scenario phase (24) -------------------------
+
+EL_TENANTS = 4  # run_scenario's fleet: 4 tenants, batch 4, 16 rows a tenant
+EL_B = 4
+EL_ROWS = 16
+EL_WORLDS = (1, 2, 4)  # the tenant meshes; 1 is the unsharded mesh step
+EL_STEPS = 3  # replays compared across the worlds
+EL_CALLS = 3  # timed calls of EL_K replays a world
+EL_K = 20
+EL_SEED = 23
+# the fleet step's four train-mode BNs at batch EL_B, per tenant
+EL_BN = [((2 * EL_B, 12), "elu"), ((EL_B, 2), "tanh"), ((EL_B, 12), "elu"),
+         ((EL_B, 100), "elu")]
+EL_INS_BAND = 0.05  # the world-1 resume's losses against the world-2 run's
+EL_KEEP: dict = {}  # resume_dp's world-2 run, kept for the elastic phase
+
+
+def el_kernels(torch) -> dict:
+    """Both tenant BN kernels at the scenario's shapes (EL_BN at batch
+    EL_B) with 1, 2 and 4 tenants a launch (a shard of EL_TENANTS at worlds
+    4, 2 and 1): the forward at ``fleet_kernel``'s tolerances and the
+    backward at FLEET_BWD_TOL against their plain versions on the host,
+    from the same inputs and non-zero cotangents."""
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.ops.cuda import bn_act as bn2d
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20261022)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale + shift
+
+    fwd_tol = [(1e-5, 1e-4), (1e-6, 1e-4), (1e-6, 1e-4)]
+    atol, rtol = FLEET_BWD_TOL
+    err_f = err_b = 0.0
+    checked = []
+    for n in (1, 2, 4):
+        for (b, f), act in EL_BN:
+            at = f"[{n},{b},{f}] {act}"
+            x = randn(n, b, f, scale=0.5, shift=0.2)
+            gm = randn(n, f, scale=0.1, shift=1.0)
+            bt = randn(n, f, scale=0.1)
+            got = kernels.fused_bn_act_train_tenants(x, gm, bt, 1e-5, act)
+            want = bn2d.bn_act_tenants_plain(x.cpu(), gm.cpu(), bt.cpu(),
+                                             1e-5, act)
+            for a, p_, (at_, rt_) in zip(got, want, fwd_tol):
+                require(within(a.cpu(), p_, at_, rt_), "bn_act_tenants "
+                        f"disagrees with its plain version at {at}")
+                err_f = max(err_f, max_err(a.cpu(), p_))
+            cot = (randn(n, b, f), randn(n, f), randn(n, f))
+            gb = kernels.bn_act_tenants_bwd(x, gm, bt, got[1], got[2], *cot,
+                                            1e-5, act)
+            wb = bn2d.bn_act_tenants_bwd_plain(
+                *(t.cpu() for t in (x, gm, bt, got[1], got[2], *cot)), 1e-5,
+                act)
+            for a, p_ in zip(gb, wb):
+                require(within(a.cpu(), p_, atol, rtol), "bn_act_tenants_bwd "
+                        f"disagrees with its plain version at {at}")
+                err_b = max(err_b, max_err(a.cpu(), p_))
+            checked.append(at)
+    return {"checked": checked, "max_abs_err": err_f,
+            "bwd_max_abs_err": err_b,
+            "tolerance": {"forward": fwd_tol, "backward": FLEET_BWD_TOL}}
+
+
+def el_cause(torch) -> dict:
+    """What of the fleet step depends on the number of tenants a launch on
+    the card: each op of the step at EL_TENANTS tenants against the same
+    inputs split into shards of 2 and of 1 tenant, bitwise or not -> {op:
+    [shard sizes that differ]}.  The ops: the dense layers' ``bmm`` at
+    the insurance widths (rows EL_B and 2 * EL_B), the per-tenant loss
+    (``vmap`` of the XENT mean), a bias gradient's row sum, and the two
+    tenant BN kernels at EL_BN."""
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.ops import losses as loss_lib
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20261023)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    n = EL_TENANTS
+    ops = {}
+    for rows in (EL_B, 2 * EL_B):
+        for f, h in ((12, 100), (100, 100), (100, 1), (2, 100), (100, 12)):
+            x, w = randn(n, rows, f), randn(n, f, h)
+            ops[f"bmm [{rows},{f}]x[{f},{h}]"] = (torch.bmm, (x, w))
+    xent = loss_lib.get("xent")
+    p_ = torch.sigmoid(randn(n, 2 * EL_B, 1))
+    y = (randn(n, 2 * EL_B, 1) > 0).float()
+    ops["vmap xent"] = (lambda a, b: torch.func.vmap(xent)(a, b), (p_, y))
+    ops["row sum [8,100]"] = (lambda a: a.sum(1), (randn(n, 2 * EL_B, 100),))
+    for (b_, f), act in EL_BN:
+        ins = (randn(n, b_, f) * 0.5 + 0.2, randn(n, f) * 0.1 + 1.0,
+               randn(n, f) * 0.1)
+        ops[f"bn_act_tenants [{b_},{f}] {act}"] = (
+            lambda *t, act=act: kernels.fused_bn_act_train_tenants(
+                *t, 1e-5, act), ins)
+    out = {}
+    for name, (fn, args) in ops.items():
+        full = fn(*args)
+        full = full if isinstance(full, tuple) else (full,)
+        bad = []
+        for per in (2, 1):
+            parts = [fn(*(a[i:i + per] for a in args))
+                     for i in range(0, n, per)]
+            parts = [p if isinstance(p, tuple) else (p,) for p in parts]
+            if not all(torch.equal(f_, torch.cat([p[j] for p in parts]))
+                       for j, f_ in enumerate(full)):
+                bad.append(per)
+        out[name] = bad
+    return out
+
+
+def el_sharded(torch) -> dict:
+    """The fleet step on a tenant mesh of 1, 2 and 4 shards sharing the
+    card (``parallel/fleet.py``: a ``GraphedShards``, one CUDA graph a
+    shard, each drawing its tenants' latents from their global ids), from
+    one start, tables and targets: EL_STEPS replays with the launch
+    counters zeroed just before and read just after (FLEET_PER_STEP a step
+    a shard), the captures (one a shard, none after warm-up through the
+    timed calls), the losses of every replay and the final state of worlds
+    2 and 4 against world 1's: bitwise, or else the first step within
+    FLEET_TOL (a one-step band), the drift after EL_STEPS reported and the
+    cause named (``el_cause``: the ops whose bits depend on the tenants a
+    launch); and each world's device ms a step (EL_CALLS calls of EL_K
+    replays, median)."""
+    import numpy as np
+
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.parallel import fleet as pfleet
+    from gan_deeplearning4j_tpu_torch.runtime import prng
+    from gan_deeplearning4j_tpu_torch.train import fleet as FL
+    from gan_deeplearning4j_tpu_torch.train import fused_step as FT
+    from gan_deeplearning4j_tpu_torch.utils import device as device_lib
+
+    rng = np.random.RandomState(EL_SEED)
+    feats = torch.from_numpy(rng.rand(EL_TENANTS, EL_ROWS, 12)
+                             .astype(np.float32)).cuda()
+    labs = torch.from_numpy((rng.rand(EL_TENANTS, EL_ROWS, 1) < 0.5)
+                            .astype(np.float32)).cuda()
+    ones = np.ones((EL_B, 1), np.float32)
+    targets = [torch.from_numpy(a).cuda() for a in (
+        ones + (0.05 * rng.randn(EL_B, 1)).astype(np.float32),
+        (0.05 * rng.randn(EL_B, 1)).astype(np.float32), ones)]
+    graphs, maps = _fleet_graphs("cuda")
+    start = FL.replicate_state(FT.state_from_graphs(*graphs), EL_TENANTS)
+    step = FL.make_fleet_step(*graphs, *maps, z_size=2, num_features=12,
+                              per_tenant_data=True)
+    key = prng.stream_seed(EL_SEED, "fleet-z")
+    captures = [0]
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def counted_begin(self, *a, **kw):
+        captures[0] += 1
+        return begin(self, *a, **kw)
+
+    out, ref = {}, None
+    torch.cuda.CUDAGraph.capture_begin = counted_begin
+    try:
+        for world in EL_WORLDS:
+            mesh = pfleet.tenant_mesh(world, "cuda")
+            caps = captures[0]
+            t0 = time.perf_counter()
+            gs = pfleet.GraphedShards(
+                step, pfleet.shard_fleet_state(start, mesh),
+                pfleet.split_inputs(mesh, feats, labs, *targets, True),
+                pfleet.shard_tenant_ids(mesh, EL_TENANTS), key, 2)
+            setup_s = time.perf_counter() - t0
+            made = captures[0] - caps
+            kernels.reset_launch_counts()
+            rows = gs.launch(1)
+            torch.cuda.synchronize()
+            first = pfleet.gather_fleet_state(gs.states)
+            rows += gs.launch(EL_STEPS - 1)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            want = {k: FLEET_PER_STEP.get(k, 0) * world * EL_STEPS
+                    for k in counts}
+            require(counts == want, f"elastic: world {world} launched "
+                    f"{counts} over {EL_STEPS} steps, not {want}")
+            rings = [np.asarray(device_lib.readback(g.losses)) for g in
+                     gs.graphs]
+            losses = torch.from_numpy(np.stack([np.concatenate(
+                [r[row].reshape(-1, 3) for r in rings]) for row in rows]))
+            state = pfleet.gather_fleet_state(gs.states)
+            require(bool(torch.isfinite(losses).all()),
+                    f"elastic: non-finite losses at world {world}")
+            caps = captures[0]
+            times = []
+            for _ in range(EL_CALLS):
+                start_ev = torch.cuda.Event(enable_timing=True)
+                end_ev = torch.cuda.Event(enable_timing=True)
+                start_ev.record()
+                gs.launch(EL_K)
+                end_ev.record()
+                end_ev.synchronize()
+                times.append(start_ev.elapsed_time(end_ev) / EL_K)
+            recaptures = captures[0] - caps
+            require(made == world and recaptures == 0,
+                    f"elastic: world {world} captured {made} graphs "
+                    f"({world} wanted) and {recaptures} after warm-up")
+            row = {"shards": world, "tenants_a_shard": EL_TENANTS // world,
+                   "captures": made, "captures_after_warmup": recaptures,
+                   "launches": counts,
+                   "launches_a_step_a_shard": {
+                       k: v // (world * EL_STEPS) for k, v in counts.items()},
+                   "step_ms": statistics.median(times), "step_ms_calls": times,
+                   "setup_s": setup_s}
+            if ref is None:
+                ref = (first, state, losses)
+            else:
+                def same(a_state, b_state):
+                    return all(torch.equal(a, b) for a, b in zip(
+                        FT._leaves(a_state).values(),
+                        FT._leaves(b_state).values()))
+
+                bitwise = torch.equal(losses, ref[2]) and same(state, ref[1])
+                row["bitwise_world_1"] = bitwise
+                if not bitwise:
+                    # FLEET_TOL bounds one step (the card's against the
+                    # CPU's): held on the first replay; the drift after
+                    # EL_STEPS is reported
+                    one = _fleet_diff((ref[0], [ref[2][0]]),
+                                      (first, [losses[0]]))
+                    row["vs_world_1_first_step"] = one
+                    row["vs_world_1_after_steps"] = _fleet_diff(
+                        (ref[1], [ref[2].reshape(-1)]),
+                        (state, [losses.reshape(-1)]))
+                    row["first_step_bitwise"] = (
+                        torch.equal(losses[0], ref[2][0])
+                        and same(first, ref[0]))
+                    cause = {op: bad for op, bad in el_cause(torch).items()
+                             if EL_TENANTS // world in bad}
+                    row["cause"] = cause
+                    require(all(one[k] <= FLEET_TOL[k] for k in FLEET_TOL),
+                            f"elastic: world {world}'s first step against "
+                            f"world 1's {one} outside {FLEET_TOL} (ops that "
+                            f"depend on the tenants a launch: {cause})")
+            out[str(world)] = row
+            del gs
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = begin
+    return {"tenants": EL_TENANTS, "batch": EL_B, "rows": EL_ROWS,
+            "steps_compared": EL_STEPS, "worlds": out, "tolerance": FLEET_TOL}
+
+
+def el_checkpoint(torch) -> dict:
+    """A fleet checkpoint written by a tenant mesh of 2 on the card,
+    restored onto meshes of 1 and 4: every tenant's state bitwise the
+    written one, ``__reshard__`` from 2, and the seconds the reshard paid
+    (gather to the host, split, place on the card)."""
+    from gan_deeplearning4j_tpu_torch.parallel import fleet as pfleet
+    from gan_deeplearning4j_tpu_torch.train import fleet as FL
+    from gan_deeplearning4j_tpu_torch.train import fused_step as FT
+
+    graphs, _ = _fleet_graphs("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(EL_SEED)
+    state = FL._map_state(
+        lambda t: t + 0.01 * torch.randn(t.shape, generator=gen, device="cuda")
+        if t.is_floating_point() else t,
+        FL.replicate_state(FT.state_from_graphs(*graphs), EL_TENANTS))
+    mesh2 = pfleet.tenant_mesh(2, "cuda")
+    root = tempfile.mkdtemp(prefix="gan4j_el_ckpt_")
+    out = {}
+    try:
+        ck = FL.FleetCheckpointer(root)
+        ck.save(1, pfleet.shard_fleet_state(state, mesh2), mesh=mesh2)
+        for world in (1, 4):
+            _, shards, extra = ck.restore(
+                target_mesh=pfleet.tenant_mesh(world, "cuda"))
+            info = extra["__reshard__"]
+            full = pfleet.gather_fleet_state(shards)
+            bitwise = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+                FT._leaves(full).values(), FT._leaves(state).values()))
+            require(len(shards) == world and bitwise
+                    and info["from"]["device_count"] == 2
+                    and info["to"]["device_count"] == world,
+                    f"elastic: the world-2 fleet checkpoint at world {world}: "
+                    f"{len(shards)} shards, bitwise {bitwise}, {info}")
+            out[str(world)] = {"bitwise_per_tenant": True,
+                               "reshard_s": info["seconds"],
+                               "shards_on": sorted({str(s.it.device)
+                                                    for s in shards})}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def el_insurance(torch) -> dict:
+    """The resume phase's world-2 insurance run (``resume_dp``: two ranks,
+    a checkpoint at RES_DP_STEPS[0]) restored in this process at world 1:
+    its step-RES_DP_STEPS[0] checkpoint (the later ones pruned from a copy)
+    resharded onto one card, then stepped to RES_DP_STEPS[1] as the
+    graphed single-card step, the launch counters zeroed just before the
+    training and read just after; its final losses within EL_INS_BAND of
+    the world-2 run's."""
+    from gan_deeplearning4j_tpu_torch.checkpoint import TrainCheckpointer
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
+    from gan_deeplearning4j_tpu_torch.train import insurance_main
+    from gan_deeplearning4j_tpu_torch.train.gan_trainer import GANTrainer
+
+    src, world2 = EL_KEEP["dir"], EL_KEEP["losses"]
+    every, steps = RES_DP_STEPS
+    res = tempfile.mkdtemp(prefix="gan4j_el_ins_")
+    try:
+        shutil.copytree(src, res, dirs_exist_ok=True)
+        ck = TrainCheckpointer(os.path.join(res, "checkpoints"))
+        ck.prune_above(every)
+        spec = ck.mesh_spec(every)
+        t = GANTrainer(device="cuda",
+                       workload=insurance_main.InsuranceWorkload(),
+                       config=insurance_main.default_config(
+                           res_path=res, num_iterations=steps,
+                           print_every=every, save_every=every,
+                           metrics=False, checkpoint_every=every,
+                           resume=True))
+        report = t._mesh_report()
+        require(t.steps == every and report["reshard_total"] == 1,
+                f"elastic insurance: restored at {t.steps}, {report}")
+        kernels.reset_launch_counts()
+        result = t.train(log=None)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        n = steps - every
+        want = {k: {"fused_update": 3 * n, "bn_act": 4 * n}.get(k, 0)
+                for k in counts}
+        require(counts == want, f"elastic insurance: launches {counts}, not "
+                f"{want}")
+        losses = {k: float(result[k]) for k in ("d_loss", "g_loss")}
+        rel = {k: abs(losses[k] - world2[k]) / max(abs(world2[k]), 1e-6)
+               for k in losses}
+        require(all(v <= EL_INS_BAND for v in rel.values()),
+                f"elastic insurance: world-1 losses {losses} against the "
+                f"world-2 run's {world2}: {rel} outside {EL_INS_BAND}")
+        return {"saved_spec": spec, "restored_at": every, "steps": steps,
+                "launches": counts,
+                "losses": losses, "world2_losses": world2, "rel": rel,
+                "band": EL_INS_BAND, "graphed": result["graphed"]}
+    finally:
+        shutil.rmtree(res, ignore_errors=True)
+
+
+def elastic_phase(torch, smi: str) -> dict:
+    """The tenant mesh and the elastic restore on the card (see the module
+    docstring, phase 23)."""
+    t0 = time.perf_counter()
+    out = {"nvidia_smi": smi, "kernels": el_kernels(torch),
+           "sharded": el_sharded(torch), "checkpoint": el_checkpoint(torch)}
+    if EL_KEEP:
+        out["insurance"] = el_insurance(torch)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+SC_TIMEOUT_S = 900  # the scenario child's bound (its own waits are bounded)
+SC_CHILD = """
+import glob, json, os, shutil, sys, tempfile, time
+from gan_deeplearning4j_tpu_torch.scenario import run_scenario
+out = tempfile.mkdtemp(prefix="gan4j_scenario_")
+try:
+    t0 = time.perf_counter()
+    v = run_scenario(out, seed=23, soak=False, log=lambda s: None)
+    wall = time.perf_counter() - t0
+    launches = []
+    for path in sorted(glob.glob(os.path.join(out, "trainer_*.log")),
+                       key=lambda p: int(p.rsplit("_", 1)[1][:-4])):
+        said = [json.loads(ln) for ln in open(path) if ln.startswith("{")]
+        counted = [d["launches"] for d in said if "launches" in d]
+        launches.append(counted[-1] if counted else None)
+    keep = ("ok", "failures", "trainer", "control", "band",
+            "band_clean_feed", "serving", "trace", "stages", "wall_s",
+            "budget_s", "chaos")
+    pub = v.get("publish", {})
+    cp = v.get("controlplane", {})
+    print(json.dumps({**{k: v.get(k) for k in keep},
+                      "publish": {k: pub.get(k) for k in (
+                          "rejected_total", "promoted_steps", "last_step",
+                          "stale")},
+                      "controlplane": {k: cp.get(k) for k in (
+                          "rollbacks_total", "replaced_total")},
+                      "trainer_launches": launches,
+                      "child_wall_s": wall}, default=str), flush=True)
+finally:
+    shutil.rmtree(out, ignore_errors=True)
+"""
+
+
+def scenario_start():
+    """``run_scenario`` on the card (seed 23, the JAX defaults, soak off) in
+    a child process of a session of its own, started now -> a function
+    that waits for it (killing the whole session past SC_TIMEOUT_S) and
+    returns (exit code, its JSON line or None, seconds, stderr tail)."""
+    argv, root, env = child_command(None, ["-c", SC_CHILD])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    done = pool.submit(proc.communicate, timeout=SC_TIMEOUT_S)
+
+    def wait():
+        try:
+            out, err = done.result()
+        except subprocess.TimeoutExpired:
+            import signal as signal_lib
+
+            os.killpg(proc.pid, signal_lib.SIGKILL)
+            out, err = proc.communicate()
+        finally:
+            pool.shutdown()
+            with contextlib.suppress(ProcessLookupError):
+                import signal as signal_lib
+
+                os.killpg(proc.pid, signal_lib.SIGKILL)  # any straggler
+        last = [ln for ln in out.splitlines() if ln.startswith("{")]
+        return (proc.returncode, json.loads(last[-1]) if last else None,
+                time.perf_counter() - t0, err[-3000:])
+
+    return wait
+
+
+def scenario_phase(smi: str, wait, beside) -> dict:
+    """The scenario child's verdict, held to JAX's
+    ``test_combined_chaos_scenario_end_to_end`` and ISSUE's checks: ``ok``,
+    trainer exits [75, 82, 0], the poisoned checkpoint rejected and the
+    direct poisoned deploy rolled back, no non-typed serving failure and at
+    least 5 answered requests, at least 2 trainer incarnations, 2 replica
+    hosts and 4 chaos events on the merged timeline, the final d/g losses
+    within the band of the control's on the same feed (the clean-feed
+    control's band, the JAX runner's, reported beside it).  Its seconds
+    stand under ``shared_card`` (``beside`` ran meanwhile)."""
+    rc, v, secs, tail = wait()
+    require(rc == 0 and v is not None,
+            f"scenario: child exit {rc}, stderr {tail}")
+    if not v["ok"]:
+        emit("scenario_verdict", **v)  # the evidence, before the failure
+    require(v["ok"], f"scenario: verdict failures {v['failures']}")
+    exits = v["trainer"]["exits"]
+    require(exits == [75, 82, 0], f"scenario: trainer exits {exits}")
+    # the verdict's own checks include canary_rollback: the direct
+    # poisoned deploy ended rolled_back
+    require(v["publish"]["rejected_total"] >= 1
+            and v["controlplane"]["rollbacks_total"] >= 1,
+            f"scenario: poison {v['publish']}, {v['controlplane']}")
+    serving = v["serving"]
+    require(not serving["non_typed"] and serving["ok"] >= 5,
+            f"scenario: serving {serving}")
+    trace = v["trace"]
+    require(trace["trainer_incarnations"] >= 2
+            and trace["replica_processes"] >= 2
+            and trace["chaos_events"] >= 4, f"scenario: timeline {trace}")
+    from gan_deeplearning4j_tpu_torch.scenario.runner import BAND
+
+    require(all(b["rel"] <= BAND for b in v["band"].values())
+            and set(v["band"]) == {"d_loss", "g_loss"},
+            f"scenario: band {v['band']} outside {BAND}")
+    return {"nvidia_smi": smi, "verdict_ok": True, "exits": exits,
+            "incarnations": v["trainer"]["incarnations"],
+            "band": v["band"], "band_limit": BAND,
+            "band_clean_feed": v["band_clean_feed"],
+            "serving": {k: serving[k] for k in (
+                "requests", "ok", "typed_errors")},
+            "publish": v["publish"], "controlplane": v["controlplane"],
+            "trace": {k: trace.get(k) for k in (
+                "trainer_incarnations", "replica_processes", "chaos_events",
+                "reshards")},
+            "trainer_launches": v["trainer_launches"],
+            "shared_card": shared_card(beside, stages_s=v["stages"],
+                                       wall_s=v["wall_s"],
+                                       child_seconds=secs)}
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -7627,9 +8133,15 @@ def main() -> int:
          within_budget=sm["seconds"] <= SM_BUDGET_S, **sm)
 
     # -- 16. supervision's numerics and hangs ---------------------------------
+    # the combined chaos scenario (phase 24) runs as a child beside it: its
+    # checks are the scenario's verdict, and this phase's timings stand
+    # under shared_card
+    scenario_wait = scenario_start()
     sv = supervision_phase(torch, smi, [r["supervision"] for r in ranks],
                            [r["rollback"] for r in ranks], rb_events)
+    sv["shared_card"] = shared_card(["the scenario child (phase 24)"])
     emit("supervision", **sv)
+    sc = scenario_phase(smi, scenario_wait, ["the supervision phase"])
 
     # -- 17. the training run's observability --------------------------------
     obs = observability_phase(torch, smi, mnist_csv)
@@ -7658,6 +8170,16 @@ def main() -> int:
     # -- 21. the frozen extractors' recipes (run beside the precision
     # phase's children)
     emit("extractors", **ex)
+
+    # -- 23. the tenant mesh and the elastic restore --------------------------
+    try:
+        el = elastic_phase(torch, smi)
+    finally:
+        shutil.rmtree(EL_KEEP.get("dir", ""), ignore_errors=True)
+    emit("elastic", **el)
+
+    # -- 24. the combined train -> serve chaos scenario (run beside phase 16)
+    emit("scenario", **sc)
 
     # -- 22. the kernels line and the result ---------------------------------
     # launches: the main phase's, the dp phase's (rank 0) for the sync-BN
@@ -7778,7 +8300,21 @@ def main() -> int:
              "launches_per_step": {
                  k: v.get(r["name"], 0)
                  for k, v in lc["launches_per_step"].items()},
-             "steps": lc["steps"]}}
+             "steps": lc["steps"]},
+         # the tenant mesh: a step's launches a shard at worlds 1, 2 and 4
+         # (the elastic phase's graphed shards), the world-1 insurance
+         # restore's over its steps, and each trainer incarnation's of the
+         # scenario (warm-up steps and replays)
+         "elastic": {
+             "launches_a_step_a_shard": {
+                 w: x["launches_a_step_a_shard"].get(r["name"], 0)
+                 for w, x in el["sharded"]["worlds"].items()},
+             "insurance_world_1": el["insurance"]["launches"].get(
+                 r["name"], 0),
+             "insurance_steps": RES_DP_STEPS[1] - RES_DP_STEPS[0],
+             "scenario_incarnations": [
+                 (x or {}).get(r["name"], 0)
+                 for x in sc["trainer_launches"]]}}
         for r in report]}), flush=True)
     print(json.dumps({"seconds": {
         "total": time.perf_counter() - T_START,
@@ -7791,7 +8327,8 @@ def main() -> int:
         "pair_dp": pdp["seconds"], "supervision": sv["seconds"],
         "observability": obs["seconds"], "dl4j": dl4j["seconds"],
         "migration": mig["seconds"], "fleet": fleet["seconds"],
-        "lifecycle": lc["seconds"],
+        "lifecycle": lc["seconds"], "elastic": el["seconds"],
+        "scenario_child": sc["shared_card"]["child_seconds"],
         "extractors": ex["shared_card"]["child_seconds"],
         "rollback_world2": max(sv["rollback_world2"]["seconds"]),
         "by_phase": PHASE_SECONDS}}),

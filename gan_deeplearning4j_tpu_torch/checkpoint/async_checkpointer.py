@@ -28,6 +28,7 @@ import weakref
 from typing import Dict, Optional
 
 from gan_deeplearning4j_tpu_torch.checkpoint.checkpointer import (
+    _NO_TARGET,
     TrainCheckpointer,
     snapshot_state,
 )
@@ -159,11 +160,10 @@ class AsyncCheckpointer:
         return self.inner.verify(step)
 
     def restore(self, graphs: Dict[str, object], step: Optional[int] = None,
-                max_step: Optional[int] = None,
-                mesh_spec: Optional[Dict] = None):
+                max_step: Optional[int] = None, target_mesh=_NO_TARGET):
         self.wait()
         return self.inner.restore(graphs, step, max_step=max_step,
-                                  mesh_spec=mesh_spec)
+                                  target_mesh=target_mesh)
 
     def mesh_spec(self, step: int) -> Optional[Dict]:
         self.wait()

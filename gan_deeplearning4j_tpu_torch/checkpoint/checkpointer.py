@@ -32,10 +32,17 @@ Crash-safety contract, as in the JAX package:
 ``_chaos_hook`` is the fault-injection seam: a callable that raises at a
 named write/rename point (tests/test_torch_checkpoint.py walks each one).
 
-Not ported: resharding a checkpoint onto another world (the JAX
-``_load_elastic``).  A restore whose saved ``mesh_spec`` differs from the
-caller's raises ``CheckpointMeshMismatchError`` (ROADMAP Queue 1 item
-7.5).
+Elastic restore (``parallel/elastic.py``, the JAX ``_load_elastic``): a
+restore given the topology it lands on (``target_mesh``) whose saved
+``mesh_spec`` differs reports ``extra["__reshard__"]`` and marks the
+timeline.  The state a data-parallel world saves is replicated, so the
+load, which places each graph's params and updater state whole on its
+device, is the reshard: no bytes move after it.  A fleet splits its state
+over the new world itself (``FleetCheckpointer``).  With no target the
+plain load, whatever world wrote the checkpoint: the port forms a world of
+any size on any host (ranks above the card count share a card over gloo,
+``parallel/mesh.choose_backend``; tenant shards share a card,
+``parallel/fleet.tenant_mesh``), so no saved topology is beyond this host.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ import numpy as np
 import torch
 
 from gan_deeplearning4j_tpu_torch.graph import serialization
+from gan_deeplearning4j_tpu_torch.parallel import elastic
 from gan_deeplearning4j_tpu_torch.telemetry import events
 from gan_deeplearning4j_tpu_torch.utils.async_dump import host_copy
 from gan_deeplearning4j_tpu_torch.utils.device import wait_event
@@ -66,16 +74,19 @@ _chaos_hook: Optional[Callable[[str], None]] = None
 
 _log = logging.getLogger(__name__)
 
+# ``restore``'s "no target topology" (None is a target: one device)
+_NO_TARGET = object()
+
 
 class CheckpointCorruptError(RuntimeError):
     """An explicitly requested checkpoint failed manifest verification."""
 
 
 class CheckpointMeshMismatchError(ValueError):
-    """The checkpoint was written under another data-parallel topology.
-    A ValueError on purpose: the recovery wrapper classifies it fatal (a
-    restart replays the same mismatch).  Resharding onto another world is
-    not ported (ROADMAP Queue 1 item 7.5)."""
+    """The checkpoint was written under a topology that the resuming
+    program cannot take up (``roadmap_main``'s pair: its data and latent
+    streams are per world).  A ValueError on purpose: the recovery wrapper
+    classifies it fatal (a restart replays the same mismatch)."""
 
 
 class NoVerifiedCheckpointError(FileNotFoundError):
@@ -120,18 +131,7 @@ def mesh_spec_dict(world: int = 1) -> Dict:
     """The saving topology in the JAX package's ``MeshSpec.to_dict`` form:
     a 1-D ``data`` mesh of ``world`` devices on one host (the port's
     ``world`` ranks; 1 = the single-device trainer)."""
-    return {"axes": {"data": int(world)}, "device_count": int(world),
-            "process_count": 1,
-            "sharding": {"params": "replicated", "opt_state": "replicated",
-                         "batch": "data"}}
-
-
-def _same_topology(a: Dict, b: Dict) -> bool:
-    def key(d):
-        return ({str(k): int(v) for k, v in (d.get("axes") or {}).items()},
-                int(d.get("device_count", 1)), int(d.get("process_count", 1)))
-
-    return key(a) == key(b)
+    return elastic.MeshSpec.from_world(world).to_dict()
 
 
 def _tree_tensors(tree: Dict, out: list) -> Dict:
@@ -443,7 +443,7 @@ class TrainCheckpointer:
 
     def restore(self, graphs: Dict[str, object], step: Optional[int] = None,
                 max_step: Optional[int] = None,
-                mesh_spec: Optional[Dict] = None) -> Tuple[int, Dict]:
+                target_mesh=_NO_TARGET) -> Tuple[int, Dict]:
         """Load params and updater state into ``graphs`` (in place, on each
         graph's device) -> (step, extra); extra arrays come back as numpy.
 
@@ -454,9 +454,18 @@ class TrainCheckpointer:
         ``step`` that fails verification raises
         ``CheckpointCorruptError``.  A structure mismatch (graph set,
         params or updater trees) raises ``ValueError``: the run was
-        resumed with other flags.  ``mesh_spec``: this run's topology
-        (``mesh_spec_dict``); a checkpoint saved under another raises
-        ``CheckpointMeshMismatchError`` before anything is loaded."""
+        resumed with other flags.
+
+        ``target_mesh`` (the elastic resume, ``parallel/elastic.py``): the
+        topology this restore lands on, a ``MeshSpec`` or its dict
+        (``mesh_spec_dict(world)``), None for one device.  When the
+        checkpoint's recorded ``mesh_spec`` differs,
+        ``extra["__reshard__"]`` reports ``{"from", "to", "seconds"}`` and,
+        when graphs were loaded, a ``reshard.restore`` event marks the
+        timeline.  The replicated state's load is its reshard, so
+        ``seconds`` is 0.0 here; a caller that splits state over the new
+        world adds the split's seconds.  Without a target, the plain load
+        of any topology."""
         if step is not None:
             path = os.path.join(self.directory, f"ckpt_{step}")
             if not os.path.isdir(path):
@@ -470,7 +479,7 @@ class TrainCheckpointer:
                     raise CheckpointCorruptError(
                         f"checkpoint ckpt_{step} in {self.directory} fails "
                         "manifest verification (torn or corrupt)")
-            return self._load_checked(step, graphs, mesh_spec)
+            return self._load_elastic(step, graphs, target_mesh)
         candidates = self.steps()
         if max_step is not None:
             candidates = [s for s in candidates if s <= max_step]
@@ -491,7 +500,7 @@ class TrainCheckpointer:
                              "one", s)
                 continue
             try:
-                return self._load_checked(s, graphs, mesh_spec)
+                return self._load_elastic(s, graphs, target_mesh)
             except ValueError:
                 raise  # structure or topology mismatch: fatal
             except Exception as e:  # unreadable despite the manifest
@@ -501,7 +510,7 @@ class TrainCheckpointer:
             _log.warning("checkpoint ckpt_%d predates the manifest format "
                          "(unverifiable); attempting restore", s)
             try:
-                return self._load_checked(s, graphs, mesh_spec)
+                return self._load_elastic(s, graphs, target_mesh)
             except ValueError:
                 raise
             except Exception as e:
@@ -511,20 +520,33 @@ class TrainCheckpointer:
             f"no VERIFIED checkpoint in {self.directory} "
             f"(all of {candidates} torn or corrupt)")
 
-    def _load_checked(self, step: int, graphs: Dict[str, object],
-                      mesh_spec: Optional[Dict]) -> Tuple[int, Dict]:
+    def _load_elastic(self, step: int, graphs: Dict[str, object],
+                      target_mesh) -> Tuple[int, Dict]:
+        """``_load``, then the elastic record when the target's topology
+        differs from the saved one.  A checkpoint with no recorded spec
+        (from before the elastic format) and a restore with no target keep
+        the plain load."""
         saved = self.mesh_spec(step)
-        if (saved is not None and mesh_spec is not None
-                and not _same_topology(saved, mesh_spec)):
-            raise CheckpointMeshMismatchError(
-                f"checkpoint ckpt_{step} in {self.directory} was written on "
-                f"{saved.get('device_count')} device(s) "
-                f"({saved.get('axes')}) but this run has "
-                f"{mesh_spec.get('device_count')} ({mesh_spec.get('axes')}); "
-                "restoring onto another world (the JAX package's elastic "
-                "reshard) is not ported yet (ROADMAP Queue 1 item 7.5): "
-                "resume with the original world")
-        return self._load(step, graphs)
+        step_out, extra = self._load(step, graphs)
+        if saved is None or target_mesh is _NO_TARGET:
+            return step_out, extra
+        saved_spec = elastic.MeshSpec.from_dict(saved)
+        target = (elastic.MeshSpec.from_world(1) if target_mesh is None
+                  else elastic.as_spec(target_mesh))
+        if saved_spec.same_topology(target):
+            return step_out, extra
+        extra["__reshard__"] = {"from": saved_spec.to_dict(),
+                                "to": target.to_dict(), "seconds": 0.0}
+        if graphs:
+            # an extras-only restore (the fleet's) splits its state itself
+            # and marks the timeline then
+            _log.warning("resharded checkpoint ckpt_%d from %s onto %s "
+                         "(replicated state: the load placed it)", step,
+                         saved_spec.describe(), target.describe())
+            events.instant("reshard.restore", step=step,
+                           from_devices=saved_spec.device_count,
+                           to_devices=target.device_count, seconds=0.0)
+        return step_out, extra
 
     def _load(self, step: int, graphs: Dict[str, object]) -> Tuple[int, Dict]:
         path = os.path.join(self.directory, f"ckpt_{step}")

@@ -9,7 +9,14 @@ a bf16 array is, and its derivative JAX's rule (``jax/_src/lax/lax.py``,
 once: tanh's ``(g + g*y) * (1 - y)``, the logistic's ``1 / (1 + exp(-x))``
 with ``g * (y * (1 - y))``, elu through ``expm1``, softmax as ``exp(x -
 max) / sum`` differentiated through, and Python constants rounded to the
-dtype first (JAX's weak typing)."""
+dtype first (JAX's weak typing).
+
+``tail_stable(name)`` is the activation for a value whose bits must not
+depend on the size of the tensor it sits in (a fleet's tenant, on a shard
+of 2 tenants or of 4: ``parallel/fleet.py``): torch's vectorized CPU
+kernels for the logistic and elu round the elements past the last full
+vector another way than the rest, so on the CPU those two take the
+``exp`` / ``expm1`` forms above (which do not); elsewhere torch's own."""
 
 from __future__ import annotations
 
@@ -76,12 +83,16 @@ def sigmoid(x):
     return _Logistic.apply(x)
 
 
-def elu(x):
-    if x.dtype != torch.bfloat16:
-        return F.elu(x)
+def _elu_expm1(x):
     # jax.nn.elu: where(x > 0, x, alpha * expm1(where(x > 0, 0, x))),
     # alpha 1; torch's expm1 derivative g * (y + 1) is JAX's rule
     return torch.where(x > 0, x, torch.expm1(torch.where(x > 0, 0.0, x)))
+
+
+def elu(x):
+    if x.dtype != torch.bfloat16:
+        return F.elu(x)
+    return _elu_expm1(x)
 
 
 def softmax(x):
@@ -103,6 +114,25 @@ _REGISTRY: dict[str, Activation] = {
     "leakyrelu": leaky_relu,
     "softmax": softmax,
 }
+
+
+_TAIL_STABLE_CPU: dict[str, Activation] = {"sigmoid": _Logistic.apply,
+                                            "elu": _elu_expm1}
+
+
+def tail_stable(name) -> Activation:
+    """``get(name)``, but on a CPU tensor the logistic and elu in their
+    ``exp`` / ``expm1`` forms (see the module docstring)."""
+    act = get(name)
+    cpu = _TAIL_STABLE_CPU.get(name.lower()) if isinstance(name, str) \
+        else None
+    if cpu is None:
+        return act
+
+    def stable(x):
+        return cpu(x) if x.device.type == "cpu" else act(x)
+
+    return stable
 
 
 def get(name) -> Activation:

@@ -370,7 +370,8 @@ def bn_act_tenants_plain(x: torch.Tensor, gamma: torch.Tensor,
     var = torch.mean(torch.square(x), dim=1) - torch.square(mean)
     y = (x - mean[:, None]) * torch.rsqrt(var[:, None] + eps)
     y = y * gamma[:, None] + beta[:, None]
-    return act_lib.get(act_name)(y), mean, var
+    # a tenant's bits must not depend on how many share the launch
+    return act_lib.tail_stable(act_name)(y), mean, var
 
 
 def act_grad_plain(z: torch.Tensor, act_name: str) -> torch.Tensor:
@@ -380,7 +381,7 @@ def act_grad_plain(z: torch.Tensor, act_name: str) -> torch.Tensor:
     if act_name == "tanh":
         return 1 - torch.square(torch.tanh(z))
     if act_name == "sigmoid":
-        s = torch.sigmoid(z)
+        s = act_lib.tail_stable("sigmoid")(z)
         return s * (1 - s)
     if act_name == "relu":
         return (z > 0).to(z.dtype)

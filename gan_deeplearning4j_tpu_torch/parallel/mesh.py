@@ -186,8 +186,9 @@ def agree_preemption(triggered: bool, step: int,
 
 def mesh_report(group: Optional[DataGroup]) -> Dict:
     """The scrape registry's mesh feed (``MetricsRegistry.observe_mesh``,
-    the JAX trainer's ``_mesh_report``): the group's size; the port neither
-    reshards nor re-forms a group while it trains."""
+    the JAX trainer's ``_mesh_report``) of a run that keeps no reshard
+    account (``roadmap_main``'s pair): the group's size.  ``GANTrainer``
+    feeds its own, with the reshards of its restore."""
     return {"devices": group.world if group is not None else 1,
             "reshard_total": 0, "reshard_seconds": 0.0, "forming": False,
             "ok": True}

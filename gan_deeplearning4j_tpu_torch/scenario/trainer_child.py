@@ -8,7 +8,11 @@ supervisor acts on:
 
 * **0** — ran to ``--iterations``; ``final.json`` in ``--res-path``
   carries the terminal trajectory (step, tenants, quarantined rows, mean
-  d/g loss over the tenants at the last step).
+  d/g loss over the tenants at the last step), also the last line of its
+  stdout, after a line with the incarnation's port-kernel launches
+  (``launches``: the wrappers' counters, a graph replay counted as the
+  launches its capture recorded; the other outcomes' lines carry them
+  too).
 * **75** (``EXIT_PREEMPTED``) — the SIGTERM guard (train/preemption.py)
   latched and the loop drained at the next step boundary: emergency fleet
   checkpoint, ``PREEMPTED.json`` marker, clean exit.  Respawn with
@@ -87,7 +91,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--checkpoint-every", type=int, default=8)
     p.add_argument("--keep-checkpoints", type=int, default=64)
     p.add_argument("--n-devices", type=int, default=None,
-                   help="tenant-mesh size (> 1 is not ported: item 7.5)")
+                   help="tenant-mesh size: the tenant axis split over this "
+                        "many shards, sharing the card(s) when there are "
+                        "fewer; a resume at another size reshards the "
+                        "checkpoint (parallel/fleet.py)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--print-every", type=int, default=0)
     p.add_argument("--step-delay-s", type=float, default=0.0)
@@ -102,6 +109,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = p.parse_args(argv)
 
     from gan_deeplearning4j_tpu_torch.models import mlpgan_insurance as M
+    from gan_deeplearning4j_tpu_torch.ops import cuda as kernels
     from gan_deeplearning4j_tpu_torch.testing.chaos import DeviceLostError
     from gan_deeplearning4j_tpu_torch.train import fleet as fleet_lib
     from gan_deeplearning4j_tpu_torch.train.preemption import (
@@ -156,13 +164,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     except PreemptionError as e:
         # PREEMPTED.json and the emergency checkpoint are on disk
         print(json.dumps({"preempted": True, "step": e.step,
-                          "checkpoint": e.checkpoint}), flush=True)
+                          "checkpoint": e.checkpoint,
+                          "launches": kernels.launch_counts()}), flush=True)
         return EXIT_PREEMPTED
     except DeviceLostError as e:
         # no emergency save, on purpose: lost hardware does not flush
         print(json.dumps({"device_lost": True,
                           "step": trainer.batch_counter,
-                          "reason": str(e)}), flush=True)
+                          "reason": str(e),
+                          "launches": kernels.launch_counts()}), flush=True)
         return EXIT_DEVICE_LOST
     finally:
         fleet_lib._chaos_step_hook = None
@@ -178,6 +188,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                    else float(np.mean(np.asarray(losses[1])))),
     }
     _atomic_json(os.path.join(args.res_path, FINAL_NAME), final)
+    print(json.dumps({"launches": kernels.launch_counts()}), flush=True)
     print(json.dumps(final), flush=True)
     return 0
 

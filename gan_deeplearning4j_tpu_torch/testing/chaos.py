@@ -17,8 +17,9 @@ For the training plane:
 * lose part of the devices: ``shrink_world`` / ``lost_device`` hook the
   trainer's step-boundary seam (``train/gan_trainer.py``
   ``_chaos_step_hook``) and raise ``DeviceLostError`` at a seeded step;
-  ``world_size()`` then reports the survivors (the elastic restore over
-  them is ROADMAP item 7.5);
+  ``world_size()`` then reports the survivors, over which the next
+  incarnation re-forms its world and reshards its checkpoint
+  (``parallel/elastic.py``);
 * data sources: ``StallingSource`` blocks in ``next()`` until released,
   ``HangingSource`` never returns (a dead storage layer: the watchdog's
   case), ``FlakySource`` / ``FlakyReader`` raise transient ``OSError``s
@@ -196,21 +197,25 @@ class ChaosInjector:
 
     # -- device loss / world shrink --------------------------------------------
 
-    def shrink_world(self, kill_step: int, before: int,
-                     after: int) -> "_ShrinkWorld":
+    def shrink_world(self, kill_step: int, before: int, after: int,
+                     marker: Optional[str] = None) -> "_ShrinkWorld":
         """Context manager: the run loses ``before - after`` devices at
         the first step boundary >= ``kill_step`` — the trainer's step
         seam raises ``DeviceLostError`` (one-shot; the restarted
         incarnation trains normally) and ``world_size()`` flips from
-        ``before`` to ``after``.  The test's ``make_trainer`` reads
-        ``world_size()`` so the next incarnation rebuilds its mesh over
-        the surviving subset (the rebuild over the survivors, and the
-        elastic restore it needs, are ROADMAP item 7.5)."""
+        ``before`` to ``after``.  The next incarnation forms its world at
+        ``world_size()`` (``resolve_n_devices``' elastic clamp) and its
+        restore reshards the checkpoint onto it.
+
+        The port's ranks are processes: the rank function enters the
+        injector, and ``marker`` (a file path) carries the one-shot firing
+        across them and back to the parent, whose ``world_size()`` then
+        reads ``after``."""
         if not 0 < after < before:
             raise ValueError(
                 f"shrink_world needs 0 < after < before, got "
                 f"{before} -> {after}")
-        return _ShrinkWorld(kill_step, before, after)
+        return _ShrinkWorld(kill_step, before, after, marker)
 
     def lost_device(self, kill_step: int, before: int,
                     lose: int = 1) -> "_ShrinkWorld":
@@ -279,26 +284,43 @@ class _ShrinkWorld:
     Installs the trainer step-boundary hook for the with-block; fires
     ONCE at the first boundary at or past ``kill_step`` (chunked paths
     only visit multiples of steps_per_call, so "at or past" is the
-    honest contract), then reports the shrunken world."""
+    honest contract), then reports the shrunken world.  With a
+    ``marker`` file the firing is seen by every process that holds the
+    injector (a rank fires, the parent re-forms the world)."""
 
-    def __init__(self, kill_step: int, before: int, after: int):
+    def __init__(self, kill_step: int, before: int, after: int,
+                 marker: Optional[str] = None):
         self.kill_step = kill_step
         self.before = before
         self.after = after
-        self.fired = False          # one-shot, like _KillPoint
+        self.marker = marker
+        self._fired = False          # one-shot, like _KillPoint
         self.killed_at: Optional[int] = None
         self._prev = None
 
+    @property
+    def fired(self) -> bool:
+        return self._fired or bool(self.marker
+                                   and os.path.exists(self.marker))
+
     def world_size(self) -> int:
         """Devices alive right now: ``before`` until the kill fires,
-        ``after`` from then on — what an elastic ``make_trainer`` hands
-        to ``n_devices``."""
+        ``after`` from then on — what an elastic world formation reads."""
         return self.after if self.fired else self.before
 
     def _hook(self, step: int) -> None:
-        if self.fired or step < self.kill_step:
+        if self._fired or step < self.kill_step:
             return
-        self.fired = True
+        if self.marker:
+            # one process of the run fires (it claims the marker); a rank
+            # left in a collective with it is failed by ``mesh.spawn``
+            try:
+                fd = os.open(self.marker, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+            except FileExistsError:
+                return
+            with os.fdopen(fd, "w") as f:
+                f.write(str(step))
+        self._fired = True
         self.killed_at = step
         raise DeviceLostError(
             f"injected device loss at step {step}: fleet shrank "
@@ -921,8 +943,7 @@ class ChaosSchedule:
     injections against the training plane (preemption signal, world
     shrink, corrupt tenant rows) and the serving plane (replica kill,
     slow-loris, wedge) in the same run — the combined-chaos scenario's
-    conductor (the JAX package's scenario/runner.py; the port's scenario
-    runner is ROADMAP item 10.4).
+    conductor (``scenario/runner.py``).
 
     Determinism contract: actions are registered with ``add(at_s,
     name, fn)`` in a fixed caller order; per-entry jitter (when

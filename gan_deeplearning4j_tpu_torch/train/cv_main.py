@@ -316,7 +316,8 @@ def run(args: argparse.Namespace, timeout: float = 3600.0, **overrides
     ``overrides`` set further ``GANTrainerConfig`` fields (e.g.
     ``data_on_device``, ``stream_chunk_bytes``)."""
     config = _config(args, overrides)
-    world = resolve_n_devices(args.n_devices, args.batch_size, args.device)
+    world = resolve_n_devices(args.n_devices, args.batch_size, args.device,
+                              config.elastic)
     if world == 1:
         try:
             # --bf16 / --mp over the configured policy, before any graph
@@ -331,8 +332,13 @@ def run(args: argparse.Namespace, timeout: float = 3600.0, **overrides
 
     def launch(resume: bool) -> Dict:
         c = dataclasses.replace(config, resume=True) if resume else config
+        # a restart forms its world over what is attached now: a world that
+        # lost a device re-forms over the survivors (elastic), and the
+        # ranks' restore reshards the checkpoint onto it
+        n = (resolve_n_devices(args.n_devices, args.batch_size, args.device,
+                               config.elastic) if resume else world)
         return mesh.spawn(
-            _rank, world, (args, c), device=dev.type, timeout=timeout,
+            _rank, n, (args, c), device=dev.type, timeout=timeout,
             forward_signals=parse_signals(config.preempt_signals)
             if config.preempt_signals else ())[0]
 

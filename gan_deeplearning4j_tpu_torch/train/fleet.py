@@ -37,13 +37,16 @@ Semantics (the JAX module's):
     draws each lane's latents from (seed, tenant id, the lane's ``it``)
     instead (``tenant_latents``), so a tenant's draws do not depend on its
     slot.
+    A fleet on a tenant mesh (``FleetConfig.n_devices``) draws so too,
+    keyed on GLOBAL tenant ids, so its trajectory does not depend on the
+    mesh's size (``parallel/fleet.py``).
     The insurance model's Dropout has rate 0.0, so the step draws no
     masks (ROADMAP item 8.5).
 
-``parallel/fleet.py`` (the tenant-axis mesh) waits for the elastic restore
-(ROADMAP Queue 1 item 7.5); ``FleetTrainer`` runs on one device and raises
-for ``n_devices`` > 1.  The supervised payload composes the shared shell
-of ``train/shell.py``.
+``parallel/fleet.py`` splits the tenant axis over a mesh of shards (zero
+collectives); ``FleetCheckpointer`` records the writing mesh and reshards
+a checkpoint onto another.  The supervised payload composes the shared
+shell of ``train/shell.py``.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gan_deeplearning4j_tpu_torch.checkpoint.checkpointer import _NO_TARGET
 from gan_deeplearning4j_tpu_torch.data import resilient
 from gan_deeplearning4j_tpu_torch.graph.layers import BatchNorm, Dense, Dropout
 from gan_deeplearning4j_tpu_torch.ops import activations as act_lib
@@ -207,7 +211,9 @@ def _forward(graph, params, inputs: Dict[str, torch.Tensor], train: bool):
         x = values[node.inputs[0]]
         p = params[name]
         live = train and name not in graph.frozen
-        act = act_lib.get(layer.activation or "identity")
+        # a tenant's values must not depend on the tenants beside it (the
+        # shards of a tenant mesh)
+        act = act_lib.tail_stable(layer.activation or "identity")
         if isinstance(layer, BatchNorm):
             if live:
                 y, bmean, bvar = fused_bn_act_train_tenants(
@@ -689,12 +695,15 @@ class TenantMappingError(ValueError):
     returning another tenant's params."""
 
 
-def fleet_mesh_spec() -> Dict:
-    """The one-device fleet's topology in a checkpoint manifest (the JAX
-    ``fleet_mesh_spec(None)``: every state role over the tenant axis)."""
-    return {"axes": {"tenant": 1}, "device_count": 1, "process_count": 1,
-            "sharding": {"params": "tenant", "opt_state": "tenant",
-                         "batch": "tenant"}}
+def fleet_mesh_spec(mesh=None) -> Dict:
+    """A tenant mesh's topology in a checkpoint manifest (the JAX
+    ``fleet_mesh_spec(mesh).to_dict()``: every state role over the tenant
+    axis; ``mesh=None`` = one device)."""
+    from gan_deeplearning4j_tpu_torch.parallel.fleet import (
+        fleet_mesh_spec as spec,
+    )
+
+    return spec(mesh).to_dict()
 
 
 class FleetCheckpointer:
@@ -705,11 +714,10 @@ class FleetCheckpointer:
     torn-write fallback and keep-rotation come from the one checkpointer;
     the on-disk form is the JAX module's, and a fleet checkpoint either
     package writes restores in the other bit for bit.  Each leaf is the
-    full [N, ...] array: **save once, restore any tenant subset**.
-    ``extra`` keys beside the state (``z_gen_state``) ride along.  The
-    manifest records the one-device spec; a checkpoint from another world
-    raises ``CheckpointMeshMismatchError`` (the elastic restore is ROADMAP
-    Queue 1 item 7.5)."""
+    full [N, ...] array (a sharded state is gathered first): **save once,
+    restore any tenant subset**.  ``extra`` keys beside the state
+    (``z_gen_state``) ride along.  The manifest records the writing tenant
+    mesh; ``restore(target_mesh=)`` reshards onto another."""
 
     EXTRA_KEY = "fleet"
     MAP_KEY = "fleet_tenant_map"
@@ -724,24 +732,33 @@ class FleetCheckpointer:
                                         sweep_debris=sweep_debris)
         self.directory = directory
 
-    def save(self, step: int, state: ProtocolState,
+    def save(self, step: int, state, mesh=None,
              tenant_map: Optional[Dict] = None,
              extra: Optional[Dict] = None) -> str:
-        """``tenant_map`` (lifecycle fleets): ``{"slots": [tenant id or
-        None per slot], "cohorts": {...}}``, kept in the checkpoint's
-        extras; with one on record ``restore(tenants=...)`` resolves tenant
-        IDS through it."""
+        """``state``: a stacked state, or a sharded one (a list of shard
+        states, gathered to the host first) written under the tenant mesh
+        ``mesh``.  ``tenant_map`` (lifecycle fleets): ``{"slots": [tenant
+        id or None per slot], "cohorts": {...}}``, kept in the
+        checkpoint's extras; with one on record ``restore(tenants=...)``
+        resolves tenant IDS through it."""
+        if isinstance(state, (list, tuple)) and not isinstance(
+                state, ProtocolState):
+            from gan_deeplearning4j_tpu_torch.parallel.fleet import (
+                gather_fleet_state,
+            )
+
+            state = gather_fleet_state(state)
         out = dict(extra or {})
         out.update({self.EXTRA_KEY: state_to_tree(state),
                     "fleet_tenants": fleet_size(state)})
         if tenant_map is not None:
             out[self.MAP_KEY] = json.dumps(tenant_map, sort_keys=True)
         return self._inner.save(step, {}, extra=out,
-                                mesh_spec=fleet_mesh_spec())
+                                mesh_spec=fleet_mesh_spec(mesh))
 
     def restore(self, step: Optional[int] = None, tenants=None,
                 expect_map: Optional[Dict] = None, device="cpu",
-                max_step: Optional[int] = None):
+                max_step: Optional[int] = None, target_mesh=_NO_TARGET):
         """Returns ``(step, state, extra)``, the state on ``device``.
 
         ``tenants``: ``None`` = the full fleet; an ``int`` = ONE tenant's
@@ -750,9 +767,23 @@ class FleetCheckpointer:
         values are tenant IDS resolved through it (an unknown id raises
         :class:`TenantMappingError`); without one, raw slot indices.
         ``expect_map``: the caller's belief about the mapping; a
-        disagreeing stored map raises :class:`TenantMappingError`."""
+        disagreeing stored map raises :class:`TenantMappingError`.
+
+        ``target_mesh`` (the elastic path): a ``TenantMesh`` this restore
+        lands on, or None for one device.  The full fleet comes back
+        resharded onto it, a list of shard states
+        (``parallel/fleet.shard_fleet_state``: gathered, split, placed;
+        bit-equal per tenant); a checkpoint written under another mesh
+        reports ``extra["__reshard__"]`` and marks the timeline.  A
+        ``tenants`` subset comes back as one state on ``device`` whatever
+        the target.  Without a target the full fleet is one state on
+        ``device``."""
+        from gan_deeplearning4j_tpu_torch.parallel import fleet as pfleet
+
+        mesh = target_mesh
+        spec = _NO_TARGET if mesh is _NO_TARGET else fleet_mesh_spec(mesh)
         step_out, extra = self._inner.restore(
-            {}, step=step, max_step=max_step, mesh_spec=fleet_mesh_spec())
+            {}, step=step, max_step=max_step, target_mesh=spec)
         tree = extra.get(self.EXTRA_KEY)
         if tree is None:
             raise ValueError(
@@ -770,6 +801,18 @@ class FleetCheckpointer:
                     f"records tenant map {stored!r} but the caller "
                     f"expects {want!r}: refusing to restore another "
                     "tenant's params")
+        if tenants is None and mesh is not _NO_TARGET and mesh is not None:
+            t0 = time.perf_counter()
+            shards = pfleet.shard_fleet_state(state_from_tree(tree), mesh)
+            info = extra.get("__reshard__")
+            if info is not None:
+                info["seconds"] += time.perf_counter() - t0
+                telemetry_events.instant(
+                    "reshard.restore", step=step_out,
+                    from_devices=info["from"]["device_count"],
+                    to_devices=info["to"]["device_count"],
+                    seconds=round(info["seconds"], 4))
+            return step_out, shards, extra
         state = state_from_tree(tree, device)
         if tenants is None:
             return step_out, state, extra
@@ -862,12 +905,18 @@ class FleetTrainer:
             MetricsRegistry,
         )
 
-        if config.n_devices is not None and config.n_devices > 1:
-            raise fused_lib.not_ported(
-                f"a fleet over {config.n_devices} devices "
-                "(parallel/fleet.py, the tenant mesh)", "7.5")
         self.c = config
         self.device = backend.resolve_device(config.device)
+        # the tenant mesh (parallel/fleet.py): n_devices shards, formed
+        # before any side effect so a fleet that does not divide it fails
+        # first
+        self.mesh = None
+        if config.n_devices is not None:
+            from gan_deeplearning4j_tpu_torch.parallel import fleet as pfleet
+
+            self.mesh = pfleet.tenant_mesh(config.n_devices, self.device)
+            pfleet.check_divisible(config.num_tenants, self.mesh)
+        self._z_key = prng.stream_seed(config.seed, "fleet-z")
         os.makedirs(config.res_path, exist_ok=True)
         cfg = M.InsuranceConfig(seed=config.seed)
         self.model_cfg = cfg
@@ -890,7 +939,7 @@ class FleetTrainer:
         self.batch_counter = 0
         self.state: Optional[ProtocolState] = None
         self.last_losses = None
-        self.graphed: Optional[fused_lib.GraphedStep] = None
+        self.graphed = None  # a GraphedStep, or GraphedShards on a mesh
         self.metrics_port: Optional[int] = None
         self._steps_per_sec = 0.0
         self._dispatch_ms = 0.0
@@ -900,6 +949,10 @@ class FleetTrainer:
                 "steps_per_sec": self._steps_per_sec,
                 "dispatch_ms": self._dispatch_ms,
                 "ok": self.health.report().get("ok", True)}
+
+    @property
+    def devices(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
 
     def train(self, features, labels,
               log: Optional[Callable[[str], None]] = print) -> Dict:
@@ -931,6 +984,11 @@ class FleetTrainer:
     # -- payload ------------------------------------------------------------
 
     def _save(self, state, z_gen) -> str:
+        """A checkpoint of ``state`` (on a tenant mesh: the shards,
+        gathered, under the live mesh; their latents need no state)."""
+        if self.mesh is not None:
+            return self.checkpointer.save(self.batch_counter, state,
+                                          mesh=self.mesh)
         return self.checkpointer.save(
             self.batch_counter, state,
             extra={"z_gen_state": z_gen.get_state()})
@@ -953,13 +1011,15 @@ class FleetTrainer:
     def _train_impl(self, features, labels, shell, log) -> Dict:
         c = self.c
         dev = self.device
+        mesh = self.mesh
         if c.per_tenant_data:
             feats, labs = self.router.route(features, labels)
         else:
             feats = torch.from_numpy(np.asarray(features, np.float32))
             labs = np.asarray(labels, np.float32)
             labs = torch.from_numpy(labs[:, None] if labs.ndim == 1 else labs)
-        feats, labs = feats.to(dev), labs.to(dev)
+        if mesh is None:
+            feats, labs = feats.to(dev), labs.to(dev)
         rows = int(feats.shape[1] if c.per_tenant_data else feats.shape[0])
         if rows // c.batch_size == 0:
             raise ValueError(
@@ -967,11 +1027,19 @@ class FleetTrainer:
                 f"{c.batch_size}")
         k = max(1, int(c.steps_per_call))
         graphed = dev.type == "cuda"
-        step = make_fleet_step(
-            *self.graphs, *self.maps, z_size=self.model_cfg.z_size,
-            num_features=self.model_cfg.num_features,
-            per_tenant_data=c.per_tenant_data,
-            steps_per_call=1 if graphed else k)
+        step_kw = dict(z_size=self.model_cfg.z_size,
+                       num_features=self.model_cfg.num_features,
+                       per_tenant_data=c.per_tenant_data)
+        if mesh is None or graphed:
+            step = make_fleet_step(*self.graphs, *self.maps,
+                                   steps_per_call=1 if graphed else k,
+                                   **step_kw)
+        else:
+            from gan_deeplearning4j_tpu_torch.parallel import fleet as pfleet
+
+            step = pfleet.make_sharded_fleet_step(
+                *self.graphs, *self.maps, mesh=mesh, steps_per_call=k,
+                **step_kw)
         B = c.batch_size
         # the reference's label softening, drawn once (as GANTrainer does)
         soften = prng.generator(c.seed, "soften")
@@ -988,34 +1056,57 @@ class FleetTrainer:
             )
 
             try:
-                start_step, state, extra = self.checkpointer.restore(
-                    device=dev)
-                if "z_gen_state" in extra:
-                    z_gen.set_state(torch.from_numpy(
-                        np.asarray(extra["z_gen_state"], np.uint8)))
+                if mesh is not None:
+                    # onto the live mesh: a checkpoint another world wrote
+                    # reshards (the latents are keyed on global ids, so
+                    # the trajectory goes on as if it had not)
+                    start_step, state, _ = self.checkpointer.restore(
+                        target_mesh=mesh)
                 else:
-                    # a JAX-written fleet checkpoint: put the latents
-                    # where an uninterrupted port run would be
-                    for _ in range(2 * start_step):
-                        torch.rand((c.num_tenants, B, self.model_cfg.z_size),
-                                   generator=z_gen, device=dev)
+                    start_step, state, extra = self.checkpointer.restore(
+                        device=dev)
+                    if "z_gen_state" in extra:
+                        z_gen.set_state(torch.from_numpy(
+                            np.asarray(extra["z_gen_state"], np.uint8)))
+                    else:
+                        # a JAX-written or tenant-mesh checkpoint: put the
+                        # latents where an uninterrupted port run would be
+                        for _ in range(2 * start_step):
+                            torch.rand((c.num_tenants, B,
+                                        self.model_cfg.z_size),
+                                       generator=z_gen, device=dev)
                 if log is not None:
-                    log(f"[fleet] resumed {fleet_size(state)} tenants at "
-                        f"step {start_step}")
+                    log(f"[fleet] resumed {c.num_tenants} tenants at "
+                        f"step {start_step} on {self.devices} device(s)")
             except (NoVerifiedCheckpointError, FileNotFoundError):
                 state = None
         if state is None:
             state = replicate_state(
                 fused_lib.state_from_graphs(*self.graphs), c.num_tenants)
+            if mesh is not None:
+                from gan_deeplearning4j_tpu_torch.parallel import (
+                    fleet as pfleet,
+                )
+
+                state = pfleet.shard_fleet_state(state, mesh)
         self.batch_counter = start_step
         inputs = (feats, labs, y_real, y_fake, ones)
-        if graphed:
+        if graphed and mesh is not None:
+            from gan_deeplearning4j_tpu_torch.parallel import fleet as pfleet
+
+            self.graphed = pfleet.GraphedShards(
+                step, state, pfleet.split_inputs(mesh, *inputs,
+                                                 c.per_tenant_data),
+                pfleet.shard_tenant_ids(mesh, c.num_tenants), self._z_key,
+                self.model_cfg.z_size)
+            state = self.graphed.states
+        elif graphed:
             self.graphed = graphed_fleet_step(step, state, *inputs,
                                               z_gen=z_gen)
             state = self.graphed.state
         telemetry_events.instant(
             "fleet.start", tenants=c.num_tenants, steps_per_call=k,
-            devices=1, graphed=graphed)
+            devices=self.devices, graphed=graphed)
         last = None  # the newest call's losses: ring rows or [k, N] tensors
         window_t0 = time.perf_counter()
         window_steps = 0
@@ -1023,6 +1114,8 @@ class FleetTrainer:
         while self.batch_counter < c.num_iterations:
             if graphed:
                 last = self.graphed.launch(k)
+            elif mesh is not None:
+                state, last = step(state, *inputs, key=self._z_key)
             else:
                 state, last = step(state, *inputs, z_gen=z_gen)
             self.batch_counter += k
@@ -1073,13 +1166,15 @@ class FleetTrainer:
                 "dispatch_ms": self._dispatch_ms,
                 "tenants_steps_per_sec": (c.num_tenants
                                           * self._steps_per_sec),
-                "graphed": graphed,
+                "graphed": graphed, "devices": self.devices,
                 "quarantined": self.router.quarantined_total()}
 
     def _read_losses(self, last, k: int):
         """The newest step's (d, g, clf) losses, [N] numpy each: from the
         graphed step's loss ring (the rows of the newest launch) or the
         eager call's tensors ([N], or [k, N] with k steps a call)."""
+        if self.mesh is not None and self.graphed is not None:
+            return self.graphed.read_losses(last)
         if self.graphed is not None:
             ring = device_lib.readback(self.graphed.losses)
             row = np.asarray(ring)[last[-1]].reshape(-1, 3)

@@ -153,6 +153,7 @@ from gan_deeplearning4j_tpu_torch.data.resilient import (
 )
 from gan_deeplearning4j_tpu_torch.graph import serialization
 from gan_deeplearning4j_tpu_torch.models import dcgan_mnist as M
+from gan_deeplearning4j_tpu_torch.parallel import elastic as elastic_lib
 from gan_deeplearning4j_tpu_torch.parallel import mesh
 from gan_deeplearning4j_tpu_torch.parallel.data_parallel import DataParallelGraph
 from gan_deeplearning4j_tpu_torch.runtime import backend, prng
@@ -234,6 +235,12 @@ class GANTrainerConfig:
     save_every: int = 100
     seed: int = prng.NUMBER_OF_THE_BEAST
     res_path: Optional[str] = "outputs"  # None: no files at all
+    # elastic world formation (parallel/elastic.py): when the requested
+    # world exceeds what this incarnation attaches (a world that lost a
+    # device), ``resolve_n_devices`` re-forms it over the largest batch
+    # divisor the survivors carry, loudly, and the checkpoint reshards
+    # onto it; False = demand the requested world
+    elastic: bool = True
     dp_mode: str = "gradient_sync"
     averaging_frequency: int = 1
     fused: bool = True
@@ -339,13 +346,17 @@ def _largest_batch_divisor(batch_size: int, limit: int) -> int:
 
 
 def resolve_n_devices(n_devices: Optional[int], batch_size: int,
-                      device=None) -> int:
+                      device=None, elastic: bool = True) -> int:
     """The data-parallel world for ``n_devices``: None = every attached
     card (one rank on the CPU), reduced with a warning to the largest
-    divisor of the batch; an explicit count must divide the batch and, on
-    the card, not exceed the attached cards."""
+    divisor of the batch; an explicit count must divide the batch.  A
+    count above the attached cards (``parallel/elastic.attached_devices``;
+    the CPU has no limit) re-forms, with ``elastic``, over the largest
+    batch divisor that fits, loudly (the global batch is held; each rank's
+    share grows), and raises without it.  The divisibility check comes
+    first: a count that never divides the batch raises on every host."""
     dev = backend.resolve_device(device)
-    attached = torch.cuda.device_count() if dev.type == "cuda" else None
+    attached = elastic_lib.attached_devices(dev)
     if n_devices is None:
         avail = attached or 1
         world = _largest_batch_divisor(batch_size, avail)
@@ -360,8 +371,16 @@ def resolve_n_devices(n_devices: Optional[int], batch_size: int,
             f"{n_devices}; shares are exact (largest usable: "
             f"{_largest_batch_divisor(batch_size, max(n_devices, 1))})")
     if attached is not None and n_devices > attached:
-        raise ValueError(f"n_devices {n_devices} exceeds the {attached} "
-                         "attached cards")
+        if not elastic:
+            raise ValueError(f"n_devices {n_devices} exceeds the {attached} "
+                             "attached cards")
+        world = _largest_batch_divisor(batch_size, attached)
+        log_.warning(
+            "elastic world: %d devices requested but only %d attached; "
+            "re-forming on %d (global batch %d held, per-rank share %d -> %d)",
+            n_devices, attached, world, batch_size, batch_size // n_devices,
+            batch_size // world)
+        return world
     return n_devices
 
 
@@ -958,7 +977,11 @@ class GANTrainer:
         # errors and, with a budget, skips and charges corrupt records
         self.data_health = DataHealth()
         self.registry.observe_data(self.data_health.report)
-        self.registry.observe_mesh(lambda: mesh.mesh_report(group))
+        # the elastic-world surface: the world's size and the reshards this
+        # incarnation's restore paid (gan4j_mesh_devices, gan4j_reshard_*)
+        self._reshard_total = 0
+        self._reshard_seconds = 0.0
+        self.registry.observe_mesh(self._mesh_report)
         self._quarantine = None
         if c.max_quarantine:
             self._quarantine = RecordQuarantine(
@@ -1625,8 +1648,20 @@ class GANTrainer:
         return {"dis": self.dis, "gen": self.gen, "gan": self.gan,
                 "classifier": self.classifier}
 
+    @property
+    def world(self) -> int:
+        return self.group.world if self.group is not None else 1
+
     def _mesh_spec(self) -> Dict:
-        return mesh_spec_dict(self.group.world if self.group else 1)
+        return mesh_spec_dict(self.world)
+
+    def _mesh_report(self) -> Dict:
+        """The scrape feed of the elastic-world surface: the world's size
+        and the reshard accounting (the port forms its world before the
+        trainer exists, so it is never "forming")."""
+        return {"devices": self.world, "reshard_total": self._reshard_total,
+                "reshard_seconds": self._reshard_seconds, "forming": False,
+                "ok": True}
 
     def _iter_state(self) -> Optional[Dict]:
         """The training data's consumed position at this boundary: the
@@ -1649,7 +1684,11 @@ class GANTrainer:
                  "soften_fake": self.soften_fake}
         st = self._iter_state()
         if st is not None:
-            extra["iter_state"] = json.dumps(st, sort_keys=True)
+            # one process: the bare state; a world packs each rank's
+            # boundary cursor (equal in lockstep), so a restore in another
+            # world merges instead of guessing
+            extra["iter_state"] = json.dumps(
+                elastic_lib.pack_iter_state(st, self.world), sort_keys=True)
         ema = getattr(self.gen, "ema_params", None)
         if ema is not None:
             for layer, lp in ema.items():
@@ -1783,11 +1822,14 @@ class GANTrainer:
         if self.group is not None:
             mesh.barrier(self.group)  # rank 0 has swept the directory
         t0 = time.perf_counter()
+        events.instant("mesh.form", step=self.steps, processes=self.world,
+                       devices=self.world, mesh_devices=self.world)
         max_step = self._resume_max_step
         try:
+            # a checkpoint from another world reshards onto this one
             step, extra = self.checkpointer.restore(
                 self._graphs(), max_step=max_step,
-                mesh_spec=self._mesh_spec())
+                target_mesh=self._mesh_spec())
         except NoVerifiedCheckpointError as e:
             log_.warning("resume requested but %s; starting from step 0", e)
             if max_step is not None:
@@ -1801,6 +1843,10 @@ class GANTrainer:
             # later plain restart must never resume into it)
             self._prune_above(step)
             self._consume_rollback_restore(step, max_step)
+        info = extra.pop("__reshard__", None)
+        if info is not None:
+            self._reshard_total += 1
+            self._reshard_seconds += float(info["seconds"])
         dev = self.device
         self.steps = step
         self.soften_real = torch.from_numpy(
@@ -1827,8 +1873,10 @@ class GANTrainer:
         # resident step slices by its counter): the checkpoint's, else the
         # loops' consumption pattern after ``step`` batches, by arithmetic
         raw = extra.get("iter_state")
-        self.train_iter.restore_state(json.loads(raw) if raw is not None
-                                      else self.train_iter.state_for_step(step))
+        rank = self.group.rank if self.group is not None else 0
+        self.train_iter.restore_state(
+            elastic_lib.unpack_iter_state(json.loads(raw), self.world, rank)
+            if raw is not None else self.train_iter.state_for_step(step))
         self.timings["restore_s"] = time.perf_counter() - t0
 
     def _prune_above(self, step: int) -> None:

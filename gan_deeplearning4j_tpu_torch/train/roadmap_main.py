@@ -92,6 +92,7 @@ import torch
 
 from gan_deeplearning4j_tpu_torch.checkpoint import (
     AsyncCheckpointer,
+    CheckpointMeshMismatchError,
     NoVerifiedCheckpointError,
     TrainCheckpointer,
 )
@@ -368,11 +369,21 @@ def _train_impl(family, iterations, batch_size, res_path, n_train,
             t0 = time.perf_counter()
             try:
                 start_it, extra = ckpt.restore(
-                    {"gen": pair.gen, "dis": pair.dis}, mesh_spec=spec)
+                    {"gen": pair.gen, "dis": pair.dis}, target_mesh=spec)
             except NoVerifiedCheckpointError:
                 start_it, extra = 0, {}
                 log(f"[{family}] resume requested but no verified checkpoint; "
                     "starting from iteration 0")
+            moved = extra.pop("__reshard__", None)
+            if moved is not None:
+                # the pair's data and latent streams are per world: its
+                # resume on another world is not ported (the trainer's and
+                # the fleet's are)
+                raise CheckpointMeshMismatchError(
+                    f"the {family} checkpoint at iteration {start_it} was "
+                    f"written by a world of {moved['from']['device_count']} "
+                    f"but this run has {world}; resume the pair with its "
+                    "original --n-devices")
             if "ema" in extra:
                 if not ema_decay:
                     raise ValueError(

@@ -286,9 +286,17 @@ def test_structure_and_topology_mismatches_are_value_errors(tmp_path):
         ck.restore({"gen": MT.build_generator(device="cpu")})
     with pytest.raises(ValueError, match="structure"):
         ck.restore({"dis": MT.build_generator(device="cpu")})
-    with pytest.raises(CheckpointMeshMismatchError, match="7.5"):
-        ck.restore({"dis": _graph()}, mesh_spec=mesh_spec_dict(1))
-    assert ck.restore({"dis": _graph()}, mesh_spec=mesh_spec_dict(2))[0] == 2
+    # a checkpoint from another world reshards onto the target (the
+    # elastic restore); the mismatch error is left for a program that
+    # cannot take another world up (roadmap_main's pair)
+    step, extra = ck.restore({"dis": _graph()},
+                             target_mesh=mesh_spec_dict(1))
+    assert step == 2 and extra["__reshard__"]["from"] == mesh_spec_dict(2)
+    assert extra["__reshard__"]["to"] == mesh_spec_dict(1)
+    assert issubclass(CheckpointMeshMismatchError, ValueError)
+    step, extra = ck.restore({"dis": _graph()},
+                             target_mesh=mesh_spec_dict(2))
+    assert step == 2 and "__reshard__" not in extra
 
 
 # -- async, prune --------------------------------------------------------------

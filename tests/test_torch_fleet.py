@@ -524,13 +524,25 @@ def test_fleet_checkpoints_cross_the_packages_bitwise(graphs, tmp_path):
     spec = [json.loads((tmp_path / w / "ckpt_4" / "MANIFEST.json").read_text())
             ["mesh_spec"] for w in ("j", "t")]
     assert spec[0] == spec[1] == FL.fleet_mesh_spec()
-    # a fleet written on another world is refused, naming item 7.5
+    # a fleet written on another world reshards onto the target mesh,
+    # bitwise per tenant (the manifest edited: its check is the files', so
+    # the checkpoint still verifies)
+    from gan_deeplearning4j_tpu_torch.parallel import fleet as PF
+
     m = tmp_path / "t" / "ckpt_4" / "MANIFEST.json"
     doc = json.loads(m.read_text())
     doc["mesh_spec"].update(axes={"tenant": 4}, device_count=4)
     m.write_text(json.dumps(doc))
-    with pytest.raises(CheckpointMeshMismatchError, match="7.5"):
-        FL.FleetCheckpointer(str(tmp_path / "t")).restore(step=4)
+    ck = FL.FleetCheckpointer(str(tmp_path / "t"))
+    _, shards, extra = ck.restore(step=4, target_mesh=PF.tenant_mesh(2, "cpu"))
+    assert extra["__reshard__"]["from"]["device_count"] == 4
+    assert extra["__reshard__"]["to"] == FL.fleet_mesh_spec(
+        PF.tenant_mesh(2, "cpu"))
+    assert [FL.fleet_size(s) for s in shards] == [2, 2]
+    _bitequal(PF.gather_fleet_state(shards), state_j)
+    # no target: the plain load (the CPU has no device limit)
+    _bitequal(ck.restore(step=4)[1], state_j)
+    assert issubclass(CheckpointMeshMismatchError, ValueError)
 
 
 def test_state_tree_round_trip_keeps_empty_layers(graphs):
@@ -559,7 +571,8 @@ def test_fleet_trainer_smoke(tmp_path):
     writes events and cadence checkpoints whose slices restore bit-equal to
     the live state; a resume from them finishes where an uninterrupted run
     ends, bit for bit (the latents' generator state rides the checkpoint).
-    ``n_devices`` > 1 and ``sanitize`` are refused, naming their items."""
+    A tenant mesh (``n_devices``) trains the same fleet at any size;
+    ``sanitize`` is refused, naming its item."""
     rows = 8 * 8
     feats = np.linspace(0.0, 1.0, rows * 12, dtype=np.float32).reshape(rows, 12)
     labels = (np.arange(rows) % 2).astype(np.float32)
@@ -607,8 +620,19 @@ def test_fleet_trainer_smoke(tmp_path):
     for a, b_ in zip(resumed.last_losses, trainer.last_losses):
         assert np.array_equal(a, b_)
 
-    with pytest.raises(NotImplementedError, match="7.5"):
-        FL.FleetTrainer(cfg(tmp_path / "c", n_devices=2))
+    # a tenant mesh of 2 and of 4 shards (parallel/fleet.py): the latents
+    # are keyed on global tenant ids, so both runs end bitwise equal; 8
+    # tenants do not divide a mesh of 3
+    meshed = []
+    for nd in (2, 4):
+        t = FL.FleetTrainer(cfg(tmp_path / f"mesh{nd}", n_devices=nd))
+        assert t.train(feats, labels, log=None)["devices"] == nd
+        assert [FL.fleet_size(s) for s in t.state] == [8 // nd] * nd
+        meshed.append(t)
+    for a, b_ in zip(meshed[0].last_losses, meshed[1].last_losses):
+        assert np.array_equal(a, b_)
+    with pytest.raises(ValueError, match="does not divide"):
+        FL.FleetTrainer(cfg(tmp_path / "c", n_devices=3))
     with pytest.raises(NotImplementedError, match="11.4"):
         FL.FleetTrainer(cfg(tmp_path / "c", sanitize=True)).train(
             feats, labels, log=None)

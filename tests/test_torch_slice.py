@@ -184,7 +184,8 @@ from gan_deeplearning4j_tpu_torch.telemetry import (events, exporter, goodput,
 from gan_deeplearning4j_tpu_torch.utils import live_ui, profiling
 from gan_deeplearning4j_tpu_torch.train import divergence, rollback, shell
 from gan_deeplearning4j_tpu_torch.train import fleet
-from gan_deeplearning4j_tpu_torch.scenario import trainer_child
+from gan_deeplearning4j_tpu_torch.scenario import runner, trainer_child
+from gan_deeplearning4j_tpu_torch.parallel import elastic, fleet as pfleet
 from gan_deeplearning4j_tpu_torch.serve import publisher
 from gan_deeplearning4j_tpu_torch import testing
 from gan_deeplearning4j_tpu_torch.compat import Nd4j
@@ -222,6 +223,13 @@ assert "cgan-cifar10" in roadmap_main.FAMILIES
 g = cgan_cifar10.build_generator(cgan_cifar10.CGANConfig(base_filters=2),
                                  device="cpu")
 assert g.input_names == ["z", "label"]
+assert runner.TRAINER_MODULE.endswith("_torch.scenario.trainer_child")
+assert pfleet.fleet_mesh_spec(pfleet.tenant_mesh(2, "cpu")).to_dict() == {
+    "axes": {"tenant": 2}, "device_count": 2, "process_count": 1,
+    "sharding": {"params": "tenant", "opt_state": "tenant",
+                 "batch": "tenant"}}
+assert elastic.MeshSpec.from_world(2).describe() == (
+    "{'data': 2} (2 devices, 1 process)")
 import io
 buf = io.BytesIO()
 dl4j_import.write_nd4j(buf, np.ones((1, 3), np.float32))
